@@ -1,0 +1,187 @@
+"""Every op lowering the port carries (paddle_tpu_torch/ops/) against the
+JAX package's lowering of the same op, on the same random inputs (numpy,
+seeded), through each package's own registry and LowerContext.
+
+Tolerance: float32, rtol 1e-5 / atol 1e-5 — the two run the same formulas
+with other summation orders (matmul, reductions) and other erf/tanh
+implementations. Integer outputs, masks and shapes must be equal; JAX
+runs with 64-bit types off, so an int64 input comes back int32 there and
+is compared by value.
+"""
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from paddle_tpu.core.desc import OpDesc as JOpDesc
+from paddle_tpu.core.registry import (LowerContext as JLowerContext,
+                                      OpRegistry as JOpRegistry)
+import paddle_tpu.ops  # noqa: F401  (registers the JAX lowerings)
+
+from paddle_tpu_torch.core.desc import OpDesc as TOpDesc
+from paddle_tpu_torch.core.registry import (LowerContext as TLowerContext,
+                                            OpRegistry as TOpRegistry)
+from paddle_tpu_torch.core.types import VarType
+import paddle_tpu_torch.ops  # noqa: F401  (registers the torch lowerings)
+
+RTOL, ATOL = 1e-5, 1e-5
+
+
+def _f(shape, seed, scale=1.0):
+    return np.asarray(np.random.RandomState(seed).randn(*shape) * scale,
+                      np.float32)
+
+
+def _i(shape, high, seed, low=0):
+    return np.random.RandomState(seed).randint(low, high, shape).astype(
+        np.int64)
+
+
+# (id, op type, {slot: [numpy arrays]}, attrs, is_test)
+CASES = [
+    ("mul_2d", "mul", {"X": [_f((4, 6), 0)], "Y": [_f((6, 5), 1)]},
+     {"x_num_col_dims": 1, "y_num_col_dims": 1}, False),
+    ("mul_flatten", "mul", {"X": [_f((2, 3, 8), 2)], "Y": [_f((8, 7), 3)]},
+     {"x_num_col_dims": 2, "y_num_col_dims": 1}, False),
+    ("elementwise_add_bias", "elementwise_add",
+     {"X": [_f((2, 3, 8), 4)], "Y": [_f((8,), 5)]}, {"axis": 2}, False),
+    ("elementwise_add_same", "elementwise_add",
+     {"X": [_f((2, 3, 8), 6)], "Y": [_f((2, 3, 8), 7)]}, {"axis": -1},
+     False),
+    ("elementwise_sub_mid", "elementwise_sub",
+     {"X": [_f((2, 3, 4), 8)], "Y": [_f((3,), 9)]}, {"axis": 1}, False),
+    ("elementwise_mul_col", "elementwise_mul",
+     {"X": [_f((6, 1), 10)], "Y": [_f((6, 1), 11)]}, {"axis": -1}, False),
+    ("elementwise_div_scalar", "elementwise_div",
+     {"X": [_f((), 12)], "Y": [np.abs(_f((1,), 13)) + 1.0]}, {"axis": -1},
+     False),
+    ("layer_norm", "layer_norm",
+     {"X": [_f((2, 5, 16), 14)], "Scale": [_f((16,), 15)],
+      "Bias": [_f((16,), 16)]},
+     {"epsilon": 1e-5, "begin_norm_axis": 2}, False),
+    ("layer_norm_axis1_noaffine", "layer_norm", {"X": [_f((3, 4, 5), 17)]},
+     {"epsilon": 1e-6, "begin_norm_axis": 1}, False),
+    ("dropout_test_upscale", "dropout", {"X": [_f((4, 8), 18)]},
+     {"dropout_prob": 0.1, "is_test": True,
+      "dropout_implementation": "upscale_in_train"}, False),
+    ("dropout_test_downgrade", "dropout", {"X": [_f((4, 8), 19)]},
+     {"dropout_prob": 0.3, "is_test": False,
+      "dropout_implementation": "downgrade_in_infer"}, True),
+    ("lookup_table", "lookup_table",
+     {"Ids": [_i((3, 7), 11, 20)], "W": [_f((11, 6), 21)]},
+     {"padding_idx": -1}, False),
+    ("lookup_table_padding_col", "lookup_table",
+     {"Ids": [_i((5, 1), 11, 22)], "W": [_f((11, 6), 23)]},
+     {"padding_idx": 3}, False),
+    ("gelu_exact", "gelu", {"X": [_f((4, 9), 24, 3.0)]}, {}, False),
+    ("gelu_tanh", "gelu", {"X": [_f((4, 9), 25, 3.0)]},
+     {"approximate": True}, False),
+    ("tanh", "tanh", {"X": [_f((4, 9), 26, 2.0)]}, {}, False),
+    ("fill_constant_f32", "fill_constant", {},
+     {"shape": [2, 3], "dtype": int(VarType.FP32), "value": 1.5}, False),
+    ("fill_constant_i64", "fill_constant", {},
+     {"shape": [4], "dtype": int(VarType.INT64), "value": 7.0}, False),
+    ("reshape2_zero_copy", "reshape2", {"X": [_f((2, 6, 8), 27)]},
+     {"shape": [0, 0, 2, 4]}, False),
+    ("reshape2_infer", "reshape2", {"X": [_f((2, 6, 8), 28)]},
+     {"shape": [-1, 8]}, False),
+    ("transpose2", "transpose2", {"X": [_f((2, 3, 4, 5), 29)]},
+     {"axis": [0, 2, 1, 3]}, False),
+    ("slice", "slice", {"Input": [_f((3, 6, 4), 30)]},
+     {"axes": [1, 2], "starts": [1, 0], "ends": [4, 2]}, False),
+    ("reduce_sum_all", "reduce_sum", {"X": [_f((3, 4), 31)]},
+     {"dim": [0], "keep_dim": False, "reduce_all": True}, False),
+    ("reduce_sum_dim_keep", "reduce_sum", {"X": [_f((3, 4, 5), 32)]},
+     {"dim": [-1, 0], "keep_dim": True, "reduce_all": False}, False),
+    ("softmax_xent_hard", "softmax_with_cross_entropy",
+     {"Logits": [_f((6, 10), 33, 3.0)],
+      "Label": [np.array([[0], [9], [3], [-100], [5], [2]], np.int64)]},
+     {"soft_label": False, "ignore_index": -100}, False),
+    ("softmax_xent_soft", "softmax_with_cross_entropy",
+     {"Logits": [_f((5, 7), 34)],
+      "Label": [np.abs(_f((5, 7), 35)) / 7.0]},
+     {"soft_label": True}, False),
+    ("mean", "mean", {"X": [_f((3, 5), 36)]}, {}, False),
+    ("fused_attention", "fused_attention",
+     {"Q": [_f((2, 2, 16, 8), 37)], "K": [_f((2, 2, 16, 8), 38)],
+      "V": [_f((2, 2, 16, 8), 39)]},
+     {"causal": False, "dropout_rate": 0.0, "scale": 0.35}, False),
+    ("fused_attention_causal_lens", "fused_attention",
+     {"Q": [_f((3, 2, 16, 8), 40)], "K": [_f((3, 2, 16, 8), 41)],
+      "V": [_f((3, 2, 16, 8), 42)],
+      "SeqLens": [np.array([[16], [5], [0]], np.int64)]},
+     {"causal": True, "dropout_rate": 0.1}, True),
+]
+
+
+def _run_jax(op_type, ins, attrs, is_test):
+    op = JOpDesc(op_type, {s: ["x"] * len(v) for s, v in ins.items()},
+                 {}, attrs)
+    ctx = JLowerContext(op, None, rng_key=jax.random.PRNGKey(0),
+                        op_index=0, is_test=is_test)
+    outs = JOpRegistry.get(op_type).lower(
+        ctx, {s: [jnp.asarray(a) for a in v] for s, v in ins.items()},
+        attrs)
+    return {s: [np.asarray(x) for x in v] for s, v in outs.items()}
+
+
+def _run_torch(op_type, ins, attrs, is_test):
+    op = TOpDesc(op_type, {s: ["x"] * len(v) for s, v in ins.items()},
+                 {}, attrs)
+    ctx = TLowerContext(op, None, "cpu", rng_seed=(0, 1), op_index=0,
+                        is_test=is_test)
+    outs = TOpRegistry.get(op_type).lower(
+        ctx, {s: [torch.from_numpy(np.array(a)) for a in v]
+              for s, v in ins.items()}, attrs)
+    return {s: [x.numpy() for x in v] for s, v in outs.items()}
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_lowering_matches_reference(case):
+    _, op_type, ins, attrs, is_test = case
+    want = _run_jax(op_type, ins, attrs, is_test)
+    got = _run_torch(op_type, ins, attrs, is_test)
+    assert sorted(got) == sorted(want)
+    for slot in want:
+        assert len(got[slot]) == len(want[slot]), slot
+        for g, w in zip(got[slot], want[slot]):
+            assert g.shape == w.shape, (slot, g.shape, w.shape)
+            if slot == "XShape":
+                continue  # shape-only carrier, no data
+            if np.issubdtype(w.dtype, np.floating):
+                assert g.dtype == w.dtype, (slot, g.dtype, w.dtype)
+                np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL,
+                                           err_msg=slot)
+            else:
+                np.testing.assert_array_equal(g, w, err_msg=slot)
+
+
+def test_every_ported_lowering_has_a_case():
+    assert {c[1] for c in CASES} == set(TOpRegistry.all_types()) - {
+        "uniform_random"}
+
+
+def test_uniform_random_draws_in_range_per_stream():
+    """uniform_random's bits come from each package's own RNG, so only
+    the contract is compared: shape, dtype, range, and a fresh but
+    reproducible stream per (seed, run, op)."""
+    attrs = {"shape": [64, 32], "dtype": int(VarType.FP32), "min": -0.5,
+             "max": 0.25, "seed": 0}
+    op = TOpDesc("uniform_random", {}, {"Out": ["w"]}, attrs)
+    lower = TOpRegistry.get("uniform_random").lower
+
+    def draw(run, op_index):
+        ctx = TLowerContext(op, None, "cpu", rng_seed=(3, run),
+                            op_index=op_index)
+        return lower(ctx, {}, attrs)["Out"][0]
+
+    want = _run_jax("uniform_random", {}, attrs, False)["Out"][0]
+    a = draw(1, 0)
+    assert tuple(a.shape) == want.shape and a.numpy().dtype == want.dtype
+    assert a.min() >= -0.5 and a.max() < 0.25
+    assert torch.equal(a, draw(1, 0))
+    assert not torch.equal(a, draw(2, 0))
+    assert not torch.equal(a, draw(1, 1))
