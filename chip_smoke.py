@@ -5,8 +5,8 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 
     python3 chip_smoke.py
 
-It drives the port's main path and its kernels on the card and prints one
-JSON line per phase:
+It drives the port's two main paths, serving and training, and its
+kernels on the card and prints one JSON line per phase:
 
 1. device  — the card's name and power limit (nvidia-smi), torch and CUDA
    versions; TF32 is turned off for matmul and cuDNN.
@@ -18,7 +18,11 @@ JSON line per phase:
    not, ragged seq_lens, a fully masked row under causal with offsets,
    Tq != Tk and T not a multiple of the tile, unaligned offsets, other
    head dims, and dropout rate 0.1 with the same seed (identical masks).
-4. serve   — BERT-base (d 768, 12 layers, 12 heads, d_inner 3072, vocab
+4. kernel_bwd — the dQ and dK/dV backward kernels against
+   ``attention_bwd_plain`` on the same inputs, dq, dk and dv, in the same
+   cases plus one with a nonzero lse cotangent; dropout with the same seed
+   as the forward, and another seed must change the grads.
+5. serve   — BERT-base (d 768, 12 layers, 12 heads, d_inner 3072, vocab
    30522, seq 128, fp32, random weights from the seed) built with
    ``models.bert.get_model``, initialised on the card by the startup
    program, saved with ``io.save_inference_model``, loaded by
@@ -26,13 +30,25 @@ JSON line per phase:
    and 8 with ragged seq_lens. Checks shapes, finiteness, exactly 12 kernel
    launches per request, and one batch-1 answer against the same model
    directory served on the CPU (``config.disable_gpu()``).
-5. times   — device times from torch.profiler for the kernel, its plain
-   version and ``scaled_dot_product_attention`` (a yardstick the port never
-   calls), the least time the card could take (bytes over 3.35 TB/s, or
-   operations over the card's peak for the input type: 67 TFLOP/s float32
-   outside the tensor cores, 989 TFLOP/s bfloat16 dense on the tensor
-   cores), and the predictor's per-request latency at batch 1 and 8.
-6. kernels — one JSON object listing every ported kernel.
+6. times   — device times from torch.profiler for the forward kernel, its
+   plain version and ``scaled_dot_product_attention`` (a yardstick the port
+   never calls), the least time the card could take (bytes over 3.35 TB/s,
+   or operations over the card's peak for the input type: 67 TFLOP/s
+   float32 outside the tensor cores, 989 TFLOP/s bfloat16 dense on the
+   tensor cores), and the predictor's per-request latency at batch 1 and 8.
+7. train   — BERT-base pre-training at the same width,
+   ``get_model(is_train=True)`` (append_backward + Adam), dropout 0.1,
+   startup on the card, 5 steps on a repeated ragged batch of 8. Checks
+   finite and falling loss, exactly 12 forward, 12 dQ and 12 dK/dV
+   launches a step, and one step at batch 2 against the same step of the
+   port on the CPU (loss and six parameter grads, from the same initial
+   state via ``convert.load_numpy_state``).
+8. times   — the backward kernels at the training shape (B=8 H=12 T=128
+   D=64 float32, ragged lengths) and at T=512 float32 and bfloat16: each
+   kernel's device time and bound, the plain backward's, and the backward
+   of ``scaled_dot_product_attention``; the training step's median wall,
+   device-busy share and top kernels.
+9. kernels — one JSON object listing every ported kernel.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check raises
 and the script exits non-zero; it exits non-zero without a result when
@@ -65,12 +81,58 @@ PEAKS = ("3.35 TB/s HBM; 67 TFLOP/s float32 outside the tensor cores, "
 # land one ulp apart, at most 2^-7 of the value. lse is float32 in both.
 TOL = {"float32": {"out_rel": 0.0, "out_abs": 1e-4, "lse": 1e-4},
        "bfloat16": {"out_rel": 2.0 ** -7, "out_abs": 1e-5, "lse": 1e-4}}
+# dq, dk, dv: |kernel - plain| <= rel * |plain| + abs_of_max * max|plain|
+# + abs. float32: sums of up to 512 products taken in another order (the
+# kernels loop over 32-row tiles, the plain version is one product).
+# bfloat16: both round p_drop and ds to bfloat16 before the products, as
+# the reference's kernels do, and the grads to bfloat16 at the end. Where
+# the two float32 values of one ds straddle a rounding boundary they take
+# neighbouring bf16 values; that moves a grad by one ulp of one term, far
+# below 2^-8 of the largest grad. The final rounding is one ulp, at most
+# 2^-7 of the value; 2^-6 allows it twice.
+TOL_BWD = {"float32": {"rel": 1e-4, "abs_of_max": 0.0, "abs": 1e-4},
+           "bfloat16": {"rel": 2.0 ** -6, "abs_of_max": 2.0 ** -8,
+                        "abs": 0.0}}
+# training: steps on the card, and one step of the card against the CPU
+# (batch 2): float32 GEMMs (TF32 off) summed in other orders by cuBLAS and
+# the CPU, forward and backward through 12 layers; each grad is held to
+# its own largest element
+TRAIN_STEPS = 5
+TRAIN_GRADS = ("word_embedding", "fc_0.w_0_0", "fc_40.w_0_0",
+               "layer_norm_12.w_0_0", "fc_73.w_0_0", "fc_75.w_0_0")
+TRAIN_TOL = {"loss_rtol": 1e-4, "grad_rel_to_max": 1e-3}
 # the served model against the CPU: float32 GEMMs (TF32 off) summed in
 # another order by cuBLAS than by the CPU GEMM, over 12 layers
 SERVE_TOL = {"rtol": 1e-3, "atol": 2e-3}
 
+# ragged key lengths of the kernel cases (batch 8)
+LENS8 = [128, 70, 1, 64, 127, 33, 100, 5]
+KERNEL_CASES = [
+    # name, B, H, Tq, Tk, D, dtype, causal, lens, offsets, rate
+    ("bert_t128_f32", 8, 12, 128, 128, 64, "float32", False, None, None, 0.0),
+    ("bert_t128_f32_causal", 8, 12, 128, 128, 64, "float32", True, None, None, 0.0),
+    ("bert_t512_f32", 8, 12, 512, 512, 64, "float32", False, None, None, 0.0),
+    ("bert_t512_f32_causal", 8, 12, 512, 512, 64, "float32", True, None, None, 0.0),
+    ("bert_t128_bf16", 8, 12, 128, 128, 64, "bfloat16", False, None, None, 0.0),
+    ("bert_t512_bf16_causal", 8, 12, 512, 512, 64, "bfloat16", True, None, None, 0.0),
+    ("ragged_lens", 8, 12, 128, 128, 64, "float32", False, LENS8, None, 0.0),
+    ("ragged_lens_causal", 8, 12, 128, 128, 64, "float32", True, LENS8, None, 0.0),
+    ("masked_rows_causal_offsets", 8, 12, 64, 96, 64, "float32", True, LENS8, (0, 40), 0.0),
+    ("tq_ne_tk_ragged_tiles", 2, 3, 100, 77, 64, "float32", False, None, None, 0.0),
+    ("tq_ne_tk_ragged_tiles_causal", 2, 3, 100, 77, 64, "float32", True, None, (50, 0), 0.0),
+    ("unaligned_offsets", 8, 12, 128, 128, 64, "float32", True, None, (37, 5), 0.0),
+    ("head_dim_128", 2, 4, 200, 200, 128, "float32", False, None, None, 0.0),
+    ("head_dim_40_bf16", 2, 4, 90, 130, 40, "bfloat16", True, None, None, 0.0),
+    ("dropout_0.1", 8, 12, 128, 128, 64, "float32", False, LENS8, None, 0.1),
+    ("dropout_0.1_causal_bf16", 8, 12, 128, 128, 64, "bfloat16", True, LENS8, None, 0.1),
+]
+
 BERT = dict(vocab_size=30522, d_model=768, n_layers=12, n_heads=12,
             d_inner=3072, max_position=512, seq_len=128)
+
+
+# profiler windows that recorded no device activity and were run again
+EMPTY_PROFILES = 0
 
 
 def emit(obj):
@@ -90,24 +152,33 @@ def nvidia_smi():
     return out.strip().splitlines()[0]
 
 
-def device_kernels(fn, n):
+def device_kernels(fn, n, attempts=3):
     """Run ``fn`` ``n`` times under torch.profiler; returns {kernel name:
-    device ms per call} of the CUDA kernels it launched (empty if the
-    profiler recorded no device activity)."""
+    device ms per call} of the CUDA kernels it launched. A window in which
+    the profiler recorded no device activity at all (seen once on the
+    H100, in a window of 20 calls that launched kernels) is profiled
+    again, up to ``attempts`` times, and counted in EMPTY_PROFILES; empty
+    if none recorded any."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
+    global EMPTY_PROFILES
+    for _ in range(attempts):
         torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / n
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        kernels = {e.key: e.self_device_time_total / 1e3 / n
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0}
+        if kernels:
+            return kernels
+        EMPTY_PROFILES += 1
+    return {}
 
 
 def device_ms(fn, name=None, n=20, warmup=3):
@@ -134,37 +205,25 @@ def attention_inputs(B, H, Tq, Tk, D, dtype, seed):
     return q, k, v
 
 
+def case_inputs(i, case):
+    """q, k, v and the int64 lengths (or None) of kernel case ``i``."""
+    import torch
+
+    _, B, H, Tq, Tk, D, dt, _, lens, _, _ = case
+    q, k, v = attention_inputs(B, H, Tq, Tk, D, getattr(torch, dt), 100 + i)
+    lens_t = None if lens is None else torch.tensor(lens[:B], device="cuda")
+    return q, k, v, lens_t
+
+
 def phase_kernel(fa):
     """Kernel against plain version case by case; returns the worst out
     error over all cases."""
     import torch
 
-    lens8 = torch.tensor([128, 70, 1, 64, 127, 33, 100, 5], device="cuda")
-    cases = [
-        # name, B, H, Tq, Tk, D, dtype, causal, lens, offsets, rate
-        ("bert_t128_f32", 8, 12, 128, 128, 64, "float32", False, None, None, 0.0),
-        ("bert_t128_f32_causal", 8, 12, 128, 128, 64, "float32", True, None, None, 0.0),
-        ("bert_t512_f32", 8, 12, 512, 512, 64, "float32", False, None, None, 0.0),
-        ("bert_t512_f32_causal", 8, 12, 512, 512, 64, "float32", True, None, None, 0.0),
-        ("bert_t128_bf16", 8, 12, 128, 128, 64, "bfloat16", False, None, None, 0.0),
-        ("bert_t512_bf16_causal", 8, 12, 512, 512, 64, "bfloat16", True, None, None, 0.0),
-        ("ragged_lens", 8, 12, 128, 128, 64, "float32", False, lens8, None, 0.0),
-        ("ragged_lens_causal", 8, 12, 128, 128, 64, "float32", True, lens8, None, 0.0),
-        ("masked_rows_causal_offsets", 8, 12, 64, 96, 64, "float32", True, lens8, (0, 40), 0.0),
-        ("tq_ne_tk_ragged_tiles", 2, 3, 100, 77, 64, "float32", False, None, None, 0.0),
-        ("tq_ne_tk_ragged_tiles_causal", 2, 3, 100, 77, 64, "float32", True, None, (50, 0), 0.0),
-        ("unaligned_offsets", 8, 12, 128, 128, 64, "float32", True, None, (37, 5), 0.0),
-        ("head_dim_128", 2, 4, 200, 200, 128, "float32", False, None, None, 0.0),
-        ("head_dim_40_bf16", 2, 4, 90, 130, 40, "bfloat16", True, None, None, 0.0),
-        ("dropout_0.1", 8, 12, 128, 128, 64, "float32", False, lens8, None, 0.1),
-        ("dropout_0.1_causal_bf16", 8, 12, 128, 128, 64, "bfloat16", True, lens8, None, 0.1),
-    ]
     worst = 0.0
     for i, (name, B, H, Tq, Tk, D, dt, causal, lens, offs, rate) in \
-            enumerate(cases):
-        dtype = getattr(torch, dt)
-        q, k, v = attention_inputs(B, H, Tq, Tk, D, dtype, 100 + i)
-        lens_b = None if lens is None else lens[:B]
+            enumerate(KERNEL_CASES):
+        q, k, v, lens_b = case_inputs(i, KERNEL_CASES[i])
         seed = 1234
         out_k, lse_k = fa.flash_forward_cuda(q, k, v, lens_b, offs, seed,
                                              causal, None, rate)
@@ -207,6 +266,74 @@ def phase_kernel(fa):
         check(np.isfinite(err_lse) and err_lse <= tol["lse"],
               "%s lse error %g > %g" % (name, err_lse, tol["lse"]))
         worst = max(worst, err_out)
+    return worst
+
+
+def phase_kernel_bwd(fa):
+    """The dQ and dK/dV kernels against ``attention_bwd_plain``, case by
+    case: every forward case plus one with a nonzero lse cotangent. Both
+    take the same (q, k, v), the forward kernel's (out, lse) and the same
+    cotangents. Returns the worst error of each kernel over all cases:
+    {"flash_bwd_dq": dq, "flash_bwd_dkv": max(dk, dv)}."""
+    import torch
+
+    cases = list(enumerate(KERNEL_CASES)) + [(len(KERNEL_CASES), (
+        "lse_cotangent_causal_offsets", 8, 12, 64, 96, 64, "float32", True,
+        LENS8, (0, 40), 0.0))]
+    worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for i, case in cases:
+        name, B, H, Tq, Tk, D, dt, causal, lens, offs, rate = case
+        q, k, v, lens_t = case_inputs(i, case)
+        gen = torch.Generator(device="cuda").manual_seed(500 + i)
+        g = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+        g_lse = None
+        if name.startswith("lse_cotangent"):
+            g_lse = torch.randn((B, H, Tq), generator=gen, device="cuda")
+        seed = 4321
+        args = (lens_t, offs, seed, causal, None, rate)
+        out, lse = fa.flash_forward_cuda(q, k, v, *args)
+        got = fa.flash_backward_cuda(q, k, v, out, lse, g, g_lse, *args)
+        want = fa.attention_bwd_plain(q, k, v, out, lse, g, g_lse, *args)
+        torch.cuda.synchronize()
+        tol = TOL_BWD[dt]
+        row = {"phase": "kernel_bwd", "case": name,
+               "shape": [B, H, Tq, Tk, D], "dtype": dt, "causal": causal,
+               "seq_lens": lens is not None, "offsets": offs, "rate": rate,
+               "lse_cotangent": g_lse is not None, "tol": tol}
+        for grad, a, b in zip(("dq", "dk", "dv"), got, want):
+            a, b = a.float(), b.float()
+            diff = (a - b).abs()
+            allowed = (tol["rel"] * b.abs()
+                       + tol["abs_of_max"] * b.abs().max() + tol["abs"])
+            row["max_abs_err_" + grad] = diff.max().item()
+            row["max_excess_" + grad] = (diff - allowed).max().item()
+            row["max_abs_" + grad] = b.abs().max().item()
+        if offs is not None and causal:
+            # rows whose every key lies past the causal frontier carry
+            # lse ~= -1e30 and must get dq = 0, not exp(overflow)
+            masked = lse < -1e29
+            row["fully_masked_rows"] = int(masked.sum().item())
+            row["masked_rows_dq_zero"] = bool(
+                (got[0].float()[masked] == 0).all().item())
+            check(row["masked_rows_dq_zero"],
+                  "%s: fully masked rows must get dq = 0" % name)
+        if rate > 0.0:
+            # the same seed re-derives the forward's mask; another must not
+            other = fa.flash_backward_cuda(q, k, v, out, lse, g, g_lse,
+                                           lens_t, offs, seed + 1, causal,
+                                           None, rate)
+            row["other_seed_max_diff"] = max(
+                (o.float() - a.float()).abs().max().item()
+                for o, a in zip(other, got))
+            check(row["other_seed_max_diff"] > 1e-2,
+                  "%s: a different seed must draw a different mask" % name)
+        emit(row)
+        for grad in ("dq", "dk", "dv"):
+            err = row["max_abs_err_" + grad]
+            check(np.isfinite(err) and row["max_excess_" + grad] <= 0,
+                  "%s %s error %g beyond %s" % (name, grad, err, tol))
+            kernel = "flash_bwd_dq" if grad == "dq" else "flash_bwd_dkv"
+            worst[kernel] = max(worst[kernel], err)
     return worst
 
 
@@ -284,15 +411,133 @@ def phase_serve(fa, model_dir):
     return predictor, launches, requests[8]
 
 
+def train_feed(batch, rng):
+    from paddle_tpu_torch.models import bert
+
+    return bert.make_fake_batch(batch, BERT["seq_len"], BERT["vocab_size"],
+                                rng=rng, varlen=True)
+
+
+def phase_train(fa):
+    """BERT-base pre-training on the card: ``get_model(is_train=True)``
+    (append_backward + Adam), startup on the card, TRAIN_STEPS steps on a
+    repeated ragged batch of 8, each with 12 launches of every flash
+    kernel; then one step at batch 2 on the card against the same step of
+    the port on the CPU, from the same initial state. Returns (executor,
+    scope, program, loss var, batch-8 feed, launches by kernel)."""
+    import torch
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import convert, unique_name
+    from paddle_tpu_torch.models import bert
+
+    t0 = time.perf_counter()
+    with unique_name.guard():
+        main, startup, handles = bert.get_model(
+            batch_size=8, dropout=0.1, is_train=True, **BERT)
+    main.random_seed = startup.random_seed = 2024
+    loss = handles["loss"]
+    ops = [op.type for op in main.desc.global_block().ops]
+    exe = fluid.Executor()  # CUDAPlace(0)
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+    persistable = sorted(v.name for v in main.list_vars() if v.persistable)
+    state0 = {n: scope.get(n).cpu().numpy() for n in persistable}
+    setup_s = time.perf_counter() - t0
+    n_layers = BERT["n_layers"]
+
+    feed8 = train_feed(8, np.random.RandomState(11))
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+    def counts():
+        return (fa.launches, fa.launches_dq, fa.launches_dkv)
+
+    losses, per_step = [], []
+    torch.cuda.synchronize()
+    fa.launches = fa.launches_dq = fa.launches_dkv = 0  # the path starts
+    with fluid.scope_guard(scope):
+        for _ in range(TRAIN_STEPS):
+            before = counts()
+            (out,) = exe.run(main, feed=feed8, fetch_list=[loss])
+            losses.append(float(out.reshape(-1)[0]))
+            per_step.append([a - b for a, b in zip(counts(), before)])
+    torch.cuda.synchronize()
+    launches = dict(zip(names, counts()))  # ... and ends here
+    check(all(np.isfinite(losses)), "training losses %s" % losses)
+    check(losses[-1] < losses[0], "loss did not fall: %s" % losses)
+    check(per_step == [[n_layers] * 3] * TRAIN_STEPS,
+          "fwd/dq/dkv launches per step %s, want %d each"
+          % (per_step, n_layers))
+
+    # one step at batch 2, on the card and on the CPU, from the same
+    # initial state; fresh executors, so both engines run at the same run
+    # counter and draw the same dropout seeds (startup advanced the first
+    # executor's), and the hash masks are the same on both devices
+    feed2 = train_feed(2, np.random.RandomState(12))
+    fetch = [loss.name] + [n + "@GRAD" for n in TRAIN_GRADS]
+    results = []
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        step_scope = fluid.Scope()
+        convert.load_numpy_state(step_scope, state0, place.torch_device(),
+                                 program=main)
+        step_exe = fluid.Executor(place)
+        with fluid.scope_guard(step_scope):
+            results.append(step_exe.run(main, feed=feed2, fetch_list=fetch))
+    card, cpu = results
+    loss_err = abs(float(card[0].reshape(-1)[0] - cpu[0].reshape(-1)[0]))
+    grad_errs = {}
+    for name, a, b in zip(TRAIN_GRADS, card[1:], cpu[1:]):
+        check(a.shape == b.shape and np.isfinite(a).all(),
+              "%s@GRAD shape %s vs %s or not finite" % (name, a.shape,
+                                                         b.shape))
+        grad_errs[name] = {"max_abs_err": float(np.abs(a - b).max()),
+                           "max_abs": float(np.abs(b).max())}
+    emit({"phase": "train", "model": "bert_base", "batch": 8,
+          "seq_len": BERT["seq_len"], "dropout": 0.1, "ops": len(ops),
+          "grad_ops": sum(t.endswith("_grad") for t in ops),
+          "params": sum(int(np.prod(p.shape)) for p in main.all_parameters()),
+          "seq_lens": feed8["seq_lens"].reshape(-1).tolist(),
+          "setup_s": setup_s, "losses": losses,
+          "launches_per_step": per_step, "launches": launches,
+          "cpu_step": {"batch": 2, "loss_card": float(card[0].reshape(-1)[0]),
+                       "loss_cpu": float(cpu[0].reshape(-1)[0]),
+                       "loss_abs_err": loss_err, "grads": grad_errs},
+          "tol": TRAIN_TOL})
+    check(loss_err <= TRAIN_TOL["loss_rtol"] * abs(float(cpu[0].reshape(-1)[0])),
+          "card vs CPU step loss error %g" % loss_err)
+    for name, e in grad_errs.items():
+        check(e["max_abs_err"] <= TRAIN_TOL["grad_rel_to_max"] * e["max_abs"],
+              "card vs CPU %s@GRAD error %g (max |grad| %g)"
+              % (name, e["max_abs_err"], e["max_abs"]))
+    return exe, scope, main, loss, feed8, launches
+
+
+def valid_keys(B, H, Tk, lens):
+    """Keys below each sequence's length (clamped to [1, Tk]), summed over
+    the batch and heads."""
+    if lens is None:
+        return B * H * Tk
+    return sum(min(max(int(n), 1), Tk) for n in lens) * H
+
+
+def key_mask(lens_t, B, T):
+    """The boolean key-padding mask SDPA takes for int64 lengths, or None."""
+    import torch
+
+    if lens_t is None:
+        return None
+    return (torch.arange(T, device="cuda").reshape(1, 1, 1, T)
+            < lens_t.clamp(min=1).reshape(B, 1, 1, 1))
+
+
 def attention_work(B, H, Tq, Tk, D, itemsize, lens):
     """(bytes, flops) the function needs on these inputs: q and out whole,
-    the k/v rows below each sequence's length, lse; QK^T and PV over the
-    valid keys only."""
-    valid = [min(max(int(n), 1), Tk) for n in lens] if lens is not None \
-        else [Tk] * B
-    keys = sum(valid) * H
+    the k/v rows below each sequence's length, lse, the int64 lengths;
+    QK^T and PV over the valid keys only."""
+    keys = valid_keys(B, H, Tk, lens)
     nbytes = (2 * B * H * Tq * D * itemsize + 2 * keys * D * itemsize
-              + B * H * Tq * 4 + (B * 4 if lens is not None else 0))
+              + B * H * Tq * 4 + (B * 8 if lens is not None else 0))
     flops = 4 * Tq * keys * D
     return nbytes, flops
 
@@ -305,10 +550,7 @@ def time_kernel(fa, B, H, T, D, dtype, lens):
     q, k, v = attention_inputs(B, H, T, T, D, dtype, 99)
     lens_t = None if lens is None else torch.as_tensor(
         lens, device="cuda").reshape(B)
-    mask = None
-    if lens_t is not None:
-        mask = (torch.arange(T, device="cuda").reshape(1, 1, 1, T)
-                < lens_t.clamp(min=1).reshape(B, 1, 1, 1))
+    mask = key_mask(lens_t, B, T)
     calls = {
         "": (lambda: fa.flash_forward_cuda(q, k, v, lens_t), "flash_fwd"),
         "plain_": (lambda: fa.attention_lse_plain(q, k, v, lens_t), None),
@@ -328,6 +570,145 @@ def time_kernel(fa, B, H, T, D, dtype, lens):
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
     return row
+
+
+def attention_bwd_work(kernel, B, H, Tq, Tk, D, itemsize, lens):
+    """(bytes, flops) a backward kernel needs on these inputs, from its
+    code. Both read q and dO whole, the k/v rows below each sequence's
+    length, lse and delta (float32). flash_bwd_dq writes dq and does three
+    products per (q row, valid key) pair over D: s = q.k, dp = dO.v,
+    dq += ds.k. flash_bwd_dkv writes dk and dv (every key row) and does
+    four: s, dp, dv += p.dO, dk += ds.q."""
+    keys = valid_keys(B, H, Tk, lens)
+    nbytes = (2 * B * H * Tq * D * itemsize + 2 * keys * D * itemsize
+              + 2 * B * H * Tq * 4 + (B * 8 if lens is not None else 0))
+    if kernel == "flash_bwd_dq":
+        return nbytes + B * H * Tq * D * itemsize, 6 * Tq * keys * D
+    return nbytes + 2 * B * H * Tk * D * itemsize, 8 * Tq * keys * D
+
+
+def time_bwd_kernels(fa, B, H, T, D, dtype, lens):
+    """The dQ and dK/dV kernels' device times from one profile of
+    ``flash_backward_cuda`` (the delta precompute, a torch op, excluded),
+    the plain backward's, and SDPA's backward (its backward kernels only:
+    the forward runs once, outside the profiled window), with each
+    kernel's bound; returns a dict."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v = attention_inputs(B, H, T, T, D, dtype, 98)
+    g = torch.randn(q.shape, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(97)
+                    ).to(dtype)
+    lens_t = None if lens is None else torch.as_tensor(
+        lens, device="cuda").reshape(B)
+    out, lse = fa.flash_forward_cuda(q, k, v, lens_t)
+
+    def kernels():
+        return fa.flash_backward_cuda(q, k, v, out, lse, g, None, lens_t)
+
+    for _ in range(3):
+        kernels()
+    n = 20
+    by_name = device_kernels(kernels, n)
+    dt = str(dtype).split(".")[-1]
+    row = {"shape": [B, H, T, T, D], "dtype": dt,
+           "seq_lens": None if lens is None else [int(x) for x in lens]}
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        ms = sum(t for key, t in by_name.items() if name + "_kernel" in key)
+        check(ms > 0, "the profiler recorded no %s kernel (saw %s)"
+              % (name, sorted(by_name)))
+        nbytes, flops = attention_bwd_work(name, B, H, T, T, D,
+                                           q.element_size(), lens)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS_PER_S[dt] * 1e3
+        row[name] = {"ms": ms, "bytes": nbytes, "flops": flops,
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations"}
+    row["plain_ms"] = device_ms(lambda: fa.attention_bwd_plain(
+        q, k, v, out, lse, g, None, lens_t))
+    mask = key_mask(lens_t, B, T)
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                       scale=D ** -0.5)
+    row["library_ms"] = device_ms(lambda: torch.autograd.grad(
+        o, (qs, ks, vs), g, retain_graph=True))
+    return row
+
+
+def host_ms_by_kind(step, n=3):
+    """Host time per step spent in the engine's ``run_op``, by kind of op:
+    forward, optimizer (op_role Optimize), a grad op with a lowering of
+    its own, and a grad op derived as ``torch.func.vjp`` of its forward
+    (which re-runs that forward). Ops are dispatched asynchronously, so
+    this is the Python and launch cost of each kind; ``n`` steps are run
+    with ``run_op`` wrapped in a host clock."""
+    from paddle_tpu_torch.core.registry import OpRegistry
+    from paddle_tpu_torch.engine import lowering
+    from paddle_tpu_torch.framework import OpRole
+
+    def kind(op):
+        if op.type.endswith("_grad"):
+            return "direct_grad" if OpRegistry.has(op.type) else "vjp_grad"
+        if int(op.attrs.get("op_role", 0)) & OpRole.Optimize:
+            return "optimizer"
+        return "forward"
+
+    totals, counts = {}, {}
+    run_op = lowering.run_op
+
+    def timed(op, *args, **kwargs):
+        t0 = time.perf_counter()
+        run_op(op, *args, **kwargs)
+        k = kind(op)
+        totals[k] = totals.get(k, 0.0) + time.perf_counter() - t0
+        counts[k] = counts.get(k, 0) + 1
+
+    lowering.run_op = timed
+    try:
+        for _ in range(n):
+            step()
+    finally:
+        lowering.run_op = run_op
+    return {k: {"ms": totals[k] * 1e3 / n, "ops": counts[k] // n}
+            for k in sorted(totals)}
+
+
+def time_train_step(exe, scope, main, loss, feed8):
+    """Median wall of a BERT-base training step at batch 8 (host clock, 10
+    steps after 2 warm-ups; each ends in the loss's copy to the host), the
+    device time of 3 more steps by kernel from the profiler, and the host
+    time of 3 more by kind of op."""
+    import torch
+
+    import paddle_tpu_torch.fluid as fluid
+
+    def step():
+        return exe.run(main, feed=feed8, fetch_list=[loss])
+
+    with fluid.scope_guard(scope):
+        for _ in range(2):
+            step()
+        walls = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        kernels = device_kernels(step, 3)
+        host = host_ms_by_kind(step)
+    wall = statistics.median(walls)
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    flash = {name: sum(t for key, t in kernels.items()
+                       if name + "_kernel" in key)
+             for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    return {"median_ms": wall, "min_ms": min(walls), "max_ms": max(walls),
+            "device_busy_ms": busy, "device_idle_share": 1.0 - busy / wall,
+            "flash_kernels_ms": flash, "host_ms_by_kind": host,
+            "kernel_names": len(kernels),
+            "top_kernels_ms": [[name[:80], ms] for name, ms in top]}
 
 
 def profile_request(predictor, feed, wall_ms):
@@ -378,6 +759,34 @@ def phase_times(fa, predictor, feed8):
     return rows["main_path"]
 
 
+def phase_times_train(fa, exe, scope, main, loss, feed8):
+    """The backward kernels at the training path's shape (B=8 H=12 T=128
+    D=64 float32, the batch's ragged lengths) and at T=512 float32 and
+    bfloat16, then the training step. Returns the main-path row."""
+    import torch
+
+    lens8 = feed8["seq_lens"].reshape(-1).tolist()
+    rows = {
+        "main_path": time_bwd_kernels(fa, 8, 12, 128, 64, torch.float32,
+                                      lens8),
+        "t512_f32_full": time_bwd_kernels(fa, 8, 12, 512, 64, torch.float32,
+                                          None),
+        "t512_bf16_full": time_bwd_kernels(fa, 8, 12, 512, 64,
+                                           torch.bfloat16, None),
+    }
+    for name, row in rows.items():
+        emit(dict({"phase": "times", "kernel": "flash_bwd", "case": name,
+                   "peaks": PEAKS, "plain": "attention_bwd_plain (dq, dk "
+                   "and dv)", "library": "scaled_dot_product_attention "
+                   "backward (dq, dk and dv)"}, **row))
+    emit(dict({"phase": "times", "profile": "batch-8 training step",
+               "model": "bert_base", "seq_len": BERT["seq_len"]},
+              **time_train_step(exe, scope, main, loss, feed8)))
+    emit({"phase": "times", "empty_profiler_windows_rerun":
+          EMPTY_PROFILES})
+    return rows["main_path"]
+
+
 def main():
     try:
         import torch
@@ -415,18 +824,38 @@ def main():
           "nvcc_seconds": built, "ptxas": ptxas})
 
     worst = phase_kernel(fa)
+    worst_bwd = phase_kernel_bwd(fa)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_bert_") as model_dir:
-        predictor, launches, feed8 = phase_serve(fa, model_dir)
+        predictor, serve_launches, feed8 = phase_serve(fa, model_dir)
         main_row = phase_times(fa, predictor, feed8)
+    del predictor
+    exe, scope, main_prog, loss, train_feed8, launches = phase_train(fa)
+    bwd_row = phase_times_train(fa, exe, scope, main_prog, loss, train_feed8)
 
-    emit({"kernels": [{
+    # launches: the training path's (forward, dQ and dK/dV each 12 a
+    # step); the forward's on the served path is in launches_by_path
+    kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
         "replaces": "paddle_tpu/kernels/flash_attention.py:110",
-        "launches": launches, "max_abs_err": worst,
+        "launches": launches["flash_fwd"],
+        "launches_by_path": {"serve": serve_launches,
+                             "train": launches["flash_fwd"]},
+        "max_abs_err": worst,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}]})
+        "library_ms": main_row["library_ms"]}]
+    for name, line in (("flash_bwd_dq", 269), ("flash_bwd_dkv", 328)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/%s.cu" % name,
+            "replaces": "paddle_tpu/kernels/flash_attention.py:%d" % line,
+            "launches": launches[name], "max_abs_err": worst_bwd[name],
+            "ms": bwd_row[name]["ms"], "plain_ms": bwd_row["plain_ms"],
+            "bound_ms": bwd_row[name]["bound_ms"],
+            "bound_by": bwd_row[name]["bound_by"],
+            "library_ms": bwd_row["library_ms"]})
+    emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

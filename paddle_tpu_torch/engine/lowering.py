@@ -2,11 +2,20 @@
 
 Port of ``paddle_tpu/engine/lowering.py`` (``BlockProgram`` :40,
 ``clean_attrs`` :36, ``lower_block`` :152, ``run_op`` :248,
-``_bind_outputs`` :300), forward only. Where the JAX package traces the
-block into one XLA executable, the port runs each op's torch lowering
-eagerly on the executor's device, in the block's order, after the same
-dead-code elimination.
+``_bind_outputs`` :300, ``_lower_grad_op`` :308). Where the JAX package
+traces the block into one XLA executable, the port runs each op's torch
+lowering eagerly on the executor's device, in the block's order, after the
+same dead-code elimination.
+
+A ``*_grad`` op with a lowering of its own (``mul_grad``,
+``fused_attention_grad``...) runs it; any other is derived generically as
+``torch.func.vjp`` of the forward op's lowering, as the reference derives
+it with its own vjp. That re-runs the forward op inside its grad op on
+every step (the reference's compiler shares the two; an eager engine
+cannot).
 """
+
+import torch
 
 from paddle_tpu_torch import ops as _ops  # noqa: F401  (registers lowerings)
 from paddle_tpu_torch.core.registry import OpRegistry, LowerContext
@@ -141,11 +150,14 @@ def run_op(op, block, env, device, rng_seed, op_index, is_test,
                     "holder)" % (op.type, slot, len(vals), n)
                 )
         ins[slot] = vals
-    info = OpRegistry.get(op.type)
-    ctx = LowerContext(op, block, device, rng_seed=rng_seed,
-                       op_index=_rng_id(op, op_index), is_test=is_test,
-                       executor=executor)
-    outs = info.lower(ctx, ins, clean_attrs(op.attrs))
+    if op.type.endswith("_grad") and not OpRegistry.has(op.type):
+        outs = _lower_grad_op(op, block, ins, device, rng_seed, is_test)
+    else:
+        info = OpRegistry.get(op.type)
+        ctx = LowerContext(op, block, device, rng_seed=rng_seed,
+                           op_index=_rng_id(op, op_index), is_test=is_test,
+                           executor=executor)
+        outs = info.lower(ctx, ins, clean_attrs(op.attrs))
     _bind_outputs(op, outs, env)
 
 
@@ -161,3 +173,55 @@ def _bind_outputs(op, outs, env):
         for i, name in enumerate(names):
             if i < len(vals) and vals[i] is not None:
                 env[name] = vals[i]
+
+
+def _lower_grad_op(op, block, ins, device, rng_seed, is_test):
+    """Generic gradient lowering: ``torch.func.vjp`` of the forward
+    lowering, with the forward op's RNG stream (``__rng_id__``), so a
+    dropout grad re-draws the forward's mask. Only floating-point inputs
+    are primals (vjp refuses integer ones); integer and absent inputs are
+    closed over and get a None grad, as float0 does in the reference. An
+    absent output cotangent (``@EMPTY@``, or no grad slot) is zeros."""
+    info = OpRegistry.get(op.type[: -len("_grad")])
+    fwd_input_slots = op.attrs.get("__fwd_inputs__")
+    fwd_output_slots = op.attrs.get("__fwd_outputs__")
+    if fwd_input_slots is None or fwd_output_slots is None:
+        raise RuntimeError(
+            "grad op %s missing forward slot metadata" % op.type)
+    attrs = clean_attrs(op.attrs)
+    fwd_ins = {s: list(ins.get(s, [])) for s in fwd_input_slots}
+    diff = [(s, i) for s in fwd_input_slots
+            for i, v in enumerate(fwd_ins[s])
+            if isinstance(v, torch.Tensor) and v.is_floating_point()]
+    outs = {s + "@GRAD": [None] * len(fwd_ins[s]) for s in fwd_input_slots}
+    if not diff:
+        return outs
+    out_keys = []  # (slot, index) of each floating-point output, in order
+
+    def forward(*primals):
+        fin = {s: list(vs) for s, vs in fwd_ins.items()}
+        for (s, i), p in zip(diff, primals):
+            fin[s][i] = p
+        ctx = LowerContext(op, block, device, rng_seed=rng_seed,
+                           op_index=_rng_id(op, 0), is_test=is_test)
+        out = info.lower(ctx, fin, attrs)
+        vals = []
+        for s in fwd_output_slots:
+            for i, v in enumerate(out.get(s, [])):
+                if isinstance(v, torch.Tensor) and v.is_floating_point():
+                    out_keys.append((s, i))
+                    vals.append(v)
+        return tuple(vals)
+
+    primals, vjp_fn = torch.func.vjp(
+        forward, *[fwd_ins[s][i] for s, i in diff])
+    cotangents = []
+    for (s, i), p in zip(out_keys, primals):
+        grads = ins.get(s + "@GRAD", [])
+        g = grads[i] if i < len(grads) else None
+        cotangents.append(torch.zeros_like(p) if g is None
+                          else g.to(p.dtype).reshape(p.shape))
+    in_grads = vjp_fn(tuple(cotangents))
+    for (s, i), g in zip(diff, in_grads):
+        outs[s + "@GRAD"][i] = g
+    return outs

@@ -1,9 +1,9 @@
 """``paddle_tpu_torch.fluid`` — the Fluid-compatible namespace of the port.
 
-Port of ``paddle_tpu/fluid/__init__.py`` for the subset this slice
+Port of ``paddle_tpu/fluid/__init__.py`` for the subset the port
 carries, under the same names: ``import paddle_tpu_torch.fluid as fluid``
-builds, initialises, saves and serves the same programs as the JAX
-package's ``fluid``.
+builds, initialises, trains, saves and serves the same programs as the
+JAX package's ``fluid``.
 """
 
 from paddle_tpu_torch import ops as _ops  # noqa: F401  (registers lowerings)
@@ -11,6 +11,11 @@ from paddle_tpu_torch import layers  # noqa: F401
 from paddle_tpu_torch import initializer  # noqa: F401
 from paddle_tpu_torch import unique_name  # noqa: F401
 from paddle_tpu_torch import io  # noqa: F401
+from paddle_tpu_torch import optimizer  # noqa: F401
+from paddle_tpu_torch import regularizer  # noqa: F401
+from paddle_tpu_torch import clip  # noqa: F401
+from paddle_tpu_torch import backward  # noqa: F401
+from paddle_tpu_torch.backward import append_backward, calc_gradient  # noqa: F401
 from paddle_tpu_torch.framework import (  # noqa: F401
     Program,
     Variable,
@@ -43,8 +48,8 @@ from paddle_tpu_torch.io import (  # noqa: F401
 )
 
 __all__ = [
-    "layers", "initializer", "unique_name", "io",
-    "Program", "Variable", "Operator", "program_guard",
+    "layers", "initializer", "optimizer", "regularizer", "clip",
+    "unique_name", "io", "append_backward", "Program", "Variable", "Operator", "program_guard",
     "default_main_program", "default_startup_program",
     "Executor", "global_scope", "scope_guard", "Scope",
     "CPUPlace", "CUDAPlace", "ParamAttr",

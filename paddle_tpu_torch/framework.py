@@ -139,7 +139,9 @@ class Operator:
         }
         self.desc = block.desc.append_op(type, in_names, out_names, attrs or {})
         block.program._bump_version()
-        if OpRegistry.has(type):
+        if type.endswith("_grad") and OpRegistry.has(type[: -len("_grad")]):
+            infer_grad_shapes(self.desc, block.desc)
+        elif OpRegistry.has(type):
             infer_shapes_for_op(self.desc, block.desc)
 
     @property
@@ -213,6 +215,22 @@ def infer_shapes_for_op(op_desc, block_desc):
                 vals[i].dtype, convert_np_dtype_to_dtype_(vals[i].dtype))
 
 
+def infer_grad_shapes(op_desc, block_desc):
+    """A ``*_grad`` op's ``X@GRAD`` outputs take the shape and dtype of
+    the forward input ``X`` they pair with; its lowering is not run (as
+    ``paddle_tpu/framework.py:305-318``)."""
+    for slot, names in op_desc.outputs.items():
+        if not slot.endswith("@GRAD"):
+            continue
+        fwd_names = op_desc.input(slot[: -len("@GRAD")])
+        for gname, fname in zip(names, fwd_names):
+            fv = block_desc.find_var_recursive(fname)
+            gv = block_desc.find_var_recursive(gname)
+            if fv is not None and gv is not None:
+                gv.shape = list(fv.shape) if fv.shape is not None else None
+                gv.dtype = fv.dtype
+
+
 class Block:
     def __init__(self, program, idx):
         self.program = program
@@ -262,6 +280,8 @@ class Block:
         attrs = dict(attrs or {})
         if OP_ROLE_KEY not in attrs:
             attrs[OP_ROLE_KEY] = self.program._current_role
+        if self.program._op_role_var and OP_ROLE_VAR_KEY not in attrs:
+            attrs[OP_ROLE_VAR_KEY] = list(self.program._op_role_var)
         op = Operator(self, type, inputs, outputs, attrs)
         self.ops.append(op)
         return op
@@ -284,6 +304,7 @@ class OpRole:
 
 
 OP_ROLE_KEY = "op_role"
+OP_ROLE_VAR_KEY = "op_role_var"
 
 
 class Program:
@@ -298,7 +319,37 @@ class Program:
         self._version = 0
         self._is_test = False
         self._current_role = OpRole.Forward
+        self._op_role_var = []
         self.desc._version_token = 0
+
+    @contextlib.contextmanager
+    def _op_role_guard(self, role):
+        """Ops appended inside carry ``op_role`` = role (Backward ops from
+        ``append_backward``, Optimize ops from the optimizers), which
+        ``clone(for_test=True)`` prunes by."""
+        prev = self._current_role
+        self._current_role = role
+        try:
+            yield
+        finally:
+            self._current_role = prev
+
+    @contextlib.contextmanager
+    def _optimized_guard(self, param_and_grad):
+        """Optimize-role ops naming the (param, grad) they update in
+        ``op_role_var`` (reference: framework.py Program._optimized_guard)."""
+        prev_role = self._current_role
+        prev_var = self._op_role_var
+        self._current_role = OpRole.Optimize
+        self._op_role_var = [
+            v.name if hasattr(v, "name") else v
+            for v in param_and_grad if v is not None
+        ]
+        try:
+            yield
+        finally:
+            self._current_role = prev_role
+            self._op_role_var = prev_var
 
     def _bump_version(self):
         self._version += 1

@@ -22,7 +22,11 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 # library name -> its sources, relative to this directory
 SOURCES = {
     "flash_fwd": ("csrc/flash_fwd.cu",),
+    "flash_bwd_dq": ("csrc/flash_bwd_dq.cu",),
+    "flash_bwd_dkv": ("csrc/flash_bwd_dkv.cu",),
 }
+# headers the sources include; each is part of every library's key
+HEADERS = ("csrc/flash_common.cuh",)
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,7 +47,7 @@ def _nvcc():
 
 def library_path(name):
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for rel in SOURCES[name]:
+    for rel in SOURCES[name] + HEADERS:
         with open(os.path.join(_HERE, rel), "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, "%s-%s.so" % (name, h.hexdigest()[:16]))

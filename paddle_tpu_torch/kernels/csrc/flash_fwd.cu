@@ -32,35 +32,24 @@
 // needs no composition branch for shapes that do not tile. wgmma/TMA and
 // a tensor-core path come later.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
+
+using flash::dropout_keep;
+using flash::dropout_seed_term;
+using flash::key_length;
+using flash::kNeg;
+using flash::store;
+using flash::to_float;
 
 constexpr int kThreadsPerRow = 4;
 constexpr int kBlockQ = 64;                          // q rows per block
 constexpr int kThreads = kBlockQ * kThreadsPerRow;   // 256
 constexpr int kBlockK = 32;                          // keys per K/V tile
-constexpr float kNeg = -1e30f;                       // the reference's _NEG
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// ops/common.py hash_mix_bits: 2-round xorshift-multiply finalizer.
-__device__ __forceinline__ uint32_t hash_mix_bits(uint32_t h) {
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
 
 template <typename T, int kDMax>
 __global__ void __launch_bounds__(kThreads)
@@ -89,11 +78,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // number of tiles and the warp shuffles below stay converged).
   // lengths are clamped to >= 1, so an empty sequence attends to key 0
   // (the reference's rule, flash_attention.py:231)
-  int length = Tk;
-  if (lens != nullptr) {
-    const long long n = lens[bh / H];
-    length = n < 1 ? 1 : (n < Tk ? (int)n : Tk);
-  }
+  const int length = key_length(lens, bh / H, Tk);
   int kv_end = min(Tk, length);
   if (causal) {
     const int q_last = min(q0 + kBlockQ, Tq) - 1;
@@ -110,7 +95,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   float m = kNeg;
   float l = 0.f;
-  const uint32_t seed_term = seed + 0x9E3779B9u * (uint32_t)(bh + 1);
+  const uint32_t seed_term = dropout_seed_term(seed, bh);
 
   for (int k0 = 0; k0 < kv_end; k0 += kBlockK) {
     __syncthreads();  // the previous tile is consumed
@@ -161,11 +146,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < kBlockK; ++j) {
       float p = s[j];
       if (dropout) {
-        // _keep_mask: counter (q_pos * t_k + k_pos), positions local to
-        // the call, seed term seed + 0x9E3779B9 * (bh + 1)
-        const uint32_t idx = (uint32_t)q_pos * (uint32_t)Tk + (uint32_t)(k0 + j);
-        const uint32_t h = hash_mix_bits(idx ^ seed_term);
-        p = ((h >> 8) >= keep_thr) ? p * inv_keep : 0.f;
+        p = dropout_keep(seed_term, q_pos, k0 + j, Tk, keep_thr)
+                ? p * inv_keep : 0.f;
       }
 #pragma unroll
       for (int i = 0; i < kDPerThread; ++i) {

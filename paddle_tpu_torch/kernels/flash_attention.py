@@ -1,22 +1,35 @@
-"""Flash-attention forward: a hand-written CUDA kernel and its plain torch
-version — port of ``paddle_tpu/kernels/flash_attention.py``.
+"""Flash attention: hand-written CUDA kernels and their plain torch
+versions — port of ``paddle_tpu/kernels/flash_attention.py``, forward and
+backward.
 
-``flash_forward_cuda`` launches ``csrc/flash_fwd.cu``, which replaces the
-Pallas TPU kernel ``_attn_kernel`` (flash_attention.py:110-181, launched
-by ``_flash_forward`` :218-266). ``attention_lse_plain`` is the same
-function in plain torch: it mirrors ``_xla_scores``/``_xla_attention_lse``
-(:528-563) but takes the kernel's offsets and fully-masked-row rule and
-draws its dropout mask with the kernel's hash, so the two agree exactly
-up to float rounding. ``flash_attention_lse`` dispatches on ``q.is_cuda``:
-a CUDA tensor goes to the kernel (which launches or raises), a CPU or
-``meta`` tensor to the plain version — so build-time shape inference on
-``meta`` tensors never launches anything, and nothing falls back.
+Three kernels, each replacing one Pallas TPU kernel:
 
-``launches`` counts kernel launches (one per ``flash_forward_cuda`` call
-that launched), so a run can show the main path went through the kernel.
+- ``flash_forward_cuda`` launches ``csrc/flash_fwd.cu`` (``_attn_kernel``,
+  flash_attention.py:110-181, launched by ``_flash_forward`` :218-266);
+- ``flash_backward_cuda`` launches ``csrc/flash_bwd_dq.cu``
+  (``_bwd_dq_kernel`` :269-325) and ``csrc/flash_bwd_dkv.cu``
+  (``_bwd_dkv_kernel`` :328-407), both launched by ``_flash_backward``
+  :410-525, after computing delta = rowsum(dO * O) - g_lse in torch
+  (:441-446).
 
-The backward kernels (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``) are a later
-slice (ROADMAP Queue 2); nothing here needs a gradient yet.
+``attention_lse_plain`` and ``attention_bwd_plain`` are the same functions
+in plain torch: the forward mirrors ``_xla_scores``/``_xla_attention_lse``
+(:528-563) but takes the kernels' offsets and fully-masked-row rule, and
+the backward computes the two backward kernels' formulas explicitly, with
+their casts to the input dtype. Both draw the dropout mask with the
+kernels' hash, so kernel and plain version agree up to float rounding.
+
+``flash_attention_lse`` is a ``torch.autograd.Function`` (the reference's
+custom_vjp, :662-777): its backward folds the lse cotangent into delta and
+runs the backward kernels from the saved (out, lse), never the forward
+again. Each entry point dispatches on ``q.is_cuda``: a CUDA tensor goes to
+the kernels (which launch or raise), a CPU or ``meta`` tensor to the plain
+version — so build-time shape inference on ``meta`` tensors never
+launches anything, and nothing falls back.
+
+``launches``, ``launches_dq`` and ``launches_dkv`` count kernel launches
+(one per launch of each kernel), so a run can show the main path went
+through the kernels.
 """
 
 import ctypes
@@ -30,6 +43,8 @@ _NEG = -1e30
 D_MAX = 128
 
 launches = 0
+launches_dq = 0
+launches_dkv = 0
 
 
 def _offsets_pair(offsets):
@@ -54,14 +69,12 @@ def keep_mask(seed, bh, q_pos, k_pos, t_k, rate):
     return (h >> 8) >= keep_threshold(rate)
 
 
-def attention_lse_plain(q, k, v, seq_lens=None, offsets=None, seed=0,
-                        causal=False, scale=None, rate=0.0):
-    """Plain torch attention over q [B, H, Tq, D], k/v [B, H, Tk, D]:
-    ``(out, lse)``, out in q's dtype, lse float32 [B, H, Tq] of the
-    pre-dropout softmax. Same semantics as ``flash_forward_cuda``."""
-    B, H, Tq, D = q.shape
-    Tk = k.shape[2]
-    scale = D ** -0.5 if scale is None else scale
+def _scores(q, k, seq_lens, offsets, causal, scale):
+    """The masked, scaled float32 scores [B, H, Tq, Tk] (masked entries
+    hold _NEG) and the q/k position columns, as the kernels mask them:
+    causal at the global offsets, keys at or past each sequence's length
+    (clamped to >= 1) masked."""
+    B, Tq, Tk = q.shape[0], q.shape[2], k.shape[2]
     dev = q.device
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     q_pos = torch.arange(Tq, device=dev).reshape(Tq, 1)
@@ -73,7 +86,24 @@ def attention_lse_plain(q, k, v, seq_lens=None, offsets=None, seed=0,
     if seq_lens is not None:
         lens = seq_lens.reshape(B, 1, 1, 1).to(dev).clamp(min=1)
         valid = valid & (k_pos < lens)
-    s = torch.where(valid, s, torch.full_like(s, _NEG))
+    return torch.where(valid, s, torch.full_like(s, _NEG)), q_pos, k_pos
+
+
+def _dropout_keep(seed, q, q_pos, k_pos, rate):
+    """The kernels' keep mask [B, H, Tq, Tk] for q [B, H, Tq, D]."""
+    B, H = q.shape[0], q.shape[1]
+    bh = torch.arange(B * H, device=q.device).reshape(B, H, 1, 1)
+    return keep_mask(seed, bh, q_pos, k_pos, k_pos.shape[1], rate)
+
+
+def attention_lse_plain(q, k, v, seq_lens=None, offsets=None, seed=0,
+                        causal=False, scale=None, rate=0.0):
+    """Plain torch attention over q [B, H, Tq, D], k/v [B, H, Tk, D]:
+    ``(out, lse)``, out in q's dtype, lse float32 [B, H, Tq] of the
+    pre-dropout softmax. Same semantics as ``flash_forward_cuda``."""
+    D = q.shape[3]
+    scale = D ** -0.5 if scale is None else scale
+    s, q_pos, k_pos = _scores(q, k, seq_lens, offsets, causal, scale)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     live = m > 0.5 * _NEG
@@ -81,36 +111,144 @@ def attention_lse_plain(q, k, v, seq_lens=None, offsets=None, seed=0,
     l_safe = l.clamp(min=1e-30)
     lse = m + torch.log(l_safe)
     if rate > 0.0:
-        bh = torch.arange(B * H, device=dev).reshape(B, H, 1, 1)
-        keep = keep_mask(seed, bh, q_pos, k_pos, Tk, rate)
+        keep = _dropout_keep(seed, q, q_pos, k_pos, rate)
         p = torch.where(keep, p * (1.0 / (1.0 - rate)), torch.zeros_like(p))
     acc = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
     out = torch.where(live, acc / l_safe, torch.zeros_like(acc))
     return out.to(q.dtype), lse.squeeze(-1)
 
 
+def attention_bwd_plain(q, k, v, out, lse, g, g_lse=None, seq_lens=None,
+                        offsets=None, seed=0, causal=False, scale=None,
+                        rate=0.0):
+    """Plain torch backward of ``attention_lse_plain`` from its saved
+    ``(out, lse)``: ``(dq, dk, dv)`` in q's, k's and v's dtypes, for the
+    cotangent ``g`` of out and ``g_lse`` [B, H, Tq] of lse (None for
+    none). The two backward kernels' formulas written out, not autograd:
+    delta = rowsum(g * out) - g_lse; p = exp(s - lse), 0 on masked keys
+    and on fully masked rows (lse ~= -1e30); dp = g . v^T kept and scaled
+    by the forward's dropout mask; ds = p * (dp - delta) * scale;
+    dq = ds . k, dk = ds^T . q, dv = p_drop^T . g, with p_drop cast to
+    g's dtype and ds to k's before the products, as the kernels cast
+    them (flash_attention.py:320, :383, :392)."""
+    D = q.shape[3]
+    scale = D ** -0.5 if scale is None else scale
+    s, q_pos, k_pos = _scores(q, k, seq_lens, offsets, causal, scale)
+    delta = _delta(out, g, g_lse).unsqueeze(-1)
+    lse = lse.float().unsqueeze(-1)
+    p = torch.where(lse > 0.5 * _NEG, torch.exp(s - lse),
+                    torch.zeros_like(s))
+    dp = torch.einsum("bhqd,bhkd->bhqk", g.float(), v.float())
+    p_drop = p
+    if rate > 0.0:
+        keep = _dropout_keep(seed, q, q_pos, k_pos, rate)
+        inv = 1.0 / (1.0 - rate)
+        p_drop = torch.where(keep, p, torch.zeros_like(p)) * inv
+        dp = torch.where(keep, dp, torch.zeros_like(dp)) * inv
+    ds = p * (dp - delta) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p_drop.to(g.dtype).float(),
+                      g.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(), q.float())
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).float(), k.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _delta(out, g, g_lse):
+    """delta = rowsum(g * out) - g_lse, float32 [B, H, Tq]: the lse
+    cotangent folds in exactly, since ds from g_lse is p * g_lse
+    (flash_attention.py:438-446)."""
+    delta = (g.float() * out.float()).sum(-1)
+    if g_lse is not None:
+        delta = delta - g_lse.float()
+    return delta
+
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+# library -> the argument types of its entry point after the tensors'
+# pointers: (BH, H, Tq, Tk, D, causal, scale, dropout, keep_thr, inv_keep,
+# seed, q_off, k_off, dtype, stream)
+_TAIL_ARGS = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
+                                   ctypes.c_uint, ctypes.c_float,
+                                   ctypes.c_uint, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_int, ctypes.c_void_p]
+# library -> the number of tensor pointers its entry point takes first
+_N_POINTERS = {"flash_fwd": 6, "flash_bwd_dq": 8, "flash_bwd_dkv": 9}
 
-_lib_handle = None
+_libs = {}
 
 
-def _lib():
-    """The built kernel library, its C signatures declared once."""
-    global _lib_handle
-    if _lib_handle is None:
+def _lib(name):
+    """The built kernel library ``name``, its C signatures declared once."""
+    lib = _libs.get(name)
+    if lib is None:
         from paddle_tpu_torch.kernels import build
 
-        lib = build.load("flash_fwd")
-        p, i, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_uint)
-        lib.flash_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, f, i,
-                                  u, f, u, i, i, i, p]
-        lib.flash_fwd.restype = ctypes.c_int
-        lib.flash_fwd_error_string.argtypes = [ctypes.c_int]
-        lib.flash_fwd_error_string.restype = ctypes.c_char_p
-        _lib_handle = lib
-    return _lib_handle
+        lib = build.load(name)
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * _N_POINTERS[name] + _TAIL_ARGS
+        fn.restype = ctypes.c_int
+        err = getattr(lib, name + "_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _libs[name] = lib
+    return lib
+
+
+def _launch(name, pointers, q, k, lens, causal, scale, rate, seed,
+            offsets):
+    """Call kernel library ``name`` on the current stream of q's device
+    and raise on a refused launch."""
+    lib = _lib(name)
+    B, H, Tq, D = q.shape
+    q_off, k_off = _offsets_pair(offsets)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = getattr(lib, name)(
+            *pointers, None if lens is None else lens.data_ptr(),
+            B * H, H, Tq, k.shape[2], D, int(bool(causal)), scale,
+            int(rate > 0.0), keep_threshold(rate),
+            (1.0 / (1.0 - rate)) if rate > 0.0 else 1.0,
+            int(seed) & M32, q_off, k_off, _DTYPE_CODE[q.dtype], stream)
+    if rc != 0:
+        err = getattr(lib, name + "_error_string")(rc).decode()
+        raise RuntimeError("%s launch failed: CUDA error %d (%s)"
+                           % (name, rc, err))
+
+
+def _check_cuda_inputs(who, q, k, v, seq_lens, *more_q_shaped):
+    """Validate what the kernels take: CUDA tensors on one device, one
+    dtype in float32/bfloat16, q [B, H, Tq, D] and k/v [B, H, Tk, D] with
+    D <= 128, contiguous. ``more_q_shaped`` (out, dO) must match q.
+    Returns ``(scale default, lens)``: the int64 lengths on q's device, as
+    fed (the kernels clamp them to >= 1 themselves), or None."""
+    tensors = (q, k, v) + more_q_shaped
+    if not all(t.is_cuda and t.device == q.device for t in tensors):
+        raise ValueError("%s: inputs must be CUDA tensors on one device"
+                         % who)
+    if q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype
+                                         for t in tensors):
+        raise ValueError("%s: inputs must share a dtype in float32/bfloat16, "
+                         "got %s" % (who, [t.dtype for t in tensors]))
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError("%s: q [B,H,Tq,D], k/v [B,H,Tk,D]" % who)
+    B, H, Tq, D = q.shape
+    if k.shape[0] != B or k.shape[1] != H or k.shape[3] != D:
+        raise ValueError("%s: q %s and k %s disagree"
+                         % (who, tuple(q.shape), tuple(k.shape)))
+    if any(t.shape != q.shape for t in more_q_shaped):
+        raise ValueError("%s: out and its cotangent must have q's shape %s"
+                         % (who, tuple(q.shape)))
+    if D > D_MAX:
+        raise ValueError("%s: head dim %d > %d" % (who, D, D_MAX))
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("%s: inputs must be contiguous" % who)
+    if seq_lens is None:
+        return None
+    if seq_lens.numel() != B:
+        raise ValueError("%s: seq_lens needs %d entries" % (who, B))
+    return seq_lens.reshape(B).to(device=q.device,
+                                  dtype=torch.int64).contiguous()
 
 
 def flash_forward_cuda(q, k, v, seq_lens=None, offsets=None, seed=0,
@@ -120,64 +258,100 @@ def flash_forward_cuda(q, k, v, seq_lens=None, offsets=None, seed=0,
     Returns ``(out, lse)`` as ``attention_lse_plain`` does; raises on any
     input the kernel does not take and on a refused launch."""
     global launches
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("flash_forward_cuda: q, k, v must be CUDA tensors "
-                         "on one device")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError("flash_forward_cuda: q, k, v must share a dtype in "
-                         "float32/bfloat16, got %s %s %s"
-                         % (q.dtype, k.dtype, v.dtype))
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError("flash_forward_cuda: q [B,H,Tq,D], k/v [B,H,Tk,D]")
+    lens = _check_cuda_inputs("flash_forward_cuda", q, k, v, seq_lens)
     B, H, Tq, D = q.shape
-    Tk = k.shape[2]
-    if k.shape[0] != B or k.shape[1] != H or k.shape[3] != D:
-        raise ValueError("flash_forward_cuda: q %s and k %s disagree"
-                         % (tuple(q.shape), tuple(k.shape)))
-    if D > D_MAX:
-        raise ValueError("flash_forward_cuda: head dim %d > %d" % (D, D_MAX))
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_forward_cuda: q, k, v must be contiguous")
     scale = D ** -0.5 if scale is None else float(scale)
-    q_off, k_off = _offsets_pair(offsets)
-    lens = None
-    if seq_lens is not None:
-        if seq_lens.numel() != B:
-            raise ValueError("flash_forward_cuda: seq_lens needs %d entries"
-                             % B)
-        # int64 as fed; the kernel clamps lengths to >= 1 itself
-        lens = seq_lens.reshape(B).to(device=q.device,
-                                      dtype=torch.int64).contiguous()
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    lib = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), None if lens is None else lens.data_ptr(),
-            B * H, H, Tq, Tk, D, int(bool(causal)), scale,
-            int(rate > 0.0), keep_threshold(rate),
-            (1.0 / (1.0 - rate)) if rate > 0.0 else 1.0,
-            int(seed) & M32, q_off, k_off, _DTYPE_CODE[q.dtype], stream)
-    if rc != 0:
-        raise RuntimeError("flash_fwd launch failed: CUDA error %d (%s)"
-                           % (rc, lib.flash_fwd_error_string(rc).decode()))
+    _launch("flash_fwd", (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          out.data_ptr(), lse.data_ptr()),
+            q, k, lens, causal, scale, rate, seed, offsets)
     launches += 1
     return out, lse
 
 
+def flash_backward_cuda(q, k, v, out, lse, g, g_lse=None, seq_lens=None,
+                        offsets=None, seed=0, causal=False, scale=None,
+                        rate=0.0):
+    """Launch the CUDA dQ and dK/dV kernels: ``(dq, dk, dv)`` as
+    ``attention_bwd_plain`` returns them, from the forward's saved ``out``
+    and ``lse`` [B, H, Tq] (float32) and the cotangents ``g`` (q's shape)
+    and ``g_lse`` ([B, H, Tq], or None). Delta is computed first, in
+    torch. Raises on any input the kernels do not take and on a refused
+    launch."""
+    global launches_dq, launches_dkv
+    lens = _check_cuda_inputs("flash_backward_cuda", q, k, v, seq_lens, out,
+                              g)
+    B, H, Tq, D = q.shape
+    if lse.shape != (B, H, Tq) or lse.dtype != torch.float32 \
+            or lse.device != q.device:
+        raise ValueError("flash_backward_cuda: lse must be float32 %s on "
+                         "q's device" % ((B, H, Tq),))
+    scale = D ** -0.5 if scale is None else float(scale)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    lse = lse.contiguous()
+    delta = _delta(out, g, g_lse).contiguous()
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+              lse.data_ptr(), delta.data_ptr())
+    args = (q, k, lens, causal, scale, rate, seed, offsets)
+    _launch("flash_bwd_dq", common + (dq.data_ptr(),), *args)
+    launches_dq += 1
+    _launch("flash_bwd_dkv", common + (dk.data_ptr(), dv.data_ptr()), *args)
+    launches_dkv += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, out, lse, g, g_lse=None, seq_lens=None,
+                        offsets=None, seed=0, causal=False, scale=None,
+                        rate=0.0):
+    """``(dq, dk, dv)``: the CUDA kernels for CUDA tensors, the plain
+    version for CPU and ``meta`` tensors."""
+    fn = flash_backward_cuda if q.is_cuda else attention_bwd_plain
+    return fn(q, k, v, out, lse, g, g_lse, seq_lens, offsets, seed, causal,
+              scale, rate)
+
+
+class _FlashAttentionLse(torch.autograd.Function):
+    """``(out, lse)`` with a backward that runs the backward kernels from
+    the saved (out, lse); seq_lens, offsets, seed, causal, scale and rate
+    get no gradient. Written in the ``setup_context`` form so it also
+    composes with ``torch.func``."""
+
+    @staticmethod
+    def forward(q, k, v, seq_lens, offsets, seed, causal, scale, rate):
+        fn = flash_forward_cuda if q.is_cuda else attention_lse_plain
+        return fn(q, k, v, seq_lens, offsets, seed, causal, scale, rate)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, seq_lens, offsets, seed, causal, scale, rate = inputs
+        out, lse = output
+        ctx.save_for_backward(q, k, v, out, lse, seq_lens)
+        ctx.args = (offsets, seed, causal, scale, rate)
+        ctx.set_materialize_grads(False)
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse):
+        q, k, v, out, lse, seq_lens = ctx.saved_tensors
+        if g_out is None:
+            g_out = torch.zeros_like(out)
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, lse, g_out.contiguous(), g_lse, seq_lens,
+            *ctx.args)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
 def flash_attention_lse(q, k, v, seq_lens=None, offsets=None, seed=0,
                         causal=False, scale=None, rate=0.0):
-    """``(out, lse [B, H, Tq])``: the CUDA kernel for CUDA tensors, the
-    plain version for CPU and ``meta`` tensors."""
-    if q.is_cuda:
-        return flash_forward_cuda(q, k, v, seq_lens, offsets, seed, causal,
-                                  scale, rate)
-    return attention_lse_plain(q, k, v, seq_lens, offsets, seed, causal,
-                               scale, rate)
+    """``(out, lse [B, H, Tq])``, differentiable in q, k and v (and
+    through lse): the CUDA kernels for CUDA tensors, the plain versions
+    for CPU and ``meta`` tensors."""
+    return _FlashAttentionLse.apply(q, k, v, seq_lens, offsets, seed,
+                                    causal, scale, rate)
 
 
 def dispatch_attention_lse(q, k, v, causal=False, scale=None, seq_lens=None,
@@ -190,3 +364,16 @@ def dispatch_attention_lse(q, k, v, causal=False, scale=None, seq_lens=None,
         q.contiguous(), k.contiguous(), v.contiguous(), seq_lens, None,
         seed, causal, scale, dropout_rate)
     return out, lse.unsqueeze(-1)
+
+
+def dispatch_attention_bwd(q, k, v, out, lse, g, causal=False, scale=None,
+                           seq_lens=None, dropout_rate=0.0, seed=0):
+    """The ``fused_attention_grad`` op's entry: ``(dq, dk, dv)`` from the
+    forward op's saved ``Out`` and ``Lse`` (``[B, H, Tq, 1]``), as
+    ``fused_attention_grad`` calls ``flash_backward_spmd`` (:1013)."""
+    B, H, Tq = q.shape[0], q.shape[1], q.shape[2]
+    return flash_attention_bwd(
+        q.contiguous(), k.contiguous(), v.contiguous(),
+        out.to(q.dtype).contiguous(), lse.reshape(B, H, Tq),
+        g.to(q.dtype).reshape(q.shape).contiguous(), None, seq_lens, None,
+        seed, causal, scale, dropout_rate)

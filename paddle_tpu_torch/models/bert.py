@@ -1,8 +1,9 @@
 """BERT encoder with masked-LM + next-sentence heads — port of
 ``paddle_tpu/models/bert.py``, copied with the imports switched to the
 port. ``get_model(is_train=False)`` builds the inference program the
-predictor serves; the training program (``is_train=True``, with Adam) needs
-the optimizer and backward of a later slice (ROADMAP Queue 1 item 2)."""
+predictor serves; ``get_model(is_train=True)`` the pre-training program,
+with ``append_backward`` and ``Adam.minimize``, which ``Executor.run``
+trains step by step."""
 
 import numpy as np
 
@@ -111,9 +112,7 @@ def get_model(batch_size=8, seq_len=128, vocab_size=30522, d_model=768,
             enc, mask_label, mask_weight, ns_label, vocab_size, d_model,
             is_train=is_train)
         if is_train:
-            raise NotImplementedError(
-                "bert.get_model(is_train=True) appends Adam; the training "
-                "path is ROADMAP Queue 1 item 2. Build with is_train=False.")
+            fluid.optimizer.Adam(learning_rate=lr).minimize(loss)
     feeds = {"src_ids": src, "pos_ids": pos, "sent_ids": sent,
              "seq_lens": seq_lens, "mask_label": mask_label,
              "mask_weight": mask_weight, "ns_label": ns_label}

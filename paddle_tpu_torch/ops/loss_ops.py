@@ -1,10 +1,12 @@
 """Loss ops — port of ``paddle_tpu/ops/loss_ops.py`` for
-``softmax_with_cross_entropy`` (:33) and ``mean`` (:81). Losses compute
-in float32 whatever the logits' dtype, as in the reference."""
+``softmax_with_cross_entropy`` (:33), its direct grad
+``softmax_with_cross_entropy_grad`` (:341) and ``mean`` (:81). Losses
+compute in float32 whatever the logits' dtype, as in the reference."""
 
 import torch
+import torch.nn.functional as F
 
-from paddle_tpu_torch.core.registry import register_op
+from paddle_tpu_torch.core.registry import register_no_grad_op, register_op
 from paddle_tpu_torch.ops.common import single
 
 
@@ -37,6 +39,39 @@ def softmax_with_cross_entropy(ctx, ins, attrs):
         loss = torch.where(ignored, torch.zeros_like(loss), loss)
         softmax_out = torch.exp(logits32 - lse)
     return {"Softmax": [softmax_out], "Loss": [loss]}
+
+
+@register_no_grad_op("softmax_with_cross_entropy_grad")
+def softmax_with_cross_entropy_grad(ctx, ins, attrs):
+    """Direct CE backward (loss_ops.py:341; reference:
+    softmax_with_cross_entropy_op.h's grad kernel): dLogits = (softmax -
+    onehot) * dLoss, the softmax recomputed from the logits in float32,
+    ignored labels getting no gradient, plus the softmax vjp of a cotangent
+    on the Softmax output."""
+    logits = single(ins, "Logits")
+    label = single(ins, "Label")
+    g_loss = single(ins, "Loss@GRAD")
+    g_sm = single(ins, "Softmax@GRAD")
+    sm = torch.softmax(logits.float(), dim=-1)
+    grad = torch.zeros_like(sm)
+    if g_loss is not None:
+        if attrs.get("soft_label", False):
+            grad = (sm - label.float()) * g_loss
+        else:
+            idx = _squeeze_label(label).long()
+            onehot = F.one_hot(idx.clamp(0, logits.shape[-1] - 1),
+                               logits.shape[-1]).to(sm.dtype)
+            # a label outside [0, C) has an all-zero one-hot row, as in
+            # the reference (loss_ops.py:369)
+            onehot = onehot * ((idx >= 0) & (idx < logits.shape[-1])
+                               ).unsqueeze(-1).to(sm.dtype)
+            grad = (sm - onehot) * g_loss
+            ignored = (idx == attrs.get("ignore_index", -100)).unsqueeze(-1)
+            grad = torch.where(ignored, torch.zeros_like(grad), grad)
+    if g_sm is not None:
+        gs = g_sm.float()
+        grad = grad + sm * (gs - (gs * sm).sum(-1, keepdim=True))
+    return {"Logits@GRAD": [grad.to(logits.dtype)]}
 
 
 @register_op("mean")

@@ -1,11 +1,15 @@
 """NN ops — port of ``paddle_tpu/ops/nn_ops.py`` for ``fused_attention``
-(:379), ``layer_norm`` (:480), ``dropout`` (:506) and ``lookup_table``
-(:527), forward only."""
+(:379) and its direct grad ``fused_attention_grad`` (:414),
+``layer_norm`` (:480), ``dropout`` (:506), ``lookup_table`` (:527) and
+its dense grad ``lookup_table_grad`` (:538). ``layer_norm`` and
+``dropout`` have no grad lowering of their own: the engine derives theirs
+as ``torch.func.vjp`` of the forward (``engine/lowering.py``), which
+re-draws the forward's dropout mask from the same RNG stream."""
 
 import torch
 import torch.nn.functional as F
 
-from paddle_tpu_torch.core.registry import register_op
+from paddle_tpu_torch.core.registry import register_no_grad_op, register_op
 from paddle_tpu_torch.ops.common import (
     flatten_lookup_ids, hash_keep_mask, single,
 )
@@ -38,6 +42,42 @@ def fused_attention_op(ctx, ins, attrs):
         dispatch_attention_lse,
     )
 
+    q, k, v, lens, rate, seed = _attention_args(ctx, ins, attrs)
+    out, lse = dispatch_attention_lse(
+        q, k, v, bool(attrs.get("causal", False)), attrs.get("scale", None),
+        lens, rate, seed)
+    return {"Out": [out], "Lse": [lse]}
+
+
+@register_no_grad_op("fused_attention_grad", needs_rng=True)
+def fused_attention_grad_op(ctx, ins, attrs):
+    """Direct attention backward from the forward op's saved ``Out`` and
+    ``Lse`` ([B, H, Tq, 1]): on CUDA tensors the hand-written dQ and dK/dV
+    kernels, on CPU tensors their plain version; the forward is never run
+    again. The dropout seed is drawn from the forward op's RNG stream
+    (the same ``__rng_id__``), so the kernels re-derive its mask."""
+    from paddle_tpu_torch.kernels.flash_attention import (
+        dispatch_attention_bwd,
+    )
+
+    q, k, v, lens, rate, seed = _attention_args(ctx, ins, attrs)
+    out, lse = single(ins, "Out"), single(ins, "Lse")
+    if out is None or lse is None:
+        raise ValueError(
+            "fused_attention_grad needs the forward's saved Out and Lse "
+            "(append_backward wires them)")
+    g = single(ins, "Out@GRAD")
+    g = torch.zeros_like(q) if g is None else g
+    dq, dk, dv = dispatch_attention_bwd(
+        q, k, v, out, lse, g, bool(attrs.get("causal", False)),
+        attrs.get("scale", None), lens, rate, seed)
+    return {"Q@GRAD": [dq], "K@GRAD": [dk], "V@GRAD": [dv]}
+
+
+def _attention_args(ctx, ins, attrs):
+    """Shared forward/backward argument resolution — the grad op must see
+    the same mask, rate and dropout seed (the same per-op RNG stream) as
+    the forward (nn_ops.py:339-354)."""
     if bool(attrs.get("sequence_parallel", False)):
         raise NotImplementedError(
             "fused_attention with sequence_parallel (ring attention) is not "
@@ -51,10 +91,7 @@ def fused_attention_op(ctx, ins, attrs):
         rate = 0.0
     # the reference draws the kernel seed in [0, int32 max)
     seed = _draw_seed(ctx, 2 ** 31 - 1) if rate > 0.0 else 0
-    out, lse = dispatch_attention_lse(
-        q, k, v, bool(attrs.get("causal", False)), attrs.get("scale", None),
-        lens, rate, seed)
-    return {"Out": [out], "Lse": [lse]}
+    return q, k, v, lens, rate, seed
 
 
 @register_op("layer_norm")
@@ -107,3 +144,25 @@ def lookup_table(ctx, ins, attrs):
         out = torch.where((flat_ids == padding_idx).unsqueeze(-1),
                           torch.zeros_like(out), out)
     return {"Out": [out]}
+
+
+@register_no_grad_op("lookup_table_grad")
+def lookup_table_grad(ctx, ins, attrs):
+    """Dense table gradient (reference: lookup_table_op.cc grad kernel):
+    the output grads scatter-added into a zero table at the batch's ids,
+    padding rows contributing nothing."""
+    if attrs.get("is_sparse", False):
+        raise NotImplementedError(
+            "lookup_table_grad with is_sparse=True makes a SelectedRows "
+            "gradient, which is not ported yet (ROADMAP Queue 1, the "
+            "training path); build the embedding with "
+            "is_sparse=False")
+    w = single(ins, "W")
+    rows = flatten_lookup_ids(single(ins, "Ids")).reshape(-1).long()
+    vals = single(ins, "Out@GRAD").reshape(
+        (rows.shape[0],) + tuple(w.shape[1:])).to(w.dtype)
+    padding_idx = attrs.get("padding_idx", -1)
+    if padding_idx is not None and padding_idx >= 0:
+        vals = torch.where((rows == padding_idx).unsqueeze(-1),
+                           torch.zeros_like(vals), vals)
+    return {"W@GRAD": [torch.zeros_like(w).index_add_(0, rows, vals)]}

@@ -35,6 +35,23 @@ exe.run(startup)
                              "lens": np.array([[8], [3], [1]])},
                  fetch_list=[out])
 assert res.shape == (3, 2, 8, 4) and np.isfinite(res).all()
+
+# one training step: append_backward, Adam and the grad lowerings
+# (fused_attention_grad, mul_grad, gelu_grad and the generic vjp)
+train, train_startup = fluid.Program(), fluid.Program()
+with fluid.program_guard(train, train_startup):
+    x = fluid.layers.data(name="x", shape=[2, 8, 4], dtype="float32")
+    lens = fluid.layers.data(name="lens", shape=[1], dtype="int64")
+    h = fluid.layers.fc(input=x, size=4, num_flatten_dims=3, act="gelu")
+    att = fused_attention(h, h, h, causal=True, seq_lens=lens)
+    loss = fluid.layers.mean(att)
+    fluid.optimizer.Adam(learning_rate=1e-2).minimize(loss)
+exe.run(train_startup)
+(l0,) = exe.run(train, feed={"x": np.ones((3, 2, 8, 4), np.float32),
+                             "lens": np.array([[8], [3], [1]])},
+                fetch_list=[loss])
+assert np.isfinite(l0).all()
+assert any(op.type == "fused_attention_grad" for op in train.desc.global_block().ops)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "paddle_tpu" or m.startswith("paddle_tpu."))

@@ -30,6 +30,17 @@ import paddle_tpu_torch.ops  # noqa: F401  (registers the torch lowerings)
 RTOL, ATOL = 1e-5, 1e-5
 
 
+def _attention_residuals(q, k, v, lens=None, causal=False):
+    """(Out, Lse [B, H, T, 1]) of the port's plain forward, the inputs a
+    fused_attention_grad op reads."""
+    from paddle_tpu_torch.kernels.flash_attention import dispatch_attention_lse
+
+    out, lse = dispatch_attention_lse(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal, None, None if lens is None else torch.from_numpy(lens))
+    return out.numpy(), lse.numpy()
+
+
 def _f(shape, seed, scale=1.0):
     return np.asarray(np.random.RandomState(seed).randn(*shape) * scale,
                       np.float32)
@@ -39,6 +50,15 @@ def _i(shape, high, seed, low=0):
     return np.random.RandomState(seed).randint(low, high, shape).astype(
         np.int64)
 
+
+_ATT = [np.random.RandomState(s).randn(2, 2, 16, 8).astype(np.float32)
+        for s in (43, 44, 45, 46)]
+_ATT_LENS = np.array([[16], [5]], np.int64)
+_ATT_RES = _attention_residuals(*_ATT[:3])
+_ATT_RES_CAUSAL = _attention_residuals(*_ATT[:3], _ATT_LENS.reshape(-1),
+                                       causal=True)
+_RELU_X = np.random.RandomState(47).randn(4, 9).astype(np.float32)
+_TANH_X = np.random.RandomState(48).randn(4, 9).astype(np.float32)
 
 # (id, op type, {slot: [numpy arrays]}, attrs, is_test)
 CASES = [
@@ -114,6 +134,78 @@ CASES = [
       "V": [_f((3, 2, 16, 8), 42)],
       "SeqLens": [np.array([[16], [5], [0]], np.int64)]},
      {"causal": True, "dropout_rate": 0.1}, True),
+    # grad lowerings the JAX package registers directly
+    ("mul_grad_2d", "mul_grad",
+     {"X": [_f((4, 6), 50)], "Y": [_f((6, 5), 51)],
+      "Out@GRAD": [_f((4, 5), 52)]},
+     {"x_num_col_dims": 1, "y_num_col_dims": 1}, False),
+    ("mul_grad_flatten", "mul_grad",
+     {"X": [_f((2, 3, 8), 53)], "Y": [_f((8, 7), 54)],
+      "Out@GRAD": [_f((2, 3, 7), 55)]},
+     {"x_num_col_dims": 2, "y_num_col_dims": 1}, False),
+    ("relu", "relu", {"X": [_RELU_X]}, {}, False),
+    ("relu_grad", "relu_grad",
+     {"X": [_RELU_X], "Out": [np.maximum(_RELU_X, 0)],
+      "Out@GRAD": [_f((4, 9), 56)]}, {}, False),
+    ("tanh_grad", "tanh_grad",
+     {"X": [_TANH_X], "Out": [np.tanh(_TANH_X)],
+      "Out@GRAD": [_f((4, 9), 57)]}, {}, False),
+    ("gelu_grad_exact", "gelu_grad",
+     {"X": [_f((4, 9), 58, 3.0)], "Out@GRAD": [_f((4, 9), 59)]}, {}, False),
+    ("gelu_grad_tanh", "gelu_grad",
+     {"X": [_f((4, 9), 60, 3.0)], "Out@GRAD": [_f((4, 9), 61)]},
+     {"approximate": True}, False),
+    ("softmax_xent_grad_hard", "softmax_with_cross_entropy_grad",
+     {"Logits": [_f((6, 10), 62, 3.0)],
+      "Label": [np.array([[0], [9], [3], [-100], [5], [2]], np.int64)],
+      "Loss@GRAD": [_f((6, 1), 63)]},
+     {"soft_label": False, "ignore_index": -100}, False),
+    ("softmax_xent_grad_soft_with_softmax_grad",
+     "softmax_with_cross_entropy_grad",
+     {"Logits": [_f((5, 7), 64)], "Label": [np.abs(_f((5, 7), 65)) / 7.0],
+      "Loss@GRAD": [_f((5, 1), 66)], "Softmax@GRAD": [_f((5, 7), 67)]},
+     {"soft_label": True}, False),
+    ("fused_attention_grad", "fused_attention_grad",
+     {"Q": [_ATT[0]], "K": [_ATT[1]], "V": [_ATT[2]],
+      "Out": [_ATT_RES[0]], "Lse": [_ATT_RES[1]], "Out@GRAD": [_ATT[3]]},
+     {"causal": False, "dropout_rate": 0.0}, False),
+    ("fused_attention_grad_causal_lens", "fused_attention_grad",
+     {"Q": [_ATT[0]], "K": [_ATT[1]], "V": [_ATT[2]],
+      "SeqLens": [_ATT_LENS], "Out": [_ATT_RES_CAUSAL[0]],
+      "Lse": [_ATT_RES_CAUSAL[1]], "Out@GRAD": [_ATT[3]]},
+     {"causal": True, "dropout_rate": 0.1}, True),
+    ("lookup_table_grad_padding", "lookup_table_grad",
+     {"Ids": [np.array([[1], [3], [1], [7], [3]], np.int64)],
+      "W": [_f((11, 6), 68)], "Out@GRAD": [_f((5, 6), 69)]},
+     {"padding_idx": 3, "is_sparse": False}, False),
+    # the ops the backward and the optimizers append
+    ("scale", "scale", {"X": [_f((3, 4), 70)]},
+     {"scale": 0.5, "bias": 0.25}, False),
+    ("scale_bias_first", "scale", {"X": [_f((3, 4), 71)]},
+     {"scale": 0.5, "bias": 0.25, "bias_after_scale": False}, False),
+    ("sum", "sum", {"X": [_f((3, 4), 72), _f((3, 4), 73), _f((3, 4), 74)]},
+     {}, False),
+    ("sgd", "sgd",
+     {"Param": [_f((4, 3), 75)], "Grad": [_f((4, 3), 76)],
+      "LearningRate": [np.array([0.1], np.float32)]}, {}, False),
+    ("momentum", "momentum",
+     {"Param": [_f((4, 3), 77)], "Grad": [_f((4, 3), 78)],
+      "Velocity": [_f((4, 3), 79)],
+      "LearningRate": [np.array([0.1], np.float32)]},
+     {"mu": 0.9, "use_nesterov": False}, False),
+    ("momentum_nesterov", "momentum",
+     {"Param": [_f((4, 3), 80)], "Grad": [_f((4, 3), 81)],
+      "Velocity": [_f((4, 3), 82)],
+      "LearningRate": [np.array([0.1], np.float32)]},
+     {"mu": 0.9, "use_nesterov": True}, False),
+    ("adam", "adam",
+     {"Param": [_f((4, 3), 83)], "Grad": [_f((4, 3), 84)],
+      "Moment1": [_f((4, 3), 85, 0.1)],
+      "Moment2": [np.abs(_f((4, 3), 86, 0.1))],
+      "LearningRate": [np.array([1e-3], np.float32)],
+      "Beta1Pow": [np.array([0.9 ** 3], np.float32)],
+      "Beta2Pow": [np.array([0.999 ** 3], np.float32)]},
+     {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}, False),
 ]
 
 
