@@ -26,7 +26,7 @@ SOURCES = {
     "flash_bwd_dkv": ("csrc/flash_bwd_dkv.cu",),
 }
 # headers the sources include; each is part of every library's key
-HEADERS = ("csrc/flash_common.cuh",)
+HEADERS = ("csrc/flash_common.cuh", "csrc/flash_mma.cuh")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -100,7 +100,14 @@ def attention_lse_plain(q, k, v, seq_lens=None, offsets=None, seed=0,
                         causal=False, scale=None, rate=0.0):
     """Plain torch attention over q [B, H, Tq, D], k/v [B, H, Tk, D]:
     ``(out, lse)``, out in q's dtype, lse float32 [B, H, Tq] of the
-    pre-dropout softmax. Same semantics as ``flash_forward_cuda``."""
+    pre-dropout softmax. Same semantics as ``flash_forward_cuda``.
+
+    p, after the dropout keep and the 1/(1-rate) scale, is rounded to v's
+    dtype before the P.V product, as ``_attn_kernel`` casts it
+    (flash_attention.py:163); the identity for float32. Here p is
+    exp(s - row max); the kernels' is exp(s - running max), so with one key
+    tile both round the same values, and with several they round at other
+    scales wherever a later tile raises the max."""
     D = q.shape[3]
     scale = D ** -0.5 if scale is None else scale
     s, q_pos, k_pos = _scores(q, k, seq_lens, offsets, causal, scale)
@@ -113,7 +120,7 @@ def attention_lse_plain(q, k, v, seq_lens=None, offsets=None, seed=0,
     if rate > 0.0:
         keep = _dropout_keep(seed, q, q_pos, k_pos, rate)
         p = torch.where(keep, p * (1.0 / (1.0 - rate)), torch.zeros_like(p))
-    acc = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    acc = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
     out = torch.where(live, acc / l_safe, torch.zeros_like(acc))
     return out.to(q.dtype), lse.squeeze(-1)
 

@@ -30,10 +30,10 @@ def _rand(shape, seed):
 
 
 def _jax_lse(q, k, v, seq_lens=None, offsets=None, seed=0, causal=False,
-             rate=0.0, block_q=16, block_k=16):
+             rate=0.0, block_q=16, block_k=16, dtype=jnp.float32):
     """The Pallas kernel in interpret mode: (out, lse [B, H, Tq])."""
     out, lse = jfa.flash_attention_lse(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(q, dtype), jnp.asarray(k, dtype), jnp.asarray(v, dtype),
         None if seq_lens is None else jnp.asarray(seq_lens, jnp.int32),
         None if offsets is None else jnp.asarray(offsets, jnp.int32),
         seed, causal, None, rate, block_q, block_k, True)
@@ -41,17 +41,33 @@ def _jax_lse(q, k, v, seq_lens=None, offsets=None, seed=0, causal=False,
 
 
 def _port_lse(q, k, v, seq_lens=None, offsets=None, seed=0, causal=False,
-              rate=0.0):
+              rate=0.0, dtype=torch.float32):
     out, lse = tfa.flash_attention_lse(
-        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        *(torch.from_numpy(x).to(dtype) for x in (q, k, v)),
         None if seq_lens is None else torch.as_tensor(seq_lens),
         offsets, seed, causal, None, rate)
-    return out.numpy(), lse.numpy()
+    assert out.dtype == dtype
+    return out.float().numpy(), lse.numpy()
 
 
 def _assert_match(got, want):
     for g, w, name in zip(got, want, ("out", "lse")):
         np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL, err_msg=name)
+
+
+def bf16_ulp(x):
+    """One bfloat16 ulp of each value of x (8 significant bits)."""
+    a = np.maximum(np.abs(x), np.finfo(np.float32).tiny)
+    return 2.0 ** (np.floor(np.log2(a)) - 7)
+
+
+def assert_within_bf16_ulps(got, want, name, ulps=2, atol=1e-5):
+    """|got - want| <= ulps bf16 ulps of want, plus atol, element by
+    element, reporting how many elements fail."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    bad = np.abs(got - want) > ulps * bf16_ulp(want) + atol
+    assert not bad.any(), "%s: %d of %d beyond %d bf16 ulps + %g" % (
+        name, bad.sum(), bad.size, ulps, atol)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -62,6 +78,25 @@ def test_plain_matches_interpret_kernel(causal, masked):
     lens = np.array([64, 37, 1], np.int64) if masked else None
     _assert_match(_port_lse(q, k, v, lens, causal=causal),
                   _jax_lse(q, k, v, lens, causal=causal))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+def test_bf16_plain_matches_interpret_kernel_one_key_tile(causal, masked):
+    """bfloat16 inputs, one key tile (block_k = Tk), so the kernel's running
+    max is the row max: the Pallas kernel rounds p to v's dtype before P.V
+    (flash_attention.py:163) and the plain version must round the same
+    values. Within 2 bf16 ulps of the reference value plus 1e-5 (without
+    the rounding, hundreds of the 8192 outputs fall outside); lse (float32
+    in both) within 1e-5."""
+    B, H, T, D = 2, 2, 64, 32
+    q, k, v = (_rand((B, H, T, D), s) for s in (90, 91, 92))
+    lens = np.array([64, 37], np.int64) if masked else None
+    got = _port_lse(q, k, v, lens, causal=causal, dtype=torch.bfloat16)
+    want = _jax_lse(q, k, v, lens, causal=causal, block_k=T,
+                    dtype=jnp.bfloat16)
+    assert_within_bf16_ulps(got[0], want[0], "out")
+    np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("causal", [False, True])

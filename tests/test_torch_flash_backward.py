@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import torch
 
 import paddle_tpu_torch.kernels.flash_attention as tfa
+from test_torch_flash_attention import assert_within_bf16_ulps
 
 jfa = importlib.import_module("paddle_tpu.kernels.flash_attention")
 
@@ -36,8 +37,10 @@ def _rand(shape, seed):
 
 
 def _jax_grads(q, k, v, g, g_lse, seq_lens=None, offsets=None, seed=0,
-               causal=False, rate=0.0, block_q=16, block_k=16):
-    """jax.vjp of the Pallas custom_vjp (interpret mode): (dq, dk, dv)."""
+               causal=False, rate=0.0, block_q=16, block_k=16,
+               dtype=jnp.float32):
+    """jax.vjp of the Pallas custom_vjp (interpret mode): (dq, dk, dv),
+    as float32 numpy arrays; q, k, v and g in ``dtype``."""
     def f(q_, k_, v_):
         return jfa.flash_attention_lse(
             q_, k_, v_,
@@ -45,22 +48,26 @@ def _jax_grads(q, k, v, g, g_lse, seq_lens=None, offsets=None, seed=0,
             None if offsets is None else jnp.asarray(offsets, jnp.int32),
             seed, causal, None, rate, block_q, block_k, True)
 
-    _, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    return tuple(np.asarray(x) for x in vjp((jnp.asarray(g),
-                                             jnp.asarray(g_lse))))
+    _, vjp = jax.vjp(f, *(jnp.asarray(x, dtype) for x in (q, k, v)))
+    return tuple(np.asarray(x.astype(jnp.float32))
+                 for x in vjp((jnp.asarray(g, dtype), jnp.asarray(g_lse))))
 
 
 def _port_grads(q, k, v, g, g_lse, seq_lens=None, offsets=None, seed=0,
-                causal=False, rate=0.0):
+                causal=False, rate=0.0, dtype=torch.float32):
     """torch.autograd through the port's flash_attention_lse (CPU tensors:
-    the plain backward): (dq, dk, dv)."""
-    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    the plain backward): (dq, dk, dv) as float32 numpy arrays; q, k, v and
+    g in ``dtype``, the grads checked to come back in it."""
+    qt, kt, vt = (torch.from_numpy(x).to(dtype).requires_grad_()
+                  for x in (q, k, v))
     out, lse = tfa.flash_attention_lse(
         qt, kt, vt, None if seq_lens is None else torch.as_tensor(seq_lens),
         offsets, seed, causal, None, rate)
     grads = torch.autograd.grad((out, lse), (qt, kt, vt),
-                                (torch.from_numpy(g), torch.from_numpy(g_lse)))
-    return tuple(x.numpy() for x in grads)
+                                (torch.from_numpy(g).to(dtype),
+                                 torch.from_numpy(g_lse)))
+    assert all(x.dtype == dtype for x in grads)
+    return tuple(x.float().numpy() for x in grads)
 
 
 def _assert_match(got, want):
@@ -84,6 +91,24 @@ def test_plain_backward_matches_interpret_kernels(causal, masked):
     lens = np.array([64, 37, 1], np.int64) if masked else None
     _assert_match(_port_grads(*args, lens, causal=causal),
                   _jax_grads(*args, lens, causal=causal))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+def test_bf16_plain_backward_matches_interpret_kernels(causal, masked):
+    """bfloat16 inputs and cotangent, one key tile (block_k = Tk): the plain
+    forward and backward round p, p_drop and ds where the Pallas kernels
+    cast them (flash_attention.py:163, :320, :383, :392), so dq, dk and dv
+    agree within 2 bf16 ulps of the reference value plus 1e-5."""
+    B, H, T, D = 2, 2, 64, 32
+    q, k, v, g, g_lse = _case(B, H, T, T, D, 100, lse_cotangent=True)
+    lens = np.array([64, 37], np.int64) if masked else None
+    got = _port_grads(q, k, v, g, g_lse, lens, causal=causal,
+                      dtype=torch.bfloat16)
+    want = _jax_grads(q, k, v, g, g_lse, lens, causal=causal, block_k=T,
+                      dtype=jnp.bfloat16)
+    for a, b, name in zip(got, want, ("dq", "dk", "dv")):
+        assert_within_bf16_ulps(a, b, name)
 
 
 @pytest.mark.parametrize("causal", [False, True])
