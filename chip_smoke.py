@@ -20,7 +20,8 @@ kernels on the card and prints one JSON line per phase:
    partial last ring stage), unaligned offsets, head dims 32, 40 and 128,
    a head dim of 33 (rows not 16-byte aligned, which the kernels stage by
    plain loads), and dropout rate 0.1 with the same seed (identical
-   masks).
+   masks); every kernel instance (head dims 32, 64, 128 in float32 and
+   bfloat16) runs in at least one case.
 4. kernel_bwd — the dQ and dK/dV backward kernels against
    ``attention_bwd_plain`` on the same inputs, dq, dk and dv, in the same
    cases plus one with a nonzero lse cotangent; dropout with the same seed
@@ -36,10 +37,10 @@ kernels on the card and prints one JSON line per phase:
 6. times   — device times from torch.profiler for the forward kernel, its
    plain version and ``scaled_dot_product_attention`` (a yardstick the port
    never calls), the least time the card could take (bytes over 3.35 TB/s,
-   or operations over the card's peak for the input type: 67 TFLOP/s
-   float32 outside the tensor cores, 989 TFLOP/s bfloat16 dense on the
-   tensor cores; float32 rows add bound_3xtf32_ms, the operations over
-   165 TFLOP/s, the 3xTF32 rate of the tensor cores), and the predictor's
+   or operations over the card's peak for the input type: 165 TFLOP/s
+   float32, the 3xTF32 rate of the tensor cores, and 989 TFLOP/s bfloat16
+   dense; float32 rows add bound_ffma_ms, the operations over 67 TFLOP/s,
+   the float32 rate outside the tensor cores), and the predictor's
    per-request latency at batch 1 and 8.
 7. train   — BERT-base pre-training at the same width,
    ``get_model(is_train=True)`` (append_backward + Adam), dropout 0.1,
@@ -54,7 +55,8 @@ kernels on the card and prints one JSON line per phase:
    of ``scaled_dot_product_attention``; the training step's median wall,
    device-busy share and top kernels.
 9. kernels — one JSON object listing every ported kernel, with its
-   design (tensor-core mma.sync or FFMA).
+   design: all three run their products on the tensor cores (mma.sync
+   bf16, 3xTF32 for float32) from a cp.async tile ring.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check raises
 and the script exits non-zero; it exits non-zero without a result when
@@ -75,21 +77,20 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM, NVIDIA data sheet: HBM rate and the dense peak for each input
-# type. bound_ms takes float32 at the 67 TFLOP/s rate outside the tensor
-# cores, as the first FFMA kernels were measured, so rows stay comparable
-# over time; the tensor-core kernels take float32 products as 3xTF32,
-# three TF32 products each at 495 TFLOP/s, and their float32 rows add
-# bound_3xtf32_ms, the same operations over 165 TFLOP/s.
+# type. Every kernel takes its products on the tensor cores, float32 ones
+# as 3xTF32: three TF32 products each at 495 TFLOP/s, so bound_ms takes
+# float32 operations at 165 TFLOP/s. Float32 rows also carry
+# bound_ffma_ms, the same operations at the 67 TFLOP/s rate outside the
+# tensor cores, the bound that PRs 1-3 reported as bound_ms, so rows stay
+# comparable over time.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
-PEAK_3XTF32_FLOPS_PER_S = 495e12 / 3
-PEAKS = ("3.35 TB/s HBM; 67 TFLOP/s float32 outside the tensor cores "
-         "(bound_3xtf32_ms: 165 TFLOP/s, 3xTF32 on the tensor cores), "
-         "989 TFLOP/s bfloat16 dense on the tensor cores")
-# how each kernel computes its products
-DESIGN = {"flash_fwd": "mma.sync bf16 / 3xTF32, cp.async ring",
-          "flash_bwd_dq": "FFMA",
-          "flash_bwd_dkv": "mma.sync bf16 / 3xTF32, cp.async ring"}
+PEAK_FLOPS_PER_S = {"float32": 495e12 / 3, "bfloat16": 989e12}
+PEAK_FFMA_FLOPS_PER_S = 67e12
+PEAKS = ("3.35 TB/s HBM; 165 TFLOP/s float32 as 3xTF32 on the tensor "
+         "cores (bound_ffma_ms: 67 TFLOP/s, float32 outside the tensor "
+         "cores), 989 TFLOP/s bfloat16 dense on the tensor cores")
+# how every kernel computes its products
+DESIGN = "mma.sync bf16 / 3xTF32, cp.async ring"
 
 # out, |kernel - plain| <= rel * |plain| + abs_of_max_v * max|v| / (1 -
 # rate) + abs. float32: the kernel takes its products as 3xTF32 (float32
@@ -111,8 +112,8 @@ TOL = {"float32": {"out_rel": 0.0, "out_abs_of_max_v": 0.0, "out_abs": 1e-4,
                     "out_abs": 1e-5, "lse": 1e-4}}
 # dq, dk, dv: |kernel - plain| <= rel * |plain| + abs_of_max * max|plain|
 # + abs. float32: sums of up to 512 products taken in another order (the
-# kernels loop over tiles, the plain version is one product), dK/dV's as
-# 3xTF32 products.
+# kernels loop over tiles, the plain version is one product), the kernels'
+# as 3xTF32 products.
 # bfloat16: both round p_drop and ds to bfloat16 before the products, as
 # the reference's kernels do, and the grads to bfloat16 at the end. Where
 # the two float32 values of one ds straddle a rounding boundary they take
@@ -158,14 +159,19 @@ KERNEL_CASES = [
     ("tk_not_multiple_of_64_causal_bf16", 2, 4, 200, 200, 64, "bfloat16", True, None, None, 0.0),
     # rows of 33 floats are not 16-byte aligned: plain loads, not cp.async
     ("head_dim_33_unaligned_rows", 2, 3, 70, 90, 33, "float32", True, [90, 41], (20, 0), 0.0),
+    # the bf16 kD=128 and float32 kD=32 instances of every kernel
+    ("head_dim_128_bf16_causal_dropout", 2, 4, 200, 200, 128, "bfloat16", True, [200, 77], None, 0.1),
+    ("head_dim_32_f32_ragged", 2, 4, 96, 130, 32, "float32", False, [130, 41], None, 0.0),
 ]
 
 BERT = dict(vocab_size=30522, d_model=768, n_layers=12, n_heads=12,
             d_inner=3072, max_position=512, seq_len=128)
 
 
-# profiler windows that recorded no device activity and were run again
-EMPTY_PROFILES = 0
+# profiler windows that dropped device activity and were run again: per
+# window, the calls and up to four kernels whose count was off (none: the
+# window held no device activity)
+PARTIAL_PROFILES = []
 
 
 def emit(obj):
@@ -211,16 +217,22 @@ def ptxas_summary(log):
 
 def device_kernels(fn, n, attempts=3):
     """Run ``fn`` ``n`` times under torch.profiler; returns {kernel name:
-    device ms per call} of the CUDA kernels it launched. A window in which
-    the profiler recorded no device activity at all (seen once on the
-    H100, in a window of 20 calls that launched kernels) is profiled
-    again, up to ``attempts`` times, and counted in EMPTY_PROFILES; empty
-    if none recorded any."""
+    device ms per call} of the CUDA kernels it launched. ``fn`` launches
+    the same kernels on every call, so each kernel's count in the window
+    should be a multiple of ``n``. On the H100 a window can miss one launch
+    of a kernel (seen in 28 of the 54 windows of one run, always one of
+    torch's own kernels: 19 launches of 20, 39 of 40), so a kernel's time
+    per call is its mean launch time times its launches per call, its
+    count over ``n`` rounded.
+    A window with a kernel further off, or with no device activity at all,
+    dropped more (seen: a window of 20 calls with none, and one that held
+    about a quarter of each kernel's launches); it is profiled again, up
+    to ``attempts`` times, and recorded in PARTIAL_PROFILES. Returns the
+    last window."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    global EMPTY_PROFILES
     for _ in range(attempts):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -228,14 +240,20 @@ def device_kernels(fn, n, attempts=3):
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        kernels = {e.key: e.self_device_time_total / 1e3 / n
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0}
-        if kernels:
+        kernels, odd = {}, []
+        for e in prof.key_averages():
+            if (e.device_type != DeviceType.CUDA
+                    or e.self_device_time_total <= 0):
+                continue
+            per_call = round(e.count / n)
+            if per_call == 0 or abs(e.count - per_call * n) > 1:
+                odd.append([e.key[:60], e.count])
+            kernels[e.key] = (e.self_device_time_total / e.count
+                              * max(per_call, 1) / 1e3)
+        if kernels and not odd:
             return kernels
-        EMPTY_PROFILES += 1
-    return {}
+        PARTIAL_PROFILES.append({"calls": n, "odd_counts": odd[:4]})
+    return kernels
 
 
 def device_ms(fn, name=None, n=20, warmup=3):
@@ -631,8 +649,8 @@ def time_kernel(fa, B, H, T, D, dtype, lens):
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
     if dt == "float32":
-        row["bound_3xtf32_ms"] = max(
-            t_bytes, flops / PEAK_3XTF32_FLOPS_PER_S * 1e3)
+        row["bound_ffma_ms"] = max(t_bytes,
+                                   flops / PEAK_FFMA_FLOPS_PER_S * 1e3)
     return row
 
 
@@ -690,9 +708,9 @@ def time_bwd_kernels(fa, B, H, T, D, dtype, lens):
                      "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops
                      else "operations"}
-        if dt == "float32" and DESIGN[name] != "FFMA":
-            row[name]["bound_3xtf32_ms"] = max(
-                t_bytes, flops / PEAK_3XTF32_FLOPS_PER_S * 1e3)
+        if dt == "float32":
+            row[name]["bound_ffma_ms"] = max(
+                t_bytes, flops / PEAK_FFMA_FLOPS_PER_S * 1e3)
     row["plain_ms"] = device_ms(lambda: fa.attention_bwd_plain(
         q, k, v, out, lse, g, None, lens_t))
     mask = key_mask(lens_t, B, T)
@@ -849,8 +867,8 @@ def phase_times_train(fa, exe, scope, main, loss, feed8):
     emit(dict({"phase": "times", "profile": "batch-8 training step",
                "model": "bert_base", "seq_len": BERT["seq_len"]},
               **time_train_step(exe, scope, main, loss, feed8)))
-    emit({"phase": "times", "empty_profiler_windows_rerun":
-          EMPTY_PROFILES})
+    emit({"phase": "times", "partial_profiler_windows_rerun":
+          len(PARTIAL_PROFILES), "partial_windows": PARTIAL_PROFILES})
     return rows["main_path"]
 
 
@@ -905,7 +923,7 @@ def main():
     # launches: the training path's (forward, dQ and dK/dV each 12 a
     # step); the forward's on the served path is in launches_by_path
     kernels = [{
-        "name": "flash_fwd", "route": "cuda", "design": DESIGN["flash_fwd"],
+        "name": "flash_fwd", "route": "cuda", "design": DESIGN,
         "source": "paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
         "replaces": "paddle_tpu/kernels/flash_attention.py:110",
         "launches": launches["flash_fwd"],
@@ -917,7 +935,7 @@ def main():
         "library_ms": main_row["library_ms"]}]
     for name, line in (("flash_bwd_dq", 269), ("flash_bwd_dkv", 328)):
         kernels.append({
-            "name": name, "route": "cuda", "design": DESIGN[name],
+            "name": name, "route": "cuda", "design": DESIGN,
             "source": "paddle_tpu_torch/kernels/csrc/%s.cu" % name,
             "replaces": "paddle_tpu/kernels/flash_attention.py:%d" % line,
             "launches": launches[name], "max_abs_err": worst_bwd[name],

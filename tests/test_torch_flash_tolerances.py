@@ -1,14 +1,15 @@
 """Why chip_smoke.py's float32 limits hold for the tensor-core flash
 kernels, shown on the CPU.
 
-``csrc/flash_fwd.cu`` and ``csrc/flash_bwd_dkv.cu`` take their float32
-products on the tensor cores as 3xTF32: each operand x is split into
-big = tf32(x) and small = tf32(x - big), and a.b is taken as
-big.big + big.small + small.big in a float32 accumulator. These tests
-emulate that arithmetic here, rounding to TF32 by bit masking as
-``cvt.rna.tf32.f32`` does, and run the kernels' formulas (the forward in
-its 64-key tiles with a running max, the dK/dV backward's four products) at
-the shapes of chip_smoke.py's kernel cases, with B and H reduced. They
+``csrc/flash_fwd.cu``, ``csrc/flash_bwd_dq.cu`` and
+``csrc/flash_bwd_dkv.cu`` take their float32 products on the tensor cores
+as 3xTF32: each operand x is split into big = tf32(x) and
+small = tf32(x - big), and a.b is taken as big.big + big.small +
+small.big in a float32 accumulator. These tests emulate that arithmetic
+here, rounding to TF32 by bit masking as ``cvt.rna.tf32.f32`` does, and
+run the kernels' formulas (the forward in its 64-key tiles with a running
+max, dQ's three products, dK/dV's four) at the shapes of chip_smoke.py's
+kernel cases, with B and H reduced. They
 assert that the emulated float32 errors against the plain versions stay at
 least 10x inside ``TOL``/``TOL_BWD``, and that one TF32 product per float32
 product would fail those limits in every case. For
@@ -101,13 +102,12 @@ def emulate_forward(q, k, v, lens, offsets, seed, causal, rate, mode):
     return torch.where(live, acc / l_safe, torch.zeros_like(acc))
 
 
-def emulate_dkv(q, k, v, out, lse, g, lens, offsets, seed, causal, rate,
-                mode):
-    """flash_bwd_dkv.cu's arithmetic on float32 tensors: S and dP by
-    ``mode``'s products, p = exp2(s * scale * log2 e - lse * log2 e) (0 on
-    masked keys and fully masked rows), dropout on p_drop and dp, dS, then
-    dV = p_drop^T.dO and dK = dS^T.Q by the same products."""
-    mm = matmul(mode)
+def _emulate_ds(q, k, v, out, lse, g, lens, offsets, seed, causal, rate,
+                mm):
+    """The backward kernels' shared arithmetic on float32 tensors: S and dP
+    by the products ``mm``, p = exp2(s * scale * log2 e - lse * log2 e) (0
+    on masked keys and fully masked rows), dropout on p_drop and dp, and
+    dS. Returns (p_drop, ds)."""
     scale = q.shape[3] ** -0.5
     valid, keep = _valid_and_keep(q, k, lens, offsets, causal, rate, seed)
     lse = lse.unsqueeze(-1)
@@ -120,8 +120,28 @@ def emulate_dkv(q, k, v, out, lse, g, lens, offsets, seed, causal, rate,
     if keep is not None:
         p_drop = torch.where(keep, p / (1.0 - rate), torch.zeros_like(p))
         dp = torch.where(keep, dp / (1.0 - rate), torch.zeros_like(dp))
-    ds = p * (dp - tfa._delta(out, g, None).unsqueeze(-1)) * scale
+    return p_drop, p * (dp - tfa._delta(out, g, None).unsqueeze(-1)) * scale
+
+
+def emulate_dkv(q, k, v, out, lse, g, lens, offsets, seed, causal, rate,
+                mode):
+    """flash_bwd_dkv.cu's arithmetic: p_drop and dS as ``_emulate_ds``
+    takes them with ``mode``'s products, then dK = dS^T.Q and
+    dV = p_drop^T.dO by the same products."""
+    mm = matmul(mode)
+    p_drop, ds = _emulate_ds(q, k, v, out, lse, g, lens, offsets, seed,
+                             causal, rate, mm)
     return (mm(ds.transpose(-1, -2), q), mm(p_drop.transpose(-1, -2), g))
+
+
+def emulate_dq(q, k, v, out, lse, g, lens, offsets, seed, causal, rate,
+               mode):
+    """flash_bwd_dq.cu's arithmetic: dS as ``_emulate_ds`` takes it with
+    ``mode``'s products, then dQ = dS.K by the same products."""
+    mm = matmul(mode)
+    _, ds = _emulate_ds(q, k, v, out, lse, g, lens, offsets, seed, causal,
+                        rate, mm)
+    return (mm(ds, k),)
 
 
 def _cases(dtype):
@@ -151,22 +171,24 @@ def _fwd_errors(args):
             for mode in ("3xtf32", "1xtf32")}
 
 
-def _dkv_excess(args, g):
+def _bwd_excess(emulate, args, g):
     """Per mode, the largest ratio of |emulated - plain| to TOL_BWD's
-    allowed difference over dk and dv."""
+    allowed difference over the grads ``emulate`` returns: (dq,) for
+    ``emulate_dq``, (dk, dv) for ``emulate_dkv``."""
     q, k, v, lens, offs, seed, causal, rate = args
     out, lse = tfa.attention_lse_plain(*args[:7], None, rate)
-    _, dk, dv = tfa.attention_bwd_plain(q, k, v, out, lse, g, None, lens,
-                                        offs, seed, causal, None, rate)
+    dq, dk, dv = tfa.attention_bwd_plain(q, k, v, out, lse, g, None, lens,
+                                         offs, seed, causal, None, rate)
+    want = (dq,) if emulate is emulate_dq else (dk, dv)
     tol = chip_smoke.TOL_BWD["float32"]
     ratio = {}
     for mode in ("3xtf32", "1xtf32"):
-        got = emulate_dkv(q, k, v, out, lse, g, lens, offs, seed, causal,
-                          rate, mode)
+        got = emulate(q, k, v, out, lse, g, lens, offs, seed, causal, rate,
+                      mode)
         ratio[mode] = max(
             ((a - b).abs() / (tol["rel"] * b.abs() + tol["abs_of_max"]
                               * b.abs().max() + tol["abs"])).max().item()
-            for a, b in zip(got, (dk, dv)))
+            for a, b in zip(got, want))
     return ratio
 
 
@@ -186,7 +208,19 @@ def test_3xtf32_forward_stays_a_tenth_inside_tol(i, B, H, Tq, Tk, D, causal,
 def test_3xtf32_dkv_stays_a_tenth_inside_tol_bwd(i, B, H, Tq, Tk, D, causal,
                                                  lens, offs, rate):
     q, k, v, g, lens_t = _inputs(i, B, H, Tq, Tk, D, lens)
-    ratio = _dkv_excess((q, k, v, lens_t, offs, 4321, causal, rate), g)
+    ratio = _bwd_excess(emulate_dkv, (q, k, v, lens_t, offs, 4321, causal,
+                                      rate), g)
+    assert ratio["3xtf32"] <= 0.1, ratio
+    assert ratio["1xtf32"] > 1.0, ratio
+
+
+@pytest.mark.parametrize("i,B,H,Tq,Tk,D,causal,lens,offs,rate",
+                         list(_cases("float32")))
+def test_3xtf32_dq_stays_a_tenth_inside_tol_bwd(i, B, H, Tq, Tk, D, causal,
+                                                lens, offs, rate):
+    q, k, v, g, lens_t = _inputs(i, B, H, Tq, Tk, D, lens)
+    ratio = _bwd_excess(emulate_dq, (q, k, v, lens_t, offs, 4321, causal,
+                                     rate), g)
     assert ratio["3xtf32"] <= 0.1, ratio
     assert ratio["1xtf32"] > 1.0, ratio
 

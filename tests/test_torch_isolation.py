@@ -1,4 +1,5 @@
-"""The port (paddle_tpu_torch/) and chip_smoke.py stand alone: they import
+"""The port (paddle_tpu_torch/), chip_smoke.py and
+tools/torch_flash_variants.py stand alone: they import
 neither JAX nor the JAX package, and the port never falls back to the CPU
 when CUDA is missing."""
 
@@ -75,6 +76,7 @@ def _port_sources():
             if name.endswith((".py", ".cu", ".cuh", ".h")):
                 yield os.path.join(dirpath, name)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "tools", "torch_flash_variants.py")
 
 
 @pytest.mark.parametrize("pattern", [

@@ -11,12 +11,13 @@ string replacements (``VARIANTS`` below; "base" is the source as
 committed), built with the port's own nvcc flags into a temporary
 directory. For every variant, in turns (all variants, then all again in
 reverse order, so drift on the card shows), it loads the variant's
-``flash_fwd`` and ``flash_bwd_dkv`` libraries into the port's wrappers
-and prints one JSON line per shape: the forward's and the dK/dV kernel's
-device time (torch.profiler, as chip_smoke.py times them) and their
-largest difference from the plain versions. Shapes: the training path's
-(B=8 H=12 T=128 D=64 float32, ragged lengths) and T=512 float32 and
-bfloat16. The first line gives the card and its power limit, and each
+``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` libraries into the
+port's wrappers and prints one JSON line per shape: each kernel's device
+time (torch.profiler, as chip_smoke.py times them) and the largest
+difference of out, dq, dk and dv from the plain versions. Shapes: the
+training path's (B=8 H=12 T=128 D=64 float32, ragged lengths), T=512
+float32 and bfloat16, and T=512 float32 at head dim 128 (H=6, the same
+width). The first line gives the card and its power limit, and each
 build's registers and spills from ptxas.
 """
 
@@ -52,8 +53,32 @@ VARIANTS = {
                '  asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));\n'
                "  return y;",
                "  y = exp2f(x);\n  return y;")],
+    # dQ with 64-key K/V tiles in float32 too
+    "dq_f32_k64": [("flash_bwd_dq.cu", "kBlockK = kBf16 ? 64 : 32;",
+                    "kBlockK = 64;")],
+    # dQ holding its bf16 Q and dO fragments in registers for the whole key
+    # loop up to D = 64, where the source reads them from shared memory at
+    # every tile
+    "dq_bf16_frags_regs": [
+        ("flash_bwd_dq.cu",
+         "  const uint32_t seed_term = dropout_seed_term(seed, bh);\n",
+         "  uint32_t qf[kDSteps][4], dof[kDSteps][4];\n"
+         "  const uint32_t seed_term = dropout_seed_term(seed, bh);\n"),
+        ("flash_bwd_dq.cu",
+         "        frag(aq, q_s, c);\n        frag(ado, do_s, c);\n",
+         "        if (kD > 64 || it == 0) {\n"
+         "          frag(qf[c], q_s, c);\n"
+         "          frag(dof[c], do_s, c);\n"
+         "        }\n"
+         "        for (int i = 0; i < 4; ++i) {\n"
+         "          aq[i] = qf[c][i];\n"
+         "          ado[i] = dof[c][i];\n"
+         "        }\n")],
+    # dQ with 2 warps (32 q rows) a block in float32 at head dim 128
+    "dq_f32_d128_q32": [("flash_bwd_dq.cu", "kWarps = 4;",
+                         "kWarps = !kBf16 && kD == 128 ? 2 : 4;")],
 }
-LIBS = ("flash_fwd", "flash_bwd_dkv")
+LIBS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
 def build_variant(build, name, out_dir):
@@ -127,39 +152,48 @@ def run(cs, fa, build, names, out_dir):
                 raise RuntimeError("%s %s: nvcc failed:\n%s"
                                    % (name, lib, log))
             ptxas[name] = dict(ptxas.get(name, {}), **cs.ptxas_summary(log))
-    build.build_all(["flash_bwd_dq"])
     cs.emit({"nvidia_smi": cs.nvidia_smi(), "ptxas": ptxas})
 
-    shapes = (("main_path", 128, torch.float32, cs.LENS8),
-              ("t512_f32", 512, torch.float32, None),
-              ("t512_bf16", 512, torch.bfloat16, None))
+    shapes = (("main_path", 12, 128, 64, torch.float32, cs.LENS8),
+              ("t512_f32", 12, 512, 64, torch.float32, None),
+              ("t512_bf16", 12, 512, 64, torch.bfloat16, None),
+              ("t512_f32_d128", 6, 512, 128, torch.float32, None))
     for name in names + names[::-1]:
         use_variant(fa, out_dir, name)
-        for shape, T, dtype, lens in shapes:
-            q, k, v = cs.attention_inputs(8, 12, T, T, 64, dtype, 99)
+        for shape, H, T, D, dtype, lens in shapes:
+            q, k, v = cs.attention_inputs(8, H, T, T, D, dtype, 99)
             gen = torch.Generator(device="cuda").manual_seed(97)
             g = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
             lens_t = None if lens is None else torch.tensor(lens,
                                                             device="cuda")
             out, lse = fa.flash_forward_cuda(q, k, v, lens_t)
-            _, dk, dv = fa.flash_backward_cuda(q, k, v, out, lse, g, None,
-                                               lens_t)
+            grads = fa.flash_backward_cuda(q, k, v, out, lse, g, None,
+                                           lens_t)
             want_out, _ = fa.attention_lse_plain(q, k, v, lens_t)
-            _, want_dk, want_dv = fa.attention_bwd_plain(q, k, v, out, lse,
-                                                         g, None, lens_t)
-            pairs = (("out", out, want_out), ("dk", dk, want_dk),
-                     ("dv", dv, want_dv))
+            want = fa.attention_bwd_plain(q, k, v, out, lse, g, None, lens_t)
+            pairs = [("out", out, want_out)] + list(
+                zip(("dq", "dk", "dv"), grads, want))
             err = {n: (a.float() - b.float()).abs().max().item()
                    for n, a, b in pairs}
-            cs.emit({"variant": name, "shape": shape,
-                     "flash_fwd_ms": cs.device_ms(
-                         lambda: fa.flash_forward_cuda(q, k, v, lens_t),
-                         "flash_fwd"),
-                     "flash_bwd_dkv_ms": cs.device_ms(
-                         lambda: fa.flash_backward_cuda(
-                             q, k, v, out, lse, g, None, lens_t),
-                         "flash_bwd_dkv"),
-                     "max_abs_err": err})
+            row = {"variant": name, "shape": shape,
+                   "flash_fwd_ms": cs.device_ms(
+                       lambda: fa.flash_forward_cuda(q, k, v, lens_t),
+                       "flash_fwd")}
+            # one profile of the backward times both of its kernels
+
+            def backward():
+                fa.flash_backward_cuda(q, k, v, out, lse, g, None, lens_t)
+
+            for _ in range(3):
+                backward()
+            bwd = cs.device_kernels(backward, 20)
+            for lib in ("flash_bwd_dq", "flash_bwd_dkv"):
+                row[lib + "_ms"] = sum(t for key, t in bwd.items()
+                                       if lib + "_kernel" in key)
+                cs.check(row[lib + "_ms"] > 0, "the profiler recorded no "
+                         "%s kernel (saw %s)" % (lib, sorted(bwd)))
+            row["max_abs_err"] = err
+            cs.emit(row)
 
 
 if __name__ == "__main__":
