@@ -34,7 +34,23 @@ kernels on the card and prints one JSON line per phase:
    and 8 with ragged seq_lens. Checks shapes, finiteness, exactly 12 kernel
    launches per request, and one batch-1 answer against the same model
    directory served on the CPU (``config.disable_gpu()``).
-6. times   — device times from torch.profiler for the forward kernel, its
+6. serve_batched — the continuous-batching server over the same model
+   directory: ``predictor.serve()`` with the default buckets (1, 2, 4, 8,
+   16, 32) and max-wait 5 ms, ``warmup`` first, then closed-loop clients
+   at 1, 8 and 32 threads, each sending batch-1 requests (200 at each
+   level). Checks every answer against the same request answered alone by
+   ``predictor.run`` (rtol 1e-4 / atol 1e-4), exactly 12 forward launches
+   per dispatch (``fa.launches`` against ``serving.batches``), fewer
+   dispatches than requests at 8 and 32 clients, an overload burst
+   (``queue_limit`` 8, deadlines of a few batch times, 4x the top bucket
+   at once, then ``stop()``) whose every future resolves to a result,
+   ``DeadlineExceeded`` or ``Rejected`` with the ``serving.*`` counters
+   adding up to the requests sent, and two threads launching the forward
+   on an empty build directory (one build, no error). Prints requests per
+   second, p50 and p99 of ``serving.request_ms`` and mean ``batch_fill``
+   at each client count, and the device-busy share of one bucket-32
+   dispatch.
+7. times   — device times from torch.profiler for the forward kernel, its
    plain version and ``scaled_dot_product_attention`` (a yardstick the port
    never calls), the least time the card could take (bytes over 3.35 TB/s,
    or operations over the card's peak for the input type: 165 TFLOP/s
@@ -42,19 +58,19 @@ kernels on the card and prints one JSON line per phase:
    dense; float32 rows add bound_ffma_ms, the operations over 67 TFLOP/s,
    the float32 rate outside the tensor cores), and the predictor's
    per-request latency at batch 1 and 8.
-7. train   — BERT-base pre-training at the same width,
+8. train   — BERT-base pre-training at the same width,
    ``get_model(is_train=True)`` (append_backward + Adam), dropout 0.1,
    startup on the card, 5 steps on a repeated ragged batch of 8. Checks
    finite and falling loss, exactly 12 forward, 12 dQ and 12 dK/dV
    launches a step, and one step at batch 2 against the same step of the
    port on the CPU (loss and six parameter grads, from the same initial
    state via ``convert.load_numpy_state``).
-8. times   — the backward kernels at the training shape (B=8 H=12 T=128
+9. times   — the backward kernels at the training shape (B=8 H=12 T=128
    D=64 float32, ragged lengths) and at T=512 float32 and bfloat16: each
    kernel's device time and bound, the plain backward's, and the backward
    of ``scaled_dot_product_attention``; the training step's median wall,
    device-busy share and top kernels.
-9. kernels — one JSON object listing every ported kernel, with its
+10. kernels — one JSON object listing every ported kernel, with its
    design: all three run their products on the tensor cores (mma.sync
    bf16, 3xTF32 for float32) from a cp.async tile ring.
 
@@ -134,6 +150,13 @@ TRAIN_TOL = {"loss_rtol": 1e-4, "grad_rel_to_max": 1e-3}
 # the served model against the CPU: float32 GEMMs (TF32 off) summed in
 # another order by cuBLAS than by the CPU GEMM, over 12 layers
 SERVE_TOL = {"rtol": 1e-3, "atol": 2e-3}
+# a request answered in a bucket against the same request answered alone,
+# both on the card: cuBLAS may take another algorithm for 32 rows than for
+# 1, so the float32 sums may differ in their last bits over 12 layers
+SERVE_BATCHED_TOL = {"rtol": 1e-4, "atol": 1e-4}
+SERVE_CLIENTS = (1, 8, 32)
+SERVE_REQUESTS = 200   # batch-1 requests at each client count
+SERVE_POOL = 64        # distinct requests the clients cycle through
 
 # ragged key lengths of the kernel cases (batch 8)
 LENS8 = [128, 70, 1, 64, 127, 33, 100, 5]
@@ -490,6 +513,255 @@ def phase_serve(fa, model_dir):
     return predictor, launches, requests[8]
 
 
+def closed_loop(server, pool, clients, n):
+    """``clients`` threads, each sending batch-1 requests from ``pool``
+    one after another through ``server.run`` until ``n`` are answered.
+    Returns (answers by request index, pool index of each, wall s)."""
+    import threading
+
+    answers, errors = [None] * n, []
+
+    def client(c):
+        try:
+            for i in range(c, n, clients):
+                answers[i] = server.run(pool[i % len(pool)], timeout=300)[0]
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads),
+          "%d clients: a client hung" % clients)
+    check(not errors, "%d clients: %s" % (clients, errors[:3]))
+    return answers, [i % len(pool) for i in range(n)], wall
+
+
+def max_err_against(answers, which, alone):
+    """Largest |served - alone| over the answers, and whether every
+    answer is within SERVE_BATCHED_TOL of its request answered alone."""
+    err, close = 0.0, True
+    for out, j in zip(answers, which):
+        check(out.shape == alone[j].shape and np.isfinite(out).all(),
+              "served answer shape %s or not finite" % (out.shape,))
+        err = max(err, float(np.abs(out - alone[j]).max()))
+        close = close and bool(np.allclose(out, alone[j], **SERVE_BATCHED_TOL))
+    return err, close
+
+
+def overload_burst(predictor, pool, alone, batch_ms):
+    """A server with ``queue_limit`` 8 takes a burst of 4x the top bucket
+    at once, each request with a deadline of three batch times (every
+    fourth with 0 ms, expired on arrival, which a full queue evicts
+    first), then ``stop()`` drains it. Every future must be resolved by
+    then, to a result, ``DeadlineExceeded`` or ``Rejected``, and the
+    ``serving.*`` counters must add up to the requests sent."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.inference import DeadlineExceeded, Rejected
+
+    flags.set_flags({"queue_limit": 8})
+    try:
+        server = predictor.serve(name="overload")
+    finally:
+        flags.reset_flag("queue_limit")
+    n = 4 * server.buckets[-1]
+    deadline_ms = 3.0 * batch_ms
+    obs.reset()
+    futures, refused = [], 0
+    with server:
+        for i in range(n):
+            try:
+                futures.append((i, server.submit(
+                    pool[i % len(pool)],
+                    deadline_ms=0.0 if i % 4 == 3 else deadline_ms)))
+            except Rejected:
+                refused += 1
+    check(all(f.done() for _, f in futures),
+          "overload: %d futures unresolved after stop()"
+          % sum(not f.done() for _, f in futures))
+    served, expired, shed, answers, which = 0, 0, 0, [], []
+    for i, f in futures:
+        try:
+            answers.append(f.result(timeout=0)[0])
+            which.append(i % len(pool))
+            served += 1
+        except DeadlineExceeded:
+            expired += 1
+        except Rejected:
+            shed += 1
+    c = obs.snapshot()["counters"]
+    counted = {k: c.get("serving." + k, 0)
+               for k in ("requests", "rejected", "expired", "shed",
+                         "cancelled")}
+    err, close = max_err_against(answers, which, alone)
+    row = {"requests_sent": n, "queue_limit": 8,
+           "deadline_ms": deadline_ms, "served": served,
+           "rejected_at_submit": refused, "expired": expired,
+           "shed": shed, "counters": counted, "max_abs_err": err}
+    check(served + refused + expired + shed == n,
+          "overload: outcomes %s do not add up to %d" % (row, n))
+    check(counted["requests"] == served
+          and counted["rejected"] == refused
+          and counted["expired"] == expired
+          and counted["shed"] == shed and counted["cancelled"] == 0,
+          "overload: serving.* counters %s against outcomes %s"
+          % (counted, row))
+    check(close, "overload: served answers beyond %s of alone"
+          % SERVE_BATCHED_TOL)
+    return row
+
+
+def first_load_race(fa):
+    """Two threads launch the forward at once on an empty build
+    directory, as a serving worker and a caller's direct run can: one
+    build, no error, no temporary file left, both outputs right."""
+    import threading
+
+    import torch
+    from paddle_tpu_torch.kernels import build
+
+    q, k, v = attention_inputs(8, 12, 128, 128, 64, torch.float32, 77)
+    lens = torch.tensor(LENS8, device="cuda")
+    want, _ = fa.attention_lse_plain(q, k, v, lens)
+    saved = (build.BUILD_DIR, dict(build._loaded), dict(fa._libs))
+    outs, errors = [None, None], []
+    barrier = threading.Barrier(2)
+
+    def launch(i):
+        try:
+            barrier.wait(timeout=60)
+            outs[i] = fa.flash_forward_cuda(q, k, v, lens)[0]
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_build_") as d:
+        build.BUILD_DIR = d
+        build._loaded.clear()
+        fa._libs.clear()
+        try:
+            threads = [threading.Thread(target=launch, args=(i,))
+                       for i in range(2)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            seconds = time.perf_counter() - t0
+            files = sorted(os.listdir(d))
+        finally:
+            build.BUILD_DIR = saved[0]
+            build._loaded.clear()
+            build._loaded.update(saved[1])
+            fa._libs.clear()
+            fa._libs.update(saved[2])
+    check(not any(t.is_alive() for t in threads), "first load: hung")
+    check(not errors, "first load from two threads: %s" % errors)
+    libs = [f for f in files if f.endswith(".so")]
+    check(len(libs) == 1 and not [f for f in files if f.endswith(".tmp")],
+          "first load: build directory holds %s" % files)
+    err = max(float((o - want).abs().max().item()) for o in outs)
+    check(err <= TOL["float32"]["out_abs"],
+          "first load: out error %g" % err)
+    return {"threads": 2, "seconds": seconds, "files": files,
+            "max_abs_err": err}
+
+
+def phase_serve_batched(fa, predictor, smi):
+    """The continuous-batching server over the predictor's model, driven
+    by closed-loop clients at each count in SERVE_CLIENTS. Returns the
+    forward's launches over the three levels."""
+    import torch
+
+    from paddle_tpu_torch import observability as obs
+
+    n_layers = BERT["n_layers"]
+    rng = np.random.RandomState(21)
+    pool = [bert_feed(1, rng) for _ in range(SERVE_POOL)]
+    alone = [predictor.run(f)[0].data for f in pool]
+
+    obs.set_enabled(True)
+    server = predictor.serve()  # the flags' buckets and max-wait
+    check(server.buckets == (1, 2, 4, 8, 16, 32)
+          and server.max_wait_ms == 5.0,
+          "serve(): buckets %s, max-wait %s" % (server.buckets,
+                                                server.max_wait_ms))
+    with server:
+        t0 = time.perf_counter()
+        server.warmup(pool[0])
+        warmup_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        fa.launches = 0  # the served path starts here
+        for clients in SERVE_CLIENTS:
+            obs.reset()
+            before = fa.launches
+            answers, which, wall = closed_loop(server, pool, clients,
+                                               SERVE_REQUESTS)
+            launches = fa.launches - before
+            snap = obs.snapshot()
+            hist, cnt = snap["histograms"], snap["counters"]
+            batches = cnt["serving.batches"]
+            err, close = max_err_against(answers, which, alone)
+            row = {"phase": "serve_batched", "card": smi,
+                   "clients": clients, "requests": SERVE_REQUESTS,
+                   "wall_s": wall, "qps": SERVE_REQUESTS / wall,
+                   "request_ms_p50": hist["serving.request_ms"]["p50"],
+                   "request_ms_p99": hist["serving.request_ms"]["p99"],
+                   "queue_ms_p50": hist["serving.queue_ms"]["p50"],
+                   "batch_ms_mean": hist["serving.batch_ms"]["mean"],
+                   "batch_fill_mean": hist["serving.batch_fill"]["mean"],
+                   "batches": batches,
+                   "padded_rows": cnt.get("serving.padded_rows", 0),
+                   "launches": launches, "max_abs_err": err,
+                   "tol": SERVE_BATCHED_TOL}
+            emit(row)
+            check(cnt["serving.requests"] == SERVE_REQUESTS,
+                  "%d clients: serving.requests %d" % (
+                      clients, cnt["serving.requests"]))
+            check(launches == n_layers * batches,
+                  "%d clients: %d forward launches for %d dispatches"
+                  % (clients, launches, batches))
+            check(clients == 1 or batches < SERVE_REQUESTS,
+                  "%d clients: %d dispatches for %d requests, no "
+                  "coalescing" % (clients, batches, SERVE_REQUESTS))
+            check(close, "%d clients: served answers beyond %s of alone "
+                  "(max abs err %g)" % (clients, SERVE_BATCHED_TOL, err))
+            batch_ms = row["batch_ms_mean"]
+        torch.cuda.synchronize()
+        launches = fa.launches  # ... and ends here
+
+        # one bucket-32 dispatch on this thread: its wall, and the device
+        # time of its kernels from the profiler
+        top = server.buckets[-1]
+        feed = {k: np.concatenate([pool[i][k] for i in range(top)])
+                for k in pool[0]}
+        walls = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            server._run_padded(feed, top)  # ends in the copy to the host
+            walls.append((time.perf_counter() - t0) * 1e3)
+        emit(dict({"phase": "serve_batched", "card": smi,
+                   "profile": "bucket-%d dispatch" % top},
+                  **profile_request(lambda: server._run_padded(feed, top),
+                                    statistics.median(walls))))
+    emit(dict({"phase": "serve_batched", "card": smi,
+               "overload": True},
+              **overload_burst(predictor, pool, alone, batch_ms)))
+    obs.set_enabled(None)
+    emit(dict({"phase": "serve_batched", "card": smi,
+               "first_load_race": True}, **first_load_race(fa)))
+    emit({"phase": "serve_batched", "warmup_s": warmup_s,
+          "launches": launches})
+    return launches
+
+
 def train_feed(batch, rng):
     from paddle_tpu_torch.models import bert
 
@@ -796,10 +1068,10 @@ def time_train_step(exe, scope, main, loss, feed8):
             "top_kernels_ms": [[name[:80], ms] for name, ms in top]}
 
 
-def profile_request(predictor, feed, wall_ms):
-    """Device time of one served request by kernel (profiler), against the
-    request's unprofiled median wall ``wall_ms``."""
-    kernels = device_kernels(lambda: predictor.run(feed), 3)
+def profile_request(run, wall_ms):
+    """Device time of one served request ``run()`` by kernel (profiler),
+    against the request's unprofiled median wall ``wall_ms``."""
+    kernels = device_kernels(run, 3)
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
@@ -840,7 +1112,8 @@ def phase_times(fa, predictor, feed8):
     emit({"phase": "times", "predictor_request_ms": latency,
           "model": "bert_base", "seq_len": BERT["seq_len"]})
     emit(dict({"phase": "times", "profile": "batch-8 request"},
-              **profile_request(predictor, feed8, latency[8]["median_ms"])))
+              **profile_request(lambda: predictor.run(feed8),
+                                latency[8]["median_ms"])))
     return rows["main_path"]
 
 
@@ -915,19 +1188,21 @@ def main():
     worst_bwd = phase_kernel_bwd(fa)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_bert_") as model_dir:
         predictor, serve_launches, feed8 = phase_serve(fa, model_dir)
+        batched_launches = phase_serve_batched(fa, predictor, smi)
         main_row = phase_times(fa, predictor, feed8)
     del predictor
     exe, scope, main_prog, loss, train_feed8, launches = phase_train(fa)
     bwd_row = phase_times_train(fa, exe, scope, main_prog, loss, train_feed8)
 
     # launches: the training path's (forward, dQ and dK/dV each 12 a
-    # step); the forward's on the served path is in launches_by_path
+    # step); the forward's on the served paths are in launches_by_path
     kernels = [{
         "name": "flash_fwd", "route": "cuda", "design": DESIGN,
         "source": "paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
         "replaces": "paddle_tpu/kernels/flash_attention.py:110",
         "launches": launches["flash_fwd"],
         "launches_by_path": {"serve": serve_launches,
+                             "serve_batched": batched_launches,
                              "train": launches["flash_fwd"]},
         "max_abs_err": worst,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],

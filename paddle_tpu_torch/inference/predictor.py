@@ -4,14 +4,17 @@ CreatePaddlePredictor:734, Run:183). Port of
 ``paddle_tpu/inference/predictor.py`` for the native path: the predictor
 loads a native model directory (``io.save_inference_model``, from either
 package) and answers ``run`` on the card, or on the CPU after
-``config.disable_gpu()``. INT8 (``enable_mkldnn``/``enable_tensorrt_engine``)
-and ``serve()`` are later slices and raise, naming their ROADMAP item.
+``config.disable_gpu()``; ``serve()`` puts a continuous-batching
+``InferenceServer`` (serving.py) in front of it. INT8
+(``enable_mkldnn``/``enable_tensorrt_engine``) is a later slice and
+raises, naming its ROADMAP item.
 """
 
 import numpy as np
 
 from paddle_tpu_torch.core.scope import Scope
 from paddle_tpu_torch.executor import Executor, scope_guard
+from paddle_tpu_torch.inference.serving import InferenceServer
 from paddle_tpu_torch.io import load_inference_model
 from paddle_tpu_torch.platform import CPUPlace, CUDAPlace
 
@@ -92,9 +95,14 @@ class AnalysisPredictor:
         return [PaddleTensor(o, n) for o, n in zip(outs, self._fetch_names)]
 
     def serve(self, buckets=None, max_wait_ms=None, name="serving"):
-        raise NotImplementedError(
-            "serve(): the InferenceServer with continuous batching is "
-            "ROADMAP Queue 1 item 1 (inference/serving.py, admission.py)")
+        """Continuous-batching façade: an InferenceServer over this
+        predictor's program, scope, and executor (reference:
+        ``paddle_tpu/inference/predictor.py:208-221``). The caller starts
+        it (context manager or ``.start()``)."""
+        return InferenceServer(
+            self._program, self._feed_names, self._fetch_names,
+            scope=self._scope, executor=self._exe, buckets=buckets,
+            max_wait_ms=max_wait_ms, name=name)
 
 
 def create_paddle_predictor(config):

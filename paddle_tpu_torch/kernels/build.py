@@ -7,6 +7,12 @@ at first use into ``kernels/_build/`` (listed in ``.gitignore``), under a
 file name keyed by a hash of the sources and flags, so an edited source
 is rebuilt and an unchanged one is reused. ``build_all`` starts one
 ``nvcc`` per library, all together, and waits for every one.
+
+A first launch can come from any thread (a serving worker beside a
+caller's direct run), so building and loading take one process-wide
+lock: a second thread that asks for a library being built waits for that
+build and loads its result, rather than starting a second ``nvcc`` into
+the same temporary file (it is named by process, which threads share).
 """
 
 import ctypes
@@ -14,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -34,6 +41,8 @@ NVCC_FLAGS = (
 )
 
 _loaded = {}
+# held across the build and the load of a library (re-entered by load)
+_lock = threading.RLock()
 
 
 def _nvcc():
@@ -67,6 +76,11 @@ def build_all(names=None):
     """Build every library in ``names`` (default: all) that is not built
     yet, one ``nvcc`` each, all started together. Returns {name: seconds}
     for the libraries built by this call; raises on a failed build."""
+    with _lock:
+        return _build_all(names)
+
+
+def _build_all(names):
     os.makedirs(BUILD_DIR, exist_ok=True)
     started = {}
     for name in names or SOURCES:
@@ -99,7 +113,10 @@ def load(name):
     """The ctypes handle of library ``name``, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(library_path(name))
-        _loaded[name] = lib
+        with _lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                build_all([name])
+                lib = ctypes.CDLL(library_path(name))
+                _loaded[name] = lib
     return lib

@@ -33,6 +33,7 @@ through the kernels.
 """
 
 import ctypes
+import threading
 
 import torch
 
@@ -183,6 +184,9 @@ _TAIL_ARGS = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
 _N_POINTERS = {"flash_fwd": 6, "flash_bwd_dq": 8, "flash_bwd_dkv": 9}
 
 _libs = {}
+# first loads from two threads: one declares the signatures, and neither
+# calls an entry point before they are declared
+_libs_lock = threading.Lock()
 
 
 def _lib(name):
@@ -191,14 +195,18 @@ def _lib(name):
     if lib is None:
         from paddle_tpu_torch.kernels import build
 
-        lib = build.load(name)
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * _N_POINTERS[name] + _TAIL_ARGS
-        fn.restype = ctypes.c_int
-        err = getattr(lib, name + "_error_string")
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        _libs[name] = lib
+        with _libs_lock:
+            lib = _libs.get(name)
+            if lib is None:
+                lib = build.load(name)
+                fn = getattr(lib, name)
+                fn.argtypes = ([ctypes.c_void_p] * _N_POINTERS[name]
+                               + _TAIL_ARGS)
+                fn.restype = ctypes.c_int
+                err = getattr(lib, name + "_error_string")
+                err.argtypes = [ctypes.c_int]
+                err.restype = ctypes.c_char_p
+                _libs[name] = lib
     return lib
 
 

@@ -1,7 +1,8 @@
 """The port (paddle_tpu_torch/), chip_smoke.py and
 tools/torch_flash_variants.py stand alone: they import
-neither JAX nor the JAX package, and the port never falls back to the CPU
-when CUDA is missing."""
+neither JAX nor the JAX package (the serving stack, observability and
+flags included), and the port never falls back to the CPU when CUDA is
+missing."""
 
 import os
 import re
@@ -22,7 +23,13 @@ import sys
 import numpy as np
 import paddle_tpu_torch
 import paddle_tpu_torch.fluid as fluid
+import paddle_tpu_torch.inference
+import paddle_tpu_torch.observability
+from paddle_tpu_torch import flags
+from paddle_tpu_torch.inference import admission, serving
 from paddle_tpu_torch.layers.nn import fused_attention
+from paddle_tpu_torch.observability import (
+    export, goodput, health, metrics, reqtrace, tracing)
 
 main, startup = fluid.Program(), fluid.Program()
 with fluid.program_guard(main, startup):
@@ -129,8 +136,24 @@ def test_predictor_without_cuda_raises(no_cuda, tmp_path):
     predictor = inference.create_paddle_predictor(config)
     (out,) = predictor.run({"x": np.ones((2, 3), np.float32)})
     assert out.data.shape == (2, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        predictor.serve()
+    # serve() puts a server over the predictor's own (CPU) executor
+    server = predictor.serve(buckets=(1, 2))
+    assert isinstance(server, inference.InferenceServer)
+    assert server.device == torch.device("cpu")
+    with server:
+        (served,) = server.run({"x": np.ones((1, 3), np.float32)})
+    np.testing.assert_allclose(served, out.data[:1], rtol=1e-6)
+
+
+def test_server_without_cuda_raises(no_cuda):
+    """A server built over the default executor (``Executor()``, the
+    card) raises without CUDA rather than serving on the CPU."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[3], dtype="float32")
+        y = fluid.layers.fc(input=x, size=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        inference.InferenceServer(main, ["x"], [y], scope=fluid.Scope())
 
 
 def test_unported_paths_raise():
