@@ -56,23 +56,46 @@ kernels on the card and prints one JSON line per phase:
    or operations over the card's peak for the input type: 165 TFLOP/s
    float32, the 3xTF32 rate of the tensor cores, and 989 TFLOP/s bfloat16
    dense; float32 rows add bound_ffma_ms, the operations over 67 TFLOP/s,
-   the float32 rate outside the tensor cores), and the predictor's
-   per-request latency at batch 1 and 8.
-8. train   — BERT-base pre-training at the same width,
+   the float32 rate outside the tensor cores), at the main path's shape in
+   float32 and in bfloat16 (the AMP path's), and the predictor's
+   per-request latency at batch 1 and 8 (replayed graphs).
+8. determinism — one BERT-base training step (batch 8, dropout 0.1) run
+   twice eagerly from the same state, feed and run counter: every grad and
+   the loss must be bitwise equal. The same two steps with the embedding
+   grad scattered by ``index_add_`` (float atomics on CUDA, the scatter
+   before ``index_put_``) print how many elements differ.
+9. train   — BERT-base pre-training at the same width,
    ``get_model(is_train=True)`` (append_backward + Adam), dropout 0.1,
-   startup on the card, 5 steps on a repeated ragged batch of 8. Checks
-   finite and falling loss, exactly 12 forward, 12 dQ and 12 dK/dV
-   launches a step, and one step at batch 2 against the same step of the
-   port on the CPU (loss and six parameter grads, from the same initial
-   state via ``convert.load_numpy_state``).
-9. times   — the backward kernels at the training shape (B=8 H=12 T=128
-   D=64 float32, ragged lengths) and at T=512 float32 and bfloat16: each
-   kernel's device time and bound, the plain backward's, and the backward
-   of ``scaled_dot_product_attention``; the training step's median wall,
-   device-busy share and top kernels.
-10. kernels — one JSON object listing every ported kernel, with its
+   startup on the card, 5 steps on a repeated ragged batch of 8, run
+   eagerly and captured (one CUDA graph of the whole step, replayed from
+   step 2) from the same state, step by step: the losses and every state
+   tensor bitwise equal at every step. Checks finite and falling loss,
+   exactly 12 forward, 12 dQ and 12 dK/dV launches a step (counted across
+   replays, and checked once against the profiler's kernel counts), the
+   step captured once and no block run eagerly, and one step at batch 2
+   against the same step of the port on the CPU (loss and six parameter
+   grads, from the same initial state via ``convert.load_numpy_state``).
+10. train_amp — the same model minimized through
+   ``contrib.mixed_precision.decorate`` (bfloat16 AMP), 5 captured steps
+   from the same state: the loss finite and falling, the first loss within
+   TRAIN_AMP_TOL of the float32 step's, the weights float32, 12 launches
+   of each kernel a step, all bfloat16 instances.
+11. times   — the backward kernels at the training shape (B=8 H=12 T=128
+   D=64 float32 and bfloat16, ragged lengths) and at T=512 float32 and
+   bfloat16: each kernel's device time and bound, the plain backward's,
+   and the backward of ``scaled_dot_product_attention``; the training
+   step's median wall, device-busy share and top kernels, eager and
+   captured, and the AMP step's.
+12. kernels — one JSON object listing every ported kernel, with its
    design: all three run their products on the tensor cores (mma.sync
-   bf16, 3xTF32 for float32) from a cp.async tile ring.
+   bf16, 3xTF32 for float32) from a cp.async tile ring, and read their
+   dropout seed from device memory.
+
+Served requests and dispatches run as captured CUDA graphs too: the first
+run of each shape (and each server bucket) is eager, the second captures
+it, later ones replay; ``serve_batched``'s ``warmup`` captures every
+bucket, checks that no served block ran eagerly, and prints
+``torch.cuda.memory_reserved()`` after every capture.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check raises
 and the script exits non-zero; it exits non-zero without a result when
@@ -105,8 +128,9 @@ PEAK_FFMA_FLOPS_PER_S = 67e12
 PEAKS = ("3.35 TB/s HBM; 165 TFLOP/s float32 as 3xTF32 on the tensor "
          "cores (bound_ffma_ms: 67 TFLOP/s, float32 outside the tensor "
          "cores), 989 TFLOP/s bfloat16 dense on the tensor cores")
-# how every kernel computes its products
+# how every kernel computes its products, and where it reads its seed
 DESIGN = "mma.sync bf16 / 3xTF32, cp.async ring"
+SEED = "int64 in device memory (the engine's seed table)"
 
 # out, |kernel - plain| <= rel * |plain| + abs_of_max_v * max|v| / (1 -
 # rate) + abs. float32: the kernel takes its products as 3xTF32 (float32
@@ -147,6 +171,10 @@ TRAIN_STEPS = 5
 TRAIN_GRADS = ("word_embedding", "fc_0.w_0_0", "fc_40.w_0_0",
                "layer_norm_12.w_0_0", "fc_73.w_0_0", "fc_75.w_0_0")
 TRAIN_TOL = {"loss_rtol": 1e-4, "grad_rel_to_max": 1e-3}
+# the AMP step's first loss against the float32 step's, same state, feed
+# and masks: bfloat16 GEMM operands and activations (8 bits of mantissa)
+# through 12 layers and the 30522-way softmax
+TRAIN_AMP_TOL = {"first_loss_rtol": 2e-2}
 # the served model against the CPU: float32 GEMMs (TF32 off) summed in
 # another order by cuBLAS than by the CPU GEMM, over 12 layers
 SERVE_TOL = {"rtol": 1e-3, "atol": 2e-3}
@@ -155,6 +183,12 @@ SERVE_TOL = {"rtol": 1e-3, "atol": 2e-3}
 # 1, so the float32 sums may differ in their last bits over 12 layers
 SERVE_BATCHED_TOL = {"rtol": 1e-4, "atol": 1e-4}
 SERVE_CLIENTS = (1, 8, 32)
+# the served numbers of the eager engine, before CUDA graphs, at each
+# client count (PERF.md §5; NVIDIA H100 80GB HBM3, 700.00 W): requests/s,
+# p50 and p99 ms
+SERVE_EAGER = {1: {"qps": 35.37, "p50_ms": 27.68, "p99_ms": 42.14},
+             8: {"qps": 155.9, "p50_ms": 50.33, "p99_ms": 60.54},
+             32: {"qps": 470.0, "p50_ms": 56.01, "p99_ms": 77.71}}
 SERVE_REQUESTS = 200   # batch-1 requests at each client count
 SERVE_POOL = 64        # distinct requests the clients cycle through
 
@@ -439,6 +473,19 @@ def phase_kernel_bwd(fa):
     return worst
 
 
+def captured(engine, tag=None):
+    """The engine's cache entries that run as a CUDA graph (those tagged
+    ``tag`` at the front of their ``cache_key_extra``, when given)."""
+    out = []
+    for key, c in engine._cache.items():
+        extra = key[7]
+        if tag is not None and (extra is None or extra[:len(tag)] != tag):
+            continue
+        if c.capture:
+            out.append(c)
+    return out
+
+
 def bert_feed(batch, rng):
     from paddle_tpu_torch.models import bert
 
@@ -481,20 +528,36 @@ def phase_serve(fa, model_dir):
     fa.launches = 0  # the main path starts here
     per_request = []
     outs = {}
+    replay_err = 0.0
     for b, feed in requests.items():
-        before = fa.launches
-        (out,) = predictor.run(feed)
-        outs[b] = out.data
-        per_request.append(fa.launches - before)
+        # the eager warm-up of this shape, the run that captures its
+        # graph, and a replay
+        for rep in range(3):
+            before = fa.launches
+            (out,) = predictor.run(feed)
+            per_request.append(fa.launches - before)
+            if rep == 0:
+                outs[b] = out.data
+            else:
+                replay_err = max(replay_err,
+                                 float(np.abs(out.data - outs[b]).max()))
     torch.cuda.synchronize()
     launches = fa.launches  # ... and ends here
     for b, out in outs.items():
         check(out.shape == (b, BERT["seq_len"], BERT["d_model"]),
               "enc_out shape %s at batch %d" % (out.shape, b))
         check(np.isfinite(out).all(), "enc_out finite at batch %d" % b)
-    check(per_request == [n_layers] * len(requests),
+    check(per_request == [n_layers] * 3 * len(requests),
           "flash kernel launches per request %s, want %d each"
           % (per_request, n_layers))
+    entries = captured(predictor._exe.engine)
+    check(len(entries) == len(requests)
+          and all(c.captures == 1 and c.replays == 2 for c in entries),
+          "served requests: %d graphs, captures %s, replays %s" % (
+              len(entries), [c.captures for c in entries],
+              [c.replays for c in entries]))
+    check(replay_err <= SERVE_BATCHED_TOL["atol"],
+          "replayed answers differ from eager by %g" % replay_err)
 
     cpu_cfg = inference.AnalysisConfig(model_dir)
     cpu_cfg.disable_gpu()
@@ -506,7 +569,8 @@ def phase_serve(fa, model_dir):
           "seq_lens": {b: f["seq_lens"].reshape(-1).tolist()
                        for b, f in requests.items()},
           "setup_s": setup_s, "launches_per_request": per_request,
-          "launches": launches,
+          "launches": launches, "graphs": len(entries),
+          "replay_vs_eager_max_abs_err": replay_err,
           "cpu_vs_card_max_abs_err": err, "tol": SERVE_TOL})
     check(close, "card vs CPU enc_out max abs err %g beyond %s"
           % (err, SERVE_TOL))
@@ -697,6 +761,13 @@ def phase_serve_batched(fa, predictor, smi):
         server.warmup(pool[0])
         warmup_s = time.perf_counter() - t0
         torch.cuda.synchronize()
+        graphs = captured(server._engine, ("serving", server.name))
+        check(sorted(c.feed_bufs[0].shape[0] for c in graphs)
+              == list(server.buckets)
+              and all(c.captures == 1 for c in graphs),
+              "warmup: %d bucket graphs for buckets %s" % (len(graphs),
+                                                          server.buckets))
+        reserved = torch.cuda.memory_reserved()
         fa.launches = 0  # the served path starts here
         for clients in SERVE_CLIENTS:
             obs.reset()
@@ -718,9 +789,16 @@ def phase_serve_batched(fa, predictor, smi):
                    "batch_fill_mean": hist["serving.batch_fill"]["mean"],
                    "batches": batches,
                    "padded_rows": cnt.get("serving.padded_rows", 0),
+                   "replays": cnt.get("engine.replays", 0),
                    "launches": launches, "max_abs_err": err,
-                   "tol": SERVE_BATCHED_TOL}
+                   "tol": SERVE_BATCHED_TOL,
+                   "eager_engine": SERVE_EAGER[clients]}
             emit(row)
+            check(cnt.get("engine.eager_runs", 0) == 0
+                  and cnt.get("engine.captures", 0) == 0,
+                  "%d clients: %d eager runs, %d captures while serving"
+                  % (clients, cnt.get("engine.eager_runs", 0),
+                     cnt.get("engine.captures", 0)))
             check(cnt["serving.requests"] == SERVE_REQUESTS,
                   "%d clients: serving.requests %d" % (
                       clients, cnt["serving.requests"]))
@@ -758,6 +836,8 @@ def phase_serve_batched(fa, predictor, smi):
     emit(dict({"phase": "serve_batched", "card": smi,
                "first_load_race": True}, **first_load_race(fa)))
     emit({"phase": "serve_batched", "warmup_s": warmup_s,
+          "bucket_graphs": len(graphs),
+          "memory_reserved_after_captures": reserved,
           "launches": launches})
     return launches
 
@@ -769,62 +849,251 @@ def train_feed(batch, rng):
                                 rng=rng, varlen=True)
 
 
-def phase_train(fa):
-    """BERT-base pre-training on the card: ``get_model(is_train=True)``
-    (append_backward + Adam), startup on the card, TRAIN_STEPS steps on a
-    repeated ragged batch of 8, each with 12 launches of every flash
-    kernel; then one step at batch 2 on the card against the same step of
-    the port on the CPU, from the same initial state. Returns (executor,
-    scope, program, loss var, batch-8 feed, launches by kernel)."""
+def bert_train_program(amp):
+    """BERT-base pre-training (dropout 0.1, Adam lr 1e-4), as
+    ``models.bert.get_model(is_train=True)`` builds it; with ``amp`` the
+    optimizer is wrapped by ``contrib.mixed_precision.decorate``, which
+    marks the program for bfloat16. Returns (main, startup, loss)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.contrib import mixed_precision
+    from paddle_tpu_torch.models import bert
+
+    main, startup = fluid.Program(), fluid.Program()
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        T = BERT["seq_len"]
+        data = {n: fluid.layers.data(name=n, shape=[T], dtype="int64")
+                for n in ("src_ids", "pos_ids", "sent_ids")}
+        seq_lens = fluid.layers.data(name="seq_lens", shape=[1],
+                                     dtype="int64")
+        mask_label = fluid.layers.data(name="mask_label", shape=[T],
+                                       dtype="int64")
+        mask_weight = fluid.layers.data(name="mask_weight", shape=[T],
+                                        dtype="float32")
+        ns_label = fluid.layers.data(name="ns_label", shape=[1],
+                                     dtype="int64")
+        enc = bert.bert_encoder(
+            data["src_ids"], data["pos_ids"], data["sent_ids"], seq_lens,
+            BERT["vocab_size"], max_position=BERT["max_position"],
+            d_model=BERT["d_model"], n_layers=BERT["n_layers"],
+            n_heads=BERT["n_heads"], d_inner=BERT["d_inner"], dropout=0.1,
+            is_train=True, use_fused_attention=True)
+        loss, _, _ = bert.pretrain_heads(
+            enc, mask_label, mask_weight, ns_label, BERT["vocab_size"],
+            BERT["d_model"], is_train=True)
+        opt = fluid.optimizer.Adam(learning_rate=1e-4)
+        if amp:
+            opt = mixed_precision.decorate(opt)
+        opt.minimize(loss)
+    main.random_seed = startup.random_seed = 2024
+    return main, startup, loss
+
+
+def start_state(main, startup):
+    """Run the startup program on the card; returns every persistable var
+    as a host array, the state every training phase starts from."""
+    import paddle_tpu_torch.fluid as fluid
+
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        fluid.Executor(fluid.CUDAPlace(0)).run(startup)
+    return {v.name: scope.get(v.name).cpu().numpy()
+            for v in main.list_vars() if v.persistable}
+
+
+def fresh(startup, graphs=True):
+    """A new executor on the card and a new scope, initialised by the
+    startup program as a user would (its run is the executor's first, so
+    training steps run at counters 2, 3, ...); ``graphs`` False runs every
+    block eagerly. Every executor made here starts from the same state."""
+    import paddle_tpu_torch.fluid as fluid
+
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.engine.cuda_graphs = graphs
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+    return exe, scope
+
+
+def _lookup_table_grad_index_add(ctx, ins, attrs):
+    """The embedding grad as the port scattered it before this check: a
+    zero table ``index_add_``-ed at the batch's ids (float atomics on
+    CUDA)."""
+    import torch
+
+    from paddle_tpu_torch.ops.common import flatten_lookup_ids, single
+
+    w = single(ins, "W")
+    rows = flatten_lookup_ids(single(ins, "Ids")).reshape(-1).long()
+    vals = single(ins, "Out@GRAD").reshape(
+        (rows.shape[0],) + tuple(w.shape[1:])).to(w.dtype)
+    return {"W@GRAD": [torch.zeros_like(w).index_add_(0, rows, vals)]}
+
+
+def phase_determinism(main, startup, loss, feed8):
+    """One eager step, twice, from the same state, feed and run counter:
+    the loss and every grad must be bitwise equal. The same pair of steps
+    with the embedding grad scattered by ``index_add_`` counts how many
+    elements differ with float atomics."""
     import torch
 
     import paddle_tpu_torch.fluid as fluid
-    from paddle_tpu_torch import convert, unique_name
-    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.core.registry import OpRegistry
 
-    t0 = time.perf_counter()
-    with unique_name.guard():
-        main, startup, handles = bert.get_model(
-            batch_size=8, dropout=0.1, is_train=True, **BERT)
-    main.random_seed = startup.random_seed = 2024
-    loss = handles["loss"]
-    ops = [op.type for op in main.desc.global_block().ops]
-    exe = fluid.Executor()  # CUDAPlace(0)
-    scope = fluid.Scope()
-    with fluid.scope_guard(scope):
-        exe.run(startup)
-    persistable = sorted(v.name for v in main.list_vars() if v.persistable)
-    state0 = {n: scope.get(n).cpu().numpy() for n in persistable}
-    setup_s = time.perf_counter() - t0
+    grads = [p.name + "@GRAD" for p in main.all_parameters()]
+    fetch = [loss.name] + grads
+
+    def two_steps():
+        outs = []
+        for _ in range(2):
+            exe, scope = fresh(startup, graphs=False)
+            with fluid.scope_guard(scope):
+                outs.append(exe.run(main, feed=feed8, fetch_list=fetch,
+                                    return_numpy=False))
+        torch.cuda.synchronize()
+        differing = {}
+        for name, a, b in zip(fetch, *outs):
+            n = int((a != b).sum().item())
+            if n:
+                differing[name] = n
+        return differing
+
+    info = OpRegistry.get("lookup_table_grad")
+    repaired = info.lower
+    info.lower = _lookup_table_grad_index_add
+    try:
+        before = two_steps()
+    finally:
+        info.lower = repaired
+    after = two_steps()
+    emit({"phase": "determinism", "model": "bert_base", "batch": 8,
+          "dropout": 0.1, "grads": len(grads),
+          "index_add_differing_elements": before,
+          "index_put_differing_elements": after})
+    check(not after, "two identical steps differ: %s" % after)
+    return before
+
+
+def step_counts(fa):
+    return (fa.launches, fa.launches_dq, fa.launches_dkv)
+
+
+def flash_kernel_counts(fn):
+    """Launches of each flash kernel in one profiled call of ``fn``, by
+    the profiler (the cross-check of the launch counters), and the
+    instances' names."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts, names = {}, set()
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            if k + "_kernel" in e.key:
+                counts[k] = counts.get(k, 0) + e.count
+                names.add(e.key[:90])
+    return counts, sorted(names)
+
+
+def phase_train(fa, main, startup, loss, state0, feed8):
+    """BERT-base training on the card, TRAIN_STEPS steps eagerly and
+    captured from the same state, step by step: losses and every state
+    tensor bitwise equal; 12 launches of each kernel a step, counted
+    across replays and checked against the profiler; the step captured
+    once and no block run eagerly; then one step at batch 2 on the card
+    against the same step on the CPU. Returns (the two executors and
+    scopes, launches by kernel on the captured path, the bitwise
+    record)."""
+    import torch
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch import observability as obs
+
     n_layers = BERT["n_layers"]
-
-    feed8 = train_feed(8, np.random.RandomState(11))
     names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-
-    def counts():
-        return (fa.launches, fa.launches_dq, fa.launches_dkv)
-
-    losses, per_step = [], []
+    ops = [op.type for op in main.desc.global_block().ops]
+    persistable = sorted(state0)
+    eager, eager_scope = fresh(startup, graphs=False)
+    graph, graph_scope = fresh(startup)
+    losses = {"eager": [], "captured": []}
+    per_step, unequal = [], []
+    obs.set_enabled(True)
+    obs.reset()
     torch.cuda.synchronize()
     fa.launches = fa.launches_dq = fa.launches_dkv = 0  # the path starts
-    with fluid.scope_guard(scope):
-        for _ in range(TRAIN_STEPS):
-            before = counts()
-            (out,) = exe.run(main, feed=feed8, fetch_list=[loss])
-            losses.append(float(out.reshape(-1)[0]))
-            per_step.append([a - b for a, b in zip(counts(), before)])
+    eager_runs = 0  # the captured executor's
+    for step in range(TRAIN_STEPS):
+        before = step_counts(fa)
+        eager_before = obs.counter_value("engine.eager_runs")
+        with fluid.scope_guard(graph_scope):
+            (out,) = graph.run(main, feed=feed8, fetch_list=[loss])
+        eager_runs += obs.counter_value("engine.eager_runs") - eager_before
+        losses["captured"].append(float(out.reshape(-1)[0]))
+        per_step.append([a - b for a, b in zip(step_counts(fa), before)])
+        counted = step_counts(fa)
+        with fluid.scope_guard(eager_scope):
+            (out,) = eager.run(main, feed=feed8, fetch_list=[loss])
+        losses["eager"].append(float(out.reshape(-1)[0]))
+        # the eager executor's launches are not the captured path's
+        fa.launches, fa.launches_dq, fa.launches_dkv = counted
+        for n in persistable:
+            if not torch.equal(graph_scope.get(n), eager_scope.get(n)):
+                unequal.append([step + 1, n, float(
+                    (graph_scope.get(n) - eager_scope.get(n)).abs().max())])
     torch.cuda.synchronize()
-    launches = dict(zip(names, counts()))  # ... and ends here
-    check(all(np.isfinite(losses)), "training losses %s" % losses)
-    check(losses[-1] < losses[0], "loss did not fall: %s" % losses)
+    launches = dict(zip(names, step_counts(fa)))  # ... and ends here
+    obs.set_enabled(None)
+    entries = captured(graph.engine)
+    # the profiler's count of one replayed step's flash kernels
+    with fluid.scope_guard(graph_scope):
+        profiled, instances = flash_kernel_counts(
+            lambda: graph.run(main, feed=feed8, fetch_list=[loss]))
+    row = {"phase": "train", "model": "bert_base", "batch": 8,
+           "seq_len": BERT["seq_len"], "dropout": 0.1, "ops": len(ops),
+           "grad_ops": sum(t.endswith("_grad") for t in ops),
+           "params": sum(int(np.prod(p.shape))
+                         for p in main.all_parameters()),
+           "seq_lens": feed8["seq_lens"].reshape(-1).tolist(),
+           "losses": losses, "state_tensors": len(persistable),
+           "unequal_state": unequal[:10],
+           "launches_per_step": per_step, "launches": launches,
+           "profiled_replay_launches": profiled,
+           "graphs": len(entries),
+           "captures": [c.captures for c in entries],
+           "replays": [c.replays for c in entries],
+           "eager_runs": eager_runs}
+    emit(row)
+    check(all(np.isfinite(losses["captured"])),
+          "training losses %s" % losses)
+    check(losses["captured"][-1] < losses["captured"][0],
+          "loss did not fall: %s" % losses)
+    check(losses["captured"] == losses["eager"] and not unequal,
+          "captured and eager steps differ: losses %s, state %s"
+          % (losses, unequal[:5]))
     check(per_step == [[n_layers] * 3] * TRAIN_STEPS,
           "fwd/dq/dkv launches per step %s, want %d each"
           % (per_step, n_layers))
+    check(profiled == dict.fromkeys(names, n_layers),
+          "the profiler counted %s flash launches in a replayed step"
+          % profiled)
+    check(len(entries) == 1 and entries[0].captures == 1
+          and row["eager_runs"] == 0,
+          "the training step: %d graphs, captures %s, %d eager runs"
+          % (len(entries), row["captures"], row["eager_runs"]))
 
     # one step at batch 2, on the card and on the CPU, from the same
     # initial state; fresh executors, so both engines run at the same run
-    # counter and draw the same dropout seeds (startup advanced the first
-    # executor's), and the hash masks are the same on both devices
+    # counter and draw the same dropout seeds, and the hash masks are the
+    # same on both devices
     feed2 = train_feed(2, np.random.RandomState(12))
     fetch = [loss.name] + [n + "@GRAD" for n in TRAIN_GRADS]
     results = []
@@ -844,24 +1113,74 @@ def phase_train(fa):
                                                          b.shape))
         grad_errs[name] = {"max_abs_err": float(np.abs(a - b).max()),
                            "max_abs": float(np.abs(b).max())}
-    emit({"phase": "train", "model": "bert_base", "batch": 8,
-          "seq_len": BERT["seq_len"], "dropout": 0.1, "ops": len(ops),
-          "grad_ops": sum(t.endswith("_grad") for t in ops),
-          "params": sum(int(np.prod(p.shape)) for p in main.all_parameters()),
-          "seq_lens": feed8["seq_lens"].reshape(-1).tolist(),
-          "setup_s": setup_s, "losses": losses,
-          "launches_per_step": per_step, "launches": launches,
-          "cpu_step": {"batch": 2, "loss_card": float(card[0].reshape(-1)[0]),
-                       "loss_cpu": float(cpu[0].reshape(-1)[0]),
-                       "loss_abs_err": loss_err, "grads": grad_errs},
-          "tol": TRAIN_TOL})
-    check(loss_err <= TRAIN_TOL["loss_rtol"] * abs(float(cpu[0].reshape(-1)[0])),
+    emit({"phase": "train", "cpu_step": {
+        "batch": 2, "loss_card": float(card[0].reshape(-1)[0]),
+        "loss_cpu": float(cpu[0].reshape(-1)[0]),
+        "loss_abs_err": loss_err, "grads": grad_errs}, "tol": TRAIN_TOL})
+    check(loss_err <= TRAIN_TOL["loss_rtol"]
+          * abs(float(cpu[0].reshape(-1)[0])),
           "card vs CPU step loss error %g" % loss_err)
     for name, e in grad_errs.items():
         check(e["max_abs_err"] <= TRAIN_TOL["grad_rel_to_max"] * e["max_abs"],
               "card vs CPU %s@GRAD error %g (max |grad| %g)"
               % (name, e["max_abs_err"], e["max_abs"]))
-    return exe, scope, main, loss, feed8, launches
+    return ((eager, eager_scope), (graph, graph_scope), launches,
+            losses["captured"])
+
+
+def phase_train_amp(fa, feed8, f32_losses):
+    """The same model minimized through ``mixed_precision.decorate``:
+    TRAIN_STEPS captured steps from the same state. Returns (executor,
+    scope, program, loss, launches by kernel)."""
+    import torch
+
+    import paddle_tpu_torch.fluid as fluid
+
+    n_layers = BERT["n_layers"]
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    main, startup, loss = bert_train_program(amp=True)
+    check(getattr(main, "_amp", False), "decorate did not mark the program")
+    exe, scope = fresh(startup)
+    losses, per_step = [], []
+    torch.cuda.synchronize()
+    fa.launches = fa.launches_dq = fa.launches_dkv = 0  # the path starts
+    with fluid.scope_guard(scope):
+        for _ in range(TRAIN_STEPS):
+            before = step_counts(fa)
+            (out,) = exe.run(main, feed=feed8, fetch_list=[loss])
+            losses.append(float(out.reshape(-1)[0]))
+            per_step.append([a - b for a, b in zip(step_counts(fa),
+                                                   before)])
+    torch.cuda.synchronize()
+    launches = dict(zip(names, step_counts(fa)))  # ... and ends here
+    with fluid.scope_guard(scope):
+        profiled, instances = flash_kernel_counts(
+            lambda: exe.run(main, feed=feed8, fetch_list=[loss]))
+    dtypes = sorted({str(scope.get(p.name).dtype)
+                     for p in main.all_parameters()})
+    entries = captured(exe.engine)
+    first_err = abs(losses[0] - f32_losses[0]) / abs(f32_losses[0])
+    emit({"phase": "train_amp", "model": "bert_base", "batch": 8,
+          "losses": losses, "float32_losses": f32_losses,
+          "first_loss_rel_err": first_err, "tol": TRAIN_AMP_TOL,
+          "param_dtypes": dtypes, "launches_per_step": per_step,
+          "launches": launches, "profiled_replay_launches": profiled,
+          "flash_instances": instances,
+          "captures": [c.captures for c in entries]})
+    check(all(np.isfinite(losses)), "AMP losses %s" % losses)
+    check(losses[-1] < losses[0], "AMP loss did not fall: %s" % losses)
+    check(first_err <= TRAIN_AMP_TOL["first_loss_rtol"],
+          "AMP first loss %g against float32 %g" % (losses[0],
+                                                    f32_losses[0]))
+    check(dtypes == ["torch.float32"], "AMP weights are %s" % dtypes)
+    check(per_step == [[n_layers] * 3] * TRAIN_STEPS
+          and profiled == dict.fromkeys(names, n_layers),
+          "AMP launches per step %s, profiled %s" % (per_step, profiled))
+    check(instances and all("bfloat16" in n for n in instances),
+          "AMP flash instances %s are not all bfloat16" % instances)
+    check(len(entries) == 1 and entries[0].captures == 1,
+          "the AMP step: %d graphs" % len(entries))
+    return exe, scope, main, loss, launches
 
 
 def valid_keys(B, H, Tk, lens):
@@ -1032,11 +1351,12 @@ def host_ms_by_kind(step, n=3):
             for k in sorted(totals)}
 
 
-def time_train_step(exe, scope, main, loss, feed8):
+def time_train_step(exe, scope, main, loss, feed8, host=False):
     """Median wall of a BERT-base training step at batch 8 (host clock, 10
     steps after 2 warm-ups; each ends in the loss's copy to the host), the
-    device time of 3 more steps by kernel from the profiler, and the host
-    time of 3 more by kind of op."""
+    device time of 3 more steps by kernel from the profiler, and with
+    ``host`` the host time of 3 more by kind of op (an eager executor's:
+    a replayed graph runs no op from Python)."""
     import torch
 
     import paddle_tpu_torch.fluid as fluid
@@ -1054,18 +1374,20 @@ def time_train_step(exe, scope, main, loss, feed8):
             step()
             walls.append((time.perf_counter() - t0) * 1e3)
         kernels = device_kernels(step, 3)
-        host = host_ms_by_kind(step)
+        by_kind = host_ms_by_kind(step) if host else None
     wall = statistics.median(walls)
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
     flash = {name: sum(t for key, t in kernels.items()
                        if name + "_kernel" in key)
              for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
-    return {"median_ms": wall, "min_ms": min(walls), "max_ms": max(walls),
-            "device_busy_ms": busy, "device_idle_share": 1.0 - busy / wall,
-            "flash_kernels_ms": flash, "host_ms_by_kind": host,
-            "kernel_names": len(kernels),
-            "top_kernels_ms": [[name[:80], ms] for name, ms in top]}
+    row = {"median_ms": wall, "min_ms": min(walls), "max_ms": max(walls),
+           "device_busy_ms": busy, "device_idle_share": 1.0 - busy / wall,
+           "flash_kernels_ms": flash, "kernel_names": len(kernels),
+           "top_kernels_ms": [[name[:80], ms] for name, ms in top]}
+    if by_kind is not None:
+        row["host_ms_by_kind"] = by_kind
+    return row
 
 
 def profile_request(run, wall_ms):
@@ -1086,6 +1408,8 @@ def phase_times(fa, predictor, feed8):
     lens8 = feed8["seq_lens"].reshape(-1).tolist()
     rows = {
         "main_path": time_kernel(fa, 8, 12, 128, 64, torch.float32, lens8),
+        "main_path_bf16": time_kernel(fa, 8, 12, 128, 64, torch.bfloat16,
+                                      lens8),
         "t128_f32_full": time_kernel(fa, 8, 12, 128, 64, torch.float32, None),
         "t512_f32_full": time_kernel(fa, 8, 12, 512, 64, torch.float32, None),
         "t128_bf16_full": time_kernel(fa, 8, 12, 128, 64, torch.bfloat16,
@@ -1114,19 +1438,23 @@ def phase_times(fa, predictor, feed8):
     emit(dict({"phase": "times", "profile": "batch-8 request"},
               **profile_request(lambda: predictor.run(feed8),
                                 latency[8]["median_ms"])))
-    return rows["main_path"]
+    return rows["main_path"], rows["main_path_bf16"]
 
 
-def phase_times_train(fa, exe, scope, main, loss, feed8):
+def phase_times_train(fa, runs, main, loss, feed8):
     """The backward kernels at the training path's shape (B=8 H=12 T=128
-    D=64 float32, the batch's ragged lengths) and at T=512 float32 and
-    bfloat16, then the training step. Returns the main-path row."""
+    D=64, the batch's ragged lengths; float32, and bfloat16 as under AMP)
+    and at T=512 float32 and bfloat16, then the training step: eager,
+    captured, and captured under AMP (``runs``: {label: (executor, scope,
+    program, loss)}). Returns the main-path rows, float32 and bf16."""
     import torch
 
     lens8 = feed8["seq_lens"].reshape(-1).tolist()
     rows = {
         "main_path": time_bwd_kernels(fa, 8, 12, 128, 64, torch.float32,
                                       lens8),
+        "main_path_bf16": time_bwd_kernels(fa, 8, 12, 128, 64,
+                                           torch.bfloat16, lens8),
         "t512_f32_full": time_bwd_kernels(fa, 8, 12, 512, 64, torch.float32,
                                           None),
         "t512_bf16_full": time_bwd_kernels(fa, 8, 12, 512, 64,
@@ -1137,12 +1465,15 @@ def phase_times_train(fa, exe, scope, main, loss, feed8):
                    "peaks": PEAKS, "plain": "attention_bwd_plain (dq, dk "
                    "and dv)", "library": "scaled_dot_product_attention "
                    "backward (dq, dk and dv)"}, **row))
-    emit(dict({"phase": "times", "profile": "batch-8 training step",
-               "model": "bert_base", "seq_len": BERT["seq_len"]},
-              **time_train_step(exe, scope, main, loss, feed8)))
+    for label, (exe, scope, prog, prog_loss) in runs.items():
+        emit(dict({"phase": "times", "profile": "batch-8 training step",
+                   "run": label, "model": "bert_base",
+                   "seq_len": BERT["seq_len"], "tf32": False},
+                  **time_train_step(exe, scope, prog, prog_loss, feed8,
+                                    host=label == "eager")))
     emit({"phase": "times", "partial_profiler_windows_rerun":
           len(PARTIAL_PROFILES), "partial_windows": PARTIAL_PROFILES})
-    return rows["main_path"]
+    return rows["main_path"], rows["main_path_bf16"]
 
 
 def main():
@@ -1189,35 +1520,64 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_bert_") as model_dir:
         predictor, serve_launches, feed8 = phase_serve(fa, model_dir)
         batched_launches = phase_serve_batched(fa, predictor, smi)
-        main_row = phase_times(fa, predictor, feed8)
+        main_row, main_bf16_row = phase_times(fa, predictor, feed8)
     del predictor
-    exe, scope, main_prog, loss, train_feed8, launches = phase_train(fa)
-    bwd_row = phase_times_train(fa, exe, scope, main_prog, loss, train_feed8)
+    main_prog, startup, loss = bert_train_program(amp=False)
+    state0 = start_state(main_prog, startup)
+    train_feed8 = train_feed(8, np.random.RandomState(11))
+    phase_determinism(main_prog, startup, loss, train_feed8)
+    eager, graph, launches, f32_losses = phase_train(
+        fa, main_prog, startup, loss, state0, train_feed8)
+    amp_exe, amp_scope, amp_prog, amp_loss, amp_launches = phase_train_amp(
+        fa, train_feed8, f32_losses)
+    bwd_row, bwd_bf16_row = phase_times_train(fa, {
+        "eager": eager + (main_prog, loss),
+        "captured": graph + (main_prog, loss),
+        "captured_amp": (amp_exe, amp_scope, amp_prog, amp_loss)},
+        main_prog, loss, train_feed8)
 
     # launches: the training path's (forward, dQ and dK/dV each 12 a
-    # step); the forward's on the served paths are in launches_by_path
+    # step, counted across replays); the forward's on the served paths and
+    # the AMP path's are in launches_by_path. Each kernel's numbers are
+    # the float32 main path's; the bf16 (AMP) main path's are in "bf16".
+    def bf16(row, launched):
+        return {"launches": launched, "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"]}
+
     kernels = [{
         "name": "flash_fwd", "route": "cuda", "design": DESIGN,
+        "seed": SEED,
         "source": "paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
         "replaces": "paddle_tpu/kernels/flash_attention.py:110",
         "launches": launches["flash_fwd"],
         "launches_by_path": {"serve": serve_launches,
                              "serve_batched": batched_launches,
-                             "train": launches["flash_fwd"]},
+                             "train": launches["flash_fwd"],
+                             "train_amp": amp_launches["flash_fwd"]},
         "max_abs_err": worst,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}]
+        "library_ms": main_row["library_ms"],
+        "bf16": bf16(main_bf16_row, amp_launches["flash_fwd"])}]
     for name, line in (("flash_bwd_dq", 269), ("flash_bwd_dkv", 328)):
         kernels.append({
-            "name": name, "route": "cuda", "design": DESIGN,
+            "name": name, "route": "cuda", "design": DESIGN, "seed": SEED,
             "source": "paddle_tpu_torch/kernels/csrc/%s.cu" % name,
             "replaces": "paddle_tpu/kernels/flash_attention.py:%d" % line,
-            "launches": launches[name], "max_abs_err": worst_bwd[name],
+            "launches": launches[name],
+            "launches_by_path": {"train": launches[name],
+                                 "train_amp": amp_launches[name]},
+            "max_abs_err": worst_bwd[name],
             "ms": bwd_row[name]["ms"], "plain_ms": bwd_row["plain_ms"],
             "bound_ms": bwd_row[name]["bound_ms"],
             "bound_by": bwd_row[name]["bound_by"],
-            "library_ms": bwd_row["library_ms"]})
+            "library_ms": bwd_row["library_ms"],
+            "bf16": bf16(dict(bwd_bf16_row[name],
+                              plain_ms=bwd_bf16_row["plain_ms"],
+                              library_ms=bwd_bf16_row["library_ms"]),
+                         amp_launches[name])})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -13,12 +13,22 @@ A ``*_grad`` op with a lowering of its own (``mul_grad``,
 it with its own vjp. That re-runs the forward op inside its grad op on
 every step (the reference's compiler shares the two; an eager engine
 cannot).
+
+``lower_block(..., amp=True)`` runs the ops under ``amp_scope``
+(lowering.py:222). ``BlockProgram`` lists the block's RNG slots, one per
+RNG stream id of an op that draws a dropout seed under its attrs
+(``OpInfo.seed_range``: not a test op, a nonzero rate); a grad op finds its
+forward's slot by the same id, so it re-derives the same mask. It also
+says whether a CUDA graph may hold the block: every op's lowering is
+capturable (``OpInfo.capturable``), decided from the desc alone.
 """
 
 import torch
 
 from paddle_tpu_torch import ops as _ops  # noqa: F401  (registers lowerings)
-from paddle_tpu_torch.core.registry import OpRegistry, LowerContext
+from paddle_tpu_torch.core.registry import (
+    OpRegistry, LowerContext, amp_scope, draw_seed,
+)
 
 # Ops that are pure host-side markers and skipped during execution.
 _SKIP_OPS = frozenset({"feed", "fetch"})
@@ -112,19 +122,62 @@ class BlockProgram:
         self.state_in_names = state_in
         self.state_out_names = state_out
 
+        # the seed table's slots, (rng id, seed range), and the ops a CUDA
+        # graph cannot hold; an unregistered op raises when it runs
+        highs = {}
+        self.uncapturable_ops = []
+        for op_index, op in enumerate(self.ops):
+            info = _op_info(op)
+            if info is None:
+                continue
+            if not info.capturable:
+                self.uncapturable_ops.append(op.type)
+            high = (info.seed_range(op.attrs)
+                    if info.needs_rng and info.seed_range else None)
+            if high is None:
+                continue
+            rng_id = _rng_id(op, 0 if _is_generic_grad(op) else op_index)
+            if highs.setdefault(rng_id, high) != high:
+                raise ValueError(
+                    "ops of RNG stream %d draw seeds in ranges %d and %d"
+                    % (rng_id, highs[rng_id], high))
+        self.rng_slots = list(highs.items())
+        self.capturable = not self.uncapturable_ops
 
-def lower_block(block_program, device, is_test=False, executor=None):
-    """Returns fn(feeds: list, state_in: list, rng_seed) ->
+    def seed_values(self, seed, run_counter):
+        """The run's seed table: each slot's seed as its ops' RNG stream
+        draws it (``draw_seed``)."""
+        return [draw_seed(seed, run_counter, rng_id, high)
+                for rng_id, high in self.rng_slots]
+
+
+def _is_generic_grad(op):
+    return op.type.endswith("_grad") and not OpRegistry.has(op.type)
+
+
+def _op_info(op):
+    """The registry entry that lowers ``op`` (the forward's for a generic
+    grad op), or None when the op is not ported."""
+    fwd = op.type[: -len("_grad")] if _is_generic_grad(op) else op.type
+    return OpRegistry._ops.get(fwd)
+
+
+def lower_block(block_program, device, is_test=False, executor=None,
+                amp=False):
+    """Returns fn(feeds: list, state_in: list, rng_seed, seeds=None) ->
     (fetches: list, state_out: list), running the block's live ops
-    eagerly on ``device``. ``rng_seed`` is the (seed, run_counter) pair."""
+    eagerly on ``device``, under ``amp_scope(amp)``. ``rng_seed`` is the
+    (seed, run_counter) pair; ``seeds`` maps each RNG slot's id to its
+    entry of the run's seed table (0-d int64 tensors on ``device``)."""
     block = block_program.block
 
-    def fn(feed_values, state_values, rng_seed):
+    def fn(feed_values, state_values, rng_seed, seeds=None):
         env = dict(zip(block_program.feed_names, feed_values))
         env.update(zip(block_program.state_in_names, state_values))
-        for op_index, op in enumerate(block_program.ops):
-            run_op(op, block, env, device, rng_seed, op_index, is_test,
-                   executor)
+        with amp_scope(amp):
+            for op_index, op in enumerate(block_program.ops):
+                run_op(op, block, env, device, rng_seed, op_index, is_test,
+                       executor, seeds)
         fetches = [env[n] for n in block_program.fetch_names]
         state_out = [env[n] for n in block_program.state_out_names]
         return fetches, state_out
@@ -133,7 +186,7 @@ def lower_block(block_program, device, is_test=False, executor=None):
 
 
 def run_op(op, block, env, device, rng_seed, op_index, is_test,
-           executor=None):
+           executor=None, seeds=None):
     """Execute one op desc into env."""
     ins = {}
     for slot, names in op.inputs.items():
@@ -151,12 +204,13 @@ def run_op(op, block, env, device, rng_seed, op_index, is_test,
                 )
         ins[slot] = vals
     if op.type.endswith("_grad") and not OpRegistry.has(op.type):
-        outs = _lower_grad_op(op, block, ins, device, rng_seed, is_test)
+        outs = _lower_grad_op(op, block, ins, device, rng_seed, is_test,
+                              seeds)
     else:
         info = OpRegistry.get(op.type)
         ctx = LowerContext(op, block, device, rng_seed=rng_seed,
                            op_index=_rng_id(op, op_index), is_test=is_test,
-                           executor=executor)
+                           executor=executor, seeds=seeds)
         outs = info.lower(ctx, ins, clean_attrs(op.attrs))
     _bind_outputs(op, outs, env)
 
@@ -175,10 +229,10 @@ def _bind_outputs(op, outs, env):
                 env[name] = vals[i]
 
 
-def _lower_grad_op(op, block, ins, device, rng_seed, is_test):
+def _lower_grad_op(op, block, ins, device, rng_seed, is_test, seeds=None):
     """Generic gradient lowering: ``torch.func.vjp`` of the forward
-    lowering, with the forward op's RNG stream (``__rng_id__``), so a
-    dropout grad re-draws the forward's mask. Only floating-point inputs
+    lowering, with the forward op's RNG stream (``__rng_id__``) and seed,
+    so a dropout grad re-draws the forward's mask. Only floating-point inputs
     are primals (vjp refuses integer ones); integer and absent inputs are
     closed over and get a None grad, as float0 does in the reference. An
     absent output cotangent (``@EMPTY@``, or no grad slot) is zeros."""
@@ -203,7 +257,8 @@ def _lower_grad_op(op, block, ins, device, rng_seed, is_test):
         for (s, i), p in zip(diff, primals):
             fin[s][i] = p
         ctx = LowerContext(op, block, device, rng_seed=rng_seed,
-                           op_index=_rng_id(op, 0), is_test=is_test)
+                           op_index=_rng_id(op, 0), is_test=is_test,
+                           seeds=seeds)
         out = info.lower(ctx, fin, attrs)
         vals = []
         for s in fwd_output_slots:

@@ -3,6 +3,9 @@ python/paddle/fluid/executor.py — Executor:262, run:451). Port of
 ``paddle_tpu/executor.py``: ``Executor``, ``global_scope`` and
 ``scope_guard``. ``Executor()`` runs on ``CUDAPlace(0)`` and raises when
 CUDA is missing; a caller asks for the CPU with ``Executor(CPUPlace())``.
+A program marked for AMP (``contrib.mixed_precision``) runs in bfloat16;
+on CUDA each (program, feed signature, fetches) runs once eagerly and is
+then replayed as a captured CUDA graph (``engine/executor.py``).
 """
 
 import contextlib
@@ -54,8 +57,9 @@ class Executor:
         return self.engine.device
 
     def close(self):
-        """Graceful shutdown (reference: executor.py close)."""
-        self.engine._blocks.clear()
+        """Graceful shutdown (reference: executor.py close): drops the
+        engine's cached blocks and their CUDA graphs."""
+        self.engine.close()
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True, opt_level=None):
@@ -79,4 +83,5 @@ class Executor:
             return_numpy=return_numpy,
             seed=getattr(program, "random_seed", 0) or 0,
             opt_level=opt_level,
+            amp=getattr(program, "_amp", False),
         )

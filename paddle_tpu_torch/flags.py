@@ -25,6 +25,16 @@ ENV_PREFIX = "PADDLE_GPU_"
 
 # name -> (type, default, help)
 DEFS = {
+    "check_nan_inf": (
+        bool, False,
+        "Verify every fetch/state tensor is finite after each step "
+        "(reference: FLAGS_check_nan_inf)."),
+    "executable_cache_size": (
+        int, 128,
+        "LRU capacity of the engine's compiled-block cache: one entry, "
+        "and on CUDA one captured graph, per (program, feed signature, "
+        "fetches, is_test, donation, AMP, cache tag) (reference: the "
+        "Executor program cache)."),
     "metrics": (
         bool, False,
         "Runtime telemetry (paddle_tpu_torch.observability): counters, "

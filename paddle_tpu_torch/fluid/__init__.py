@@ -15,6 +15,7 @@ from paddle_tpu_torch import optimizer  # noqa: F401
 from paddle_tpu_torch import regularizer  # noqa: F401
 from paddle_tpu_torch import clip  # noqa: F401
 from paddle_tpu_torch import backward  # noqa: F401
+from paddle_tpu_torch import contrib  # noqa: F401
 from paddle_tpu_torch.backward import append_backward, calc_gradient  # noqa: F401
 from paddle_tpu_torch.framework import (  # noqa: F401
     Program,
@@ -48,7 +49,7 @@ from paddle_tpu_torch.io import (  # noqa: F401
 )
 
 __all__ = [
-    "layers", "initializer", "optimizer", "regularizer", "clip",
+    "layers", "initializer", "optimizer", "regularizer", "clip", "contrib",
     "unique_name", "io", "append_backward", "Program", "Variable", "Operator", "program_guard",
     "default_main_program", "default_startup_program",
     "Executor", "global_scope", "scope_guard", "Scope",

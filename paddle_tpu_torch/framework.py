@@ -400,6 +400,7 @@ class Program:
                     b.vars[name] = nv
         new.current_block_idx = 0
         new.random_seed = self.random_seed
+        new._amp = getattr(self, "_amp", False)
         new._parameters = {
             k: new.global_block().vars.get(k, v)
             for k, v in self._parameters.items()

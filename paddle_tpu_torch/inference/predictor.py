@@ -5,7 +5,9 @@ CreatePaddlePredictor:734, Run:183). Port of
 loads a native model directory (``io.save_inference_model``, from either
 package) and answers ``run`` on the card, or on the CPU after
 ``config.disable_gpu()``; ``serve()`` puts a continuous-batching
-``InferenceServer`` (serving.py) in front of it. INT8
+``InferenceServer`` (serving.py) in front of it. On the card each input
+shape runs eagerly once, is captured in a CUDA graph at its second run
+and replayed from then on (``engine/executor.py``). INT8
 (``enable_mkldnn``/``enable_tensorrt_engine``) is a later slice and
 raises, naming its ROADMAP item.
 """

@@ -7,10 +7,11 @@ leading batch dim), one worker thread coalesces them along axis 0 into
 zero-padded shape buckets and runs each bucket through
 ``Engine.run_block``. Where the JAX engine compiles one executable per
 bucket, the server passes the engine a ``("serving", name, bucket)`` tag
-(``cache_key_extra``) as the reference does; the port's engine has
-nothing per bucket to key on it yet (all buckets share the block's one
-analysis), so the tag is the seam where a captured CUDA graph per bucket
-slots in later (ROADMAP Queue 1 item 4). Dispatch happens when the top
+(``cache_key_extra``) as the reference does, and the port's engine keys
+one cache entry, and on CUDA one captured CUDA graph, per tag; all
+buckets share the block's one analysis. ``warmup`` runs each bucket
+twice on CUDA, the eager warm-up and the capture, so live requests only
+replay. Dispatch happens when the top
 bucket fills OR when the oldest queued request has waited
 ``serving_max_wait_ms`` — the max-wait timer is the p99 bound at low
 QPS (a lone request never waits longer than the timer plus one batch's
@@ -21,7 +22,8 @@ rows.
 The worker runs the engine with ``donate_state=False`` and
 ``state_writeback=False`` (the served program re-emits state it read
 unchanged; skipping the write keeps the scope immutable under
-concurrent submitters). It runs every op of a dispatch on its own
+concurrent submitters, and the params are read-only inputs of each
+bucket's graph). It runs every op of a dispatch on its own
 thread's current stream of the executor's device (no second stream),
 and the fetches' copy to the host completes before a future resolves.
 A padded row carries ``seq_lens`` 0, which attention clamps to 1 as
@@ -213,13 +215,14 @@ class InferenceServer:
         self.stop()
 
     def warmup(self, example_feed):
-        """Run every bucket once from one example request (tiled to each
-        edge). The port compiles nothing per bucket, but the first
-        dispatch pays the kernel libraries' first load (an nvcc build on
-        a cold build directory), cuBLAS handle set-up and the caching
-        allocator's growth; warmup moves that out of the first live
-        requests' latency."""
+        """Run every bucket from one example request (tiled to each
+        edge): once on the CPU, twice on CUDA, where the first run of a
+        bucket is the engine's eager warm-up (the kernel libraries' first
+        load, an nvcc build on a cold build directory, cuBLAS handle
+        set-up and the caching allocator's growth) and the second
+        captures its CUDA graph. Live requests then only replay."""
         example = {k: np.asarray(v) for k, v in example_feed.items()}
+        passes = 2 if self.device.type == "cuda" else 1
         modes = (False, True) if self._deg_enabled else (False,)
         was = self._degraded
         try:
@@ -231,7 +234,8 @@ class InferenceServer:
                 for edge in self.buckets:
                     feed = {k: self._tile(v, edge)
                             for k, v in example.items()}
-                    self._run_padded(feed, edge)
+                    for _ in range(passes):
+                        self._run_padded(feed, edge)
         finally:
             self._degraded = was
         return self

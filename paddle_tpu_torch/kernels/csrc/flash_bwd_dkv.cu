@@ -114,7 +114,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      T* __restrict__ dv, const long long* __restrict__ lens,
                      int H, int Tq, int Tk, int D, int causal, float scale,
                      int dropout, uint32_t keep_thr, float inv_keep,
-                     uint32_t seed, int q_off, int k_off, int vec) {
+                     const long long* __restrict__ seed_p, int q_off,
+                     int k_off, int vec) {
   using C = Cfg<T, kD>;
   constexpr bool kBf16 = C::kBf16;
   constexpr int kBlockQ = C::kBlockQ;
@@ -163,6 +164,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // K and V A fragments (bf16 pairs), when held in registers
   uint32_t kf[C::kKVRegs ? kDSteps : 1][4];
   uint32_t vf[C::kKVRegs ? kDSteps : 1][4];
+  const uint32_t seed = flash::load_seed(seed_p);
   const uint32_t seed_term = dropout_seed_term(seed, bh);
   const float scale_log2 = scale * kLog2e;
 
@@ -365,7 +367,7 @@ cudaError_t launch_d(const T* q, const T* k, const T* v, const T* dout,
                      const float* lse, const float* delta, T* dk, T* dv,
                      const long long* lens, int BH, int H, int Tq, int Tk,
                      int D, int causal, float scale, int dropout,
-                     uint32_t keep_thr, float inv_keep, uint32_t seed,
+                     uint32_t keep_thr, float inv_keep, const long long* seed,
                      int q_off, int k_off, int vec, cudaStream_t stream) {
   constexpr size_t bytes = Cfg<T, kD>::kBytes;
   auto kernel = flash_bwd_dkv_kernel<T, kD>;
@@ -386,7 +388,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    void* dk, void* dv, const long long* lens, int BH, int H,
                    int Tq, int Tk, int D, int causal, float scale,
                    int dropout, uint32_t keep_thr, float inv_keep,
-                   uint32_t seed, int q_off, int k_off, cudaStream_t stream) {
+                   const long long* seed, int q_off, int k_off,
+                   cudaStream_t stream) {
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
@@ -415,13 +418,15 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // lens: int64 [BH / H] sequence lengths, or null for no padding. Launches
 // on `stream` and returns the launch's error code (cudaGetLastError(), or
 // the shared-memory opt-in's).
+// seed: int64 in device memory, the dropout seed (its low 32 bits), read
+// once by each block, or null without dropout.
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* dout, const float* lse,
                              const float* delta, void* dk, void* dv,
                              const long long* lens, int BH, int H, int Tq,
                              int Tk, int D, int causal, float scale,
                              int dropout, unsigned int keep_thr,
-                             float inv_keep, unsigned int seed, int q_off,
+                             float inv_keep, const long long* seed, int q_off,
                              int k_off, int dtype, void* stream) {
   if (D < 1 || D > 128 || BH < 1 || Tq < 1 || Tk < 1 || H < 1) {
     return (int)cudaErrorInvalidValue;

@@ -94,7 +94,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     const long long* __restrict__ lens, int H, int Tq,
                     int Tk, int D, int causal, float scale, int dropout,
-                    uint32_t keep_thr, float inv_keep, uint32_t seed,
+                    uint32_t keep_thr, float inv_keep,
+                    const long long* __restrict__ seed_p,
                     int q_off, int k_off, int vec) {
   using C = Cfg<T, kD>;
   constexpr bool kBf16 = C::kBf16;
@@ -149,6 +150,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     lse_log2[r] = l * kLog2e;
     delta_r[r] = qp < Tq ? delta[(size_t)bh * Tq + qp] : 0.f;
   }
+  const uint32_t seed = flash::load_seed(seed_p);
   const uint32_t seed_term = dropout_seed_term(seed, bh);
   const float scale_log2 = scale * kLog2e;
 
@@ -316,7 +318,7 @@ cudaError_t launch_d(const T* q, const T* k, const T* v, const T* dout,
                      const float* lse, const float* delta, T* dq,
                      const long long* lens, int BH, int H, int Tq, int Tk,
                      int D, int causal, float scale, int dropout,
-                     uint32_t keep_thr, float inv_keep, uint32_t seed,
+                     uint32_t keep_thr, float inv_keep, const long long* seed,
                      int q_off, int k_off, int vec, cudaStream_t stream) {
   using C = Cfg<T, kD>;
   auto kernel = flash_bwd_dq_kernel<T, kD>;
@@ -336,7 +338,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    void* dq, const long long* lens, int BH, int H, int Tq,
                    int Tk, int D, int causal, float scale, int dropout,
-                   uint32_t keep_thr, float inv_keep, uint32_t seed,
+                   uint32_t keep_thr, float inv_keep, const long long* seed,
                    int q_off, int k_off, cudaStream_t stream) {
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
@@ -365,13 +367,15 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // int64 [BH / H] sequence lengths, or null for no padding. Launches on
 // `stream` and returns the launch's error code (cudaGetLastError(), or the
 // shared-memory opt-in's).
+// seed: int64 in device memory, the dropout seed (its low 32 bits), read
+// once by each block, or null without dropout.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
                             const float* delta, void* dq,
                             const long long* lens, int BH, int H, int Tq,
                             int Tk, int D, int causal, float scale,
                             int dropout, unsigned int keep_thr,
-                            float inv_keep, unsigned int seed, int q_off,
+                            float inv_keep, const long long* seed, int q_off,
                             int k_off, int dtype, void* stream) {
   if (D < 1 || D > 128 || BH < 1 || Tq < 1 || Tk < 1 || H < 1) {
     return (int)cudaErrorInvalidValue;

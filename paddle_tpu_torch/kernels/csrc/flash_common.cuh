@@ -50,6 +50,14 @@ __device__ __forceinline__ uint32_t dropout_seed_term(uint32_t seed, int bh) {
   return seed + 0x9E3779B9u * (uint32_t)(bh + 1);
 }
 
+// The dropout seed, read once by each block from device memory (an entry of
+// the engine's seed table, which the host refills before every run, so a
+// captured CUDA graph draws a new mask at each replay). The low 32 bits are
+// the reference's uint32 seed; null, for no dropout, reads as 0.
+__device__ __forceinline__ uint32_t load_seed(const long long* seed) {
+  return seed == nullptr ? 0u : (uint32_t)(unsigned long long)__ldg(seed);
+}
+
 // _keep_mask (flash_attention.py:65-82): the counter q_pos * Tk + k_pos
 // (positions local to the call) xor the seed term, kept when the top 24
 // bits of its hash reach keep_thr.

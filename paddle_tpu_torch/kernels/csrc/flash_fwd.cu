@@ -89,7 +89,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  float* __restrict__ lse, const long long* __restrict__ lens,
                  int H, int Tq, int Tk, int D, int causal, float scale,
                  int dropout, uint32_t keep_thr, float inv_keep,
-                 uint32_t seed, int q_off, int k_off, int vec) {
+                 const long long* __restrict__ seed_p, int q_off, int k_off,
+                 int vec) {
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   constexpr int kStride = flash::smem_stride<T, kD>();
   constexpr int kTile = kBlockK * kStride;
@@ -132,6 +133,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float m[2] = {kNeg, kNeg};
   float l[2] = {0.f, 0.f};
   uint32_t qf[kQSteps][4];  // bf16 pairs, or float32 bits
+  const uint32_t seed = flash::load_seed(seed_p);
   const uint32_t seed_term = dropout_seed_term(seed, bh);
   const float scale_log2 = scale * kLog2e;
 
@@ -337,7 +339,7 @@ template <typename T, int kD>
 cudaError_t launch_d(const T* q, const T* k, const T* v, T* out, float* lse,
                      const long long* lens, int BH, int H, int Tq, int Tk,
                      int D, int causal, float scale, int dropout,
-                     uint32_t keep_thr, float inv_keep, uint32_t seed,
+                     uint32_t keep_thr, float inv_keep, const long long* seed,
                      int q_off, int k_off, int vec, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<T, kD>();
   auto kernel = flash_fwd_kernel<T, kD>;
@@ -357,7 +359,7 @@ template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, const long long* lens, int BH, int H, int Tq,
                    int Tk, int D, int causal, float scale, int dropout,
-                   uint32_t keep_thr, float inv_keep, uint32_t seed,
+                   uint32_t keep_thr, float inv_keep, const long long* seed,
                    int q_off, int k_off, cudaStream_t stream) {
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
@@ -384,11 +386,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 // lse: float32 [BH, Tq]; lens: int64 [BH / H] sequence lengths, or null for
 // no padding. Launches on `stream` and returns the launch's error code
 // (cudaGetLastError(), or the shared-memory opt-in's).
+// seed: int64 in device memory, the dropout seed (its low 32 bits), read
+// once by each block, or null without dropout.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* out, float* lse, const long long* lens, int BH,
                          int H, int Tq, int Tk, int D, int causal,
                          float scale, int dropout, unsigned int keep_thr,
-                         float inv_keep, unsigned int seed, int q_off,
+                         float inv_keep, const long long* seed, int q_off,
                          int k_off, int dtype, void* stream) {
   if (D < 1 || D > 128 || BH < 1 || Tq < 1 || H < 1) {
     return (int)cudaErrorInvalidValue;

@@ -27,18 +27,26 @@ the kernels (which launch or raise), a CPU or ``meta`` tensor to the plain
 version — so build-time shape inference on ``meta`` tensors never
 launches anything, and nothing falls back.
 
+The dropout seed is a Python int or a 0-d int64 tensor (the engine's
+seed-table entry); the kernels read it from device memory through a
+pointer, so a captured CUDA graph takes each run's seed from the table.
+
 ``launches``, ``launches_dq`` and ``launches_dkv`` count kernel launches
-(one per launch of each kernel), so a run can show the main path went
-through the kernels.
+that run on the device (one per launch of each kernel), so a run can show
+the main path went through the kernels. A launch made while a CUDA graph
+is being captured runs only when the graph replays: inside
+``record_launches()`` it is recorded instead of counted, and the engine
+adds the recorded counts at each replay (``add_launches``).
 """
 
+import contextlib
 import ctypes
 import threading
 
 import torch
 
 from paddle_tpu_torch.ops.common import M32, _mul32, hash_mix_bits, \
-    keep_threshold
+    keep_threshold, seed32
 
 _NEG = -1e30
 D_MAX = 128
@@ -46,6 +54,38 @@ D_MAX = 128
 launches = 0
 launches_dq = 0
 launches_dkv = 0
+COUNTERS = ("launches", "launches_dq", "launches_dkv")
+
+# the launch counts of a capture in progress on this thread, or None
+_recording = threading.local()
+
+
+def _count(counter):
+    """One launch of the counter's kernel: counted, or recorded while this
+    thread captures a graph."""
+    rec = getattr(_recording, "counts", None)
+    if rec is not None:
+        rec[counter] += 1
+    else:
+        globals()[counter] += 1
+
+
+@contextlib.contextmanager
+def record_launches():
+    """Record instead of count the launches this thread makes inside the
+    block (a graph capture); yields the {counter: launches} record."""
+    rec = dict.fromkeys(COUNTERS, 0)
+    _recording.counts = rec
+    try:
+        yield rec
+    finally:
+        _recording.counts = None
+
+
+def add_launches(counts):
+    """Count the launches of one replay of a captured graph."""
+    for counter, n in counts.items():
+        globals()[counter] += n
 
 
 def _offsets_pair(offsets):
@@ -63,9 +103,10 @@ def keep_mask(seed, bh, q_pos, k_pos, t_k, rate):
     """The kernel's dropout keep-mask (``_keep_mask``, :65-82): murmur-style
     bits of the counter ``q_pos * t_k + k_pos`` (positions local to the
     call) xor the seed term ``seed + 0x9E3779B9 * (bh + 1)``, kept when
-    ``(bits >> 8) >= keep_threshold(rate)``. Integer tensors broadcast."""
+    ``(bits >> 8) >= keep_threshold(rate)``. Integer tensors broadcast;
+    ``seed`` is an int or a 0-d int64 tensor on their device."""
     idx = (q_pos * t_k + k_pos) & M32
-    seed_term = ((int(seed) & M32) + _mul32((bh + 1) & M32, 0x9E3779B9)) & M32
+    seed_term = (seed32(seed) + _mul32((bh + 1) & M32, 0x9E3779B9)) & M32
     h = hash_mix_bits(idx ^ seed_term)
     return (h >> 8) >= keep_threshold(rate)
 
@@ -175,10 +216,10 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # library -> the argument types of its entry point after the tensors'
 # pointers: (BH, H, Tq, Tk, D, causal, scale, dropout, keep_thr, inv_keep,
-# seed, q_off, k_off, dtype, stream)
+# seed (int64 in device memory), q_off, k_off, dtype, stream)
 _TAIL_ARGS = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
                                    ctypes.c_uint, ctypes.c_float,
-                                   ctypes.c_uint, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                    ctypes.c_int, ctypes.c_void_p]
 # library -> the number of tensor pointers its entry point takes first
 _N_POINTERS = {"flash_fwd": 6, "flash_bwd_dq": 8, "flash_bwd_dkv": 9}
@@ -210,13 +251,33 @@ def _lib(name):
     return lib
 
 
+def _seed_on_device(seed, device):
+    """The seed as an int64 tensor on ``device`` for the kernels' pointer:
+    a seed-table entry as it is; an int copied to the card, which a graph
+    capture cannot hold (it would freeze the value), so it raises there."""
+    if isinstance(seed, torch.Tensor):
+        if seed.dtype != torch.int64 or seed.device != device \
+                or seed.numel() != 1:
+            raise ValueError("the dropout seed must be one int64 on %s, got "
+                             "%s %s on %s" % (device, seed.dtype,
+                                              tuple(seed.shape), seed.device))
+        return seed
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("a dropout seed given as a Python int cannot be "
+                           "captured in a CUDA graph; pass the seed table's "
+                           "tensor")
+    return torch.tensor(int(seed) & M32, dtype=torch.int64, device=device)
+
+
 def _launch(name, pointers, q, k, lens, causal, scale, rate, seed,
             offsets):
     """Call kernel library ``name`` on the current stream of q's device
-    and raise on a refused launch."""
+    and raise on a refused launch. Without dropout the kernel gets no
+    seed."""
     lib = _lib(name)
     B, H, Tq, D = q.shape
     q_off, k_off = _offsets_pair(offsets)
+    seed_t = _seed_on_device(seed, q.device) if rate > 0.0 else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = getattr(lib, name)(
@@ -224,7 +285,8 @@ def _launch(name, pointers, q, k, lens, causal, scale, rate, seed,
             B * H, H, Tq, k.shape[2], D, int(bool(causal)), scale,
             int(rate > 0.0), keep_threshold(rate),
             (1.0 / (1.0 - rate)) if rate > 0.0 else 1.0,
-            int(seed) & M32, q_off, k_off, _DTYPE_CODE[q.dtype], stream)
+            None if seed_t is None else seed_t.data_ptr(), q_off, k_off,
+            _DTYPE_CODE[q.dtype], stream)
     if rc != 0:
         err = getattr(lib, name + "_error_string")(rc).decode()
         raise RuntimeError("%s launch failed: CUDA error %d (%s)"
@@ -272,7 +334,6 @@ def flash_forward_cuda(q, k, v, seq_lens=None, offsets=None, seed=0,
     k/v [B, H, Tk, D] (float32 or bfloat16, D <= 128) on one card.
     Returns ``(out, lse)`` as ``attention_lse_plain`` does; raises on any
     input the kernel does not take and on a refused launch."""
-    global launches
     lens = _check_cuda_inputs("flash_forward_cuda", q, k, v, seq_lens)
     B, H, Tq, D = q.shape
     scale = D ** -0.5 if scale is None else float(scale)
@@ -283,7 +344,7 @@ def flash_forward_cuda(q, k, v, seq_lens=None, offsets=None, seed=0,
     _launch("flash_fwd", (q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           out.data_ptr(), lse.data_ptr()),
             q, k, lens, causal, scale, rate, seed, offsets)
-    launches += 1
+    _count("launches")
     return out, lse
 
 
@@ -296,7 +357,6 @@ def flash_backward_cuda(q, k, v, out, lse, g, g_lse=None, seq_lens=None,
     and ``g_lse`` ([B, H, Tq], or None). Delta is computed first, in
     torch. Raises on any input the kernels do not take and on a refused
     launch."""
-    global launches_dq, launches_dkv
     lens = _check_cuda_inputs("flash_backward_cuda", q, k, v, seq_lens, out,
                               g)
     B, H, Tq, D = q.shape
@@ -314,9 +374,9 @@ def flash_backward_cuda(q, k, v, out, lse, g, g_lse=None, seq_lens=None,
               lse.data_ptr(), delta.data_ptr())
     args = (q, k, lens, causal, scale, rate, seed, offsets)
     _launch("flash_bwd_dq", common + (dq.data_ptr(),), *args)
-    launches_dq += 1
+    _count("launches_dq")
     _launch("flash_bwd_dkv", common + (dk.data_ptr(), dv.data_ptr()), *args)
-    launches_dkv += 1
+    _count("launches_dkv")
     return dq, dk, dv
 
 

@@ -9,11 +9,46 @@ has no uint32 arithmetic, so it runs here in int64 holding values in
 multiply does not fit a signed 64-bit product, so each multiply is split
 into 16-bit halves of the constant (``_mul32``), which keeps every
 intermediate below 2**49 and the low 32 bits exact.
+
+A dropout seed is a Python int or a 0-d int64 tensor (an entry of the
+engine's seed table, read on the device); both give the same bits.
 """
 
 import torch
 
+from paddle_tpu_torch.core.registry import amp_enabled
+
 M32 = 0xFFFFFFFF
+
+
+def fp32_accum(x):
+    """The AMP numerics policy for accumulation-sensitive internals (norm
+    statistics, softmax, losses): low-precision floats compute in float32;
+    callers cast the result back to the activation dtype (common.py:8)."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return x.float()
+    return x
+
+
+def amp_cast(*xs):
+    """Under AMP, float32 operands cast to bfloat16, the compute dtype
+    (common.py:19); anything else passes through. One argument in, one
+    out."""
+    if not amp_enabled():
+        return xs if len(xs) > 1 else xs[0]
+    out = tuple(
+        x.to(torch.bfloat16)
+        if isinstance(x, torch.Tensor) and x.dtype == torch.float32 else x
+        for x in xs)
+    return out if len(out) > 1 else out[0]
+
+
+def seed32(seed):
+    """A dropout seed's low 32 bits: a Python int, or an int64 tensor for
+    a tensor seed."""
+    if isinstance(seed, torch.Tensor):
+        return seed & M32
+    return int(seed) & M32
 
 
 def bcast_y_to_x(x, y, axis):
@@ -93,12 +128,13 @@ def keep_threshold(rate):
 def hash_keep_mask(seed, shape, rate, device):
     """Counter-based dropout keep-mask (common.py:110): the hash of the
     row-major element coordinate, xor-ed with ``seed * 0x9E3779B9``.
-    ``seed`` is a uint32 Python int (the reference draws it with one
-    threefry call, the port from the op's torch RNG stream)."""
+    ``seed`` is a uint32, as a Python int or a 0-d int64 tensor on
+    ``device`` (the reference draws it with one threefry call, the port
+    from the op's torch RNG stream)."""
     n = 1
     for d in shape:
         n *= int(d)
     idx = torch.arange(n, dtype=torch.int64, device=device) & M32
-    seed_term = (int(seed) * 0x9E3779B9) & M32
+    seed_term = _mul32(seed32(seed), 0x9E3779B9)
     h = hash_mix_bits(idx ^ seed_term)
     return ((h >> 8) >= keep_threshold(rate)).reshape(shape)

@@ -4,33 +4,39 @@
 its dense grad ``lookup_table_grad`` (:538). ``layer_norm`` and
 ``dropout`` have no grad lowering of their own: the engine derives theirs
 as ``torch.func.vjp`` of the forward (``engine/lowering.py``), which
-re-draws the forward's dropout mask from the same RNG stream."""
+re-draws the forward's dropout mask from the same seed.
+
+Dropout seeds come from the run's seed table (``LowerContext.seed``): the
+forward op and its grad op share one RNG stream id, so they read the same
+entry. The reference draws the attention kernel's seed in [0, int32 max)
+and the generic dropout's in [0, 2**32) (nn_ops.py:351;
+``hash_keep_mask``, common.py:110)."""
 
 import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch.core.registry import register_no_grad_op, register_op
 from paddle_tpu_torch.ops.common import (
-    flatten_lookup_ids, hash_keep_mask, single,
+    amp_cast, flatten_lookup_ids, fp32_accum, hash_keep_mask, single,
 )
 
-
-def _fp32_accum(x):
-    """Low-precision floats compute norm statistics in float32 (the
-    reference's ``fp32_accum`` policy, common.py:8)."""
-    if x.dtype in (torch.bfloat16, torch.float16):
-        return x.float()
-    return x
+ATTENTION_SEED_HIGH = 2 ** 31 - 1
+DROPOUT_SEED_HIGH = 2 ** 32
 
 
-def _draw_seed(ctx, high):
-    """One integer in [0, high) from the op's RNG stream, drawn on the
-    host so no device value has to be read back."""
-    return int(torch.randint(0, high, (), generator=ctx.rng("cpu")))
+def _attention_seed_range(attrs):
+    if attrs.get("is_test", False) or not attrs.get("dropout_rate", 0.0):
+        return None
+    return ATTENTION_SEED_HIGH
+
+
+def _dropout_seed_range(attrs):
+    return None if attrs.get("is_test", False) else DROPOUT_SEED_HIGH
 
 
 @register_op("fused_attention", needs_rng=True, no_grad_inputs=("SeqLens",),
-             grad_needs_outputs=("Out", "Lse"))
+             grad_needs_outputs=("Out", "Lse"),
+             seed_range=_attention_seed_range)
 def fused_attention_op(ctx, ins, attrs):
     """Whole-attention fusion over Q/K/V [B, H, T, D] with optional
     SeqLens [B] (or [B, 1]) key-padding lengths. On CUDA tensors the
@@ -49,13 +55,15 @@ def fused_attention_op(ctx, ins, attrs):
     return {"Out": [out], "Lse": [lse]}
 
 
-@register_no_grad_op("fused_attention_grad", needs_rng=True)
+@register_no_grad_op("fused_attention_grad", needs_rng=True,
+                     seed_range=_attention_seed_range)
 def fused_attention_grad_op(ctx, ins, attrs):
     """Direct attention backward from the forward op's saved ``Out`` and
     ``Lse`` ([B, H, Tq, 1]): on CUDA tensors the hand-written dQ and dK/dV
     kernels, on CPU tensors their plain version; the forward is never run
-    again. The dropout seed is drawn from the forward op's RNG stream
-    (the same ``__rng_id__``), so the kernels re-derive its mask."""
+    again. The dropout seed is the forward op's (the same ``__rng_id__``),
+    so the kernels re-derive its mask. Under AMP, Q/K/V are cast to
+    bfloat16 as in the forward, and the grads come back in bfloat16."""
     from paddle_tpu_torch.kernels.flash_attention import (
         dispatch_attention_bwd,
     )
@@ -76,21 +84,20 @@ def fused_attention_grad_op(ctx, ins, attrs):
 
 def _attention_args(ctx, ins, attrs):
     """Shared forward/backward argument resolution — the grad op must see
-    the same mask, rate and dropout seed (the same per-op RNG stream) as
-    the forward (nn_ops.py:339-354)."""
+    the same dtypes, mask, rate and dropout seed (the same per-op RNG
+    stream) as the forward (nn_ops.py:339-354)."""
     if bool(attrs.get("sequence_parallel", False)):
         raise NotImplementedError(
             "fused_attention with sequence_parallel (ring attention) is not "
             "ported yet (ROADMAP Queue 1: multi-GPU, the sequence axis)")
-    q, k, v = single(ins, "Q"), single(ins, "K"), single(ins, "V")
+    q, k, v = amp_cast(single(ins, "Q"), single(ins, "K"), single(ins, "V"))
     lens = single(ins, "SeqLens") if ins.get("SeqLens") else None
     if lens is not None:
         lens = lens.reshape(-1)  # accept [B] or [B, 1] feeds
     rate = float(attrs.get("dropout_rate", 0.0))
     if attrs.get("is_test", False) or ctx.is_test:
         rate = 0.0
-    # the reference draws the kernel seed in [0, int32 max)
-    seed = _draw_seed(ctx, 2 ** 31 - 1) if rate > 0.0 else 0
+    seed = ctx.seed(ATTENTION_SEED_HIGH) if rate > 0.0 else 0
     return q, k, v, lens, rate, seed
 
 
@@ -102,7 +109,7 @@ def layer_norm(ctx, ins, attrs):
     eps = attrs.get("epsilon", 1e-5)
     begin = attrs.get("begin_norm_axis", 1)
     orig_dtype = x.dtype
-    x = _fp32_accum(x)
+    x = fp32_accum(x)
     norm_shape = tuple(x.shape[begin:])
     y = F.layer_norm(
         x, norm_shape,
@@ -114,7 +121,7 @@ def layer_norm(ctx, ins, attrs):
             "Variance": [var.squeeze()]}
 
 
-@register_op("dropout", needs_rng=True)
+@register_op("dropout", needs_rng=True, seed_range=_dropout_seed_range)
 def dropout(ctx, ins, attrs):
     x = single(ins, "X")
     p = attrs.get("dropout_prob", 0.5)
@@ -123,7 +130,7 @@ def dropout(ctx, ins, attrs):
     if is_test:
         out = x if impl == "upscale_in_train" else x * (1.0 - p)
         return {"Out": [out], "Mask": [torch.ones_like(x)]}
-    keep = hash_keep_mask(_draw_seed(ctx, 2 ** 32), tuple(x.shape), p,
+    keep = hash_keep_mask(ctx.seed(DROPOUT_SEED_HIGH), tuple(x.shape), p,
                           x.device)
     mask = keep.to(x.dtype)
     if impl == "upscale_in_train":
@@ -150,7 +157,11 @@ def lookup_table(ctx, ins, attrs):
 def lookup_table_grad(ctx, ins, attrs):
     """Dense table gradient (reference: lookup_table_op.cc grad kernel):
     the output grads scatter-added into a zero table at the batch's ids,
-    padding rows contributing nothing."""
+    padding rows contributing nothing. The scatter is ``index_put_`` with
+    ``accumulate=True``, whose CUDA path sorts the ids and adds each row's
+    grads in a fixed order, so repeated steps agree bit for bit (as the
+    reference's ``.at[rows].add`` does); ``index_add_`` adds with float
+    atomics on CUDA, in an order that changes from run to run."""
     if attrs.get("is_sparse", False):
         raise NotImplementedError(
             "lookup_table_grad with is_sparse=True makes a SelectedRows "
@@ -165,4 +176,5 @@ def lookup_table_grad(ctx, ins, attrs):
     if padding_idx is not None and padding_idx >= 0:
         vals = torch.where((rows == padding_idx).unsqueeze(-1),
                            torch.zeros_like(vals), vals)
-    return {"W@GRAD": [torch.zeros_like(w).index_add_(0, rows, vals)]}
+    return {"W@GRAD": [torch.zeros_like(w).index_put_(
+        (rows,), vals, accumulate=True)]}

@@ -22,10 +22,12 @@ def fill_constant(ctx, ins, attrs):
                                dtype=dtype, device=ctx.device)]}
 
 
-@register_no_grad_op("uniform_random", needs_rng=True)
+@register_no_grad_op("uniform_random", needs_rng=True, capturable=False)
 def uniform_random(ctx, ins, attrs):
     """Drawn in float32 on the op's device from its (seed, run, op) stream
-    and cast, as the reference draws float32 and casts."""
+    and cast, as the reference draws float32 and casts. The stream is a
+    device generator seeded on the host, so a CUDA graph would freeze its
+    draw: the op is not capturable (it runs in startup programs, eagerly)."""
     shape = list(attrs.get("shape"))
     dtype = _torch_dtype(attrs.get("dtype", int(VarType.FP32)))
     out = torch.empty(shape, dtype=torch.float32, device=ctx.device)

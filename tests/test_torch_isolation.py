@@ -60,6 +60,16 @@ exe.run(train_startup)
                 fetch_list=[loss])
 assert np.isfinite(l0).all()
 assert any(op.type == "fused_attention_grad" for op in train.desc.global_block().ops)
+
+# the same step under bf16 AMP (contrib.mixed_precision), whose cache
+# entry runs with check_nan_inf on
+from paddle_tpu_torch.contrib import mixed_precision
+mixed_precision.enable_bf16(train)
+flags.set_flags({"check_nan_inf": True})
+(l1,) = fluid.Executor(fluid.CPUPlace()).run(
+    train, feed={"x": np.ones((3, 2, 8, 4), np.float32),
+                 "lens": np.array([[8], [3], [1]])}, fetch_list=[loss])
+assert np.isfinite(l1).all()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "paddle_tpu" or m.startswith("paddle_tpu."))

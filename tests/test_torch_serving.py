@@ -148,8 +148,9 @@ def test_max_wait_timer_fires_for_lone_request(served):
 
 def test_per_bucket_cache_keying(served, monkeypatch):
     """The server tags each dispatch with its bucket as the JAX server
-    tags its executables; the port's engine, which has nothing per bucket
-    yet, keeps the block's one analysis for every tag."""
+    tags its executables; the port's engine keys one cache entry (on
+    CUDA, one captured graph) per tag, all over the block's one
+    analysis."""
     srv = _server(served, buckets=(1, 4), name="cachekey-test")
     engine = srv._engine
     tags = []
@@ -161,6 +162,7 @@ def test_per_bucket_cache_keying(served, monkeypatch):
 
     monkeypatch.setattr(engine, "run_block", recording)
     entries = len(engine._blocks)
+    compiled = len(engine._cache)
     with srv:
         srv.warmup(_mk(1))      # runs both buckets
         assert tags == [("serving", "cachekey-test", b) for b in (1, 4)]
@@ -169,8 +171,13 @@ def test_per_bucket_cache_keying(served, monkeypatch):
         out = srv.run(_mk(9))   # oversize: an exact-shape dispatch
         assert out[0].shape == (9,) + OUT
     assert [t[-1] for t in tags] == [1, 4, 1, 4, 9]
-    # one analysis for all five dispatches, not one per tag
+    # one analysis for all five dispatches, not one per tag ...
     assert len(engine._blocks) <= entries + 1
+    # ... and one cache entry per tag: buckets 1, 4 and the oversize 9
+    tagged = [k for k in engine._cache if k[7] is not None
+              and k[7][:2] == ("serving", "cachekey-test")]
+    assert sorted(k[7][2] for k in tagged) == [1, 4, 9]
+    assert len(engine._cache) == compiled + 3
 
 
 def test_slo_histograms_populated(served):
