@@ -5,8 +5,9 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 
     python3 chip_smoke.py
 
-It drives the port's two main paths, serving and training, and its
-kernels on the card and prints one JSON line per phase:
+It drives the port's main paths, serving and training BERT-base and
+ResNet-50, and its kernels on the card and prints one JSON line per
+phase:
 
 1. device  — the card's name and power limit (nvidia-smi), torch and CUDA
    versions; TF32 is turned off for matmul and cuDNN.
@@ -86,10 +87,44 @@ kernels on the card and prints one JSON line per phase:
    and the backward of ``scaled_dot_product_attention``; the training
    step's median wall, device-busy share and top kernels, eager and
    captured, and the AMP step's.
-12. kernels — one JSON object listing every ported kernel, with its
+12. resnet50_serve — ResNet-50 (``models.resnet.get_model(dataset=
+   "imagenet", depth=50, class_num=1000)``: 224x224, random weights from
+   the seed) built, initialised on the card, saved with
+   ``io.save_inference_model`` (feed ``img``, target ``logits``) and served
+   by ``predictor.run`` at batch 1, 8 and 32: each shape eager once, then
+   captured and replayed, the replays bitwise equal to the eager answer;
+   no flash launch; the batch norms' running statistics read and never
+   written; batch 2 against the CPU predictor (SERVE_TOL); request times
+   and the batch-32 request's device profile.
+13. resnet50_determinism — one ResNet-50 training step (batch 32) run
+   twice eagerly from the same state, with cuDNN's default algorithms
+   (printed: how many elements of which grads differ) and with the
+   deterministic ones the port's CUDA engine selects (every grad and the
+   loss bitwise equal).
+14. resnet50_train — ResNet-50 trained with Momentum 0.9 at lr 0.1 (the
+   JAX package's ResNet-50 bench), batch 32, one batch repeated, 5 steps
+   eagerly and captured from the same state: losses and every state
+   tensor (the running statistics included) bitwise equal at every step;
+   the loss finite and lower after the first step (it climbs after, in
+   the JAX package too: tests/test_torch_resnet_trajectory.py); every
+   running statistic moved; no flash launch; the ``for_test`` clone
+   deterministic and reading the running statistics only;
+   ``memory_reserved`` after the capture; one step at batch 2 against the
+   CPU: the loss end to end (TRAIN_TOL), and every op of the step run on
+   the card from the CPU's operands (RESNET_OP_TOL).
+15. resnet50_train_amp — the same model under ``enable_bf16``, 5 captured
+   steps: the first loss within TRAIN_AMP_TOL of the float32 step's, the
+   loss falling, weights and running statistics float32, the convolution
+   kernels bf16 (profiler), no flash launch.
+16. times   — the ResNet-50 step's median wall, images per second, busy
+   ms, idle share and top kernels: eager, captured, captured under AMP,
+   and captured with cuDNN's default algorithms (the deterministic
+   algorithms' cost).
+17. kernels — one JSON object listing every ported kernel, with its
    design: all three run their products on the tensor cores (mma.sync
    bf16, 3xTF32 for float32) from a cp.async tile ring, and read their
-   dropout seed from device memory.
+   dropout seed from device memory; each kernel's launches on every path,
+   the ResNet-50 paths included (none).
 
 Served requests and dispatches run as captured CUDA graphs too: the first
 run of each shape (and each server bucket) is eager, the second captures
@@ -102,6 +137,7 @@ and the script exits non-zero; it exits non-zero without a result when
 CUDA is unavailable or the port's package is not beside it.
 """
 
+import gc
 import json
 import os
 import re
@@ -191,6 +227,27 @@ SERVE_EAGER = {1: {"qps": 35.37, "p50_ms": 27.68, "p99_ms": 42.14},
              32: {"qps": 470.0, "p50_ms": 56.01, "p99_ms": 77.71}}
 SERVE_REQUESTS = 200   # batch-1 requests at each client count
 SERVE_POOL = 64        # distinct requests the clients cycle through
+
+# ResNet-50 (models/resnet.py, ImageNet: 224x224, 1000 classes), trained
+# at batch 32 as the JAX package's ResNet-50 bench trains it, served at
+# batch 1, 8 and 32
+RESNET = dict(dataset="imagenet", depth=50, class_num=1000, lr=0.1)
+RESNET_BATCH = 32
+RESNET_SERVE_BATCHES = (1, 8, 32)
+# the first conv filter, the last batch norm's scale and the fc weight
+RESNET_GRADS = ("conv2d_0.w_0_0", "batch_norm_52.w_0_0", "fc_0.w_0_0")
+# one op of the ResNet-50 step on the card against the same op on the CPU,
+# on the same operands: float32 (TF32 off) sums in cuDNN's order and in
+# the CPU's, up to 25088 products a filter-grad element; each output is
+# held to its own largest element. The step is compared op by op and not
+# end to end: at random init the 50 layers magnify float32 rounding about
+# 1e5-fold down and back, so two float32 orders of one step give grads
+# percents apart (tests/test_torch_resnet50.py measures it on the JAX
+# package against itself)
+RESNET_OP_TOL = {"rel_to_max": 1e-3}
+# words cuDNN's convolution kernels carry in their names (its workspace
+# initialisation names the convolution it serves, and is not one)
+CONV_KERNEL = r"^(?!.*workspace).*(conv|fprop|dgrad|wgrad|winograd|scudnn)"
 
 # ragged key lengths of the kernel cases (batch 8)
 LENS8 = [128, 70, 1, 64, 127, 33, 100, 5]
@@ -979,6 +1036,11 @@ def step_counts(fa):
     return (fa.launches, fa.launches_dq, fa.launches_dkv)
 
 
+def flash_launches(fa):
+    return dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                    step_counts(fa)))
+
+
 def flash_kernel_counts(fn):
     """Launches of each flash kernel in one profiled call of ``fn``, by
     the profiler (the cross-check of the launch counters), and the
@@ -1050,7 +1112,7 @@ def phase_train(fa, main, startup, loss, state0, feed8):
                 unequal.append([step + 1, n, float(
                     (graph_scope.get(n) - eager_scope.get(n)).abs().max())])
     torch.cuda.synchronize()
-    launches = dict(zip(names, step_counts(fa)))  # ... and ends here
+    launches = flash_launches(fa)  # ... and ends here
     obs.set_enabled(None)
     entries = captured(graph.engine)
     # the profiler's count of one replayed step's flash kernels
@@ -1152,7 +1214,7 @@ def phase_train_amp(fa, feed8, f32_losses):
             per_step.append([a - b for a, b in zip(step_counts(fa),
                                                    before)])
     torch.cuda.synchronize()
-    launches = dict(zip(names, step_counts(fa)))  # ... and ends here
+    launches = flash_launches(fa)  # ... and ends here
     with fluid.scope_guard(scope):
         profiled, instances = flash_kernel_counts(
             lambda: exe.run(main, feed=feed8, fetch_list=[loss]))
@@ -1351,40 +1413,47 @@ def host_ms_by_kind(step, n=3):
             for k in sorted(totals)}
 
 
-def time_train_step(exe, scope, main, loss, feed8, host=False):
-    """Median wall of a BERT-base training step at batch 8 (host clock, 10
-    steps after 2 warm-ups; each ends in the loss's copy to the host), the
-    device time of 3 more steps by kernel from the profiler, and with
-    ``host`` the host time of 3 more by kind of op (an eager executor's:
-    a replayed graph runs no op from Python)."""
+def timed_runs(run, n=10, warmup=2):
+    """Median, min and max wall ms of ``run()`` (host clock, after
+    ``warmup`` runs; each run ends in its fetch's copy to the host)."""
     import torch
 
+    for _ in range(warmup):
+        run()
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return {"median_ms": statistics.median(walls), "min_ms": min(walls),
+            "max_ms": max(walls)}
+
+
+def time_train_step(exe, scope, main, loss, feed, host=False):
+    """Median wall of a training step (``timed_runs``), the device time of
+    3 more steps by kernel from the profiler, and with ``host`` the host
+    time of 3 more by kind of op (an eager executor's: a replayed graph
+    runs no op from Python)."""
     import paddle_tpu_torch.fluid as fluid
 
     def step():
-        return exe.run(main, feed=feed8, fetch_list=[loss])
+        return exe.run(main, feed=feed, fetch_list=[loss])
 
     with fluid.scope_guard(scope):
-        for _ in range(2):
-            step()
-        walls = []
-        for _ in range(10):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            step()
-            walls.append((time.perf_counter() - t0) * 1e3)
+        row = timed_runs(step)
         kernels = device_kernels(step, 3)
         by_kind = host_ms_by_kind(step) if host else None
-    wall = statistics.median(walls)
+    wall = row["median_ms"]
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
     flash = {name: sum(t for key, t in kernels.items()
                        if name + "_kernel" in key)
              for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
-    row = {"median_ms": wall, "min_ms": min(walls), "max_ms": max(walls),
-           "device_busy_ms": busy, "device_idle_share": 1.0 - busy / wall,
-           "flash_kernels_ms": flash, "kernel_names": len(kernels),
-           "top_kernels_ms": [[name[:80], ms] for name, ms in top]}
+    row.update({"device_busy_ms": busy,
+                "device_idle_share": 1.0 - busy / wall,
+                "flash_kernels_ms": flash, "kernel_names": len(kernels),
+                "top_kernels_ms": [[name[:80], ms] for name, ms in top]})
     if by_kind is not None:
         row["host_ms_by_kind"] = by_kind
     return row
@@ -1421,18 +1490,9 @@ def phase_times(fa, predictor, feed8):
         emit(dict({"phase": "times", "kernel": "flash_fwd", "case": name,
                    "peaks": PEAKS},
                   **row))
-    latency = {}
-    for b, feed in ((1, {k: v[:1] for k, v in feed8.items()}), (8, feed8)):
-        for _ in range(2):
-            predictor.run(feed)
-        walls = []
-        for _ in range(10):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            predictor.run(feed)  # ends in the fetch's copy to the host
-            walls.append((time.perf_counter() - t0) * 1e3)
-        latency[b] = {"median_ms": statistics.median(walls),
-                      "min_ms": min(walls), "max_ms": max(walls)}
+    latency = {b: timed_runs(lambda f=feed: predictor.run(f))
+               for b, feed in ((1, {k: v[:1] for k, v in feed8.items()}),
+                               (8, feed8))}
     emit({"phase": "times", "predictor_request_ms": latency,
           "model": "bert_base", "seq_len": BERT["seq_len"]})
     emit(dict({"phase": "times", "profile": "batch-8 request"},
@@ -1471,9 +1531,451 @@ def phase_times_train(fa, runs, main, loss, feed8):
                    "seq_len": BERT["seq_len"], "tf32": False},
                   **time_train_step(exe, scope, prog, prog_loss, feed8,
                                     host=label == "eager")))
-    emit({"phase": "times", "partial_profiler_windows_rerun":
-          len(PARTIAL_PROFILES), "partial_windows": PARTIAL_PROFILES})
     return rows["main_path"], rows["main_path_bf16"]
+
+
+# -- ResNet-50 ----------------------------------------------------------
+
+
+def resnet_program(is_train, amp=False):
+    """ResNet-50 as ``models.resnet.get_model(dataset="imagenet",
+    depth=50, class_num=1000)`` builds it (224x224, Momentum 0.9 at lr 0.1
+    as the JAX package's ResNet-50 bench trains it), random weights from
+    the seed; ``amp`` marks the program for bfloat16
+    (``contrib.mixed_precision.enable_bf16``). Returns (main, startup,
+    handles)."""
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.contrib import mixed_precision
+    from paddle_tpu_torch.models import resnet
+
+    with unique_name.guard():
+        main, startup, handles = resnet.get_model(is_train=is_train,
+                                                  **RESNET)
+    main.random_seed = startup.random_seed = 2024
+    if amp:
+        mixed_precision.enable_bf16(main)
+    return main, startup, handles
+
+
+def resnet_feed(batch, rng):
+    return {"img": rng.randn(batch, 3, 224, 224).astype(np.float32),
+            "label": rng.randint(0, RESNET["class_num"], (batch, 1)).astype(
+                np.int64)}
+
+
+def bn_stat_names(program):
+    return sorted(n for op in program.desc.global_block().ops
+                  if op.type == "batch_norm"
+                  for n in op.input("Mean") + op.input("Variance"))
+
+
+def phase_resnet50_serve(fa, model_dir, smi):
+    """ResNet-50's inference program built, initialised on the card,
+    saved and served by ``predictor.run`` at batch 1, 8 and 32: each shape
+    eager once, then captured and replayed, the replays bitwise equal to
+    the eager answer; no flash launch; the running statistics read and
+    never written; batch 2 against the CPU predictor on the same
+    directory. Returns the flash kernels' launches on this path."""
+    import torch
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import inference
+
+    t0 = time.perf_counter()
+    main, startup, handles = resnet_program(is_train=False)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        fluid.io.save_inference_model(model_dir, ["img"],
+                                      [handles["logits"]], exe,
+                                      main_program=main)
+    del exe, scope
+    predictor = inference.create_paddle_predictor(
+        inference.AnalysisConfig(model_dir))
+    setup_s = time.perf_counter() - t0
+    stats = {n: predictor._scope.get(n) for n in bn_stat_names(main)}
+    stats0 = {n: t.clone() for n, t in stats.items()}
+
+    rng = np.random.RandomState(31)
+    requests = {b: {"img": resnet_feed(b, rng)["img"]}
+                for b in RESNET_SERVE_BATCHES}
+    torch.cuda.synchronize()
+    fa.launches = fa.launches_dq = fa.launches_dkv = 0  # the path starts
+    outs, replay_equal = {}, True
+    for b, feed in requests.items():
+        for rep in range(3):  # eager, the run that captures, a replay
+            (out,) = predictor.run(feed)
+            if rep == 0:
+                outs[b] = out.data
+            else:
+                replay_equal = replay_equal and np.array_equal(out.data,
+                                                               outs[b])
+    torch.cuda.synchronize()
+    launches = flash_launches(fa)  # ... and ends here
+    reserved = torch.cuda.memory_reserved()
+    graphs = [(c.captures, c.replays)
+              for c in captured(predictor._exe.engine)]
+    stats_kept = all(predictor._scope.get(n) is t and torch.equal(
+        t, stats0[n]) for n, t in stats.items())
+
+    feed2 = {"img": resnet_feed(2, rng)["img"]}
+    (card,) = predictor.run(feed2)
+    cpu_cfg = inference.AnalysisConfig(model_dir)
+    cpu_cfg.disable_gpu()
+    (cpu,) = inference.create_paddle_predictor(cpu_cfg).run(feed2)
+    err = float(np.abs(card.data - cpu.data).max())
+    latency = {b: timed_runs(lambda f=feed: predictor.run(f))
+               for b, feed in requests.items()}
+    emit({"phase": "resnet50_serve", "card": smi, "model": "resnet50",
+          "image": [3, 224, 224], "classes": RESNET["class_num"],
+          "params": sum(int(np.prod(p.shape))
+                        for p in main.all_parameters()),
+          "ops": len(main.desc.global_block().ops), "setup_s": setup_s,
+          "batches": list(requests), "launches": launches,
+          "graphs_captures_replays": graphs,
+          "replays_bitwise_equal_eager": replay_equal,
+          "running_stats": len(stats), "running_stats_unwritten": stats_kept,
+          "memory_reserved_after_captures": reserved,
+          "cpu_vs_card_batch2_max_abs_err": err,
+          "max_abs_logit": float(np.abs(cpu.data).max()), "tol": SERVE_TOL,
+          "request_ms": latency, "tf32": False})
+    emit(dict({"phase": "resnet50_serve", "card": smi,
+               "profile": "batch-32 request"},
+              **profile_request(lambda: predictor.run(requests[32]),
+                                latency[32]["median_ms"])))
+    for b, out in outs.items():
+        check(out.shape == (b, RESNET["class_num"])
+              and np.isfinite(out).all(),
+              "resnet50 logits shape %s or not finite at batch %d"
+              % (out.shape, b))
+    check(not any(launches.values()), "flash launches serving ResNet-50: "
+          "%s" % launches)
+    check(graphs == [(1, 2)] * len(requests),
+          "resnet50 served: (captures, replays) of each graph %s" % graphs)
+    check(replay_equal, "resnet50: replayed answers differ from eager")
+    check(stats_kept, "resnet50 serving wrote the running statistics")
+    check(np.allclose(card.data, cpu.data, **SERVE_TOL),
+          "resnet50 card vs CPU logits max abs err %g beyond %s"
+          % (err, SERVE_TOL))
+    return launches
+
+
+def phase_resnet50_determinism(main, startup, loss, feed):
+    """One eager ResNet-50 step, twice, from the same state, feed and run
+    counter, with cuDNN's default algorithms (deterministic off, as torch
+    starts) and with the deterministic algorithms the port's CUDA engine
+    selects: the loss and every grad must be bitwise equal with the
+    latter; prints how far RESNET_GRADS moved between the two
+    default-algorithm steps, relative to each grad's largest element."""
+    import torch
+
+    import paddle_tpu_torch.fluid as fluid
+
+    fetch = [loss.name] + [p.name + "@GRAD" for p in main.all_parameters()]
+
+    def two_steps(deterministic):
+        runs = [fresh(startup, graphs=False) for _ in range(2)]
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            outs = []
+            for exe, scope in runs:
+                with fluid.scope_guard(scope):
+                    outs.append(exe.run(main, feed=feed, fetch_list=fetch,
+                                        return_numpy=False))
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = True
+        differing, rel = {}, {}
+        for name, a, b in zip(fetch, *outs):
+            n = int((a != b).sum().item())
+            if n:
+                differing[name] = n
+            if name[: -len("@GRAD")] in RESNET_GRADS:
+                rel[name] = float((a - b).abs().max() / b.abs().max())
+        return differing, rel
+
+    before, before_rel = two_steps(False)
+    after, _ = two_steps(True)
+    emit({"phase": "resnet50_determinism", "batch": RESNET_BATCH,
+          "grads": len(fetch) - 1,
+          "default_cudnn_differing_elements": before,
+          "default_cudnn_grad_rel_diff": before_rel,
+          "deterministic_cudnn_differing_elements": after})
+    check(not after, "two identical ResNet-50 steps differ: %s" % after)
+
+
+def replay_ops_on_card(main, state, feed, tol):
+    """The step's ops one by one on the CPU (the port's lowerings), each
+    op's operands copied to the card and the op run there too: every
+    output within ``tol`` of the CPU's (|d| <= rel_to_max * max|cpu|;
+    integer outputs equal). Returns ({op type: largest relative
+    difference}, the CPU values of every var)."""
+    import torch
+
+    from paddle_tpu_torch.engine import lowering
+
+    env = {n: torch.from_numpy(np.array(v)) for n, v in
+           dict(state, **feed).items()}
+    block = main.desc.global_block()
+    worst, bad = {}, []
+    for i, op in enumerate(block.ops):
+        if op.type in ("feed", "fetch"):
+            continue
+        card = {n: env[n].to("cuda") for n in op.input_arg_names()
+                if n != lowering.EMPTY_VAR_NAME}
+        lowering.run_op(op, block, env, "cpu", (2024, 1), i, False)
+        lowering.run_op(op, block, card, "cuda", (2024, 1), i, False)
+        for n in op.output_arg_names():
+            if n == lowering.EMPTY_VAR_NAME:
+                continue
+            want, got = env[n], card[n].cpu()
+            if not want.is_floating_point():
+                if not torch.equal(got, want):
+                    bad.append([op.type, n, "integers differ"])
+                continue
+            peak = float(want.abs().max()) if want.numel() else 0.0
+            d = float((got - want).abs().max()) if want.numel() else 0.0
+            worst[op.type] = max(worst.get(op.type, 0.0), d / (peak or 1.0))
+            if d > tol["rel_to_max"] * peak:
+                bad.append([op.type, n, d, peak])
+        del card
+    check(not bad, "ops on the card beyond %s of the CPU: %s"
+          % (tol, bad[:5]))
+    return worst, env
+
+
+def phase_resnet50_train(fa, main, startup, loss, handles, feed, smi):
+    """ResNet-50 training on the card, TRAIN_STEPS Momentum steps eagerly
+    and captured from the same state, step by step: losses and every state
+    tensor (the running statistics included) bitwise equal; no flash
+    launch; the step captured once and no block run eagerly; the
+    ``for_test`` clone deterministic and reading the running statistics
+    only; then one step at batch 2 against the CPU. Returns (the two
+    executors and scopes, the captured losses, flash launches)."""
+    import torch
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch import observability as obs
+
+    persistable = sorted(v.name for v in main.list_vars() if v.persistable)
+    stats = bn_stat_names(main)
+    mean_names = {n for op in main.desc.global_block().ops
+                  if op.type == "batch_norm" for n in op.input("Mean")}
+    eager, eager_scope = fresh(startup, graphs=False)
+    graph, graph_scope = fresh(startup)
+    losses = {"eager": [], "captured": []}
+    unequal, eager_runs = [], 0
+    obs.set_enabled(True)
+    obs.reset()
+    torch.cuda.synchronize()
+    fa.launches = fa.launches_dq = fa.launches_dkv = 0  # the path starts
+    for step in range(TRAIN_STEPS):
+        eager_before = obs.counter_value("engine.eager_runs")
+        with fluid.scope_guard(graph_scope):
+            (out,) = graph.run(main, feed=feed, fetch_list=[loss])
+        eager_runs += obs.counter_value("engine.eager_runs") - eager_before
+        losses["captured"].append(float(out.reshape(-1)[0]))
+        with fluid.scope_guard(eager_scope):
+            (out,) = eager.run(main, feed=feed, fetch_list=[loss])
+        losses["eager"].append(float(out.reshape(-1)[0]))
+        for n in persistable:
+            if not torch.equal(graph_scope.get(n), eager_scope.get(n)):
+                unequal.append([step + 1, n])
+    torch.cuda.synchronize()
+    launches = flash_launches(fa)  # ... and ends here
+    obs.set_enabled(None)
+    reserved = torch.cuda.memory_reserved()
+    entries = captured(graph.engine)
+    # every running statistic has left its init (mean 0, variance 1)
+    moved = sum(bool((graph_scope.get(n) != (
+        0.0 if n in mean_names else 1.0)).any()) for n in stats)
+
+    # the for_test clone, captured, on the trained state: reads only
+    test_prog = main.clone(for_test=True)
+    before = {n: graph_scope.get(n).clone() for n in persistable}
+    with fluid.scope_guard(graph_scope):
+        clone_outs = [graph.run(test_prog, feed={"img": feed["img"]},
+                                fetch_list=[handles["logits"]])[0]
+                      for _ in range(3)]
+    clone_equal = all(np.array_equal(o, clone_outs[0]) for o in clone_outs)
+    clone_read_only = all(torch.equal(graph_scope.get(n), before[n])
+                          for n in persistable)
+    row = {"phase": "resnet50_train", "card": smi, "model": "resnet50",
+           "batch": RESNET_BATCH, "optimizer": "momentum 0.9, lr 0.1",
+           "ops": len(main.desc.global_block().ops),
+           "grad_ops": sum(op.type.endswith("_grad")
+                           for op in main.desc.global_block().ops),
+           "state_tensors": len(persistable), "running_stats": len(stats),
+           "running_stats_moved": moved, "losses": losses,
+           "unequal_state": unequal[:10], "launches": launches,
+           "graphs": len(entries), "captures": [c.captures for c in entries],
+           "eager_runs": eager_runs,
+           "memory_reserved_after_capture": reserved,
+           "for_test_clone_deterministic": clone_equal,
+           "for_test_clone_read_only": clone_read_only}
+    emit(row)
+    check(all(np.isfinite(losses["captured"])), "ResNet-50 losses %s"
+          % losses)
+    # one batch repeated at lr 0.1 with momentum 0.9: the first step
+    # lowers the loss, the next ones overshoot and it climbs, in the JAX
+    # package as in the port (tests/test_torch_resnet_trajectory.py)
+    check(losses["captured"][1] < losses["captured"][0],
+          "ResNet-50 loss did not fall: %s" % losses["captured"])
+    check(losses["captured"] == losses["eager"] and not unequal,
+          "ResNet-50 captured and eager steps differ: losses %s, state %s"
+          % (losses, unequal[:5]))
+    check(moved == len(stats), "%d of %d running statistics moved"
+          % (moved, len(stats)))
+    check(not any(launches.values()), "flash launches in ResNet-50 "
+          "training: %s" % launches)
+    check(len(entries) == 1 and entries[0].captures == 1
+          and eager_runs == 0,
+          "the ResNet-50 step: %d graphs, captures %s, %d eager runs"
+          % (len(entries), row["captures"], eager_runs))
+    check(clone_equal and clone_read_only,
+          "the for_test clone: deterministic %s, read only %s"
+          % (clone_equal, clone_read_only))
+
+    # one step at batch 2 on the card against the CPU, from the card's
+    # initial state: the loss end to end, every op on the same operands
+    state0 = start_state(main, startup)
+    feed2 = resnet_feed(2, np.random.RandomState(12))
+    worst, cpu_env = replay_ops_on_card(main, state0, feed2, RESNET_OP_TOL)
+    fetch = [loss.name] + [n + "@GRAD" for n in RESNET_GRADS]
+    step_scope = fluid.Scope()
+    convert.load_numpy_state(step_scope, state0, "cuda", program=main)
+    with fluid.scope_guard(step_scope):
+        card = fluid.Executor(fluid.CUDAPlace(0)).run(
+            main, feed=feed2, fetch_list=fetch)
+    cpu = [cpu_env[n].numpy() for n in fetch]
+    loss_err = abs(float(card[0].reshape(-1)[0] - cpu[0].reshape(-1)[0]))
+    grad_rel = {n: float(np.abs(a - b).max() / np.abs(b).max())
+                for n, a, b in zip(fetch[1:], card[1:], cpu[1:])}
+    emit({"phase": "resnet50_train", "cpu_step": {
+        "batch": 2, "loss_card": float(card[0].reshape(-1)[0]),
+        "loss_cpu": float(cpu[0].reshape(-1)[0]), "loss_abs_err": loss_err,
+        "ops_replayed_worst_rel_to_max": worst, "op_tol": RESNET_OP_TOL,
+        "end_to_end_grad_rel_diff": grad_rel}, "tol": TRAIN_TOL})
+    check(loss_err <= TRAIN_TOL["loss_rtol"] * abs(float(
+        cpu[0].reshape(-1)[0])), "ResNet-50 card vs CPU loss error %g"
+        % loss_err)
+    return ((eager, eager_scope), (graph, graph_scope), losses["captured"],
+            launches)
+
+
+def conv_kernel_dtypes(fn):
+    """Names of the convolution kernels one profiled call of ``fn``
+    launches (cuDNN's forward, data-grad and filter-grad kernels, by the
+    words their names carry), and whether each names bf16."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA
+                    and re.search(CONV_KERNEL, e.key, re.I)})
+    return {n[:100]: bool(re.search("bf16|bfloat16", n, re.I))
+            for n in names}
+
+
+def phase_resnet50_train_amp(fa, feed, f32_losses, smi):
+    """The same model marked with ``enable_bf16``: TRAIN_STEPS captured
+    steps from the same state. Returns (executor, scope, program, loss,
+    flash launches)."""
+    import torch
+
+    import paddle_tpu_torch.fluid as fluid
+
+    main, startup, handles = resnet_program(is_train=True, amp=True)
+    loss = handles["loss"]
+    exe, scope = fresh(startup)
+    losses = []
+    torch.cuda.synchronize()
+    fa.launches = fa.launches_dq = fa.launches_dkv = 0  # the path starts
+    with fluid.scope_guard(scope):
+        for _ in range(TRAIN_STEPS):
+            (out,) = exe.run(main, feed=feed, fetch_list=[loss])
+            losses.append(float(out.reshape(-1)[0]))
+    torch.cuda.synchronize()
+    launches = flash_launches(fa)  # ... and ends here
+    reserved = torch.cuda.memory_reserved()
+    with fluid.scope_guard(scope):
+        convs = conv_kernel_dtypes(
+            lambda: exe.run(main, feed=feed, fetch_list=[loss]))
+    dtypes = sorted({str(scope.get(p.name).dtype)
+                     for p in main.all_parameters()})
+    stat_dtypes = sorted({str(scope.get(n).dtype)
+                          for n in bn_stat_names(main)})
+    entries = captured(exe.engine)
+    first_err = abs(losses[0] - f32_losses[0]) / abs(f32_losses[0])
+    emit({"phase": "resnet50_train_amp", "card": smi, "batch": RESNET_BATCH,
+          "losses": losses, "float32_losses": f32_losses,
+          "first_loss_rel_err": first_err, "tol": TRAIN_AMP_TOL,
+          "param_dtypes": dtypes, "running_stat_dtypes": stat_dtypes,
+          "launches": launches, "conv_kernels_bf16": convs,
+          "captures": [c.captures for c in entries],
+          "memory_reserved_after_capture": reserved})
+    check(all(np.isfinite(losses)), "ResNet-50 AMP losses %s" % losses)
+    check(losses[1] < losses[0], "ResNet-50 AMP loss did not fall: %s"
+          % losses)
+    check(first_err <= TRAIN_AMP_TOL["first_loss_rtol"],
+          "ResNet-50 AMP first loss %g against float32 %g"
+          % (losses[0], f32_losses[0]))
+    check(dtypes == ["torch.float32"] and stat_dtypes == ["torch.float32"],
+          "ResNet-50 AMP weights %s, running stats %s" % (dtypes,
+                                                         stat_dtypes))
+    check(convs and all(convs.values()),
+          "ResNet-50 AMP convolution kernels not all bf16: %s" % convs)
+    check(not any(launches.values()), "flash launches in ResNet-50 AMP "
+          "training: %s" % launches)
+    check(len(entries) == 1 and entries[0].captures == 1,
+          "the ResNet-50 AMP step: %d graphs" % len(entries))
+    return exe, scope, main, loss, launches
+
+
+def phase_resnet50_times(runs, startup, feed, smi):
+    """The ResNet-50 step's median wall, images per second, the card's
+    busy ms and idle share and the ten kernels with the most device time,
+    for each run in ``runs`` ({label: (executor, scope, program, loss)}),
+    and the captured float32 step again with cuDNN's default algorithms
+    (deterministic off) on a new executor: what the deterministic
+    algorithms cost."""
+    import torch
+
+    rows = {}
+    for label, (exe, scope, prog, prog_loss) in runs.items():
+        rows[label] = time_train_step(exe, scope, prog, prog_loss, feed)
+    exe, scope = fresh(startup)
+    prog, prog_loss = runs["captured"][2:]
+    torch.backends.cudnn.deterministic = False
+    try:
+        rows["captured_default_cudnn"] = time_train_step(
+            exe, scope, prog, prog_loss, feed)
+    finally:
+        torch.backends.cudnn.deterministic = True
+    del exe, scope
+    for label, row in rows.items():
+        row["images_per_s"] = RESNET_BATCH / (row["median_ms"] / 1e3)
+        emit(dict({"phase": "times", "card": smi,
+                   "profile": "ResNet-50 training step", "run": label,
+                   "batch": RESNET_BATCH, "tf32": False}, **row))
+    return rows
+
+
+def release_memory():
+    """Free what no live object holds, CUDA graphs and their pools too,
+    and return the cached blocks to the card."""
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -1535,6 +2037,31 @@ def main():
         "captured": graph + (main_prog, loss),
         "captured_amp": (amp_exe, amp_scope, amp_prog, amp_loss)},
         main_prog, loss, train_feed8)
+    # BERT's executors, graphs and their memory go before ResNet-50's (an
+    # engine and its cache entries refer to each other: a collection frees
+    # them)
+    del eager, graph, amp_exe, amp_scope
+    release_memory()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resnet_") as d:
+        r_serve_launches = phase_resnet50_serve(fa, d, smi)
+    release_memory()
+    r_main, r_startup, r_handles = resnet_program(is_train=True)
+    r_loss = r_handles["loss"]
+    r_feed = resnet_feed(RESNET_BATCH, np.random.RandomState(41))
+    phase_resnet50_determinism(r_main, r_startup, r_loss, r_feed)
+    r_eager, r_graph, r_losses, r_launches = phase_resnet50_train(
+        fa, r_main, r_startup, r_loss, r_handles, r_feed, smi)
+    r_amp = phase_resnet50_train_amp(fa, r_feed, r_losses, smi)
+    phase_resnet50_times({"eager": r_eager + (r_main, r_loss),
+                          "captured": r_graph + (r_main, r_loss),
+                          "captured_amp": r_amp[:4]}, r_startup, r_feed,
+                         smi)
+    emit({"phase": "times", "partial_profiler_windows_rerun":
+          len(PARTIAL_PROFILES), "partial_windows": PARTIAL_PROFILES})
+    resnet_paths = {"resnet50_serve": r_serve_launches,
+                    "resnet50_train": r_launches,
+                    "resnet50_train_amp": r_amp[4]}
 
     # launches: the training path's (forward, dQ and dK/dV each 12 a
     # step, counted across replays); the forward's on the served paths and
@@ -1552,10 +2079,11 @@ def main():
         "source": "paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
         "replaces": "paddle_tpu/kernels/flash_attention.py:110",
         "launches": launches["flash_fwd"],
-        "launches_by_path": {"serve": serve_launches,
-                             "serve_batched": batched_launches,
-                             "train": launches["flash_fwd"],
-                             "train_amp": amp_launches["flash_fwd"]},
+        "launches_by_path": dict({
+            "serve": serve_launches, "serve_batched": batched_launches,
+            "train": launches["flash_fwd"],
+            "train_amp": amp_launches["flash_fwd"]},
+            **{p: n["flash_fwd"] for p, n in resnet_paths.items()}),
         "max_abs_err": worst,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -1567,8 +2095,9 @@ def main():
             "source": "paddle_tpu_torch/kernels/csrc/%s.cu" % name,
             "replaces": "paddle_tpu/kernels/flash_attention.py:%d" % line,
             "launches": launches[name],
-            "launches_by_path": {"train": launches[name],
-                                 "train_amp": amp_launches[name]},
+            "launches_by_path": dict({
+                "train": launches[name], "train_amp": amp_launches[name]},
+                **{p: n[name] for p, n in resnet_paths.items()}),
             "max_abs_err": worst_bwd[name],
             "ms": bwd_row[name]["ms"], "plain_ms": bwd_row["plain_ms"],
             "bound_ms": bwd_row[name]["bound_ms"],

@@ -3,12 +3,17 @@
 
 A program marked with ``enable_bf16`` (or minimized through a
 ``decorate``-d optimizer) runs its ops under the engine's AMP mode
-(``core/registry.py`` ``amp_scope``): ``mul`` and ``fused_attention`` cast
-their float32 operands to bfloat16, which the H100's tensor cores take
-(cuBLAS GEMMs accumulating in float32, and the bfloat16 instances of the
-flash kernels); parameters and optimizer state stay float32, so they are
-the master weights. bfloat16 has float32's exponent range, so no loss
-scaling is needed.
+(``core/registry.py`` ``amp_scope``): ``mul``, ``conv2d`` and
+``fused_attention`` cast their float32 operands to bfloat16, which the
+H100's tensor cores take (cuBLAS GEMMs and cuDNN convolutions
+accumulating in float32, and the bfloat16 instances of the flash
+kernels). A convolution's output stays bfloat16; batch norm, softmax and
+global average pooling compute in float32 inside and return the
+activation's dtype, so bfloat16 activations flow between ops
+(``paddle_tpu/ops/nn_ops.py:33-43``). Parameters, batch norm's running
+statistics and optimizer state stay float32, so they are the master
+weights. bfloat16 has float32's exponent range, so no loss scaling is
+needed.
 """
 
 

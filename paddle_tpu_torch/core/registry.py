@@ -23,8 +23,9 @@ therefore reads a new seed at each replay instead of freezing the one of
 its capture.
 
 ``amp_scope`` / ``amp_enabled`` are the reference's mixed-precision trace
-mode (registry.py:19-33): while set, ``mul`` and ``fused_attention`` take
-bfloat16 operands (``ops/common.py`` ``amp_cast``); state stays float32.
+mode (registry.py:19-33): while set, ``mul``, ``conv2d`` and
+``fused_attention`` take bfloat16 operands (``ops/common.py``
+``amp_cast``); state stays float32.
 """
 
 import contextlib
@@ -32,9 +33,9 @@ import contextvars
 
 import torch
 
-# Mixed-precision mode: while set, GEMM and attention lowerings compute in
-# bfloat16, parameters staying float32 (master weights by construction,
-# since program state is never cast).
+# Mixed-precision mode: while set, GEMM, conv and attention lowerings
+# compute in bfloat16, parameters staying float32 (master weights by
+# construction, since program state is never cast).
 _amp_mode = contextvars.ContextVar("paddle_gpu_amp", default=False)
 
 

@@ -42,6 +42,10 @@ graph.
 ``check_nan_inf`` checks every state and fetch tensor after the step and
 raises with the reference's message (``_check_finite``, :1183).
 
+A CUDA engine turns on cuDNN's deterministic algorithms and turns off its
+autotuner (``_deterministic_cudnn``), so that repeated steps, and a
+captured step against its eager run, agree bit for bit.
+
 An engine may be driven from several threads at once (a serving worker
 beside a caller's direct run): the caches and the run counter are taken
 under a lock, an entry runs under its own lock, and the captured graphs
@@ -291,6 +295,8 @@ class Engine:
         self.cuda_graphs = True
         # debug guard (reference: FLAGS_check_nan_inf), read once
         self.check_nan_inf = bool(flags.get_flag("check_nan_inf"))
+        if self.device.type == "cuda":
+            _deterministic_cudnn()
 
     def _graph_pool(self):
         if self._pool is None:
@@ -440,6 +446,17 @@ class Engine:
                 "Variable %r lives on %s but this executor runs on %s"
                 % (name, val.device, self.device))
         return val
+
+
+def _deterministic_cudnn():
+    """cuDNN's convolution grads may sum with float atomics, in an order
+    that changes from run to run, and its autotuner may pick another
+    algorithm for a captured run than for the eager one. The reference's
+    steps repeat bit for bit, so the port's CUDA engines take cuDNN's
+    deterministic algorithms and no autotuning (process-wide torch
+    switches, read at every convolution)."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
 
 
 def _to_numpy(t):

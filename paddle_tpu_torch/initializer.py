@@ -1,12 +1,10 @@
 """Initializers appended as ops to the startup program.
 
 Port of ``paddle_tpu/initializer.py`` (reference:
-python/paddle/fluid/initializer.py), for the initializers whose startup
-ops this slice lowers: ``fill_constant`` (Constant) and
-``uniform_random`` (Uniform, and Xavier in its default uniform form).
-The normal-distribution form appends ``gaussian_random``, which a later
-slice lowers (ROADMAP Queue 1, the remaining op families); it raises here
-instead of emitting an op nothing can run.
+python/paddle/fluid/initializer.py): Constant (``fill_constant``),
+Uniform (``uniform_random``), Normal (``gaussian_random``),
+TruncatedNormal (``truncated_gaussian_random``), and Xavier and MSRA,
+uniform or normal, with the reference's fan rules.
 """
 
 import math
@@ -56,6 +54,34 @@ class UniformInitializer(Initializer):
         )
 
 
+class NormalInitializer(Initializer):
+    def __init__(self, loc=0.0, scale=1.0, seed=0):
+        self.loc = loc
+        self.scale = scale
+        self.seed = seed
+
+    def _append(self, type, var, block):
+        block.append_op(
+            type=type,
+            outputs={"Out": [var]},
+            attrs={
+                "shape": list(var.shape),
+                "dtype": int(var.dtype),
+                "mean": float(self.loc),
+                "std": float(self.scale),
+                "seed": self.seed,
+            },
+        )
+
+    def __call__(self, var, block):
+        self._append("gaussian_random", var, block)
+
+
+class TruncatedNormalInitializer(NormalInitializer):
+    def __call__(self, var, block):
+        self._append("truncated_gaussian_random", var, block)
+
+
 def _fan_in_out(var):
     shape = var.shape
     if len(shape) < 2:
@@ -74,19 +100,38 @@ class XavierInitializer(Initializer):
         self.seed = seed
 
     def __call__(self, var, block):
-        if not self.uniform:
-            raise NotImplementedError(
-                "XavierInitializer(uniform=False) appends gaussian_random, "
-                "which the port does not lower yet (ROADMAP Queue 1: the "
-                "remaining op families)")
         fi, fo = _fan_in_out(var)
         fi = self.fan_in if self.fan_in is not None else fi
         fo = self.fan_out if self.fan_out is not None else fo
-        limit = math.sqrt(6.0 / (fi + fo))
-        UniformInitializer(-limit, limit, self.seed)(var, block)
+        if self.uniform:
+            limit = math.sqrt(6.0 / (fi + fo))
+            UniformInitializer(-limit, limit, self.seed)(var, block)
+        else:
+            std = math.sqrt(2.0 / (fi + fo))
+            NormalInitializer(0.0, std, self.seed)(var, block)
+
+
+class MSRAInitializer(Initializer):
+    def __init__(self, uniform=True, fan_in=None, seed=0):
+        self.uniform = uniform
+        self.fan_in = fan_in
+        self.seed = seed
+
+    def __call__(self, var, block):
+        fi, _ = _fan_in_out(var)
+        fi = self.fan_in if self.fan_in is not None else fi
+        if self.uniform:
+            limit = math.sqrt(6.0 / fi)
+            UniformInitializer(-limit, limit, self.seed)(var, block)
+        else:
+            std = math.sqrt(2.0 / fi)
+            NormalInitializer(0.0, std, self.seed)(var, block)
 
 
 # Reference-compatible aliases
 Constant = ConstantInitializer
 Uniform = UniformInitializer
+Normal = NormalInitializer
+TruncatedNormal = TruncatedNormalInitializer
 Xavier = XavierInitializer
+MSRA = MSRAInitializer

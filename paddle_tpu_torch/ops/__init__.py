@@ -14,3 +14,4 @@ from paddle_tpu_torch.ops import nn_ops  # noqa: F401
 from paddle_tpu_torch.ops import loss_ops  # noqa: F401
 from paddle_tpu_torch.ops import reduce_ops  # noqa: F401
 from paddle_tpu_torch.ops import optimizer_ops  # noqa: F401
+from paddle_tpu_torch.ops import metric_ops  # noqa: F401

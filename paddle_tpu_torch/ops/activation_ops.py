@@ -2,7 +2,7 @@
 (:65; the exact erf form unless ``approximate``) and its direct grad
 ``gelu_grad`` (:71), and, through ``_out_based`` (:20-44), ``tanh``/
 ``tanh_grad`` and ``relu``/``relu_grad``, whose grads read the forward's
-output."""
+output, and ``softmax`` (:181), whose grad the engine derives by vjp."""
 
 import math
 
@@ -10,7 +10,7 @@ import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch.core.registry import register_no_grad_op, register_op
-from paddle_tpu_torch.ops.common import single
+from paddle_tpu_torch.ops.common import fp32_accum, single
 
 
 def _out_based(type, fwd, dfn):
@@ -59,3 +59,12 @@ def gelu_grad(ctx, ins, attrs):
         pdf = torch.exp(-0.5 * x32 * x32) * (1.0 / math.sqrt(2.0 * math.pi))
         d = cdf + x32 * pdf
     return {"X@GRAD": [(g.float() * d).to(x.dtype)]}
+
+
+@register_op("softmax")
+def softmax(ctx, ins, attrs):
+    """float32 exp and sum for low-precision input, the result cast back
+    (activation_ops.py:181)."""
+    x = single(ins, "X")
+    return {"Out": [torch.softmax(fp32_accum(x), dim=attrs.get("axis", -1))
+                    .to(x.dtype)]}

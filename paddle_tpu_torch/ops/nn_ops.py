@@ -1,10 +1,22 @@
-"""NN ops — port of ``paddle_tpu/ops/nn_ops.py`` for ``fused_attention``
-(:379) and its direct grad ``fused_attention_grad`` (:414),
-``layer_norm`` (:480), ``dropout`` (:506), ``lookup_table`` (:527) and
-its dense grad ``lookup_table_grad`` (:538). ``layer_norm`` and
-``dropout`` have no grad lowering of their own: the engine derives theirs
-as ``torch.func.vjp`` of the forward (``engine/lowering.py``), which
-re-draws the forward's dropout mask from the same seed.
+"""NN ops — port of ``paddle_tpu/ops/nn_ops.py`` for ``conv2d`` (:31)
+and its direct grad ``conv2d_grad`` (:66), ``depthwise_conv2d`` (:102)
+and its grad (:94), ``pool2d`` (:149), ``batch_norm`` (:215) and its
+direct grad ``batch_norm_grad`` (:271), the ``sync_batch_norm`` alias
+(:331), ``fused_attention`` (:379) and its direct grad
+``fused_attention_grad`` (:414), ``layer_norm`` (:480), ``dropout``
+(:506), ``lookup_table`` (:527) and its dense grad ``lookup_table_grad``
+(:538). ``pool2d``, ``layer_norm`` and ``dropout`` have no grad lowering
+of their own: the engine derives theirs as ``torch.func.vjp`` of the
+forward (``engine/lowering.py``), which re-draws the forward's dropout
+mask from the same seed.
+
+Convolutions run through cuDNN (``torch.nn.functional.conv2d``) in NCHW,
+the reference's layout; their grads are cuDNN's backward-data and
+backward-filter (``aten.convolution_backward``), never a second forward.
+Batch norm computes its statistics as the reference does, not as
+``F.batch_norm`` would: the biased variance ``E[x^2] - mean^2`` in
+float32, and Paddle's momentum (``running = m * running + (1 - m) *
+batch``, the reverse of torch's).
 
 Dropout seeds come from the run's seed table (``LowerContext.seed``): the
 forward op and its grad op share one RNG stream id, so they read the same
@@ -32,6 +44,219 @@ def _attention_seed_range(attrs):
 
 def _dropout_seed_range(attrs):
     return None if attrs.get("is_test", False) else DROPOUT_SEED_HIGH
+
+
+def _nchw(attrs, op_type):
+    if attrs.get("data_format", "NCHW") != "NCHW":
+        raise NotImplementedError(
+            "%s with data_format %r: the NHWC layout pass is not ported yet "
+            "(ROADMAP Queue 1 item 8, analysis and transforms)"
+            % (op_type, attrs.get("data_format")))
+
+
+def _conv2d_apply(x, w, attrs):
+    """NCHW x, OIHW w (I = C / groups), symmetric padding (nn_ops.py:45).
+    A float32 conv accumulates in float32 (TF32 is the caller's switch,
+    ``torch.backends.cudnn.allow_tf32``); a bfloat16 one returns bfloat16,
+    cuDNN accumulating in float32."""
+    _nchw(attrs, "conv2d")
+    return F.conv2d(x, w, stride=tuple(attrs.get("strides", [1, 1])),
+                    padding=tuple(attrs.get("paddings", [0, 0])),
+                    dilation=tuple(attrs.get("dilations", [1, 1])),
+                    groups=attrs.get("groups", 1))
+
+
+@register_op("conv2d")
+def conv2d(ctx, ins, attrs):
+    """Under AMP both operands are cast to bfloat16 and the output stays
+    bfloat16 (nn_ops.py:33-43): the norms and losses after it upcast
+    internally."""
+    x, w = amp_cast(single(ins, "Input"), single(ins, "Filter"))
+    return {"Output": [_conv2d_apply(x, w, attrs)]}
+
+
+@register_no_grad_op("conv2d_grad")
+def conv2d_grad(ctx, ins, attrs):
+    """Direct conv gradients (nn_ops.py:66): cuDNN's backward-data and
+    backward-filter convolutions from the output grad, the forward is not
+    run again. The output grad takes the forward output's dtype (bfloat16
+    under AMP); ``dx`` comes back in x's dtype and ``dw`` in w's, so the
+    master weights stay float32."""
+    _nchw(attrs, "conv2d_grad")
+    x, w = single(ins, "Input"), single(ins, "Filter")
+    xa, wa = amp_cast(x, w)
+    g = single(ins, "Output@GRAD").to(xa.dtype)
+    dx, dw, _ = torch.ops.aten.convolution_backward(
+        g, xa, wa, None, list(attrs.get("strides", [1, 1])),
+        list(attrs.get("paddings", [0, 0])),
+        list(attrs.get("dilations", [1, 1])), False, [0, 0],
+        attrs.get("groups", 1), [True, True, False])
+    return {"Input@GRAD": [dx.to(x.dtype)], "Filter@GRAD": [dw.to(w.dtype)]}
+
+
+def _depthwise(ins, attrs):
+    attrs = dict(attrs)
+    attrs["groups"] = single(ins, "Input").shape[1]
+    return attrs
+
+
+@register_op("depthwise_conv2d")
+def depthwise_conv2d(ctx, ins, attrs):
+    return conv2d(ctx, ins, _depthwise(ins, attrs))
+
+
+@register_no_grad_op("depthwise_conv2d_grad")
+def depthwise_conv2d_grad(ctx, ins, attrs):
+    return conv2d_grad(ctx, ins, _depthwise(ins, attrs))
+
+
+def _ceil_extra(size, k, s, p):
+    """Bottom/right padding that keeps ceil mode's last partial window
+    (nn_ops.py:178-183)."""
+    out = -(-(size + 2 * p - k) // s) + 1
+    return max((out - 1) * s + k - size - p, p)
+
+
+@register_op("pool2d")
+def pool2d(ctx, ins, attrs):
+    """Max or average pooling over NCHW windows (nn_ops.py:149). The input
+    is padded explicitly, left/top by ``paddings`` and right/bottom by the
+    same or, in ceil mode, by what the last partial window needs, with
+    -inf for max and 0 for average; the windows then run unpadded. So
+    every padding the reference takes gives its result (torch's own
+    padding stops at half the window, and its ceil mode drops a last
+    window that would start in the padding). Average pooling sums and
+    divides by the window's in-input count (``exclusive``) or by its
+    size, as the reference does. Global pooling (or adaptive to [1, 1])
+    reduces H and W; its mean runs in float32 and returns x's dtype."""
+    _nchw(attrs, "pool2d")
+    x = single(ins, "X")
+    ptype = attrs.get("pooling_type", "max")
+    ksize = list(attrs.get("ksize", [2, 2]))
+    if attrs.get("global_pooling", False) or (
+            attrs.get("adaptive", False) and ksize == [1, 1]):
+        if ptype == "max":
+            return {"Out": [x.amax(dim=(2, 3), keepdim=True)]}
+        return {"Out": [fp32_accum(x).mean(dim=(2, 3), keepdim=True)
+                        .to(x.dtype)]}
+    strides = list(attrs.get("strides", [1, 1]))
+    ph, pw = attrs.get("paddings", [0, 0])
+    if attrs.get("ceil_mode", False):
+        eh = _ceil_extra(x.shape[2], ksize[0], strides[0], ph)
+        ew = _ceil_extra(x.shape[3], ksize[1], strides[1], pw)
+    else:
+        eh, ew = ph, pw
+    pad = (pw, ew, ph, eh)
+    if ptype == "max":
+        low = (float("-inf") if x.is_floating_point()
+               else torch.iinfo(x.dtype).min)
+        return {"Out": [F.max_pool2d(F.pad(x, pad, value=low), ksize,
+                                     strides)]}
+    summed = F.avg_pool2d(F.pad(x, pad), ksize, strides, divisor_override=1)
+    if attrs.get("exclusive", True):
+        ones = F.pad(torch.ones_like(x[:1, :1]), pad)
+        return {"Out": [summed / F.avg_pool2d(ones, ksize, strides,
+                                              divisor_override=1)]}
+    return {"Out": [summed / (ksize[0] * ksize[1])]}
+
+
+def _bn_axes(x, layout):
+    """(reduced dims, shape of a per-channel vector) (nn_ops.py:207)."""
+    if layout == "NCHW" and x.ndim == 4:
+        return (0, 2, 3), (1, -1, 1, 1)
+    if x.ndim == 2:
+        return (0,), (1, -1)
+    return tuple(range(x.ndim - 1)), (1,) * (x.ndim - 1) + (-1,)
+
+
+def _bn_use_global(ctx, attrs):
+    return bool(attrs.get("use_global_stats", False)
+                or attrs.get("is_test", False) or ctx.is_test)
+
+
+def _batch_stats(xc, axes):
+    """The batch mean and biased variance, E[x^2] - mean^2, in float32
+    (nn_ops.py:247-250)."""
+    mean = xc.mean(dim=axes)
+    return mean, (xc * xc).mean(dim=axes) - mean * mean
+
+
+@register_op("batch_norm", no_grad_inputs=("Mean", "Variance"),
+             grad_needs_outputs=("SavedMean", "SavedVariance"))
+def batch_norm(ctx, ins, attrs):
+    """Batch normalization (nn_ops.py:215). In training the batch's
+    statistics normalize, ``MeanOut``/``VarianceOut`` are
+    ``momentum * running + (1 - momentum) * batch`` (the running variance
+    takes the biased batch variance) and ``SavedMean``/``SavedVariance``
+    are the batch mean and biased variance. With ``is_test`` or
+    ``use_global_stats`` the running statistics normalize and pass
+    through unchanged. Statistics and normalization compute in float32;
+    ``Y`` takes x's dtype."""
+    x = single(ins, "X")
+    scale, bias = single(ins, "Scale"), single(ins, "Bias")
+    mean_in, var_in = single(ins, "Mean"), single(ins, "Variance")
+    momentum = attrs.get("momentum", 0.9)
+    axes, pshape = _bn_axes(x, attrs.get("data_layout", "NCHW"))
+    xc = fp32_accum(x)
+    if _bn_use_global(ctx, attrs):
+        mean, var = mean_in, var_in
+        mean_out, var_out = mean_in, var_in
+    else:
+        mean, var = _batch_stats(xc, axes)
+        mean_out = momentum * mean_in + (1.0 - momentum) * mean
+        var_out = momentum * var_in + (1.0 - momentum) * var
+    inv_std = torch.rsqrt(var + attrs.get("epsilon", 1e-5))
+    y = (xc - mean.reshape(pshape)) * inv_std.reshape(pshape)
+    y = y * scale.reshape(pshape) + bias.reshape(pshape)
+    return {"Y": [y.to(x.dtype)], "MeanOut": [mean_out],
+            "VarianceOut": [var_out], "SavedMean": [mean],
+            "SavedVariance": [var]}
+
+
+@register_no_grad_op("batch_norm_grad")
+def batch_norm_grad(ctx, ins, attrs):
+    """Direct batch-norm backward from the saved batch statistics
+    (nn_ops.py:271); where the program has no ``SavedMean`` or
+    ``SavedVariance``, the statistics are computed again (:294-303). With
+    the running statistics in use the normalization is an affine map of
+    x."""
+    x, scale = single(ins, "X"), single(ins, "Scale")
+    saved_mean = single(ins, "SavedMean")
+    saved_var = single(ins, "SavedVariance")
+    axes, pshape = _bn_axes(x, attrs.get("data_layout", "NCHW"))
+    use_global = _bn_use_global(ctx, attrs)
+    n = 1
+    for a in axes:
+        n *= x.shape[a]
+    xc = fp32_accum(x)
+    g = fp32_accum(single(ins, "Y@GRAD"))
+    if saved_mean is None or saved_var is None:
+        if use_global:
+            saved_mean, saved_var = single(ins, "Mean"), single(
+                ins, "Variance")
+        else:
+            saved_mean, saved_var = _batch_stats(xc, axes)
+    inv_std = torch.rsqrt(saved_var + attrs.get("epsilon", 1e-5)).reshape(
+        pshape)
+    xhat = (xc - saved_mean.reshape(pshape)) * inv_std
+    dbias = g.sum(dim=axes)
+    dscale = (g * xhat).sum(dim=axes)
+    s = scale.reshape(pshape)
+    if use_global:
+        dx = g * s * inv_std
+    else:
+        dx = inv_std * (g * s - (dbias.reshape(pshape) * s
+                                 + xhat * dscale.reshape(pshape) * s) / n)
+    return {"X@GRAD": [dx.to(x.dtype)],
+            "Scale@GRAD": [dscale.to(scale.dtype)],
+            "Bias@GRAD": [dbias.to(scale.dtype)]}
+
+
+# sync_batch_norm all-reduces the batch statistics across devices
+# (nn_ops.py:324-336); on one device it is batch_norm
+register_op("sync_batch_norm", no_grad_inputs=("Mean", "Variance"),
+            grad_needs_outputs=("SavedMean", "SavedVariance"))(batch_norm)
+register_no_grad_op("sync_batch_norm_grad")(batch_norm_grad)
 
 
 @register_op("fused_attention", needs_rng=True, no_grad_inputs=("SeqLens",),

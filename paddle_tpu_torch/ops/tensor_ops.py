@@ -1,7 +1,16 @@
 """Tensor creation/manipulation ops — port of
 ``paddle_tpu/ops/tensor_ops.py`` for ``fill_constant`` (:18),
-``uniform_random`` (:42), ``reshape2`` (:103), ``transpose2`` (:125) and
-``slice`` (:183)."""
+``uniform_random`` (:42), ``gaussian_random`` (:54),
+``truncated_gaussian_random`` (:65), ``reshape2`` (:103), ``transpose2``
+(:125), ``slice`` (:183), ``top_k`` (:225) and ``top_k_grad`` (:233).
+
+The random ops draw float32 on the op's device from its (seed, run, op)
+stream and cast, as the reference draws float32 and casts; their bits
+are torch's, not the reference's threefry. The stream is a device
+generator seeded on the host, so a CUDA graph would freeze its draw:
+these ops are not capturable (they run in startup programs, eagerly)."""
+
+import math
 
 import torch
 
@@ -24,17 +33,48 @@ def fill_constant(ctx, ins, attrs):
 
 @register_no_grad_op("uniform_random", needs_rng=True, capturable=False)
 def uniform_random(ctx, ins, attrs):
-    """Drawn in float32 on the op's device from its (seed, run, op) stream
-    and cast, as the reference draws float32 and casts. The stream is a
-    device generator seeded on the host, so a CUDA graph would freeze its
-    draw: the op is not capturable (it runs in startup programs, eagerly)."""
-    shape = list(attrs.get("shape"))
-    dtype = _torch_dtype(attrs.get("dtype", int(VarType.FP32)))
-    out = torch.empty(shape, dtype=torch.float32, device=ctx.device)
-    gen = ctx.rng()
-    if gen is not None:
+    def draw(out, gen):
         out.uniform_(attrs.get("min", -1.0), attrs.get("max", 1.0),
                      generator=gen)
+    return _draw(ctx, attrs, draw)
+
+
+@register_no_grad_op("gaussian_random", needs_rng=True, capturable=False)
+def gaussian_random(ctx, ins, attrs):
+    def draw(out, gen):
+        out.normal_(attrs.get("mean", 0.0), attrs.get("std", 1.0),
+                    generator=gen)
+    return _draw(ctx, attrs, draw)
+
+
+# erf(2 / sqrt(2)): the bounds -2 and 2 of the truncated normal, mapped
+# to [-1, 1] by the standard normal's CDF as 2 * cdf - 1
+_ERF_2 = math.erf(2.0 / math.sqrt(2.0))
+
+
+@register_no_grad_op("truncated_gaussian_random", needs_rng=True,
+                     capturable=False)
+def truncated_gaussian_random(ctx, ins, attrs):
+    """A normal truncated to [-2, 2] standard deviations, by the inverse
+    CDF of a uniform draw between the bounds' CDF values (the reference's
+    library draws it so, tensor_ops.py:71), then scaled and shifted."""
+    def draw(out, gen):
+        out.uniform_(-_ERF_2, _ERF_2, generator=gen)
+        out.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
+        out.mul_(attrs.get("std", 1.0)).add_(attrs.get("mean", 0.0))
+    return _draw(ctx, attrs, draw)
+
+
+def _draw(ctx, attrs, draw):
+    """``draw(out, generator)`` fills a float32 tensor of the attrs' shape
+    on the op's device (nothing on ``meta``); returns it in the attrs'
+    dtype."""
+    dtype = _torch_dtype(attrs.get("dtype", int(VarType.FP32)))
+    out = torch.empty(list(attrs.get("shape")), dtype=torch.float32,
+                      device=ctx.device)
+    gen = ctx.rng()
+    if gen is not None:
+        draw(out, gen)
     return {"Out": [out.to(dtype)]}
 
 
@@ -69,3 +109,21 @@ def slice_op(ctx, ins, attrs):
                           attrs.get("ends")):
         idx[ax] = slice(st, en)
     return {"Out": [x[tuple(idx)]]}
+
+
+@register_op("top_k")
+def top_k(ctx, ins, attrs):
+    """The k largest along the last dim, in descending order, and their
+    int64 indices."""
+    vals, idx = torch.topk(single(ins, "X"), attrs.get("k", 1), dim=-1)
+    return {"Out": [vals], "Indices": [idx]}
+
+
+@register_no_grad_op("top_k_grad")
+def top_k_grad(ctx, ins, attrs):
+    """The value grads scattered back to the selected positions of a
+    zero X grad (tensor_ops.py:233)."""
+    x = single(ins, "X")
+    _, idx = torch.topk(x, attrs.get("k", 1), dim=-1)
+    g = single(ins, "Out@GRAD").to(x.dtype)
+    return {"X@GRAD": [torch.zeros_like(x).scatter_add_(-1, idx, g)]}

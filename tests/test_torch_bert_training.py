@@ -205,17 +205,20 @@ def _mlp(fluid, unique_name, optimizer="adam"):
         pred = fluid.layers.fc(input=hidden, size=10)
         loss = fluid.layers.mean(
             fluid.layers.softmax_with_cross_entropy(logits=pred, label=label))
+        acc = fluid.layers.accuracy(input=fluid.layers.softmax(pred),
+                                    label=label)
         OPTIMIZERS[optimizer](fluid).minimize(loss)
-    return main, startup, loss
+    return main, startup, (loss, acc)
 
 
 @pytest.mark.parametrize("optimizer", sorted(OPTIMIZERS))
 def test_mnist_mlp_five_steps_match_jax(optimizer):
     """The verify skill's MLP: fc + relu, softmax_with_cross_entropy, mean
-    and Adam at lr 1e-2 (and SGD with L2 decay, Nesterov momentum); the
-    same desc, and the loss over 5 steps within rtol 1e-5."""
-    j_main, j_startup, j_loss = _mlp(jfluid, j_unique_name, optimizer)
-    t_main, _, t_loss = _mlp(tfluid, t_unique_name, optimizer)
+    and Adam at lr 1e-2 (and SGD with L2 decay, Nesterov momentum), with
+    its eval ops (softmax, top_k, accuracy); the same desc, the loss over
+    5 steps within rtol 1e-5 and the accuracy equal."""
+    j_main, j_startup, j_fetch = _mlp(jfluid, j_unique_name, optimizer)
+    t_main, _, t_fetch = _mlp(tfluid, t_unique_name, optimizer)
     assert t_main.desc.serialize_to_string() == \
         j_main.desc.serialize_to_string()
     rng = np.random.RandomState(0)
@@ -230,16 +233,19 @@ def test_mnist_mlp_five_steps_match_jax(optimizer):
         j_exe.run(j_startup)
         state = {v.name: np.array(j_scope.get(v.name))
                  for v in j_main.list_vars() if v.persistable}
-        want = [float(np.asarray(j_exe.run(j_main, feed=f,
-                                           fetch_list=[j_loss])[0]))
+        want = [[float(np.asarray(v).reshape(-1)[0])
+                 for v in j_exe.run(j_main, feed=f, fetch_list=j_fetch)]
                 for f in feeds]
     t_exe, t_scope = tfluid.Executor(tfluid.CPUPlace()), tfluid.Scope()
     convert.load_numpy_state(t_scope, state, "cpu", program=t_main)
     with tfluid.scope_guard(t_scope):
-        got = [float(t_exe.run(t_main, feed=f, fetch_list=[t_loss])[0])
+        got = [[float(np.asarray(v).reshape(-1)[0])
+                for v in t_exe.run(t_main, feed=f, fetch_list=t_fetch)]
                for f in feeds]
-    np.testing.assert_allclose(got, want, rtol=1e-5)
-    assert got[-1] < got[0]
+    np.testing.assert_allclose([g[0] for g in got], [w[0] for w in want],
+                               rtol=1e-5)
+    assert [g[1] for g in got] == [w[1] for w in want]
+    assert got[-1][0] < got[0][0]
 
 
 def test_unported_training_ops_raise():

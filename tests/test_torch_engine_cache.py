@@ -16,6 +16,8 @@ so everything but the capture itself is exercised:
   counter are bitwise equal at dropout 0.1;
 - which blocks can be captured, read from the desc;
 - the launch counters record, and do not count, what a capture launches;
+- a CUDA engine selects cuDNN's deterministic algorithms, a CPU engine
+  leaves torch's switches as they are;
 - ``check_nan_inf`` raises with the JAX package's message.
 """
 
@@ -295,6 +297,27 @@ def test_launches_recorded_not_counted_while_capturing():
     finally:
         for c, n in before.items():
             setattr(fa, c, n)
+
+
+@pytest.mark.parametrize("place", ["cpu", "cuda"])
+def test_cuda_engine_selects_deterministic_cudnn(place, monkeypatch):
+    """A CUDA engine turns cuDNN's deterministic algorithms on and its
+    autotuner off (two identical ResNet-50 steps differ in 153 grads
+    with the default algorithms on an H100, chip_smoke.py
+    ``resnet50_determinism``). Constructing an engine touches no device,
+    so the CUDA one is built here with CUDA reported present."""
+    from paddle_tpu_torch.engine.executor import Engine
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", True)
+    if place == "cuda":
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        Engine(fluid.CUDAPlace(0))
+    else:
+        Engine(fluid.CPUPlace())
+    assert torch.backends.cudnn.deterministic == (place == "cuda")
+    assert torch.backends.cudnn.benchmark == (place == "cpu")
 
 
 def test_amp_program_runs_bf16_and_keeps_float32_state():

@@ -70,6 +70,20 @@ flags.set_flags({"check_nan_inf": True})
     train, feed={"x": np.ones((3, 2, 8, 4), np.float32),
                  "lens": np.array([[8], [3], [1]])}, fetch_list=[loss])
 assert np.isfinite(l1).all()
+
+# the ResNet slice: conv2d, batch_norm, pool2d and their grads, Momentum,
+# the normal initializers, softmax, top_k and accuracy
+from paddle_tpu_torch.layers import metric_op
+from paddle_tpu_torch.models import mnist, resnet
+from paddle_tpu_torch.ops import metric_ops
+for build in (lambda: resnet.get_model(dataset="cifar10", depth=8),
+              lambda: mnist.get_model(use_conv=True)):
+    net, net_startup, h = build()
+    exe.run(net_startup)
+    loss_acc = exe.run(net, feed={"img": np.ones((2,) + tuple(
+        h["img"].shape[1:]), np.float32), "label": np.array([[1], [2]])},
+        fetch_list=[h["loss"], h["acc"]])
+    assert all(np.isfinite(v).all() for v in loss_acc)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "paddle_tpu" or m.startswith("paddle_tpu."))
