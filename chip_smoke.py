@@ -6,8 +6,9 @@ Run from the root of a checkout on a machine with one NVIDIA card:
     python3 chip_smoke.py
 
 It drives the port's main paths, serving and training BERT-base and
-ResNet-50, and its kernels on the card and prints one JSON line per
-phase:
+ResNet-50 (with the training loop's accumulation, remat, dispatch
+window, prefetching feeder, schedulers, clipping and optimizers), and
+its kernels on the card and prints one JSON line per phase:
 
 1. device  — the card's name and power limit (nvidia-smi), torch and CUDA
    versions; TF32 is turned off for matmul and cuDNN.
@@ -120,11 +121,46 @@ phase:
    ms, idle share and top kernels: eager, captured, captured under AMP,
    and captured with cuDNN's default algorithms (the deterministic
    algorithms' cost).
-17. kernels — one JSON object listing every ported kernel, with its
+17. optimizers — the eight update ops of the training loop's slice
+   (lars_momentum, adamax, adagrad, decayed_adagrad, adadelta, rmsprop,
+   ftrl, model_average_accum) on the card against the CPU from identical
+   operands, at BERT-base's word embedding (30522 x 768) and an FFN
+   weight (768 x 3072): every output within OPT_TOL * max|want|. Then
+   ``ModelAverage`` beside SGD on a small MLP, captured: ``apply``
+   writes each window mean in place, a captured evaluation reads it, and
+   ``restore`` puts the weights back bitwise.
+18. bert_recipe — BERT-base at seq 512 (ragged, dropout 0.1, float32),
+   the forward of ``models.bert`` with the reference's pre-training
+   recipe appended here: Adam over ``linear_lr_warmup(polynomial_decay)``,
+   ``GradientClipByGlobalNorm(1.0)`` and ``L2Decay(0.01)``. Run captured
+   and, step by step, eagerly from the same state: (b) batch 8 with
+   ``remat_segments=12`` and with none (the peak allocation of the eager
+   first run, ``memory_reserved`` after the capture, 24 forward and 12
+   dQ and dK/dV launches a remat step against 12 each, the remat step
+   run twice bitwise equal, remat against plain within TRAIN_TOL); (a)
+   ``accumulate_steps=4`` over a batch of 32; (c) 8 steps at
+   ``dispatch_steps=4`` captured and eager and at depth 1, read only at
+   the end. Every captured run bitwise equal to its eager run, the
+   learning rate fetched each step on its closed form (under
+   accumulation the mean over the micro-batches' counter values); step
+   ms, sequences/s, busy ms and idle share of each.
+19. resnet50_pipelined — ResNet-50 at batch 32 (Momentum, captured), fed
+   from a pool of 3 host batches: the synchronous loop against
+   ``prefetch_to_device`` (pinned buffers, a copy stream, depth 2) with
+   ``dispatch_steps=2``, from the same state: losses bitwise equal; step
+   ms, images/s, the card's active ms and idle share, and the feed's
+   host-to-device copy time a step and the share of it during which a
+   kernel ran (profiler intervals).
+20. mfu — the ``mfu.*`` gauges (goodput ledger on, ``peak_flops`` the
+   card's: 67 TFLOP/s float32 on the FFMA path, TF32 being off, 989
+   bf16) of the captured BERT-base (seq 128, batch 8) and ResNet-50
+   (batch 32) steps, float32 and AMP; ResNet-50's counted FLOPs within
+   MFU_TOL of the analytic 0.79 TFLOP a step.
+21. kernels — one JSON object listing every ported kernel, with its
    design: all three run their products on the tensor cores (mma.sync
    bf16, 3xTF32 for float32) from a cp.async tile ring, and read their
    dropout seed from device memory; each kernel's launches on every path,
-   the ResNet-50 paths included (none).
+   the ResNet-50 and training-loop paths included.
 
 Served requests and dispatches run as captured CUDA graphs too: the first
 run of each shape (and each server bucket) is eager, the second captures
@@ -280,6 +316,31 @@ KERNEL_CASES = [
 
 BERT = dict(vocab_size=30522, d_model=768, n_layers=12, n_heads=12,
             d_inner=3072, max_position=512, seq_len=128)
+
+# bert_recipe: BERT-base at seq 512 under the reference's pre-training
+# recipe (Adam over linear_lr_warmup(polynomial_decay), global-norm clip
+# 1.0, L2 decay 0.01); the schedule is short so that every step's rate
+# differs; the learning rate fetched each step within lr_rtol of its
+# closed form (float32 ops against float64)
+RECIPE = dict(seq_len=512, lr=1e-4, end_lr=1e-5, warmup=3, decay_steps=12,
+              power=1.0, clip_norm=1.0, l2=0.01, remat_segments=12)
+RECIPE_STEPS = 4      # eager warm-up, capture, two replays
+WINDOW_STEPS = 8
+RECIPE_TOL = {"lr_rtol": 1e-5}
+PIPELINE_STEPS = 12   # resnet50_pipelined: steps of each loop
+# optimizers: the update ops this slice ports, each held on the card
+# against the CPU within OPT_TOL * max|want| of every output
+OPTIMIZER_OPS = ("lars_momentum", "adamax", "adagrad", "decayed_adagrad",
+                 "adadelta", "rmsprop", "ftrl", "model_average_accum")
+OPT_TOL = 1e-5
+# mfu: the card's peak for the step's type (NVIDIA's H100 SXM data sheet,
+# dense): float32 runs on the FFMA path (TF32 is off), AMP in bf16 on the
+# tensor cores. ResNet-50's step is 3 x 2 x 4.1 G multiply-adds an image
+# (forward, data and filter grads), 0.79 TFLOP at batch 32; the counted
+# FLOPs must come within MFU_TOL of it
+MFU_PEAKS = {"H100": {"float32": 67e12, "bfloat16": 989e12}}
+RESNET_STEP_FLOPS = 3 * 2 * 4.1e9 * 32
+MFU_TOL = 0.10
 
 
 # profiler windows that dropped device activity and were run again: per
@@ -1430,15 +1491,15 @@ def timed_runs(run, n=10, warmup=2):
             "max_ms": max(walls)}
 
 
-def time_train_step(exe, scope, main, loss, feed, host=False):
+def time_train_step(exe, scope, main, loss, feed, host=False, run_kw=None):
     """Median wall of a training step (``timed_runs``), the device time of
     3 more steps by kernel from the profiler, and with ``host`` the host
     time of 3 more by kind of op (an eager executor's: a replayed graph
-    runs no op from Python)."""
+    runs no op from Python). ``run_kw`` goes to ``exe.run``."""
     import paddle_tpu_torch.fluid as fluid
 
     def step():
-        return exe.run(main, feed=feed, fetch_list=[loss])
+        return exe.run(main, feed=feed, fetch_list=[loss], **(run_kw or {}))
 
     with fluid.scope_guard(scope):
         row = timed_runs(step)
@@ -1968,6 +2029,697 @@ def phase_resnet50_times(runs, startup, feed, smi):
     return rows
 
 
+# -- the training loop's features ----------------------------------------
+
+
+def _lr_recipe(c):
+    """The recipe's learning rate after the step counter reached ``c``:
+    ``linear_lr_warmup(polynomial_decay(...))`` in closed form, float64
+    (learning_rate_scheduler.py: the warmup's fraction and its done
+    indicator are clips of the counter)."""
+    r = RECIPE
+    warm = r["lr"] * min(max(c / r["warmup"], 0.0), 1.0)
+    poly = ((r["lr"] - r["end_lr"])
+            * (1.0 - min(max(c, 0.0), r["decay_steps"])
+               / r["decay_steps"]) ** r["power"] + r["end_lr"])
+    done = min(max(c - r["warmup"] + 0.5, 0.0), 1.0)
+    return warm * (1.0 - done) + poly * done
+
+
+def recipe_program():
+    """BERT-base at seq 512 (dropout 0.1, float32), its forward built with
+    ``models.bert``'s ``bert_encoder`` and ``pretrain_heads`` as
+    ``get_model`` builds it, then the reference's pre-training recipe
+    appended here: Adam over ``linear_lr_warmup(polynomial_decay(...))``,
+    ``GradientClipByGlobalNorm(1.0)`` and ``L2Decay(0.01)``. Returns
+    (main, startup, loss, learning-rate var)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import bert
+
+    r = RECIPE
+    T = r["seq_len"]
+    main, startup = fluid.Program(), fluid.Program()
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        data = {n: fluid.layers.data(name=n, shape=[T], dtype="int64")
+                for n in ("src_ids", "pos_ids", "sent_ids")}
+        seq_lens = fluid.layers.data(name="seq_lens", shape=[1],
+                                     dtype="int64")
+        mask_label = fluid.layers.data(name="mask_label", shape=[T],
+                                       dtype="int64")
+        mask_weight = fluid.layers.data(name="mask_weight", shape=[T],
+                                        dtype="float32")
+        ns_label = fluid.layers.data(name="ns_label", shape=[1],
+                                     dtype="int64")
+        enc = bert.bert_encoder(
+            data["src_ids"], data["pos_ids"], data["sent_ids"], seq_lens,
+            BERT["vocab_size"], max_position=BERT["max_position"],
+            d_model=BERT["d_model"], n_layers=BERT["n_layers"],
+            n_heads=BERT["n_heads"], d_inner=BERT["d_inner"], dropout=0.1,
+            is_train=True, use_fused_attention=True)
+        loss, _, _ = bert.pretrain_heads(
+            enc, mask_label, mask_weight, ns_label, BERT["vocab_size"],
+            BERT["d_model"], is_train=True)
+        lr = fluid.layers.linear_lr_warmup(
+            fluid.layers.polynomial_decay(r["lr"], r["decay_steps"],
+                                          r["end_lr"], power=r["power"]),
+            r["warmup"], 0.0, r["lr"])
+        fluid.clip.set_gradient_clip(
+            fluid.clip.GradientClipByGlobalNorm(r["clip_norm"]))
+        fluid.optimizer.Adam(
+            learning_rate=lr,
+            regularization=fluid.regularizer.L2Decay(r["l2"])).minimize(loss)
+        fluid.clip.set_gradient_clip(None)
+    main.random_seed = startup.random_seed = 2024
+    return main, startup, loss, lr
+
+
+def recipe_feed(batch, rng):
+    from paddle_tpu_torch.models import bert
+
+    return bert.make_fake_batch(batch, RECIPE["seq_len"],
+                                BERT["vocab_size"], rng=rng, varlen=True)
+
+
+def lockstep(fa, main, startup, fetch, feeds, run_kw, steps, on_first=None):
+    """``steps`` steps of ``main`` on a captured and an eager executor
+    started alike, step by step with the same feeds (``feeds[i %
+    len(feeds)]``). Returns a dict: each executor's fetches a step, the
+    state tensors that differed after any step, the captured executor's
+    flash launches a step (the eager one's are taken back out), and the
+    captured executor and scope. ``on_first(run)`` makes the first
+    captured step (the eager warm-up) by calling ``run()``."""
+    import torch
+
+    import paddle_tpu_torch.fluid as fluid
+
+    persistable = sorted(v.name for v in main.list_vars() if v.persistable)
+    graph, graph_scope = fresh(startup)
+    eager, eager_scope = fresh(startup, graphs=False)
+    out = {"captured": [], "eager": [], "unequal": [], "launches": []}
+    for step in range(steps):
+        feed = feeds[step % len(feeds)]
+        before = step_counts(fa)
+        with fluid.scope_guard(graph_scope):
+            if step == 0 and on_first is not None:
+                vals = on_first(lambda: graph.run(
+                    main, feed=feed, fetch_list=fetch, **run_kw))
+            else:
+                vals = graph.run(main, feed=feed, fetch_list=fetch, **run_kw)
+        out["captured"].append([np.asarray(v).reshape(-1).tolist()
+                                for v in vals])
+        counted = step_counts(fa)
+        out["launches"].append([a - b for a, b in zip(counted, before)])
+        with fluid.scope_guard(eager_scope):
+            vals = eager.run(main, feed=feed, fetch_list=fetch, **run_kw)
+        out["eager"].append([np.asarray(v).reshape(-1).tolist()
+                             for v in vals])
+        fa.launches, fa.launches_dq, fa.launches_dkv = counted
+        for n in persistable:
+            if not torch.equal(graph_scope.get(n), eager_scope.get(n)):
+                out["unequal"].append([step + 1, n])
+    out["graph"] = (graph, graph_scope)
+    out["entries"] = [(c.captures, c.replays)
+                      for c in captured(graph.engine)]
+    del eager, eager_scope
+    return out
+
+
+def check_lr(lrs, per_step):
+    """The fetched learning rates against the closed form: step s (from
+    1) read the mean over its counter values (``per_step`` of them, one
+    a micro-batch under accumulation). Returns the worst relative
+    error."""
+    worst = 0.0
+    for s, got in enumerate(lrs, 1):
+        cs = [per_step * (s - 1) + i for i in range(1, per_step + 1)]
+        want = sum(_lr_recipe(float(c)) for c in cs) / per_step
+        worst = max(worst, abs(got - want) / want)
+    return worst
+
+
+def recipe_times(exe, scope, main, loss, feed, run_kw, batch):
+    row = time_train_step(exe, scope, main, loss, feed, run_kw=run_kw)
+    row["sequences_per_s"] = batch / (row["median_ms"] / 1e3)
+    return {k: row[k] for k in ("median_ms", "min_ms", "max_ms",
+                                "sequences_per_s", "device_busy_ms",
+                                "device_idle_share", "flash_kernels_ms",
+                                "top_kernels_ms")}
+
+
+def phase_bert_recipe(fa, smi):
+    """BERT-base at seq 512 under the pre-training recipe, captured three
+    ways against eager runs of the same steps: (b) remat over 12 segments
+    and no remat at batch 8, (a) 4 accumulated micro-batches of 8, (c) a
+    dispatch window of 4 against depth 1. Returns the flash launches of
+    each path's steps."""
+    import torch
+
+    import paddle_tpu_torch.fluid as fluid
+
+    r = RECIPE
+    main, startup, loss, lr = recipe_program()
+    fetch = [loss, lr]
+    n_layers = BERT["n_layers"]
+    feed8 = recipe_feed(8, np.random.RandomState(51))
+    launches = {}
+    rows = {}
+
+    # (b) remat 12 against none, batch 8
+    for segments in (0, r["remat_segments"]):
+        release_memory()
+        peak = {}
+
+        def first(run):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            vals = run()
+            torch.cuda.synchronize()
+            peak["eager_first_run_peak_bytes"] = \
+                torch.cuda.max_memory_allocated()
+            peak["allocated_before_bytes"] = base
+            return vals
+
+        kw = {"remat_segments": segments} if segments else {}
+        fa.launches = fa.launches_dq = fa.launches_dkv = 0
+        out = lockstep(fa, main, startup, fetch, [feed8], kw,
+                       RECIPE_STEPS, on_first=first)
+        name = "remat%d" % segments
+        launches[name] = flash_launches(fa)
+        graph, graph_scope = out["graph"]
+        # what the captured executor holds: its state, its graph's pool
+        # (the eager executor and the allocator's cache released)
+        release_memory()
+        peak["memory_reserved_after_capture_bytes"] = \
+            torch.cuda.memory_reserved()
+        lrs = [v[1][0] for v in out["captured"]]
+        row = {"batch": 8, "remat_segments": segments,
+               "losses": [v[0][0] for v in out["captured"]],
+               "lr": lrs, "lr_worst_rel_err": check_lr(lrs, 1),
+               "unequal_state": out["unequal"][:5],
+               "captured_equals_eager": out["captured"] == out["eager"],
+               "launches_per_step": out["launches"],
+               "graphs": out["entries"], "memory": peak}
+        if segments:
+            # the remat step run twice: a second captured executor from
+            # the same state, the same steps
+            again, again_scope = fresh(startup)
+            with fluid.scope_guard(again_scope):
+                twice = [np.asarray(again.run(
+                    main, feed=feed8, fetch_list=fetch, **kw)[0]).tolist()
+                    for _ in range(RECIPE_STEPS)]
+            row["run_twice_equal"] = (
+                [t[0] for t in twice] == row["losses"]
+                and all(torch.equal(again_scope.get(n), graph_scope.get(n))
+                        for n in graph_scope.local_var_names()))
+            del again, again_scope
+        row.update(recipe_times(graph, graph_scope, main, loss, feed8, kw, 8))
+        rows[name] = row
+        emit(dict({"phase": "bert_recipe", "card": smi, "path": name,
+                   "seq_len": r["seq_len"]}, **row))
+        want = [[n_layers * (2 if segments else 1), n_layers, n_layers]] \
+            * RECIPE_STEPS
+        check(row["launches_per_step"] == want,
+              "%s: flash launches a step %s, want %s"
+              % (name, row["launches_per_step"], want[0]))
+        check(row["captured_equals_eager"] and not row["unequal_state"],
+              "%s: captured and eager steps differ: %s" % (
+                  name, row["unequal_state"]))
+        check(all(np.isfinite(row["losses"])), "%s losses" % name)
+        check(row["lr_worst_rel_err"] <= RECIPE_TOL["lr_rtol"],
+              "%s: lr %s off the closed form" % (name, lrs))
+        check(len(row["graphs"]) == 1 and row["graphs"][0][0] == 1,
+              "%s: graphs %s" % (name, row["graphs"]))
+        if segments:
+            check(row["run_twice_equal"], "the remat step run twice differs")
+        del out, graph, graph_scope
+    # the remat grads come from autograd, the plain ones from the explicit
+    # grad ops: the same step up to float rounding
+    plain, remat = (rows[k]["losses"] for k in (
+        "remat0", "remat%d" % r["remat_segments"]))
+    worst = max(abs(a - b) / abs(b) for a, b in zip(remat, plain))
+    emit({"phase": "bert_recipe", "remat_vs_plain_loss_worst_rel": worst,
+          "tol": TRAIN_TOL["loss_rtol"]})
+    check(worst <= TRAIN_TOL["loss_rtol"], "remat and plain losses differ: "
+          "%s against %s" % (remat, plain))
+
+    # (a) 4 accumulated micro-batches of 8 (batch 32)
+    release_memory()
+    feed32 = recipe_feed(32, np.random.RandomState(52))
+    kw = {"accumulate_steps": 4}
+    fa.launches = fa.launches_dq = fa.launches_dkv = 0
+    out = lockstep(fa, main, startup, fetch, [feed32], kw, RECIPE_STEPS)
+    launches["accumulate4"] = flash_launches(fa)
+    graph, graph_scope = out["graph"]
+    lrs = [v[1][0] for v in out["captured"]]
+    row = {"batch": 32, "accumulate_steps": 4,
+           "losses": [v[0][0] for v in out["captured"]], "lr": lrs,
+           "lr_worst_rel_err": check_lr(lrs, 4),
+           "counter": float(graph_scope.get("@LR_DECAY_COUNTER@")[0]),
+           "unequal_state": out["unequal"][:5],
+           "captured_equals_eager": out["captured"] == out["eager"],
+           "launches_per_step": out["launches"], "graphs": out["entries"]}
+    row.update(recipe_times(graph, graph_scope, main, loss, feed32, kw, 32))
+    emit(dict({"phase": "bert_recipe", "card": smi, "path": "accumulate4",
+               "seq_len": r["seq_len"]}, **row))
+    check(row["launches_per_step"] == [[4 * n_layers] * 3] * RECIPE_STEPS,
+          "accumulate: flash launches a step %s" % row["launches_per_step"])
+    check(row["captured_equals_eager"] and not row["unequal_state"],
+          "accumulate: captured and eager steps differ: %s"
+          % row["unequal_state"])
+    check(all(np.isfinite(row["losses"])), "accumulate losses")
+    check(row["lr_worst_rel_err"] <= RECIPE_TOL["lr_rtol"],
+          "accumulate: lr %s off the closed form" % lrs)
+    del out, graph, graph_scope
+
+    # (c) a dispatch window of 4 against depth 1, 8 steps, each loop read
+    # only at its end
+    release_memory()
+    pool = [recipe_feed(8, np.random.RandomState(60 + i)) for i in range(2)]
+    runs = {}
+    for label, graphs, depth in (("captured_depth4", True, 4),
+                                 ("eager_depth4", False, 4),
+                                 ("captured_depth1", True, 1)):
+        exe, scope = fresh(startup, graphs=graphs)
+        before = step_counts(fa)
+        with fluid.scope_guard(scope):
+            vals = [exe.run(main, feed=pool[i % 2], fetch_list=fetch,
+                            dispatch_steps=depth)
+                    for i in range(WINDOW_STEPS)]
+            exe.sync()
+        counted = [a - b for a, b in zip(step_counts(fa), before)]
+        runs[label] = {"exe": exe, "scope": scope, "launches": counted,
+                       "fetches": [[np.asarray(v).reshape(-1).tolist()
+                                    for v in step] for step in vals]}
+    launches["window4"] = dict(zip(
+        ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+        runs["captured_depth4"]["launches"]))
+    ref = runs["captured_depth4"]
+    names = sorted(ref["scope"].local_var_names())
+    same = {label: run["fetches"] == ref["fetches"] and all(
+        torch.equal(run["scope"].get(n), ref["scope"].get(n)) for n in names)
+        for label, run in runs.items()}
+    lrs = [v[1][0] for v in ref["fetches"]]
+
+    def loop(exe, scope, depth):
+        def run():
+            with fluid.scope_guard(scope):
+                vals = [exe.run(main, feed=pool[i % 2], fetch_list=[loss],
+                                dispatch_steps=depth)[0]
+                        for i in range(WINDOW_STEPS)]
+                exe.sync()
+                return float(np.asarray(vals[-1]).reshape(-1)[0])
+        return run
+
+    # the idle share of a loop: the gaps in the card's timeline between
+    # its first and last kernel (a synchronous loop's host waits)
+    timing = {}
+    for depth in (1, 4):
+        run_ = runs["captured_depth%d" % depth]
+        run = loop(run_["exe"], run_["scope"], depth)
+        walls = timed_runs(run, n=3, warmup=1)
+        _, _, active_ms, span_ms = profiled_loop(run)
+        step_ms = walls["median_ms"] / WINDOW_STEPS
+        timing["depth%d" % depth] = {
+            "step_ms": step_ms, "sequences_per_s": 8 / (step_ms / 1e3),
+            "device_active_ms": active_ms / WINDOW_STEPS,
+            "device_idle_share": 1.0 - active_ms / span_ms,
+            "loop_ms": walls}
+    row = {"batch": 8, "dispatch_steps": 4, "steps": WINDOW_STEPS,
+           "losses": {k: [v[0][0] for v in r_["fetches"]]
+                      for k, r_ in runs.items()},
+           "lr": lrs, "lr_worst_rel_err": check_lr(lrs, 1),
+           "bitwise_equal_to_captured_depth4": same,
+           "launches": {k: r_["launches"] for k, r_ in runs.items()},
+           "graphs": [(c.captures, c.replays)
+                      for c in captured(ref["exe"].engine)],
+           "times": timing}
+    emit(dict({"phase": "bert_recipe", "card": smi, "path": "window4",
+               "seq_len": r["seq_len"]}, **row))
+    check(all(same.values()), "window: depth 4, eager and depth 1 differ: "
+          "%s" % same)
+    check(row["lr_worst_rel_err"] <= RECIPE_TOL["lr_rtol"],
+          "window: lr %s off the closed form" % lrs)
+    check(ref["launches"] == [n_layers * WINDOW_STEPS] * 3,
+          "window: flash launches %s over %d steps" % (ref["launches"],
+                                                       WINDOW_STEPS))
+    del runs, ref
+    release_memory()
+    return launches
+
+
+def _union(spans):
+    merged = []
+    for a, b in sorted(spans):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    return merged
+
+
+def device_intervals(prof):
+    """From a profile's device events: (ms of host-to-device copies, the
+    share of that time during which a kernel ran, ms the card was active
+    at all (the union of kernels and copies), ms from the first event's
+    start to the last one's end)."""
+    from torch.autograd import DeviceType
+
+    copies, kernels = [], []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        span = (e.time_range.start, e.time_range.end)
+        if e.name.startswith("Memcpy HtoD"):
+            copies.append(span)
+        elif not e.name.startswith(("Memcpy", "Memset")):
+            kernels.append(span)
+    busy = _union(kernels)
+    total = sum(b - a for a, b in copies)
+    over = 0.0
+    for a, b in copies:
+        for ka, kb in busy:
+            if kb <= a:
+                continue
+            if ka >= b:
+                break
+            over += min(b, kb) - max(a, ka)
+    spans = _union(kernels + copies)
+    active = sum(b - a for a, b in spans)
+    span = spans[-1][1] - spans[0][0] if spans else 0.0
+    return (total / 1e3, (over / total if total else 0.0), active / 1e3,
+            span / 1e3)
+
+
+def profiled_loop(run):
+    """One profiled call of ``run`` (a loop of steps ending in a wait);
+    its ``device_intervals``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return device_intervals(prof)
+
+
+def phase_resnet50_pipelined(fa, main, startup, loss, smi):
+    """ResNet-50 at batch 32, Momentum, captured, fed from a rotating pool
+    of 3 host batches: the synchronous loop (numpy feeds, depth 1)
+    against ``prefetch_to_device`` (pinned buffers, a copy stream,
+    ``prefetch_depth`` 2) with ``dispatch_steps=2``, from the same state:
+    losses bitwise equal; step ms, images/s, the idle share of the
+    card's timeline, the feed's copy time and how much of it overlaps
+    kernels. Returns the flash launches (none)."""
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.engine.pipeline import prefetch_to_device
+
+    pool = [resnet_feed(RESNET_BATCH, np.random.RandomState(70 + i))
+            for i in range(3)]
+    n = PIPELINE_STEPS
+
+    def reader(count):
+        def read():
+            for i in range(count):
+                yield pool[i % 3]
+        return read
+
+    def sync_loop(exe, scope, count):
+        with fluid.scope_guard(scope):
+            return [float(exe.run(main, feed=pool[i % 3],
+                                  fetch_list=[loss])[0].reshape(-1)[0])
+                    for i in range(count)]
+
+    def pipelined_loop(exe, scope, count):
+        with fluid.scope_guard(scope):
+            vals = [exe.run(main, feed=f, fetch_list=[loss],
+                            dispatch_steps=2)[0]
+                    for f in prefetch_to_device(reader(count), depth=2)()]
+            exe.sync()
+        return [float(np.asarray(v).reshape(-1)[0]) for v in vals]
+
+    fa.launches = fa.launches_dq = fa.launches_dkv = 0
+    rows, losses = {}, {}
+    for name, loop in (("synchronous", sync_loop),
+                       ("prefetch_window2", pipelined_loop)):
+        release_memory()
+        exe, scope = fresh(startup)
+        losses[name] = loop(exe, scope, n)
+        walls = timed_runs(lambda: loop(exe, scope, n), n=3, warmup=0)
+        copy_ms, overlap, active_ms, span_ms = profiled_loop(
+            lambda: loop(exe, scope, n))
+        step_ms = walls["median_ms"] / n
+        rows[name] = {"step_ms": step_ms,
+                      "images_per_s": RESNET_BATCH / (step_ms / 1e3),
+                      "device_active_ms": active_ms / n,
+                      "device_idle_share": 1.0 - active_ms / span_ms,
+                      "h2d_copy_ms_per_step": copy_ms / n,
+                      "h2d_overlapping_kernels_share": overlap,
+                      "graphs": [(c.captures, c.replays)
+                                 for c in captured(exe.engine)]}
+        del exe, scope
+    launches = flash_launches(fa)
+    emit({"phase": "resnet50_pipelined", "card": smi, "batch": RESNET_BATCH,
+          "steps": n, "pool": 3, "prefetch_depth": 2, "dispatch_steps": 2,
+          "losses": losses, "runs": rows, "launches": launches})
+    check(losses["synchronous"] == losses["prefetch_window2"],
+          "the prefetched loop's losses differ: %s" % losses)
+    check(all(np.isfinite(losses["synchronous"])), "ResNet-50 losses")
+    check(not any(launches.values()), "flash launches in ResNet-50")
+    release_memory()
+    return launches
+
+
+def optimizer_operands(op_type, shape, seed):
+    """The operands of one optimizer update at ``shape`` (float32 CPU
+    tensors from ``seed``), as the op's slots take them: weights of a few
+    hundredths, grads of a hundredth, accumulators as some steps of such
+    grads leave them (FTRL's squared sum about ten grads' squares)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def f(low=None, scale=1.0):
+        x = torch.randn(shape, generator=gen) * scale
+        return x.abs() + low if low is not None else x
+
+    one = lambda v: torch.tensor([v], dtype=torch.float32)  # noqa: E731
+    lr = one(0.01)
+    p, g = f(scale=0.05), f(scale=0.01)
+    return {
+        "lars_momentum": ({"Param": p, "Grad": g, "Velocity": f(scale=0.01),
+                           "LearningRate": lr},
+                          {"mu": 0.9, "lars_coeff": 0.001,
+                           "lars_weight_decay": 0.0005}),
+        "adamax": ({"Param": p, "Grad": g, "Moment": f(scale=0.01),
+                    "InfNorm": f(low=0.01, scale=0.01), "LearningRate": lr,
+                    "Beta1Pow": one(0.81)},
+                   {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}),
+        "adagrad": ({"Param": p, "Grad": g, "Moment": f(low=0.0, scale=0.01),
+                     "LearningRate": lr}, {"epsilon": 1e-6}),
+        "decayed_adagrad": ({"Param": p, "Grad": g,
+                             "Moment": f(low=0.0, scale=0.01),
+                             "LearningRate": lr},
+                            {"decay": 0.95, "epsilon": 1e-6}),
+        "adadelta": ({"Param": p, "Grad": g,
+                      "AvgSquaredGrad": f(low=0.0, scale=0.01),
+                      "AvgSquaredUpdate": f(low=0.0, scale=0.01)},
+                     {"rho": 0.95, "epsilon": 1e-6}),
+        "rmsprop": ({"Param": p, "Grad": g, "Moment": f(scale=0.01),
+                     "MeanSquare": f(low=1e-3, scale=0.01),
+                     "MeanGrad": f(scale=0.001), "LearningRate": lr},
+                    {"decay": 0.95, "epsilon": 1e-6, "momentum": 0.9,
+                     "centered": True}),
+        "ftrl": ({"Param": p, "Grad": g,
+                  "SquaredAccumulator": 10.0 * g * g + f(low=1e-6,
+                                                         scale=1e-5),
+                  "LinearAccumulator": f(scale=0.01), "LearningRate": lr},
+                 {"l1": 0.001, "l2": 0.001, "lr_power": -0.5}),
+        "model_average_accum": ({"Param": p, "Sum": f(), "Cnt": one(5.0),
+                                 "OldSum": f(), "OldCnt": one(10.0),
+                                 "Total": one(30.0)},
+                                {"average_window_rate": 0.15,
+                                 "min_average_window": 6,
+                                 "max_average_window": 20}),
+    }[op_type]
+
+
+def phase_optimizers(smi):
+    """Each of the eight update ops the port adds on the card against the
+    CPU, from identical operands, at BERT-base's word embedding (30522 x
+    768) and an FFN weight (768 x 3072): every output within
+    OPT_TOL * max|want|. Then ``ModelAverage.apply``/``restore`` on the
+    card around a captured evaluation."""
+    import torch
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.core.desc import OpDesc
+    from paddle_tpu_torch.core.registry import LowerContext, OpRegistry
+
+    worst = {}
+    for i, op_type in enumerate(OPTIMIZER_OPS):
+        for shape in ((BERT["vocab_size"], BERT["d_model"]),
+                      (BERT["d_model"], BERT["d_inner"])):
+            ins, attrs = optimizer_operands(op_type, shape, 80 + i)
+            outs = {}
+            for device in ("cpu", "cuda"):
+                op = OpDesc(op_type, {s: ["x"] for s in ins}, {}, attrs)
+                ctx = LowerContext(op, None, device)
+                got = OpRegistry.get(op_type).lower(
+                    ctx, {s: [v.to(device)] for s, v in ins.items()}, attrs)
+                outs[device] = {s: v[0].cpu() for s, v in got.items()}
+            errs = {}
+            for slot, want in outs["cpu"].items():
+                err = float((outs["cuda"][slot] - want).abs().max())
+                scale = float(want.abs().max())
+                errs[slot] = err / scale if scale else err
+                check(err <= OPT_TOL * scale, "%s %s on the card: %s off "
+                      "by %g (max |want| %g)" % (op_type, shape, slot, err,
+                                                 scale))
+            worst["%s %dx%d" % ((op_type,) + shape)] = max(errs.values())
+
+    # ModelAverage beside SGD on a small MLP, captured on the card
+    main, startup = fluid.Program(), fluid.Program()
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[64], dtype="float32")
+        y = fluid.layers.data(name="y", shape=[1], dtype="int64")
+        h = fluid.layers.fc(input=x, size=64, act="relu")
+        logits = fluid.layers.fc(input=h, size=8)
+        avg_loss = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(
+            logits=logits, label=y))
+        fluid.optimizer.SGD(learning_rate=0.1).minimize(avg_loss)
+        average = fluid.optimizer.ModelAverage(0.15, min_average_window=2,
+                                               max_average_window=4)
+    test = main.clone(for_test=True)
+    rng = np.random.RandomState(90)
+    feed = {"x": rng.randn(16, 64).astype(np.float32),
+            "y": rng.randint(0, 8, (16, 1)).astype(np.int64)}
+    exe, scope = fresh(startup)
+    params = [p.name for p in main.all_parameters()]
+    with fluid.scope_guard(scope):
+        for _ in range(6):
+            exe.run(main, feed=feed, fetch_list=[avg_loss])
+        trained = {n: scope.get(n).clone() for n in params}
+        eval_trained = exe.run(test, feed={"x": feed["x"]},
+                               fetch_list=[logits])[0]
+        want = {}
+        for p, s, c, old_s, old_c in average._avg_params:
+            cnt = float((scope.get(c.name) + scope.get(old_c.name))[0])
+            want[p.name] = (scope.get(s.name) + scope.get(old_s.name)) / cnt
+        with average.apply(exe):
+            applied = {n: torch.equal(scope.get(n), want[n].to(
+                scope.get(n).dtype)) for n in params}
+            eval_avg = exe.run(test, feed={"x": feed["x"]},
+                               fetch_list=[logits])[0]
+        restored = all(torch.equal(scope.get(n), trained[n])
+                       for n in params)
+        eval_again = exe.run(test, feed={"x": feed["x"]},
+                             fetch_list=[logits])[0]
+    row = {"phase": "optimizers", "card": smi, "tol_rel_to_max": OPT_TOL,
+           "worst_rel_err": worst, "model_average": {
+               "applied_equal_to_window_mean": applied,
+               "restored_bitwise": restored,
+               "eval_changed_under_apply": not np.array_equal(eval_avg,
+                                                              eval_trained),
+               "eval_after_restore_equal": np.array_equal(eval_again,
+                                                          eval_trained),
+               "graphs": [(c.captures, c.replays)
+                          for c in captured(exe.engine)]}}
+    emit(row)
+    ma = row["model_average"]
+    check(all(applied.values()) and restored
+          and ma["eval_changed_under_apply"]
+          and ma["eval_after_restore_equal"],
+          "ModelAverage apply/restore on the card: %s" % ma)
+    del exe, scope
+    release_memory()
+
+
+def mfu_run(label, program, startup, loss, feed, peak, smi, steps=5):
+    """The mfu.* gauges and the counted FLOPs a step of ``steps``
+    replayed steps: a fresh executor (the startup run outside the
+    ledger), the goodput ledger on for the eager first run (which counts
+    the FLOPs, charged to compile) and the capture, then reset, so the
+    rates are the replays'."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.observability import goodput
+
+    exe, scope = fresh(startup)
+    flags.set_flags({"goodput": True, "peak_flops": peak})
+    try:
+        goodput.reset()
+        with fluid.scope_guard(scope):
+            for _ in range(2):
+                exe.run(program, feed=feed, fetch_list=[loss])
+            warm_up = goodput.snapshot()["categories"]
+            goodput.reset()
+            # a reset ledger anchors at its first mark: anchor it here, so
+            # the first replay's time is charged with its FLOPs
+            goodput.mark("idle")
+            for _ in range(steps):
+                exe.run(program, feed=feed, fetch_list=[loss])
+        snap = goodput.snapshot()
+        gauges = {g: obs.registry.gauge_value(g) for g in (
+            "mfu.model_flops_per_step", "mfu.achieved_flops_per_s",
+            "mfu.mfu", "mfu.goodput_mfu", "mfu.peak_flops")}
+    finally:
+        flags.reset_flag("goodput")
+        flags.reset_flag("peak_flops")
+        goodput.reset()
+    row = {"phase": "mfu", "card": smi, "run": label, "steps": steps,
+           "gauges": gauges, "goodput_frac": snap["goodput_frac"],
+           "categories_ms": {k: v for k, v in snap["categories"].items()
+                             if v},
+           "warm_up_categories_ms": {k: v for k, v in warm_up.items()
+                                     if v}}
+    emit(row)
+    check(gauges["mfu.model_flops_per_step"] > 0 and gauges["mfu.mfu"] > 0,
+          "%s: mfu gauges %s" % (label, gauges))
+    del exe, scope
+    return row
+
+
+def phase_mfu(smi, name):
+    """The mfu.* gauges of the captured BERT-base (seq 128, batch 8) and
+    ResNet-50 (batch 32) steps, float32 and AMP, against the card's peak
+    for the step's type (float32: the FFMA rate, since TF32 is off;
+    AMP: bf16 dense). ResNet-50's FLOPs a step within MFU_TOL of the
+    analytic 0.79 TFLOP."""
+    peaks = MFU_PEAKS.get("H100" if "H100" in name else None)
+    check(peaks is not None, "no peak FLOP/s known for %r" % name)
+    rows = {}
+    feed8 = train_feed(8, np.random.RandomState(11))
+    for amp in (False, True):
+        main, startup, loss = bert_train_program(amp)
+        rows["bert_amp" if amp else "bert"] = mfu_run(
+            "bert_base_seq128_b8" + ("_amp" if amp else ""), main, startup,
+            loss, feed8, peaks["bfloat16" if amp else "float32"], smi)
+        release_memory()
+    r_feed = resnet_feed(RESNET_BATCH, np.random.RandomState(41))
+    for amp in (False, True):
+        r_main, r_startup, r_handles = resnet_program(True, amp=amp)
+        rows["resnet_amp" if amp else "resnet"] = mfu_run(
+            "resnet50_b32" + ("_amp" if amp else ""), r_main, r_startup,
+            r_handles["loss"], r_feed,
+            peaks["bfloat16" if amp else "float32"], smi)
+        release_memory()
+    flops = rows["resnet"]["gauges"]["mfu.model_flops_per_step"]
+    emit({"phase": "mfu", "resnet50_flops_per_step": flops,
+          "analytic": RESNET_STEP_FLOPS,
+          "ratio": flops / RESNET_STEP_FLOPS, "peaks": peaks})
+    check(abs(flops / RESNET_STEP_FLOPS - 1.0) <= MFU_TOL,
+          "ResNet-50 counted %g FLOPs a step, analytic %g"
+          % (flops, RESNET_STEP_FLOPS))
+    return rows
+
+
 def release_memory():
     """Free what no live object holds, CUDA graphs and their pools too,
     and return the cached blocks to the card."""
@@ -2053,15 +2805,28 @@ def main():
     r_eager, r_graph, r_losses, r_launches = phase_resnet50_train(
         fa, r_main, r_startup, r_loss, r_handles, r_feed, smi)
     r_amp = phase_resnet50_train_amp(fa, r_feed, r_losses, smi)
+    r_amp_launches = r_amp[4]
     phase_resnet50_times({"eager": r_eager + (r_main, r_loss),
                           "captured": r_graph + (r_main, r_loss),
                           "captured_amp": r_amp[:4]}, r_startup, r_feed,
                          smi)
+    del r_eager, r_graph, r_amp
+    release_memory()
+
+    # the training loop's features
+    phase_optimizers(smi)
+    recipe_launches = phase_bert_recipe(fa, smi)
+    r_pipe_launches = phase_resnet50_pipelined(fa, r_main, r_startup,
+                                               r_loss, smi)
+    phase_mfu(smi, torch.cuda.get_device_name(0))
     emit({"phase": "times", "partial_profiler_windows_rerun":
           len(PARTIAL_PROFILES), "partial_windows": PARTIAL_PROFILES})
-    resnet_paths = {"resnet50_serve": r_serve_launches,
+    other_paths = {"resnet50_serve": r_serve_launches,
                     "resnet50_train": r_launches,
-                    "resnet50_train_amp": r_amp[4]}
+                    "resnet50_train_amp": r_amp_launches,
+                    "resnet50_pipelined": r_pipe_launches}
+    other_paths.update(("bert_recipe_" + p, n)
+                        for p, n in recipe_launches.items())
 
     # launches: the training path's (forward, dQ and dK/dV each 12 a
     # step, counted across replays); the forward's on the served paths and
@@ -2083,7 +2848,7 @@ def main():
             "serve": serve_launches, "serve_batched": batched_launches,
             "train": launches["flash_fwd"],
             "train_amp": amp_launches["flash_fwd"]},
-            **{p: n["flash_fwd"] for p, n in resnet_paths.items()}),
+            **{p: n["flash_fwd"] for p, n in other_paths.items()}),
         "max_abs_err": worst,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -2097,7 +2862,7 @@ def main():
             "launches": launches[name],
             "launches_by_path": dict({
                 "train": launches[name], "train_amp": amp_launches[name]},
-                **{p: n[name] for p, n in resnet_paths.items()}),
+                **{p: n[name] for p, n in other_paths.items()}),
             "max_abs_err": worst_bwd[name],
             "ms": bwd_row[name]["ms"], "plain_ms": bwd_row["plain_ms"],
             "bound_ms": bwd_row[name]["bound_ms"],

@@ -3,10 +3,9 @@ GradientClipByValue, GradientClipByNorm, GradientClipByGlobalNorm,
 ErrorClipByValue; set via set_gradient_clip or ParamAttr.gradient_clip).
 
 Port of ``paddle_tpu/clip.py``, unchanged but for its imports. It works on
-the desc only; the ops it appends (``clip``, ``clip_by_norm``,
-``squared_l2_norm``, ``sqrt``) are not lowered by the port yet (ROADMAP
-Queue 1, the remaining op families), so a program that clips raises
-``KeyError`` when it runs. With no clip set, nothing is appended.
+the desc; the ops it appends (``clip``, ``clip_by_norm``,
+``squared_l2_norm``, ``sqrt``, ``elementwise_max``/``div``/``mul``) are
+lowered in ``ops/``. With no clip set, nothing is appended.
 """
 
 from paddle_tpu_torch.layer_helper import LayerHelper

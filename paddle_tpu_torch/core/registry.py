@@ -147,10 +147,15 @@ def _splitmix64(x):
     return x ^ (x >> 31)
 
 
-def stream_seed(seed, run_counter, rng_id):
-    """63-bit seed of the (seed, run_counter, rng_id) stream."""
+def stream_seed(seed, run_counter, rng_id, micro=None):
+    """63-bit seed of the (seed, run_counter, rng_id) stream; ``micro``
+    (micro-batch t of an accumulated step) folds in before the op's id,
+    as ``fold_in(key, t)`` does in the reference's scan
+    (``engine/lowering.py:668``)."""
     h = _splitmix64(int(seed) & _MASK64)
     h = _splitmix64(h ^ (int(run_counter) & _MASK64))
+    if micro is not None:
+        h = _splitmix64(h ^ ((int(micro) + 1) & _MASK64))
     h = _splitmix64(h ^ (int(rng_id) & _MASK64))
     return h >> 1
 
@@ -161,11 +166,13 @@ def _stream_generator(seed, run_counter, rng_id, device="cpu"):
     return gen
 
 
-def draw_seed(seed, run_counter, rng_id, high):
-    """The dropout seed of op ``rng_id`` in run ``run_counter``: one
-    integer in [0, high) drawn on the host from the op's stream."""
-    return int(torch.randint(0, high, (), generator=_stream_generator(
-        seed, run_counter, rng_id)))
+def draw_seed(seed, run_counter, rng_id, high, micro=None):
+    """The dropout seed of op ``rng_id`` in run ``run_counter`` (and
+    micro-batch ``micro`` of an accumulated step): one integer in
+    [0, high) drawn on the host from the op's stream."""
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(stream_seed(seed, run_counter, rng_id, micro))
+    return int(torch.randint(0, high, (), generator=gen))
 
 
 class LowerContext:

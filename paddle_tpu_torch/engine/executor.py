@@ -42,6 +42,25 @@ graph.
 ``check_nan_inf`` checks every state and fetch tensor after the step and
 raises with the reference's message (``_check_finite``, :1183).
 
+``run_block`` also takes the reference's training-loop levers, each part
+of the cache key: ``accumulate_steps=k`` (``lower_block_accumulated``: k
+micro-batches, one update on the averaged grads), ``remat_segments=s``
+(``lower_block_remat``: the forward in s checkpointed segments, the grads
+from autograd), which cannot combine (the reference refuses it too), and
+``dispatch_steps=N``: up to N steps in flight on the card, each run
+returning ``DeferredFetch`` placeholders (``engine/pipeline.py``), the
+window drained by ``sync()`` and dropped by ``discard_window()``. Both
+lowerings are captured like the plain step. Feeds and the seed table go
+to the card from pinned host memory without waiting (a copy from
+pageable memory would make the host wait for the card before every
+step), so a windowed loop enqueues the next step while the card runs
+the last.
+
+With the goodput flag up, an entry's model FLOPs are counted once, on its
+first run, with ``FlopCounterMode`` (plus the flash kernels' own count),
+and every run notes them; a run that builds an entry (its first run, a
+capture) is charged to ``compile``.
+
 A CUDA engine turns on cuDNN's deterministic algorithms and turns off its
 autotuner (``_deterministic_cudnn``), so that repeated steps, and a
 captured step against its eager run, agree bit for bit.
@@ -62,9 +81,15 @@ import torch
 from paddle_tpu_torch import flags
 from paddle_tpu_torch import observability as obs
 from paddle_tpu_torch.core.types import convert_dtype_to_np
-from paddle_tpu_torch.engine.lowering import BlockProgram, lower_block
+from paddle_tpu_torch.engine.lowering import (
+    BlockProgram, lower_block, lower_block_accumulated, lower_block_remat,
+    remat_live_vars,
+)
+from paddle_tpu_torch.engine.pipeline import (
+    DeferredFetch, DispatchWindow, _StepRecord, finite_probes, stage_fetches,
+)
 from paddle_tpu_torch.kernels import flash_attention as _fa
-from paddle_tpu_torch.observability import health
+from paddle_tpu_torch.observability import goodput, health
 
 _BLOCK_CACHE_SIZE = 64
 
@@ -75,24 +100,40 @@ class CompiledBlock:
     (reference: ``CompiledBlock``, executor.py:48)."""
 
     def __init__(self, engine, block_program, feed_specs, is_test, amp,
-                 donate_state, state_writeback, capture):
+                 donate_state, state_writeback, capture, accumulate_steps=1,
+                 remat_segments=0):
         self.engine = engine
         self.block_program = block_program
         self.device = engine.device
-        self.fn = lower_block(block_program, engine.device, is_test=is_test,
-                              executor=engine, amp=amp)
+        self.accumulate_steps = accumulate_steps
+        if accumulate_steps > 1:
+            self.fn = lower_block_accumulated(
+                block_program, accumulate_steps, engine.device,
+                is_test=is_test, executor=engine, amp=amp)
+        elif remat_segments:
+            self.fn = lower_block_remat(
+                block_program, remat_segments, engine.device,
+                is_test=is_test, executor=engine, amp=amp)
+        else:
+            self.fn = lower_block(block_program, engine.device,
+                                  is_test=is_test, executor=engine, amp=amp)
         self.donate_state = donate_state
         self.state_writeback = state_writeback
         self.capture = capture
         self.lock = threading.Lock()
         self.feed_bufs = [torch.empty(shape, dtype=dtype, device=self.device)
                           for _, shape, dtype in feed_specs]
-        # a test run draws no seed (its dropout is off)
+        # a test run draws no seed (its dropout is off); an accumulated
+        # step has a row of seeds a micro-batch, then the step's own
         slots = [] if is_test else block_program.rng_slots
-        self.seed_buf = torch.zeros(len(slots), dtype=torch.int64,
+        rows = accumulate_steps + 1 if accumulate_steps > 1 else 1
+        self.seed_buf = torch.zeros((rows, len(slots)), dtype=torch.int64,
                                     device=self.device)
-        self.seeds = {rng_id: self.seed_buf[i]
-                      for i, (rng_id, _) in enumerate(slots)}
+        tables = [{rng_id: self.seed_buf[r, i]
+                   for i, (rng_id, _) in enumerate(slots)}
+                  for r in range(rows)]
+        self.seeds = tables if accumulate_steps > 1 else tables[0]
+        self._has_seeds = bool(slots)
         self.graph = None
         # what the graph returns (fetches, state outputs), in its pool
         self.outs = None
@@ -102,14 +143,19 @@ class CompiledBlock:
         self.launches = None
         self.captures = 0
         self.replays = 0
+        # model FLOPs of one run, counted on the first run with the
+        # goodput flag up (None until then)
+        self.flops = None
         # (shape, dtype) of each state output, from the first (eager) run;
         # on CUDA the second run captures
         self._out_specs = None
 
     # -- one run -----------------------------------------------------------
-    def run(self, scope, feed_values, rng_seed, return_numpy):
+    def run(self, scope, feed_values, rng_seed, return_numpy, defer=False):
         """Run the block once; returns the fetches (numpy arrays, or
-        tensors that no later run changes)."""
+        tensors that no later run changes). With ``defer`` nothing waits
+        for the card: returns (fetch tensors the caller owns, deferred nan
+        probes) for the dispatch window."""
         step = rng_seed[1]
         if not self.capture:
             if self.device.type == "cuda":
@@ -117,14 +163,14 @@ class CompiledBlock:
             with self.lock, obs.span("run", step=step), \
                     obs.time_block("engine.run_ms"):
                 return self._run_eager(scope, feed_values, rng_seed,
-                                       return_numpy)
+                                       return_numpy, defer)
         with self.engine._graph_lock:
             state, dsts = self._scope_tensors(scope)
             if not self._bindable(dsts):
                 with obs.span("run", step=step), \
                         obs.time_block("engine.run_ms"):
                     return self._warm_up(scope, feed_values, rng_seed,
-                                         return_numpy)
+                                         return_numpy, defer)
             if self.graph is None or any(
                     a is not b for a, b in zip(self.bound, state + dsts)):
                 if self.graph is not None:
@@ -133,21 +179,41 @@ class CompiledBlock:
                 with obs.span("compile", step=step), \
                         obs.time_block("engine.compile_ms"):
                     self._capture(state, dsts, feed_values, rng_seed)
-                    return self._replay(feed_values, rng_seed, return_numpy)
+                    out = self._replay(feed_values, rng_seed, return_numpy,
+                                       defer)
+                goodput.mark("compile")
+                return out
             with obs.span("run", step=step), \
                     obs.time_block("engine.run_ms"):
-                return self._replay(feed_values, rng_seed, return_numpy)
+                return self._replay(feed_values, rng_seed, return_numpy,
+                                    defer)
 
     def _fill(self, feed_values, rng_seed):
         """Copy the run's feeds into the static buffers and its seeds into
-        the seed table."""
+        the seed table. On CUDA a host value goes through pinned memory
+        and is copied without waiting (torch waits for the card before a
+        copy from pageable memory returns)."""
+        cuda = self.device.type == "cuda"
         for buf, value in zip(self.feed_bufs, feed_values):
             if not isinstance(value, torch.Tensor):
                 value = torch.from_numpy(value)
-            buf.copy_(value)
-        if self.seeds:
-            values = self.block_program.seed_values(*rng_seed)
-            self.seed_buf.copy_(torch.tensor(values, dtype=torch.int64))
+            if cuda and not value.is_cuda:
+                value = value.pin_memory()
+            buf.copy_(value, non_blocking=cuda)
+        if self._has_seeds:
+            seed, counter = rng_seed
+            bp = self.block_program
+            k = self.accumulate_steps
+            if k > 1:
+                values = [bp.seed_values(seed, counter, micro=t)
+                          for t in range(k)]
+                values.append(bp.seed_values(seed, counter))
+            else:
+                values = [bp.seed_values(seed, counter)]
+            host = torch.tensor(values, dtype=torch.int64)
+            if cuda:
+                host = host.pin_memory()
+            self.seed_buf.copy_(host, non_blocking=cuda)
 
     def _scope_tensors(self, scope):
         """(state inputs, write-back targets): the scope's tensors that the
@@ -198,18 +264,54 @@ class CompiledBlock:
                     state_out[i] = d
         return fetches, state_out
 
-    def _run_eager(self, scope, feed_values, rng_seed, return_numpy):
+    def _run_eager(self, scope, feed_values, rng_seed, return_numpy,
+                   defer=False):
         state, dsts = self._scope_tensors(scope)
         self._fill(feed_values, rng_seed)
+        first = self.flops is None and goodput.enabled()
         with torch.no_grad():
-            fetches, state_out = self._body(state, dsts, rng_seed)
+            if first:
+                fetches, state_out = self._counted_body(state, dsts,
+                                                        rng_seed)
+            else:
+                fetches, state_out = self._body(state, dsts, rng_seed)
         self._out_specs = [(tuple(v.shape), v.dtype) for v in state_out]
-        self._finish_state(scope, state_out, rng_seed)
+        self._finish_state(scope, state_out, rng_seed, check=not defer)
+        if first:
+            goodput.mark("compile")
+        if defer:
+            return self._deferred_out(fetches, state_out, copy=False)
         return self._fetch_out(fetches, rng_seed, return_numpy, copy=False)
 
-    def _finish_state(self, scope, state_out, rng_seed):
+    def _counted_body(self, state, dsts, rng_seed):
+        """``_body`` under torch's FLOP counter and the flash kernels' own
+        count; keeps the sum as the entry's FLOPs a run."""
+        from torch.utils.flop_counter import FlopCounterMode
+
+        counter = FlopCounterMode(display=False)
+        with counter, _fa.count_flops() as kernel_flops:
+            out = self._body(state, dsts, rng_seed)
+        self.flops = float(counter.get_total_flops()) + kernel_flops[0]
+        return out
+
+    def _deferred_out(self, fetches, state_out, copy):
+        """A windowed run's outputs: the deferred nan probes (enqueued, not
+        read) and, with ``copy``, device clones of the fetches, which the
+        next replay cannot overwrite."""
         bp = self.block_program
+        probes = []
         if self.engine.check_nan_inf:
+            probes = (finite_probes(zip(bp.state_out_names, state_out),
+                                    kind="state")
+                      + finite_probes(zip(bp.fetch_names, fetches),
+                                      kind="fetch"))
+        if copy:
+            fetches = [t.clone() for t in fetches]
+        return fetches, probes
+
+    def _finish_state(self, scope, state_out, rng_seed, check=True):
+        bp = self.block_program
+        if check and self.engine.check_nan_inf:
             _check_finite(zip(bp.state_out_names, state_out),
                           step=rng_seed[1], kind="state")
         if not self.state_writeback:
@@ -233,19 +335,20 @@ class CompiledBlock:
         torch.cuda.current_stream(self.device).synchronize()
         return out
 
-    def _warm_up(self, scope, feed_values, rng_seed, return_numpy):
+    def _warm_up(self, scope, feed_values, rng_seed, return_numpy,
+                 defer=False):
         """An eager run on a side stream, as a capture needs before it."""
         cur = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
             out = self._run_eager(scope, feed_values, rng_seed,
-                                  return_numpy)
+                                  return_numpy, defer)
             side.synchronize()
         cur.wait_stream(side)
-        if not return_numpy:
-            for t in out:
-                t.record_stream(cur)
+        tensors = out[0] if defer else (() if return_numpy else out)
+        for t in tensors:
+            t.record_stream(cur)
         return out
 
     def _capture(self, state, dsts, feed_values, rng_seed):
@@ -255,23 +358,32 @@ class CompiledBlock:
         self.graph = self.outs = self.bound = None
         graph = torch.cuda.CUDAGraph()
         # thread_local: other threads (the serving worker, a direct
-        # caller) may run eagerly on the card while this one captures
-        with _fa.record_launches() as launches, torch.no_grad():
+        # caller) may run eagerly on the card while this one captures;
+        # the launches are recorded by the capture stream, which a
+        # captured backward (remat) launches on from autograd's thread
+        with torch.no_grad():
             with torch.cuda.graph(graph, pool=self.engine._graph_pool(),
                                   capture_error_mode="thread_local"):
-                outs = self._body(state, dsts, rng_seed)
+                with _fa.record_launches(
+                        torch.cuda.current_stream(self.device)) as launches:
+                    outs = self._body(state, dsts, rng_seed)
         self.graph, self.outs, self.launches = graph, outs, dict(launches)
         self.bound = list(state) + list(dsts)
         self.captures += 1
         obs.inc("engine.captures")
 
-    def _replay(self, feed_values, rng_seed, return_numpy):
+    def _replay(self, feed_values, rng_seed, return_numpy, defer=False):
         self._fill(feed_values, rng_seed)
         self.graph.replay()
         _fa.add_launches(self.launches)
         self.replays += 1
         obs.inc("engine.replays")
         fetches, state_out = self.outs
+        if defer:
+            # a numpy fetch is copied to the host on this stream before
+            # the next replay; a tensor fetch needs its own device copy
+            return self._deferred_out(fetches, state_out,
+                                      copy=not return_numpy)
         if self.engine.check_nan_inf:
             _check_finite(zip(self.block_program.state_out_names, state_out),
                           step=rng_seed[1], kind="state")
@@ -290,6 +402,9 @@ class Engine:
         self._lock = threading.Lock()
         self._graph_lock = threading.RLock()
         self._pool = None
+        # the async dispatch window (engine/pipeline.py): runs with
+        # dispatch_steps > 1 enqueue here instead of reading their fetches
+        self.window = DispatchWindow()
         # on CUDA, capture each block that can be captured; False runs
         # every block eagerly, op by op (for comparing the two)
         self.cuda_graphs = True
@@ -304,41 +419,75 @@ class Engine:
         return self._pool
 
     def close(self):
-        """Drop the cached blocks and their graphs."""
+        """Drop the in-flight window (unread), the cached blocks and their
+        graphs."""
+        self.discard_window()
         with self._graph_lock, self._lock:
             self._cache.clear()
             self._blocks.clear()
 
+    def sync(self):
+        """Barrier: retire every in-flight windowed step (its deferred
+        fetches resolve; deferred nan/inf verdicts raise here)."""
+        self.window.sync()
+
+    def discard_window(self):
+        """Drop the in-flight window without reading or raising (the
+        rollback path: stale deferred verdicts must not raise after the
+        state was restored). Returns the number of steps dropped."""
+        return self.window.discard()
+
     def run_block(self, program_desc, block_idx, scope, feed=None,
                   fetch_list=None, is_test=False, return_numpy=True,
                   seed=0, opt_level=None, cache_key_extra=None,
-                  donate_state=True, state_writeback=None, amp=False):
+                  donate_state=True, state_writeback=None, amp=False,
+                  accumulate_steps=1, remat_segments=0, dispatch_steps=1):
         """Run block ``block_idx`` once. ``state_writeback`` (default:
         not ``is_test``) writes the persistable outputs back into the
         scope, in place with ``donate_state``; ``False`` never does, as
         serving needs (the scope stays immutable under concurrent
         callers). ``cache_key_extra`` tags the cache entry (the server's
         bucket: one graph per bucket); ``amp`` runs the ops under
-        bfloat16 AMP."""
+        bfloat16 AMP. ``accumulate_steps`` and ``remat_segments`` pick
+        the accumulated or rematerialized lowering; ``dispatch_steps``
+        > 1 enqueues the step into the window and returns
+        ``DeferredFetch`` placeholders (a run at depth 1 drains the
+        window first)."""
+        dispatch_steps = max(1, int(dispatch_steps or 1))
+        defer = dispatch_steps > 1
+        if not defer and len(self.window):
+            # a plain run after windowed ones: serialize first
+            self.window.sync()
         with obs.span("step", step=self._run_counter + 1), \
                 obs.time_block("engine.step_ms"):
             out = self._run_block_impl(
                 program_desc, block_idx, scope, feed, fetch_list, is_test,
                 return_numpy, seed, opt_level, cache_key_extra,
-                donate_state, state_writeback, amp)
-        # liveness: the heartbeat reports this counter
-        health.note_step()
+                donate_state, state_writeback, amp, int(accumulate_steps),
+                int(remat_segments or 0), dispatch_steps)
+        if not defer:
+            # liveness: the heartbeat reports this counter; the windowed
+            # path notes enqueue here and retire in the window
+            health.note_step()
         return out
 
     def _run_block_impl(self, program_desc, block_idx, scope, feed,
                         fetch_list, is_test, return_numpy, seed, opt_level,
                         cache_key_extra, donate_state, state_writeback,
-                        amp):
+                        amp, accumulate_steps=1, remat_segments=0,
+                        dispatch_steps=1):
         if opt_level not in (None, 0):
             raise NotImplementedError(
                 "opt_level=%r: the port runs the desc as given (level 0); "
                 "the transform passes are ROADMAP Queue 1, analysis and "
                 "transforms" % (opt_level,))
+        if accumulate_steps < 1:
+            raise ValueError("accumulate_steps must be >= 1, got %d"
+                             % accumulate_steps)
+        if accumulate_steps > 1 and remat_segments:
+            raise NotImplementedError(
+                "accumulate_steps and remat_segments cannot combine yet; "
+                "pick one memory lever per program")
         feed = feed or {}
         fetch_list = list(fetch_list or [])
         if state_writeback is None:
@@ -350,29 +499,48 @@ class Engine:
         compiled = self.get_compiled(
             program_desc, block_idx, feed_names, feed_values, fetch_list,
             bool(is_test), bool(donate_state), bool(amp), cache_key_extra,
-            bool(state_writeback))
+            bool(state_writeback), accumulate_steps, remat_segments)
         with self._lock:
             self._run_counter += 1
             run_counter = self._run_counter
-        return compiled.run(scope, feed_values, (int(seed), run_counter),
-                            return_numpy)
+        defer = dispatch_steps > 1
+        out = compiled.run(scope, feed_values, (int(seed), run_counter),
+                           return_numpy, defer)
+        if compiled.flops:
+            goodput.note_flops(compiled.flops)
+        if not defer:
+            return out
+        fetches, probes = out
+        staged, event = stage_fetches(fetches, return_numpy)
+        record = _StepRecord(run_counter, list(fetch_list), staged, event,
+                             probes, return_numpy)
+        record.placeholders = tuple(
+            DeferredFetch(self.window, record, i, name=n)
+            for i, n in enumerate(record.fetch_names))
+        health.note_step_enqueued()
+        self.window.push(record, depth=dispatch_steps)
+        return list(record.placeholders)
 
     def get_compiled(self, program_desc, block_idx, feed_names, feed_values,
                      fetch_list, is_test, donate_state, amp,
-                     cache_key_extra=None, state_writeback=True):
+                     cache_key_extra=None, state_writeback=True,
+                     accumulate_steps=1, remat_segments=0):
         """The cached ``CompiledBlock`` of one key, made on a miss; the
         least recently used entry goes past ``executable_cache_size``."""
         specs = tuple((n, tuple(v.shape), _torch_dtype(v))
                       for n, v in zip(feed_names, feed_values))
+        extra_live = (remat_live_vars(program_desc.block(block_idx))
+                      if remat_segments else ())
         bp = self._block_program(program_desc, block_idx, feed_names,
-                                 fetch_list)
+                                 fetch_list, extra_live)
         capture = (self.device.type == "cuda"
                    and self.cuda_graphs
                    and bp.capturable
                    and (donate_state or not state_writeback))
         key = (program_desc.cached_fingerprint(), block_idx, specs,
                tuple(fetch_list), is_test, donate_state, amp,
-               cache_key_extra, state_writeback, capture)
+               cache_key_extra, state_writeback, capture, accumulate_steps,
+               remat_segments)
         with self._lock:
             compiled = self._cache.get(key)
             if compiled is not None:
@@ -380,7 +548,8 @@ class Engine:
                 obs.inc("engine.cache_hit")
                 return compiled
         compiled = CompiledBlock(self, bp, specs, is_test, amp,
-                                 donate_state, state_writeback, capture)
+                                 donate_state, state_writeback, capture,
+                                 accumulate_steps, remat_segments)
         with self._lock:
             if key in self._cache:
                 obs.inc("engine.cache_hit")
@@ -394,18 +563,18 @@ class Engine:
         return compiled
 
     def _block_program(self, program_desc, block_idx, feed_names,
-                       fetch_list):
-        """The analyzed block, shared by every key with these feeds and
-        fetches."""
+                       fetch_list, extra_live=()):
+        """The analyzed block, shared by every key with these feeds,
+        fetches and liveness roots."""
         key = (program_desc.cached_fingerprint(), block_idx,
-               tuple(feed_names), tuple(fetch_list))
+               tuple(feed_names), tuple(fetch_list), tuple(extra_live))
         with self._lock:
             bp = self._blocks.get(key)
             if bp is not None:
                 self._blocks.move_to_end(key)
                 return bp
         bp = BlockProgram(program_desc.block(block_idx), feed_names,
-                          fetch_list)
+                          fetch_list, extra_live)
         with self._lock:
             bp = self._blocks.setdefault(key, bp)
             if len(self._blocks) > _BLOCK_CACHE_SIZE:

@@ -48,7 +48,7 @@ class BlockProgram:
     """Analyzed form of one block: which vars are inputs (feeds + state read),
     which are outputs (fetches + state written)."""
 
-    def __init__(self, block, feed_names, fetch_names):
+    def __init__(self, block, feed_names, fetch_names, extra_live_vars=()):
         self.block = block
         self.feed_names = list(feed_names)
         self.fetch_names = list(fetch_names)
@@ -62,7 +62,10 @@ class BlockProgram:
             vd = block.find_var_recursive(name)
             return vd is not None and vd.persistable
 
-        live_vars = set(self.fetch_names)
+        # extra_live_vars: liveness-only roots; the remat lowering keeps
+        # the loss-computing ops alive with them even when no op of the
+        # explicit grad chain reads the loss
+        live_vars = set(self.fetch_names) | set(extra_live_vars)
         live_flags = [False] * len(all_ops)
         for i in range(len(all_ops) - 1, -1, -1):
             op = all_ops[i]
@@ -144,10 +147,11 @@ class BlockProgram:
         self.rng_slots = list(highs.items())
         self.capturable = not self.uncapturable_ops
 
-    def seed_values(self, seed, run_counter):
+    def seed_values(self, seed, run_counter, micro=None):
         """The run's seed table: each slot's seed as its ops' RNG stream
-        draws it (``draw_seed``)."""
-        return [draw_seed(seed, run_counter, rng_id, high)
+        draws it (``draw_seed``), in micro-batch ``micro`` of an
+        accumulated step."""
+        return [draw_seed(seed, run_counter, rng_id, high, micro)
                 for rng_id, high in self.rng_slots]
 
 
@@ -280,3 +284,346 @@ def _lower_grad_op(op, block, ins, device, rng_seed, is_test, seeds=None):
     for (s, i), g in zip(diff, in_grads):
         outs[s + "@GRAD"][i] = g
     return outs
+
+
+def lower_block_accumulated(block_program, k, device, is_test=False,
+                            executor=None, amp=False):
+    """Gradient-accumulation lowering (reference: ``lower_block_accumulated``,
+    lowering.py:592, the reference's batch-merge capability,
+    framework/ir/multi_batch_merge_pass.cc): the forward/backward ops run
+    in a Python loop over ``k`` micro-batches (each feed split [k, B/k,
+    ...] along its batch dim), where the JAX package runs a ``lax.scan``;
+    the grads that cross into the Optimize/LRSched ops are averaged, and
+    those ops run once, on the averages.
+
+    Persistable state the loop both reads and writes (batch norm's running
+    statistics) carries from one micro-batch to the next, like ``k`` real
+    steps; a persistable var the loop writes but never reads takes the
+    last micro-batch's value. A fetch written in the loop is concatenated
+    back to [k*b, ...] when its leading dim is the micro-batch size, and
+    averaged otherwise (the loss, metrics), exactly as the reference
+    does (:690-706). Mean-reduced losses make ``k`` micro-batches equal to
+    one k*B batch, global-norm clipping included (it sees the averages).
+
+    Returns fn(feeds, state_in, rng_seed, seeds) like ``lower_block``;
+    ``seeds`` is a list of k + 1 seed dicts: micro-batch t's, then the
+    step's own for the ops that run once."""
+    from paddle_tpu_torch.framework import OpRole
+
+    block = block_program.block
+    feed_names = block_program.feed_names
+    state_in_names = block_program.state_in_names
+
+    once_roles = OpRole.Optimize | OpRole.RPC | OpRole.LRSched
+    loop_ops, once_ops = [], []
+    for i, op in enumerate(block_program.ops):
+        role = int(op.attrs.get("op_role", 0))
+        (once_ops if role & once_roles else loop_ops).append((i, op))
+
+    def _is_persistable(name):
+        vd = block.find_var_recursive(name)
+        return vd is not None and vd.persistable
+
+    written_loop = []
+    for _, op in loop_ops:
+        for n in op.output_arg_names():
+            if n != EMPTY_VAR_NAME and n not in written_loop:
+                written_loop.append(n)
+    written_loop_set = set(written_loop)
+    read_once = set()
+    for _, op in once_ops:
+        read_once.update(
+            n for n in op.input_arg_names() if n != EMPTY_VAR_NAME)
+
+    state_in_set = set(state_in_names)
+    # carried: persistable vars the loop reads and writes (running stats)
+    carry_names = [n for n in written_loop
+                   if _is_persistable(n) and n in state_in_set]
+    # last value: persistable writes never read
+    last_names = [n for n in written_loop
+                  if _is_persistable(n) and n not in state_in_set]
+    # averaged: what the once-ops read from the loop (the grads)
+    cross_names = sorted(
+        (read_once & written_loop_set) - set(carry_names) - set(last_names))
+    fetch_loop = [n for n in block_program.fetch_names
+                  if n in written_loop_set]
+
+    def fn(feed_values, state_values, rng_seed, seeds=None):
+        base = dict(zip(state_in_names, state_values))
+        micro_feeds = []
+        for name, v in zip(feed_names, feed_values):
+            if v.shape[0] % k != 0:
+                raise ValueError(
+                    "accumulate_steps=%d does not divide feed %r batch "
+                    "dim %d" % (k, name, v.shape[0]))
+            micro_feeds.append(
+                v.reshape((k, v.shape[0] // k) + tuple(v.shape[1:])))
+        carry = [base[n] for n in carry_names]
+        cross = [[] for _ in cross_names]
+        fetched = [[] for _ in fetch_loop]
+        env = base
+        for t in range(k):
+            env = dict(base)
+            env.update(zip(carry_names, carry))
+            env.update(zip(feed_names, (f[t] for f in micro_feeds)))
+            with amp_scope(amp):
+                for i, op in loop_ops:
+                    run_op(op, block, env, device, rng_seed, i, is_test,
+                           executor, None if seeds is None else seeds[t])
+            carry = [env[n] for n in carry_names]
+            for acc, n in zip(cross, cross_names):
+                acc.append(env[n])
+            for acc, n in zip(fetched, fetch_loop):
+                acc.append(env[n])
+        last = {n: env[n] for n in last_names}
+
+        env = dict(base)
+        env.update(zip(carry_names, carry))
+        env.update(last)
+        for n, vals in zip(cross_names, cross):
+            env[n] = torch.stack(vals).mean(0)
+        with amp_scope(amp):
+            for i, op in once_ops:
+                run_op(op, block, env, device, rng_seed, i, is_test,
+                       executor, None if seeds is None else seeds[k])
+
+        micro_b = micro_feeds[0].shape[1] if micro_feeds else None
+        fetch_map = dict(zip(fetch_loop, fetched))
+        fetches = []
+        for n in block_program.fetch_names:
+            if n not in fetch_map:
+                fetches.append(env[n])
+                continue
+            s = torch.stack(fetch_map[n])
+            # per-example fetches (leading dim == the micro-batch size)
+            # concatenate back to [k*b, ...]; the rest (loss, metrics)
+            # average: the k*B batch's equivalents
+            if micro_b is not None and s.ndim >= 2 and s.shape[1] == micro_b:
+                fetches.append(s.reshape((-1,) + tuple(s.shape[2:])))
+            else:
+                fetches.append((s if s.is_floating_point()
+                                else s.float()).mean(0))
+        state_out = [env[n] for n in block_program.state_out_names]
+        return fetches, state_out
+
+    return fn
+
+
+def remat_live_vars(block):
+    """The losses of a training block, from its ``__is_loss_grad__`` seed
+    ops: the liveness roots that keep the loss-computing ops alive under
+    remat, which differentiates the loss value the explicit chain never
+    reads (reference: engine/executor.py:936-945)."""
+    return tuple(
+        n[: -len("@GRAD")]
+        for op in block.ops
+        if op.attrs.get("__is_loss_grad__")
+        for n in op.output_arg_names() if n.endswith("@GRAD"))
+
+
+def lower_block_remat(block_program, n_segments, device, is_test=False,
+                      executor=None, amp=False):
+    """Rematerialized training step (reference: ``lower_block_remat``,
+    lowering.py:366): the forward ops run as ``s`` contiguous segments,
+    each under ``torch.utils.checkpoint(use_reentrant=False)``, and the
+    parameter grads come from ``torch.autograd.grad`` of the losses that
+    the ``__is_loss_grad__`` seed ops name, instead of the program's
+    explicit ``*_grad`` ops. Only the segments' boundary values live from
+    forward to backward; what lies inside a segment is recomputed in the
+    backward. The Optimize-role tail then runs unchanged on the bound
+    ``p@GRAD`` vars.
+
+    Every forward lowering is differentiable by torch autograd, and each
+    registered grad lowering is the analytic derivative of its forward,
+    so the grads are the explicit chain's up to float rounding (the
+    parity tests hold them). The flash kernels differentiate through
+    ``flash_attention_lse``'s autograd function (the backward kernels),
+    the embedding through ``lookup_table_grad``'s deterministic scatter.
+    The dropout masks are pure functions of the run's seed table, so a
+    recomputed segment draws the forward's masks; RNG state is not saved
+    (``preserve_rng_state=False``), which also keeps the step capturable.
+
+    Refused (``NotImplementedError``, with the reference's messages): a
+    program with no Backward-role op, one with no ``@GRAD`` seed op,
+    backward ops writing persistable vars, an optimizer or fetch reading
+    a backward var that is not a gradient, and a gradient of an
+    intermediate (not feed, not state) var."""
+    from torch.utils.checkpoint import checkpoint
+
+    from paddle_tpu_torch.framework import OpRole
+
+    block = block_program.block
+    feed_names = block_program.feed_names
+    state_in_names = block_program.state_in_names
+
+    tail_roles = OpRole.Optimize | OpRole.RPC | OpRole.Dist | OpRole.LRSched
+    fwd_ops, bwd_ops, tail_ops = [], [], []
+    for i, op in enumerate(block_program.ops):
+        role = int(op.attrs.get("op_role", 0))
+        if role & OpRole.Backward:
+            bwd_ops.append((i, op))
+        elif role & tail_roles:
+            tail_ops.append((i, op))
+        else:
+            fwd_ops.append((i, op))
+    if not bwd_ops:
+        raise NotImplementedError(
+            "remat lowering requires a training program (no Backward-role "
+            "ops found); run test/inference programs without remat")
+
+    # the losses: append_backward marks each chain seed
+    losses, bwd_real = [], []
+    for i, op in bwd_ops:
+        if op.attrs.get("__is_loss_grad__"):
+            gname = next(n for n in op.output_arg_names()
+                         if n != EMPTY_VAR_NAME)
+            losses.append((gname[: -len("@GRAD")],
+                           float(op.attrs.get("value", 1.0))))
+        else:
+            bwd_real.append((i, op))
+    if not losses:
+        raise NotImplementedError(
+            "remat lowering found no @GRAD seed op (calc_gradient-style "
+            "programs are not supported)")
+
+    bwd_written = set()
+    for _, op in bwd_real:
+        bwd_written.update(
+            n for n in op.output_arg_names() if n != EMPTY_VAR_NAME)
+    tail_read = set()
+    for _, op in tail_ops:
+        tail_read.update(
+            n for n in op.input_arg_names() if n != EMPTY_VAR_NAME)
+    fetch_set = set(block_program.fetch_names)
+
+    # persistable side effects inside the (skipped) backward segment have
+    # no remat equivalent: refuse rather than serve stale state
+    bwd_persist = sorted(set(block_program.state_out_names) & bwd_written)
+    if bwd_persist:
+        raise NotImplementedError(
+            "remat: backward-role ops write persistable vars %s; the "
+            "remat lowering replaces the explicit backward chain and "
+            "cannot replay those side effects" % bwd_persist)
+
+    needed_grads = sorted((tail_read | fetch_set) & bwd_written)
+    feed_set, state_set = set(feed_names), set(state_in_names)
+    diff_names = []
+    for g in needed_grads:
+        if not g.endswith("@GRAD"):
+            raise NotImplementedError(
+                "remat: optimizer/fetch consumes backward var %r that is "
+                "not a gradient" % g)
+        p = g[: -len("@GRAD")]
+        if p not in feed_set and p not in state_set:
+            raise NotImplementedError(
+                "remat: gradient of intermediate var %r requested; only "
+                "parameter/feed gradients survive the remat lowering" % p)
+        diff_names.append(p)
+
+    fwd_written = set()
+    for _, op in fwd_ops:
+        fwd_written.update(
+            n for n in op.output_arg_names() if n != EMPTY_VAR_NAME)
+    state_out_set = set(block_program.state_out_names)
+    aux_names = sorted(
+        (tail_read | fetch_set | state_out_set | {n for n, _ in losses})
+        & fwd_written)
+
+    # contiguous segments; a segment's inputs are what it reads from
+    # outside, its outputs what later segments or the aux set read
+    nseg = max(1, min(int(n_segments), len(fwd_ops)))
+    bounds = [len(fwd_ops) * s // nseg for s in range(nseg + 1)]
+    segments = [fwd_ops[bounds[s]: bounds[s + 1]] for s in range(nseg)]
+    seg_descs = []  # (ops, in_names, out_names)
+    produced_before = feed_set | state_set
+    for s, seg in enumerate(segments):
+        writes, reads = [], []
+        wset, rset = set(), set()
+        for _, op in seg:
+            for n in op.input_arg_names():
+                if (n != EMPTY_VAR_NAME and n not in wset
+                        and n not in rset and n in produced_before):
+                    reads.append(n)
+                    rset.add(n)
+            for n in op.output_arg_names():
+                if n != EMPTY_VAR_NAME and n not in wset:
+                    writes.append(n)
+                    wset.add(n)
+        later_reads = set()
+        for later in segments[s + 1:]:
+            for _, op in later:
+                later_reads.update(op.input_arg_names())
+        outs = [n for n in writes if n in later_reads or n in aux_names]
+        seg_descs.append((seg, reads, outs))
+        produced_before |= wset
+
+    # stop_gradient vars: a marked var passes no gradient to any of its
+    # consumers (append_backward's pruning), so the barrier applies right
+    # where the op binds it
+    sg_names = set()
+    for _, op in fwd_ops:
+        for n in op.output_arg_names():
+            if n == EMPTY_VAR_NAME:
+                continue
+            vd = block.find_var_recursive(n)
+            if vd is not None and vd.stop_gradient and not vd.is_parameter:
+                sg_names.add(n)
+
+    def fn(feed_values, state_values, rng_seed, seeds=None):
+        base = dict(zip(feed_names, feed_values))
+        base.update(zip(state_in_names, state_values))
+        diff_set = set(diff_names)
+        others = {n: v for n, v in base.items() if n not in diff_set}
+
+        def seg_callable(seg, in_names, out_names):
+            def run_seg(*in_vals):
+                env = dict(others)
+                env.update(zip(in_names, in_vals))
+                with amp_scope(amp):
+                    for j, op in seg:
+                        run_op(op, block, env, device, rng_seed, j,
+                               is_test, executor, seeds)
+                        for n in op.output_arg_names():
+                            v = env.get(n)
+                            if (n in sg_names and isinstance(v, torch.Tensor)
+                                    and v.is_floating_point()):
+                                env[n] = v.detach()
+                return tuple(env[n] for n in out_names)
+            return run_seg
+
+        with torch.enable_grad():
+            leaves = [base[p].detach().requires_grad_(True)
+                      for p in diff_names]
+            env = dict(others)
+            env.update(zip(diff_names, leaves))
+            for seg, in_names, out_names in seg_descs:
+                outs = checkpoint(seg_callable(seg, in_names, out_names),
+                                  *[env[n] for n in in_names],
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
+                env.update(zip(out_names, outs))
+            total = None
+            for lname, seed in losses:
+                term = env[lname].float().sum() * seed
+                total = term if total is None else total + term
+            grads = (torch.autograd.grad(total, leaves, allow_unused=True)
+                     if total.requires_grad else [None] * len(leaves))
+
+        out = dict(base)
+        out.update((n, env[n].detach()) for n in aux_names)
+        for p, g in zip(diff_names, grads):
+            g = torch.zeros_like(base[p]) if g is None else g
+            out[p + "@GRAD"] = g.to(base[p].dtype)
+        # the seed vars the fill ops would have bound (a fetch of
+        # loss@GRAD serves the explicit chain's constant)
+        for lname, seed in losses:
+            out[lname + "@GRAD"] = torch.full_like(out[lname], seed)
+        with amp_scope(amp):
+            for j, op in tail_ops:
+                run_op(op, block, out, device, rng_seed, j, is_test,
+                       executor, seeds)
+        fetches = [out[n] for n in block_program.fetch_names]
+        state_out = [out[n] for n in block_program.state_out_names]
+        return fetches, state_out
+
+    return fn

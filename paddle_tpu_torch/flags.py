@@ -35,6 +35,39 @@ DEFS = {
         "and on CUDA one captured graph, per (program, feed signature, "
         "fetches, is_test, donation, AMP, cache tag) (reference: the "
         "Executor program cache)."),
+    "dispatch_steps": (
+        int, 1,
+        "Depth of the engine's async dispatch window "
+        "(engine/pipeline.py): Executor.run enqueues up to this many "
+        "steps without waiting for the card; fetches of steps still in "
+        "flight come back as DeferredFetch placeholders, resolved by "
+        "Executor.sync(), the window's retire of its oldest step, or the "
+        "first host read (np.asarray/float). 1 = the synchronous "
+        "feed->step->fetch loop. check_nan_inf under a deeper window "
+        "defers its verdict to retire time and names the original step; "
+        "the heartbeat reports retired steps, so a deep window never "
+        "reads as a hang."),
+    "prefetch_depth": (
+        int, 2,
+        "Batches the PrefetchingFeeder (engine/pipeline.py) stages ahead "
+        "of the consumer: a background thread copies batch k+1..k+depth "
+        "into pinned host buffers and on to the device on a side stream "
+        "while step k runs. 2 = double buffering."),
+    "goodput": (
+        bool, False,
+        "Goodput ledger (observability/goodput.py): charge every "
+        "wall-clock second of a training loop to one category (compute, "
+        "compile, input_wait, host_sync, idle, ...) through marks at the "
+        "engine and pipeline seams, count each cache entry's model FLOPs "
+        "once, and publish the goodput.* and mfu.* gauges. Off = one bool "
+        "check per seam."),
+    "peak_flops": (
+        float, 0.0,
+        "Peak FLOP/s of the device, for MFU (mfu.mfu = achieved / peak; "
+        "mfu.goodput_mfu divides by the whole wall). The caller sets it "
+        "for its card and dtype; <=0 skips the two ratio gauges "
+        "(mfu.model_flops_per_step and mfu.achieved_flops_per_s still "
+        "publish)."),
     "metrics": (
         bool, False,
         "Runtime telemetry (paddle_tpu_torch.observability): counters, "

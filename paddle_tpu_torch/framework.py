@@ -106,6 +106,68 @@ class Variable:
 
     __str__ = __repr__
 
+    # -- operator sugar (framework.py:148-210): scalar arithmetic is a
+    # ``scale`` op, Variable arithmetic an ``elementwise_*`` op
+    def _binary(self, other, op_type, reverse=False):
+        from paddle_tpu_torch.layer_helper import LayerHelper
+
+        helper = LayerHelper(op_type, block=self.block)
+        x, y = (other, self) if reverse else (self, other)
+        out = helper.create_variable_for_type_inference(dtype=self.dtype)
+        helper.append_op(
+            type=op_type,
+            inputs={"X": [x], "Y": [y]},
+            outputs={"Out": [out]},
+            attrs={"axis": -1},
+        )
+        return out
+
+    def _scale(self, scale=1.0, bias=0.0):
+        from paddle_tpu_torch.layer_helper import LayerHelper
+
+        helper = LayerHelper("scale", block=self.block)
+        out = helper.create_variable_for_type_inference(dtype=self.dtype)
+        helper.append_op(
+            type="scale",
+            inputs={"X": [self]},
+            outputs={"Out": [out]},
+            attrs={"scale": float(scale), "bias": float(bias),
+                   "bias_after_scale": True},
+        )
+        return out
+
+    def __add__(self, other):
+        if not isinstance(other, Variable):
+            return self._scale(1.0, float(other))
+        return self._binary(other, "elementwise_add")
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        if not isinstance(other, Variable):
+            return self._scale(1.0, -float(other))
+        return self._binary(other, "elementwise_sub")
+
+    def __rsub__(self, other):
+        if not isinstance(other, Variable):
+            return self._scale(-1.0, float(other))
+        return self._binary(other, "elementwise_sub", reverse=True)
+
+    def __mul__(self, other):
+        if not isinstance(other, Variable):
+            return self._scale(float(other), 0.0)
+        return self._binary(other, "elementwise_mul")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        if not isinstance(other, Variable):
+            return self._scale(1.0 / float(other), 0.0)
+        return self._binary(other, "elementwise_div")
+
+    def __neg__(self):
+        return self._scale(-1.0, 0.0)
+
 
 class Parameter(Variable):
     def __init__(self, block, shape, dtype, **kwargs):

@@ -36,7 +36,16 @@ that run on the device (one per launch of each kernel), so a run can show
 the main path went through the kernels. A launch made while a CUDA graph
 is being captured runs only when the graph replays: inside
 ``record_launches()`` it is recorded instead of counted, and the engine
-adds the recorded counts at each replay (``add_launches``).
+adds the recorded counts at each replay (``add_launches``). Given the
+capture stream, ``record_launches`` also records the launches other
+threads make on that stream (autograd runs a captured backward on its
+own thread).
+
+Inside ``count_flops()`` every launch adds the model FLOPs of its call,
+from its shapes and the keys below each row's length (and, if causal,
+at or before the row): 4 per (query, key, head dim) for the forward, 8
+for the backward pair. The engine's FLOP count (``torch.utils.
+flop_counter.FlopCounterMode``) cannot see a ctypes launch.
 """
 
 import contextlib
@@ -58,12 +67,19 @@ COUNTERS = ("launches", "launches_dq", "launches_dkv")
 
 # the launch counts of a capture in progress on this thread, or None
 _recording = threading.local()
+# capture stream handle -> the launch counts of the capture on it, for
+# launches from other threads (a captured backward runs on autograd's)
+_stream_records = {}
+# the FLOPs of the launches inside count_flops(), or None
+_flops = None
 
 
 def _count(counter):
     """One launch of the counter's kernel: counted, or recorded while this
-    thread captures a graph."""
+    thread, or the stream it launches on, captures a graph."""
     rec = getattr(_recording, "counts", None)
+    if rec is None and _stream_records:
+        rec = _stream_records.get(torch.cuda.current_stream().cuda_stream)
     if rec is not None:
         rec[counter] += 1
     else:
@@ -71,15 +87,54 @@ def _count(counter):
 
 
 @contextlib.contextmanager
-def record_launches():
+def record_launches(stream=None):
     """Record instead of count the launches this thread makes inside the
-    block (a graph capture); yields the {counter: launches} record."""
+    block (a graph capture), and those any thread makes on ``stream``
+    (the capture stream); yields the {counter: launches} record."""
     rec = dict.fromkeys(COUNTERS, 0)
     _recording.counts = rec
+    key = None if stream is None else stream.cuda_stream
+    if key is not None:
+        _stream_records[key] = rec
     try:
         yield rec
     finally:
         _recording.counts = None
+        if key is not None:
+            _stream_records.pop(key, None)
+
+
+@contextlib.contextmanager
+def count_flops():
+    """Sum the model FLOPs of the kernel launches inside the block;
+    yields a one-element list holding the sum."""
+    global _flops
+    rec, prev = [0.0], _flops
+    _flops = rec
+    try:
+        yield rec
+    finally:
+        _flops = prev
+
+
+def _add_flops(per_pair, q, k, lens, causal):
+    """Add ``per_pair`` FLOPs per (query row, valid key, head, head-dim
+    element) of one call to the running count, if one runs (reads the
+    lengths back to the host: counting runs once a cache entry)."""
+    rec = _flops
+    if rec is None:
+        return
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    rows = ([Tk] * B if lens is None
+            else [min(max(int(n), 1), Tk) for n in lens.tolist()])
+    pairs = 0
+    for n in rows:
+        if causal:
+            pairs += sum(min(i + 1, n) for i in range(Tq))
+        else:
+            pairs += Tq * n
+    rec[0] += float(per_pair) * pairs * H * D
 
 
 def add_launches(counts):
@@ -345,6 +400,7 @@ def flash_forward_cuda(q, k, v, seq_lens=None, offsets=None, seed=0,
                           out.data_ptr(), lse.data_ptr()),
             q, k, lens, causal, scale, rate, seed, offsets)
     _count("launches")
+    _add_flops(4, q, k, lens, causal)
     return out, lse
 
 
@@ -377,6 +433,7 @@ def flash_backward_cuda(q, k, v, out, lse, g, g_lse=None, seq_lens=None,
     _count("launches_dq")
     _launch("flash_bwd_dkv", common + (dk.data_ptr(), dv.data_ptr()), *args)
     _count("launches_dkv")
+    _add_flops(8, q, k, lens, causal)
     return dq, dk, dv
 
 

@@ -29,12 +29,16 @@ __all__ = [
     "elementwise_sub",
     "elementwise_mul",
     "elementwise_div",
+    "elementwise_max",
+    "elementwise_min",
+    "elementwise_pow",
     "reshape",
     "transpose",
     "slice",
     "reduce_sum",
     "relu",
     "mean",
+    "sum",
 ]
 
 
@@ -391,6 +395,9 @@ elementwise_add = _elementwise_layer("elementwise_add")
 elementwise_sub = _elementwise_layer("elementwise_sub")
 elementwise_mul = _elementwise_layer("elementwise_mul")
 elementwise_div = _elementwise_layer("elementwise_div")
+elementwise_max = _elementwise_layer("elementwise_max")
+elementwise_min = _elementwise_layer("elementwise_min")
+elementwise_pow = _elementwise_layer("elementwise_pow")
 
 
 def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
@@ -468,6 +475,15 @@ def mean(x, name=None):
     helper = LayerHelper("mean", name=name)
     out = helper.create_variable_for_type_inference(dtype=x.dtype)
     helper.append_op(type="mean", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def sum(x):
+    """(nn.py:1064)."""
+    helper = LayerHelper("sum")
+    x = x if isinstance(x, (list, tuple)) else [x]
+    out = helper.create_variable_for_type_inference(dtype=x[0].dtype)
+    helper.append_op(type="sum", inputs={"X": x}, outputs={"Out": [out]})
     return out
 
 

@@ -1,12 +1,9 @@
-"""Goodput ledger: charge every wall-clock second.
+"""Goodput ledger: charge every wall-clock second, and attribute MFU.
 
 Port of ``paddle_tpu/observability/goodput.py`` (pure Python, kept as the
-port's own copy), without the MFU attribution (``note_flops``, the
-``mfu.*`` gauges, ``record_compile_flops`` at ``goodput.py:281-297``),
-which needs model FLOPs that no port seam notes yet, and without the
-incarnation read from the supervised launcher's restart count: the port
-has no launcher yet, so a tracker's ``attempt`` is what its caller
-passes (0 by default).
+port's own copy), without the incarnation read from the supervised
+launcher's restart count: the port has no launcher yet, so a tracker's
+``attempt`` is what its caller passes (0 by default).
 
 - ``GoodputTracker`` is an interval ledger over ``time.monotonic()``.
   Seams *mark* category boundaries in temporal order; a charge never
@@ -15,19 +12,31 @@ passes (0 by default).
   ``idle``, and charges tagged with a stale incarnation are fenced out.
   Conservation is exact by construction: the category sums equal
   ``cursor - t0`` to float precision.
+- The engine's seams, behind the ``PADDLE_GPU_GOODPUT`` gate
+  (``enabled()``): ``mark("compile")`` after a run that captured a
+  graph, ``mark("input_wait")`` in the prefetching feeder,
+  ``mark("host_sync")`` at a dispatch window's retire, and
+  ``step_boundary()`` at the end of every ``Executor.run``, which charges
+  the rest of the step as ``compute``, counts it and publishes the
+  ``goodput.*`` and ``mfu.*`` gauges.
+- MFU (:191-297): ``note_flops`` adds one run's model FLOPs. Where the
+  reference reads them from XLA's ``cost_analysis()``, the port's engine
+  counts them once a cache entry, on its first (eager) run, with
+  ``torch.utils.flop_counter.FlopCounterMode``; the flash kernels, ctypes
+  launches the counter cannot see, add their own count from their shapes
+  and valid keys (``kernels/flash_attention.py`` ``count_flops``).
+  ``mfu.mfu`` is achieved FLOP/s over compute time against the
+  ``peak_flops`` flag; ``mfu.goodput_mfu`` divides by the whole wall.
 - ``note_serving_request`` is the serving side: the batch-mean executing
   fraction of each request's wall, published as the
   ``goodput.serving_request_frac`` gauge.
-
-The engine seams that mark the process ``tracker``, the
-``PADDLE_GPU_GOODPUT`` gate they check and the MFU attribution come with
-the port's engine features (ROADMAP Queue 1 item 4); serving publishes
-its request goodput through the metrics gate.
 """
 
 import contextlib
 import threading
 import time
+
+from paddle_tpu_torch import flags
 
 #: Exhaustive, mutually-exclusive wall-clock categories. Every charged
 #: second lands in exactly one; ``idle`` absorbs the gaps between marks.
@@ -48,6 +57,21 @@ CATEGORIES = (
 #: ``host_sync`` are pipeline overlap, not waste — the clean-run
 #: acceptance bar (>= 0.99) is over this sum.
 GOODPUT_CATEGORIES = ("compute", "input_wait", "host_sync")
+
+_ENABLED = None
+
+
+def enabled():
+    global _ENABLED
+    if _ENABLED is None:
+        _ENABLED = bool(flags.get_flag("goodput"))
+    return _ENABLED
+
+
+def set_enabled(value=None):
+    """Force the gate, or re-read the flag when ``value`` is None."""
+    global _ENABLED
+    _ENABLED = bool(flags.get_flag("goodput")) if value is None else bool(value)
 
 
 class GoodputTracker:
@@ -73,6 +97,9 @@ class GoodputTracker:
         self._last_mark = None
         self._overlap_rejected = 0
         self._fenced = 0
+        self._steps = 0
+        self._flops_total = 0.0
+        self._flops_per_step = 0.0
 
     def reset(self, attempt=None):
         """Drop all charges (e.g. after a warmup window) and re-anchor
@@ -143,25 +170,57 @@ class GoodputTracker:
         finally:
             self._local.redirect = prev
 
+    # -- MFU ---------------------------------------------------------------
+    def note_flops(self, flops):
+        """Accumulate one run's model FLOPs (counted once a cache entry)."""
+        if flops and flops > 0:
+            with self._lock:
+                self._flops_total += float(flops)
+
+    def note_step(self):
+        with self._lock:
+            self._steps += 1
+            if self._steps:
+                self._flops_per_step = self._flops_total / self._steps
+
     # -- reporting ---------------------------------------------------------
     def snapshot(self):
         with self._lock:
             cats = dict(self._ms)
             wall = 0.0 if self._t0 is None else (self._cursor - self._t0) * 1e3
+            steps = self._steps
+            flops_total = self._flops_total
+            flops_per_step = self._flops_per_step
             overlap = self._overlap_rejected
             fenced = self._fenced
             attempt = self.attempt
         good = sum(cats[c] for c in GOODPUT_CATEGORIES)
         frac = (good / wall) if wall > 0 else 1.0
+        compute_s = cats["compute"] / 1e3
+        wall_s = wall / 1e3
+        achieved = (flops_total / compute_s) if compute_s > 0 else 0.0
+        peak = float(flags.get_flag("peak_flops") or 0.0)
         return {
             "wall_ms": wall,
             "goodput_ms": good,
             "badput_ms": wall - good,
             "goodput_frac": frac,
             "categories": cats,
+            "steps": steps,
             "attempt": attempt,
             "overlap_rejected": overlap,
             "fenced": fenced,
+            "mfu": {
+                "model_flops_per_step": flops_per_step,
+                "total_flops": flops_total,
+                "achieved_flops_per_s": achieved,
+                "peak_flops": peak,
+                # None, not 0.0, when no peak is configured: an MFU of
+                # zero is a measurement, absence is not
+                "mfu": (achieved / peak) if peak > 0 else None,
+                "goodput_mfu": (flops_total / wall_s / peak)
+                if (peak > 0 and wall_s > 0) else None,
+            },
         }
 
     def top_badput(self):
@@ -175,7 +234,7 @@ class GoodputTracker:
 
     def publish(self, registry=None):
         """Mirror the ledger into the metrics registry as ``goodput.*``
-        gauges, so snap events and ``snapshot_text()`` see
+        and ``mfu.*`` gauges, so snap events and ``snapshot_text()`` see
         it with zero extra plumbing."""
         if registry is None:
             from paddle_tpu_torch import observability as obs
@@ -187,12 +246,46 @@ class GoodputTracker:
         registry.set_gauge("goodput.attempt", float(snap["attempt"]))
         for c, v in snap["categories"].items():
             registry.set_gauge("goodput.%s_ms" % c, v)
+        mfu = snap["mfu"]
+        registry.set_gauge("mfu.model_flops_per_step",
+                           mfu["model_flops_per_step"])
+        registry.set_gauge("mfu.achieved_flops_per_s",
+                           mfu["achieved_flops_per_s"])
+        if mfu["peak_flops"] > 0:
+            registry.set_gauge("mfu.peak_flops", mfu["peak_flops"])
+            registry.set_gauge("mfu.mfu", mfu["mfu"])
+            registry.set_gauge("mfu.goodput_mfu", mfu["goodput_mfu"])
         return snap
 
 
-#: Process-wide tracker. Reset via ``reset()`` below (wired into
-#: ``observability.reset()`` for test isolation).
+#: Process-wide tracker the seams feed. Reset via ``reset()`` below
+#: (wired into ``observability.reset()`` for test isolation).
 tracker = GoodputTracker()
+
+
+def mark(category, now=None):
+    """Module-level hot-path mark: one bool check when the flag is down."""
+    if not enabled():
+        return 0.0
+    return tracker.mark(category, now)
+
+
+def note_flops(flops):
+    if enabled():
+        tracker.note_flops(flops)
+
+
+def step_boundary():
+    """End-of-step seam: charge the rest of the step as ``compute``,
+    count the step, and refresh the published gauges."""
+    if not enabled():
+        return
+    tracker.mark("compute")
+    tracker.note_step()
+    try:
+        tracker.publish()
+    except Exception:
+        pass  # telemetry must never take down a step that succeeded
 
 
 def note_serving_request(mean_frac, trace_id=None):
@@ -208,5 +301,25 @@ def note_serving_request(mean_frac, trace_id=None):
                   exemplar=trace_id)
 
 
+def publish():
+    """Refresh the ``goodput.*`` / ``mfu.*`` gauges (no-op when the flag
+    is down; failures never propagate)."""
+    if not enabled():
+        return None
+    try:
+        return tracker.publish()
+    except Exception:
+        return None
+
+
+def snapshot():
+    return tracker.snapshot()
+
+
 def reset():
+    global _ENABLED
     tracker.reset()
+    _ENABLED = None
+
+
+flags.on_change("goodput", lambda _v: set_enabled(None))

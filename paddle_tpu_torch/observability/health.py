@@ -28,8 +28,11 @@ The supervisor side of the reference (``RankHealth`` /
 ``HealthMonitor``, the hung-worker classifier over heartbeat files)
 comes with the port's launcher (ROADMAP Queue 1 item 11).
 
-The engine's only per-step call is ``note_step()`` — one int increment
-+ one clock read; emitting runs on the daemon thread.
+The engine's per-step calls are ``note_step()`` (a synchronous step), or
+``note_step_enqueued()`` and, at the window's retire,
+``note_step_retired()``: one int increment and one clock read each;
+emitting runs on the daemon thread. A beat carries both counters, and
+its ``step`` is the retired one.
 """
 
 import collections
@@ -39,24 +42,53 @@ import time
 
 HEARTBEAT_EVENT = "health.heartbeat"
 
-# -- the step counter the heartbeat reports --------------------------------
-# Plain dict mutation under the GIL: note_step is the only call on the
-# engine's step path and must stay in the ns regime. The port's engine is
-# synchronous (no dispatch window yet), so a step is enqueued and retired
-# at once and one counter serves.
-_step_state = {"steps": 0, "ts": None}
+# -- the step counters the heartbeat reports --------------------------------
+# Plain dict mutation under the GIL: these notes are the only calls on the
+# engine's step path and must stay in the ns regime. Multi-step dispatch
+# (engine/pipeline.py) splits "a step happened" into two edges: ENQUEUED
+# when the host hands the step to the card's stream, RETIRED when its
+# results are read. The heartbeat's "step" is the RETIRED count: an
+# N-deep window advances its enqueue counter ahead of retirement without
+# reading as a stall, while a wedged card stalls the retire edge however
+# deep the window (health.py:105-133).
+_step_state = {"steps": 0, "enqueued": 0, "ts": None, "enq_ts": None}
 
 
 def note_step():
-    """Record one completed engine step."""
+    """Record one synchronously completed engine step (enqueue and retire
+    are the same edge at dispatch depth 1)."""
+    note_step_enqueued()
+    note_step_retired()
+
+
+def note_step_enqueued():
+    """The host enqueued a step on the card (its results may still be in
+    flight)."""
+    _step_state["enqueued"] += 1
+    _step_state["enq_ts"] = time.monotonic()
+
+
+def note_step_retired():
+    """An enqueued step's results were read (window retire or sync)."""
     _step_state["steps"] += 1
     _step_state["ts"] = time.monotonic()
 
 
+def step_count():
+    """Retired steps: the liveness counter a watchdog judges."""
+    return _step_state["steps"]
+
+
+def enqueued_count():
+    return _step_state["enqueued"]
+
+
 def reset_steps():
-    """Test isolation for the process-local step counter."""
+    """Test isolation for the process-local step counters."""
     _step_state["steps"] = 0
+    _step_state["enqueued"] = 0
     _step_state["ts"] = None
+    _step_state["enq_ts"] = None
 
 
 def host_rss_bytes():
@@ -122,6 +154,7 @@ class HeartbeatEmitter:
 
         self._seq += 1
         payload = {"seq": self._seq, "step": _step_state["steps"],
+                   "enqueued": _step_state["enqueued"],
                    "interval_ms": self.interval_ms}
         payload["phase"] = obs.tracer.current_phase() or "idle"
         rss = host_rss_bytes()

@@ -1,6 +1,7 @@
 """Loss ops — port of ``paddle_tpu/ops/loss_ops.py`` for
 ``softmax_with_cross_entropy`` (:33), its direct grad
-``softmax_with_cross_entropy_grad`` (:341) and ``mean`` (:81). Losses
+``softmax_with_cross_entropy_grad`` (:341), ``mean`` (:81) and
+``squared_l2_norm`` (:93). Losses
 compute in float32 whatever the logits' dtype, as in the reference."""
 
 import torch
@@ -77,3 +78,9 @@ def softmax_with_cross_entropy_grad(ctx, ins, attrs):
 @register_op("mean")
 def mean(ctx, ins, attrs):
     return {"Out": [torch.mean(single(ins, "X"))]}
+
+
+@register_op("squared_l2_norm")
+def squared_l2_norm(ctx, ins, attrs):
+    """sum(x**2) as a [1] tensor (the global-norm clip's per-grad term)."""
+    return {"Out": [torch.sum(torch.square(single(ins, "X"))).reshape(1)]}

@@ -1,6 +1,7 @@
 """Math ops — port of ``paddle_tpu/ops/math_ops.py`` for ``mul`` (:17),
-``mul_grad`` (:36), ``elementwise_add/sub/mul/div`` (:178-181), ``scale``
-(:212) and ``sum`` (:233), dense tensors only. The GEMMs are
+``mul_grad`` (:36), ``elementwise_add/sub/mul/div/max/min/pow``
+(:178-184), ``scale`` (:212), ``sum`` (:233), ``pow`` (:255), ``clip``
+(:261) and ``clip_by_norm`` (:276), dense tensors only. The GEMMs are
 ``torch.matmul`` (cuBLAS on the card), as the JAX package leaves them to
 XLA; float32 GEMMs run in full float32 unless the caller turns TF32 on.
 
@@ -76,6 +77,9 @@ register_op("elementwise_add")(_elementwise(torch.add))
 register_op("elementwise_sub")(_elementwise(torch.sub))
 register_op("elementwise_mul")(_elementwise(torch.mul))
 register_op("elementwise_div")(_elementwise(torch.div))
+register_op("elementwise_max")(_elementwise(torch.maximum))
+register_op("elementwise_min")(_elementwise(torch.minimum))
+register_op("elementwise_pow")(_elementwise(torch.pow))
 
 
 @register_op("scale")
@@ -97,3 +101,24 @@ def sum_op(ctx, ins, attrs):
     for x in xs[1:]:
         out = out + x
     return {"Out": [out]}
+
+
+@register_op("pow")
+def pow_op(ctx, ins, attrs):
+    return {"Out": [torch.pow(single(ins, "X"), attrs.get("factor", 1.0))]}
+
+
+@register_op("clip")
+def clip(ctx, ins, attrs):
+    return {"Out": [torch.clamp(single(ins, "X"), attrs.get("min"),
+                                attrs.get("max"))]}
+
+
+@register_op("clip_by_norm")
+def clip_by_norm(ctx, ins, attrs):
+    """``x`` scaled to L2 norm ``max_norm`` when its norm is larger."""
+    x = single(ins, "X")
+    max_norm = attrs.get("max_norm")
+    norm = torch.sqrt(torch.sum(x * x))
+    return {"Out": [torch.where(
+        norm > max_norm, x * (max_norm / torch.clamp(norm, min=1e-12)), x)]}

@@ -365,11 +365,44 @@ def dropout(ctx, ins, attrs):
     return {"Out": [out], "Mask": [mask]}
 
 
+def _scatter_rows(w, rows, vals):
+    """A zero table of ``w``'s shape with ``vals`` added at ``rows``, by
+    ``index_put_(accumulate=True)``: on CUDA it sorts the ids and adds
+    each row's grads in a fixed order, so repeated steps agree bit for
+    bit; ``index_add_`` (float atomics) does not."""
+    return torch.zeros_like(w).index_put_((rows,), vals, accumulate=True)
+
+
+class _Embedding(torch.autograd.Function):
+    """``F.embedding`` whose autograd backward is ``lookup_table_grad``'s
+    scatter, so the grads that autograd derives (the remat lowering) are
+    as deterministic as the explicit chain's."""
+
+    @staticmethod
+    def forward(w, ids):
+        return F.embedding(ids, w)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        w, ids = inputs
+        ctx.save_for_backward(ids)
+        ctx.w_meta = (w.shape, w.dtype, w.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        shape, dtype, device = ctx.w_meta
+        rows = ids.reshape(-1)
+        vals = g.reshape((rows.shape[0],) + tuple(shape[1:])).to(dtype)
+        w = torch.empty(shape, dtype=dtype, device=device)
+        return _scatter_rows(w, rows, vals), None
+
+
 @register_op("lookup_table", no_grad_inputs=("Ids",))
 def lookup_table(ctx, ins, attrs):
     w = single(ins, "W")
     flat_ids = flatten_lookup_ids(single(ins, "Ids")).long()
-    out = F.embedding(flat_ids, w)
+    out = _Embedding.apply(w, flat_ids)
     padding_idx = attrs.get("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
         # the padding row contributes no output (lookup_table_op.h)
@@ -401,5 +434,4 @@ def lookup_table_grad(ctx, ins, attrs):
     if padding_idx is not None and padding_idx >= 0:
         vals = torch.where((rows == padding_idx).unsqueeze(-1),
                            torch.zeros_like(vals), vals)
-    return {"W@GRAD": [torch.zeros_like(w).index_put_(
-        (rows,), vals, accumulate=True)]}
+    return {"W@GRAD": [_scatter_rows(w, rows, vals)]}

@@ -2,7 +2,8 @@
 ``paddle_tpu/ops/tensor_ops.py`` for ``fill_constant`` (:18),
 ``uniform_random`` (:42), ``gaussian_random`` (:54),
 ``truncated_gaussian_random`` (:65), ``reshape2`` (:103), ``transpose2``
-(:125), ``slice`` (:183), ``top_k`` (:225) and ``top_k_grad`` (:233).
+(:125), ``slice`` (:183), ``top_k`` (:225), ``top_k_grad`` (:233) and
+``increment`` (:329).
 
 The random ops draw float32 on the op's device from its (seed, run, op)
 stream and cast, as the reference draws float32 and casts; their bits
@@ -127,3 +128,14 @@ def top_k_grad(ctx, ins, attrs):
     _, idx = torch.topk(x, attrs.get("k", 1), dim=-1)
     g = single(ins, "Out@GRAD").to(x.dtype)
     return {"X@GRAD": [torch.zeros_like(x).scatter_add_(-1, idx, g)]}
+
+
+@register_no_grad_op("increment")
+def increment(ctx, ins, attrs):
+    """``x + step`` in x's dtype (an integer counter stays integer); the
+    learning-rate schedulers' step counter, written in place under
+    capture like any other state."""
+    x = single(ins, "X")
+    step = attrs.get("step", 1.0)
+    step = float(step) if x.is_floating_point() else int(step)
+    return {"Out": [x + step]}

@@ -2,10 +2,8 @@
 
 Port of ``paddle_tpu/regularizer.py`` (reference:
 python/paddle/fluid/regularizer.py), unchanged but for its imports. It
-works on the desc only: ``L2Decay`` appends ``scale`` and ``sum``, which
-the port lowers; ``L1Decay`` also appends ``sign``, which it does not lower
-yet (ROADMAP Queue 1, the remaining op families), so a program using it
-raises ``KeyError`` when it runs.
+works on the desc: ``L2Decay`` appends ``scale`` and ``sum``, ``L1Decay``
+also ``sign``, all lowered in ``ops/``.
 """
 
 from paddle_tpu_torch.layer_helper import LayerHelper

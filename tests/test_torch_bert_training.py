@@ -248,24 +248,51 @@ def test_mnist_mlp_five_steps_match_jax(optimizer):
     assert got[-1][0] < got[0][0]
 
 
-def test_unported_training_ops_raise():
-    """L1 decay appends ``sign``, which the port does not lower yet: the
-    program builds and raises when it runs. A sparse embedding grad
-    raises NotImplementedError naming the ROADMAP item."""
-    main, startup = tfluid.Program(), tfluid.Program()
-    with t_unique_name.guard(), tfluid.program_guard(main, startup):
-        x = tfluid.layers.data(name="x", shape=[3], dtype="float32")
-        loss = tfluid.layers.mean(tfluid.layers.fc(input=x, size=2))
-        tfluid.optimizer.SGD(
-            learning_rate=0.1,
-            regularization=tfluid.regularizer.L1Decay(1e-3)).minimize(loss)
-    exe = tfluid.Executor(tfluid.CPUPlace())
-    with tfluid.scope_guard(tfluid.Scope()):
-        exe.run(startup)
-        with pytest.raises(KeyError, match="sign"):
-            exe.run(main, feed={"x": np.ones((2, 3), np.float32)},
-                    fetch_list=[loss])
+def test_l1_decay_step_matches_jax():
+    """L1 decay appends ``sign`` (and ``scale``, ``sum``): three SGD steps
+    with ``L1Decay(1e-2)`` from the JAX package's startup state match it
+    (losses rtol 1e-5, weights atol 1e-6)."""
+    def build(fl, un):
+        main, startup = fl.Program(), fl.Program()
+        with un.guard(), fl.program_guard(main, startup):
+            x = fl.layers.data(name="x", shape=[3], dtype="float32")
+            loss = fl.layers.mean(fl.layers.fc(input=x, size=2))
+            fl.optimizer.SGD(
+                learning_rate=0.1,
+                regularization=fl.regularizer.L1Decay(1e-2)).minimize(loss)
+        return main, startup, loss
 
+    j_main, j_startup, j_loss = build(jfluid, j_unique_name)
+    t_main, _, t_loss = build(tfluid, t_unique_name)
+    assert (json.loads(t_main.desc.serialize_to_string())
+            == json.loads(j_main.desc.serialize_to_string()))
+    assert "sign" in [op.type for op in t_main.desc.global_block().ops]
+    feeds = [{"x": np.random.RandomState(s).randn(4, 3).astype(np.float32)}
+             for s in range(3)]
+    j_exe, j_scope = jfluid.Executor(jfluid.CPUPlace()), jfluid.Scope()
+    with jfluid.scope_guard(j_scope):
+        j_exe.run(j_startup)
+        names = [v.name for v in j_main.list_vars() if v.persistable]
+        state = {n: np.array(j_scope.get(n)) for n in names}
+        want = [float(np.asarray(j_exe.run(
+            j_main, feed=f, fetch_list=[j_loss])[0]).reshape(-1)[0])
+            for f in feeds]
+        j_state = {n: np.array(j_scope.get(n)) for n in names}
+    t_exe, t_scope = tfluid.Executor(tfluid.CPUPlace()), tfluid.Scope()
+    convert.load_numpy_state(t_scope, state, "cpu", program=t_main)
+    with tfluid.scope_guard(t_scope):
+        got = [float(t_exe.run(t_main, feed=f,
+                               fetch_list=[t_loss])[0].reshape(-1)[0])
+               for f in feeds]
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    for n in names:
+        np.testing.assert_allclose(t_scope.get(n).numpy(), j_state[n],
+                                   rtol=0, atol=1e-6)
+
+
+def test_unported_training_ops_raise():
+    """A sparse embedding grad raises NotImplementedError naming the
+    ROADMAP item."""
     from paddle_tpu_torch.core.desc import OpDesc
     from paddle_tpu_torch.core.registry import LowerContext, OpRegistry
 

@@ -84,6 +84,31 @@ for build in (lambda: resnet.get_model(dataset="cifar10", depth=8),
         h["img"].shape[1:]), np.float32), "label": np.array([[1], [2]])},
         fetch_list=[h["loss"], h["acc"]])
     assert all(np.isfinite(v).all() for v in loss_acc)
+# the training loop's features: the schedulers, the new optimizers, the
+# clip ops, accumulation, remat, the dispatch window and the feeder
+from paddle_tpu_torch.engine import pipeline
+from paddle_tpu_torch.layers import learning_rate_scheduler, ops
+loop, loop_startup = fluid.Program(), fluid.Program()
+with fluid.program_guard(loop, loop_startup):
+    x = fluid.layers.data(name="x", shape=[4], dtype="float32")
+    h = fluid.layers.batch_norm(fluid.layers.fc(input=x, size=4,
+                                                act="sigmoid"))
+    loss = fluid.layers.mean(fluid.layers.square(h))
+    fluid.clip.set_gradient_clip(fluid.clip.GradientClipByGlobalNorm(1.0))
+    fluid.optimizer.RMSProp(
+        learning_rate=fluid.layers.linear_lr_warmup(
+            fluid.layers.noam_decay(8, 2), 2, 0.0, 0.1),
+        regularization=fluid.regularizer.L1Decay(1e-3)).minimize(loss)
+    fluid.clip.set_gradient_clip(None)
+exe.run(loop_startup)
+batches = [{"x": np.full((4, 4), i, np.float32)} for i in range(3)]
+for kw in ({"accumulate_steps": 2}, {"remat_segments": 2},
+           {"dispatch_steps": 2}):
+    for f in pipeline.prefetch_to_device(lambda: iter(batches),
+                                         device="cpu")():
+        out = exe.run(loop, feed=f, fetch_list=[loss], **kw)
+    exe.sync()
+    assert np.isfinite(np.asarray(out[0])).all()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "paddle_tpu" or m.startswith("paddle_tpu."))
@@ -189,3 +214,8 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fluid.io.save_inference_model("unused", [], [], None,
                                       export_format="aot")
+    exe = fluid.Executor(fluid.CPUPlace())
+    for kw, item in (({"verify": True}, "item 8"), ({"mesh": "dp"}, "item 10"),
+                     ({"opt_level": 2}, "analysis and transforms")):
+        with pytest.raises(NotImplementedError, match=item):
+            exe.run(fluid.Program(), **kw)

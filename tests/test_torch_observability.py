@@ -10,7 +10,8 @@ same input sequences through both give equal results for
   ``ReqTracer.finish`` (fixed threshold, errors, head samples and the
   adaptive 2x-EWMA-p99 rule),
 - ``snapshot_text`` (Prometheus text, exemplar comments included),
-- ``GoodputTracker`` (charges, clipping, idle fill, fencing),
+- ``GoodputTracker`` (charges, clipping, idle fill, fencing, and the MFU
+  attribution: FLOPs noted, steps counted),
 - flag parsing from the environment (``PADDLE_TPU_*`` for the JAX
   package, ``PADDLE_GPU_*`` for the port) and the shared defaults.
 
@@ -189,10 +190,15 @@ def test_goodput_tracker_matches_jax():
         assert b.charge(*c) == a.charge(*c), c
     for t in (13.0, 13.75, 14.0):
         assert b.mark("compute", now=t) == a.mark("compute", now=t)
-    # the port's ledger is the reference's without its MFU attribution
-    want = {k: v for k, v in a.snapshot().items()
-            if k not in ("mfu", "steps")}
-    assert b.snapshot() == want
+    for flops in (2.5e9, 0.0, 1.5e9):
+        a.note_flops(flops)
+        b.note_flops(flops)
+        a.note_step()
+        b.note_step()
+    # the MFU attribution too (no peak set: the ratios are None)
+    assert b.snapshot() == a.snapshot()
+    assert b.snapshot()["mfu"]["model_flops_per_step"] == pytest.approx(
+        4e9 / 3)
     assert b.top_badput() == a.top_badput()
     snap = b.snapshot()
     assert sum(snap["categories"].values()) == pytest.approx(snap["wall_ms"])

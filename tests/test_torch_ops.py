@@ -252,12 +252,14 @@ def test_lowering_matches_reference(case):
 
 
 def test_every_ported_lowering_has_a_case():
-    """Here, or among the ResNet slice's ops in test_torch_ops_conv.py."""
+    """Here, among the ResNet slice's ops in test_torch_ops_conv.py, or
+    among the training loop's in test_torch_ops_train.py."""
     from test_torch_ops_conv import SLICE_OPS
+    from test_torch_ops_train import SLICE_OPS as TRAIN_OPS
 
     registered = set(TOpRegistry.all_types())
-    assert {c[1] for c in CASES} | (SLICE_OPS & registered) == \
-        registered - {"uniform_random"}
+    assert {c[1] for c in CASES} | (SLICE_OPS & registered) | TRAIN_OPS \
+        == registered - {"uniform_random"}
 
 
 def test_uniform_random_draws_in_range_per_stream():
