@@ -7,8 +7,10 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 
 It drives the port's main paths, serving and training BERT-base and
 ResNet-50 (with the training loop's accumulation, remat, dispatch
-window, prefetching feeder, schedulers, clipping and optimizers), and
-its kernels on the card and prints one JSON line per phase:
+window, prefetching feeder, schedulers, clipping and optimizers),
+training DeepFM with sparse embedding grads, word2vec and the
+Transformer-base NMT model, and its kernels on the card and prints one
+JSON line per phase:
 
 1. device  — the card's name and power limit (nvidia-smi), torch and CUDA
    versions; TF32 is turned off for matmul and cuDNN.
@@ -23,7 +25,9 @@ its kernels on the card and prints one JSON line per phase:
    a head dim of 33 (rows not 16-byte aligned, which the kernels stage by
    plain loads), and dropout rate 0.1 with the same seed (identical
    masks); every kernel instance (head dims 32, 64, 128 in float32 and
-   bfloat16) runs in at least one case.
+   bfloat16) runs in at least one case. Then the shapes the Transformer's
+   training step gives the kernels (B=32, H=8, T=256, D=64, dropout 0.1,
+   the nmt batch's lengths), causal and not, float32 and bfloat16.
 4. kernel_bwd — the dQ and dK/dV backward kernels against
    ``attention_bwd_plain`` on the same inputs, dq, dk and dv, in the same
    cases plus one with a nonzero lse cotangent; dropout with the same seed
@@ -156,11 +160,43 @@ its kernels on the card and prints one JSON line per phase:
    bf16) of the captured BERT-base (seq 128, batch 8) and ResNet-50
    (batch 32) steps, float32 and AMP; ResNet-50's counted FLOPs within
    MFU_TOL of the analytic 0.79 TFLOP a step.
-21. kernels — one JSON object listing every ported kernel, with its
+21. ctr    — DeepFM as the JAX package's CTR bench builds it (39 fields
+   over 1M ids, 16-dim ``is_sparse`` tables, batch 2048, Adam 1e-3):
+   ``lookup_table_grad`` and lazy Adam at that geometry under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no op waits for the
+   card); 4 steps captured and eagerly from the same state, step by step,
+   losses and every state tensor bitwise equal; a second captured run
+   bitwise equal; the step one graph; the rows no batch touched bitwise
+   unchanged in each table and both its moments, the touched ones moved;
+   no flash launch; one step at batch 64 against the CPU (loss and
+   grads, TRAIN_TOL); the sparse step's and the dense control's
+   (``is_sparse`` off) ms, examples/s and top kernels. Then word2vec at
+   its defaults: 3 captured steps against the CPU (losses TRAIN_TOL,
+   parameters OPT_TOL * max).
+22. nmt    — Transformer-base as the JAX package's NMT bench builds it
+   (6+6 layers, d_model 512, 8 heads, d_inner 2048, vocab 32768, seq
+   256, batch 32, ragged lengths, dropout 0.1, label smoothing 0.1,
+   Adam), float32 and under ``enable_bf16``: 4 captured steps, 18 launches
+   of each flash kernel a step (6 encoder, 6 causal decoder and 6 cross
+   attentions; the profiler's count of a replay agrees), one graph, the
+   eager first run's peak allocation, step ms, target tokens/s, idle
+   share and top kernels, the ``mfu.*`` gauges; AMP's first loss within
+   TRAIN_AMP_TOL of float32's. One step at batch 2 and dropout 0 against
+   the CPU: the loss end to end (TRAIN_TOL), every op on the CPU's
+   operands (RESNET_OP_TOL), and every grad end to end against the CPU
+   step that takes the card's relu decisions (TRAIN_TOL; a relu input
+   within rounding of 0 may decide otherwise on the CPU, and moves its
+   token's grads by percents); the same step and the attention ops again
+   with the plain torch attention in the kernels' place on the card, and
+   both card runs' relu decisions unlike the CPU's printed. The kernels
+   at B=32 H=8 T=256 D=64 with the batch's lengths, causal and not,
+   float32 and bfloat16: ms, bound, plain and SDPA.
+23. kernels — one JSON object listing every ported kernel, with its
    design: all three run their products on the tensor cores (mma.sync
    bf16, 3xTF32 for float32) from a cp.async tile ring, and read their
    dropout seed from device memory; each kernel's launches on every path,
-   the ResNet-50 and training-loop paths included.
+   the ResNet-50, training-loop, CTR and NMT paths included, and its
+   times at the Transformer's shapes (``nmt_t256``).
 
 Served requests and dispatches run as captured CUDA graphs too: the first
 run of each shape (and each server bucket) is eager, the second captures
@@ -343,6 +379,29 @@ RESNET_STEP_FLOPS = 3 * 2 * 4.1e9 * 32
 MFU_TOL = 0.10
 
 
+# ctr: DeepFM as the JAX package's CTR bench builds it (bench.py:341-344):
+# 39 fields over a 1M-id space, 16-dim is_sparse embeddings, batch 2048,
+# Adam at 1e-3
+CTR = dict(batch_size=2048, num_features=1000000, num_fields=39,
+           embed_dim=16, lr=1e-3)
+CTR_STEPS = 4         # eager warm-up, capture, two replays
+CTR_CPU_BATCH = 64
+WORD2VEC_BATCH = 64
+WORD2VEC_STEPS = 3
+# nmt: Transformer-base as the JAX package's NMT bench builds it
+# (bench.py:305-313): 6+6 layers, d_model 512, 8 heads, d_inner 2048,
+# vocab 32768, seq 256, batch 32, dropout 0.1, label smoothing 0.1
+NMT = dict(batch_size=32, seq_len=256, d_model=512, n_heads=8,
+           d_inner=2048, n_layers=6, vocab_size=32768, dropout=0.1,
+           lr=1e-4)
+NMT_STEPS = 4
+NMT_FEED_SEED = 71
+NMT_CPU_BATCH = 2
+# the grads the card-vs-CPU step prints first: both embeddings (the
+# deepest), the first encoder weight and the output projection
+NMT_GRADS = ("src_word_emb", "trg_word_emb", "fc_0.w_0_0", "fc_96.w_0_0")
+
+
 # profiler windows that dropped device activity and were run again: per
 # window, the calls and up to four kernels whose count was off (none: the
 # window held no device activity)
@@ -390,20 +449,23 @@ def ptxas_summary(log):
     return found
 
 
-def device_kernels(fn, n, attempts=3):
+def profile_kernels(fn, n, attempts=3, expect=None):
     """Run ``fn`` ``n`` times under torch.profiler; returns {kernel name:
-    device ms per call} of the CUDA kernels it launched. ``fn`` launches
-    the same kernels on every call, so each kernel's count in the window
-    should be a multiple of ``n``. On the H100 a window can miss one launch
-    of a kernel (seen in 28 of the 54 windows of one run, always one of
-    torch's own kernels: 19 launches of 20, 39 of 40), so a kernel's time
-    per call is its mean launch time times its launches per call, its
-    count over ``n`` rounded.
+    {"ms": device ms per call, "per_call": launches per call, "count":
+    launches in the window}} of the CUDA kernels it launched. ``fn``
+    launches the same kernels on every call, so each kernel's count in the
+    window should be a multiple of ``n``. On the H100 a window can miss one
+    launch of a kernel (seen in 28 of the 54 windows of one run, always one
+    of torch's own kernels: 19 launches of 20, 39 of 40), so a kernel's
+    launches per call are its count over ``n`` rounded, and its time per
+    call its mean launch time times those launches.
     A window with a kernel further off, or with no device activity at all,
     dropped more (seen: a window of 20 calls with none, and one that held
-    about a quarter of each kernel's launches); it is profiled again, up
-    to ``attempts`` times, and recorded in PARTIAL_PROFILES. Returns the
-    last window."""
+    about a quarter of each kernel's launches); so is one where the
+    kernels whose names hold a key of ``expect`` launched, together, more
+    than one launch off ``n`` times its value. Such a window is profiled
+    again, up to ``attempts`` times, and recorded in PARTIAL_PROFILES.
+    Returns the last window."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -423,12 +485,23 @@ def device_kernels(fn, n, attempts=3):
             per_call = round(e.count / n)
             if per_call == 0 or abs(e.count - per_call * n) > 1:
                 odd.append([e.key[:60], e.count])
-            kernels[e.key] = (e.self_device_time_total / e.count
-                              * max(per_call, 1) / 1e3)
+            kernels[e.key] = {"ms": e.self_device_time_total / e.count
+                              * max(per_call, 1) / 1e3,
+                              "per_call": per_call, "count": e.count}
+        for part, want in (expect or {}).items():
+            got = sum(k["count"] for key, k in kernels.items()
+                      if part in key)
+            if abs(got - n * want) > 1:
+                odd.append([part, got])
         if kernels and not odd:
             return kernels
         PARTIAL_PROFILES.append({"calls": n, "odd_counts": odd[:4]})
     return kernels
+
+
+def device_kernels(fn, n):
+    """{kernel name: device ms per call} of ``profile_kernels``."""
+    return {key: k["ms"] for key, k in profile_kernels(fn, n).items()}
 
 
 def device_ms(fn, name=None, n=20, warmup=3):
@@ -465,15 +538,17 @@ def case_inputs(i, case):
     return q, k, v, lens_t
 
 
-def phase_kernel(fa):
-    """Kernel against plain version case by case; returns the worst out
-    error over all cases."""
+def phase_kernel(fa, extra=()):
+    """Kernel against plain version case by case, KERNEL_CASES and then
+    ``extra`` (cases of the same form); returns the worst out error over
+    all cases."""
     import torch
 
+    cases = list(KERNEL_CASES) + list(extra)
     worst = 0.0
     for i, (name, B, H, Tq, Tk, D, dt, causal, lens, offs, rate) in \
-            enumerate(KERNEL_CASES):
-        q, k, v, lens_b = case_inputs(i, KERNEL_CASES[i])
+            enumerate(cases):
+        q, k, v, lens_b = case_inputs(i, cases[i])
         seed = 1234
         out_k, lse_k = fa.flash_forward_cuda(q, k, v, lens_b, offs, seed,
                                              causal, None, rate)
@@ -523,17 +598,18 @@ def phase_kernel(fa):
     return worst
 
 
-def phase_kernel_bwd(fa):
+def phase_kernel_bwd(fa, extra=()):
     """The dQ and dK/dV kernels against ``attention_bwd_plain``, case by
-    case: every forward case plus one with a nonzero lse cotangent. Both
-    take the same (q, k, v), the forward kernel's (out, lse) and the same
-    cotangents. Returns the worst error of each kernel over all cases:
-    {"flash_bwd_dq": dq, "flash_bwd_dkv": max(dk, dv)}."""
+    case: every forward case (``extra`` too) plus one with a nonzero lse
+    cotangent. Both take the same (q, k, v), the forward kernel's (out,
+    lse) and the same cotangents. Returns the worst error of each kernel
+    over all cases: {"flash_bwd_dq": dq, "flash_bwd_dkv": max(dk, dv)}."""
     import torch
 
-    cases = list(enumerate(KERNEL_CASES)) + [(len(KERNEL_CASES), (
+    n = len(KERNEL_CASES)
+    cases = list(enumerate(KERNEL_CASES)) + [(n, (
         "lse_cotangent_causal_offsets", 8, 12, 64, 96, 64, "float32", True,
-        LENS8, (0, 40), 0.0))]
+        LENS8, (0, 40), 0.0))] + [(n + 1 + j, c) for j, c in enumerate(extra)]
     worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     for i, case in cases:
         name, B, H, Tq, Tk, D, dt, causal, lens, offs, rate = case
@@ -1102,28 +1178,22 @@ def flash_launches(fa):
                     step_counts(fa)))
 
 
-def flash_kernel_counts(fn):
-    """Launches of each flash kernel in one profiled call of ``fn``, by
-    the profiler (the cross-check of the launch counters), and the
-    instances' names."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    counts, names = {}, set()
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-            if k + "_kernel" in e.key:
-                counts[k] = counts.get(k, 0) + e.count
-                names.add(e.key[:90])
-    return counts, sorted(names)
+def flash_kernel_counts(fn, expect):
+    """Launches of each flash kernel a call of ``fn``, by the profiler
+    over 3 calls (the cross-check of the launch counters; a window can
+    miss a launch, see ``profile_kernels``), {kernel: ``expect``'s launches
+    a call}: returns (launches a call, launches in the window, the
+    instances' names)."""
+    kernels = profile_kernels(fn, 3, expect={
+        name + "_kernel": n for name, n in expect.items()})
+    per_call, window, names = {}, {}, set()
+    for key, k in kernels.items():
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            if name + "_kernel" in key:
+                per_call[name] = per_call.get(name, 0) + k["per_call"]
+                window[name] = window.get(name, 0) + k["count"]
+                names.add(key[:90])
+    return per_call, {"calls": 3, "launches": window}, sorted(names)
 
 
 def phase_train(fa, main, startup, loss, state0, feed8):
@@ -1176,10 +1246,11 @@ def phase_train(fa, main, startup, loss, state0, feed8):
     launches = flash_launches(fa)  # ... and ends here
     obs.set_enabled(None)
     entries = captured(graph.engine)
-    # the profiler's count of one replayed step's flash kernels
+    # the profiler's count of a replayed step's flash kernels (3 replays)
     with fluid.scope_guard(graph_scope):
-        profiled, instances = flash_kernel_counts(
-            lambda: graph.run(main, feed=feed8, fetch_list=[loss]))
+        profiled, window, instances = flash_kernel_counts(
+            lambda: graph.run(main, feed=feed8, fetch_list=[loss]),
+            dict.fromkeys(names, n_layers))
     row = {"phase": "train", "model": "bert_base", "batch": 8,
            "seq_len": BERT["seq_len"], "dropout": 0.1, "ops": len(ops),
            "grad_ops": sum(t.endswith("_grad") for t in ops),
@@ -1190,6 +1261,7 @@ def phase_train(fa, main, startup, loss, state0, feed8):
            "unequal_state": unequal[:10],
            "launches_per_step": per_step, "launches": launches,
            "profiled_replay_launches": profiled,
+           "profiled_window": window,
            "graphs": len(entries),
            "captures": [c.captures for c in entries],
            "replays": [c.replays for c in entries],
@@ -1277,8 +1349,9 @@ def phase_train_amp(fa, feed8, f32_losses):
     torch.cuda.synchronize()
     launches = flash_launches(fa)  # ... and ends here
     with fluid.scope_guard(scope):
-        profiled, instances = flash_kernel_counts(
-            lambda: exe.run(main, feed=feed8, fetch_list=[loss]))
+        profiled, window, instances = flash_kernel_counts(
+            lambda: exe.run(main, feed=feed8, fetch_list=[loss]),
+            dict.fromkeys(names, n_layers))
     dtypes = sorted({str(scope.get(p.name).dtype)
                      for p in main.all_parameters()})
     entries = captured(exe.engine)
@@ -1288,7 +1361,7 @@ def phase_train_amp(fa, feed8, f32_losses):
           "first_loss_rel_err": first_err, "tol": TRAIN_AMP_TOL,
           "param_dtypes": dtypes, "launches_per_step": per_step,
           "launches": launches, "profiled_replay_launches": profiled,
-          "flash_instances": instances,
+          "profiled_window": window, "flash_instances": instances,
           "captures": [c.captures for c in entries]})
     check(all(np.isfinite(losses)), "AMP losses %s" % losses)
     check(losses[-1] < losses[0], "AMP loss did not fall: %s" % losses)
@@ -1314,28 +1387,45 @@ def valid_keys(B, H, Tk, lens):
     return sum(min(max(int(n), 1), Tk) for n in lens) * H
 
 
-def key_mask(lens_t, B, T):
-    """The boolean key-padding mask SDPA takes for int64 lengths, or None."""
+def key_mask(lens_t, B, T, causal=False):
+    """The boolean mask SDPA takes for int64 key lengths and, if causal,
+    the causal triangle; None for neither."""
     import torch
 
-    if lens_t is None:
-        return None
-    return (torch.arange(T, device="cuda").reshape(1, 1, 1, T)
-            < lens_t.clamp(min=1).reshape(B, 1, 1, 1))
+    mask = None
+    if lens_t is not None:
+        mask = (torch.arange(T, device="cuda").reshape(1, 1, 1, T)
+                < lens_t.clamp(min=1).reshape(B, 1, 1, 1))
+    if causal:
+        tri = torch.ones((T, T), dtype=torch.bool, device="cuda").tril()
+        mask = tri if mask is None else mask & tri
+    return mask
 
 
-def attention_work(B, H, Tq, Tk, D, itemsize, lens):
+def valid_pairs(B, H, Tq, Tk, lens, causal):
+    """(query, key) pairs below each sequence's key length (clamped to
+    [1, Tk]) and, if causal, at or before the query, summed over the
+    batch and heads."""
+    total = 0
+    for n in (lens if lens is not None else [Tk] * B):
+        n = min(max(int(n), 1), Tk)
+        total += (sum(min(i + 1, n) for i in range(Tq)) if causal
+                  else Tq * n)
+    return total * H
+
+
+def attention_work(B, H, Tq, Tk, D, itemsize, lens, causal=False):
     """(bytes, flops) the function needs on these inputs: q and out whole,
     the k/v rows below each sequence's length, lse, the int64 lengths;
-    QK^T and PV over the valid keys only."""
+    QK^T and PV over the valid (query, key) pairs only."""
     keys = valid_keys(B, H, Tk, lens)
     nbytes = (2 * B * H * Tq * D * itemsize + 2 * keys * D * itemsize
               + B * H * Tq * 4 + (B * 8 if lens is not None else 0))
-    flops = 4 * Tq * keys * D
+    flops = 4 * valid_pairs(B, H, Tq, Tk, lens, causal) * D
     return nbytes, flops
 
 
-def time_kernel(fa, B, H, T, D, dtype, lens):
+def time_kernel(fa, B, H, T, D, dtype, lens, causal=False):
     """Kernel, plain version and SDPA at one shape; returns a dict."""
     import torch
     import torch.nn.functional as F
@@ -1343,20 +1433,23 @@ def time_kernel(fa, B, H, T, D, dtype, lens):
     q, k, v = attention_inputs(B, H, T, T, D, dtype, 99)
     lens_t = None if lens is None else torch.as_tensor(
         lens, device="cuda").reshape(B)
-    mask = key_mask(lens_t, B, T)
+    mask = key_mask(lens_t, B, T, causal)
     calls = {
-        "": (lambda: fa.flash_forward_cuda(q, k, v, lens_t), "flash_fwd"),
-        "plain_": (lambda: fa.attention_lse_plain(q, k, v, lens_t), None),
+        "": (lambda: fa.flash_forward_cuda(q, k, v, lens_t, causal=causal),
+             "flash_fwd"),
+        "plain_": (lambda: fa.attention_lse_plain(q, k, v, lens_t,
+                                                  causal=causal), None),
         "library_": (lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, scale=D ** -0.5), None),
     }
     dt = str(dtype).split(".")[-1]
-    row = {"shape": [B, H, T, T, D], "dtype": dt,
+    row = {"shape": [B, H, T, T, D], "dtype": dt, "causal": causal,
            "seq_lens": None if lens is None else [int(n) for n in lens]}
     # device time per call of the call's kernels, from the profiler
     for prefix, (fn, kernel_name) in calls.items():
         row[prefix + "ms"] = device_ms(fn, kernel_name)
-    nbytes, flops = attention_work(B, H, T, T, D, q.element_size(), lens)
+    nbytes, flops = attention_work(B, H, T, T, D, q.element_size(), lens,
+                                   causal)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS_PER_S[dt] * 1e3
     row.update({"bytes": nbytes, "flops": flops,
@@ -1368,22 +1461,24 @@ def time_kernel(fa, B, H, T, D, dtype, lens):
     return row
 
 
-def attention_bwd_work(kernel, B, H, Tq, Tk, D, itemsize, lens):
+def attention_bwd_work(kernel, B, H, Tq, Tk, D, itemsize, lens,
+                       causal=False):
     """(bytes, flops) a backward kernel needs on these inputs, from its
     code. Both read q and dO whole, the k/v rows below each sequence's
     length, lse and delta (float32). flash_bwd_dq writes dq and does three
-    products per (q row, valid key) pair over D: s = q.k, dp = dO.v,
+    products per valid (q row, key) pair over D: s = q.k, dp = dO.v,
     dq += ds.k. flash_bwd_dkv writes dk and dv (every key row) and does
     four: s, dp, dv += p.dO, dk += ds.q."""
     keys = valid_keys(B, H, Tk, lens)
+    pairs = valid_pairs(B, H, Tq, Tk, lens, causal)
     nbytes = (2 * B * H * Tq * D * itemsize + 2 * keys * D * itemsize
               + 2 * B * H * Tq * 4 + (B * 8 if lens is not None else 0))
     if kernel == "flash_bwd_dq":
-        return nbytes + B * H * Tq * D * itemsize, 6 * Tq * keys * D
-    return nbytes + 2 * B * H * Tk * D * itemsize, 8 * Tq * keys * D
+        return nbytes + B * H * Tq * D * itemsize, 6 * pairs * D
+    return nbytes + 2 * B * H * Tk * D * itemsize, 8 * pairs * D
 
 
-def time_bwd_kernels(fa, B, H, T, D, dtype, lens):
+def time_bwd_kernels(fa, B, H, T, D, dtype, lens, causal=False):
     """The dQ and dK/dV kernels' device times from one profile of
     ``flash_backward_cuda`` (the delta precompute, a torch op, excluded),
     the plain backward's, and SDPA's backward (its backward kernels only:
@@ -1398,24 +1493,25 @@ def time_bwd_kernels(fa, B, H, T, D, dtype, lens):
                     ).to(dtype)
     lens_t = None if lens is None else torch.as_tensor(
         lens, device="cuda").reshape(B)
-    out, lse = fa.flash_forward_cuda(q, k, v, lens_t)
+    out, lse = fa.flash_forward_cuda(q, k, v, lens_t, causal=causal)
 
     def kernels():
-        return fa.flash_backward_cuda(q, k, v, out, lse, g, None, lens_t)
+        return fa.flash_backward_cuda(q, k, v, out, lse, g, None, lens_t,
+                                      causal=causal)
 
     for _ in range(3):
         kernels()
     n = 20
     by_name = device_kernels(kernels, n)
     dt = str(dtype).split(".")[-1]
-    row = {"shape": [B, H, T, T, D], "dtype": dt,
+    row = {"shape": [B, H, T, T, D], "dtype": dt, "causal": causal,
            "seq_lens": None if lens is None else [int(x) for x in lens]}
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         ms = sum(t for key, t in by_name.items() if name + "_kernel" in key)
         check(ms > 0, "the profiler recorded no %s kernel (saw %s)"
               % (name, sorted(by_name)))
         nbytes, flops = attention_bwd_work(name, B, H, T, T, D,
-                                           q.element_size(), lens)
+                                           q.element_size(), lens, causal)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_FLOPS_PER_S[dt] * 1e3
         row[name] = {"ms": ms, "bytes": nbytes, "flops": flops,
@@ -1426,8 +1522,8 @@ def time_bwd_kernels(fa, B, H, T, D, dtype, lens):
             row[name]["bound_ffma_ms"] = max(
                 t_bytes, flops / PEAK_FFMA_FLOPS_PER_S * 1e3)
     row["plain_ms"] = device_ms(lambda: fa.attention_bwd_plain(
-        q, k, v, out, lse, g, None, lens_t))
-    mask = key_mask(lens_t, B, T)
+        q, k, v, out, lse, g, None, lens_t, causal=causal))
+    mask = key_mask(lens_t, B, T, causal)
     qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
     o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
                                        scale=D ** -0.5)
@@ -1765,27 +1861,40 @@ def phase_resnet50_determinism(main, startup, loss, feed):
     check(not after, "two identical ResNet-50 steps differ: %s" % after)
 
 
-def replay_ops_on_card(main, state, feed, tol):
+def replay_ops_on_card(main, state, feed, tol, witness=None):
     """The step's ops one by one on the CPU (the port's lowerings), each
     op's operands copied to the card and the op run there too: every
     output within ``tol`` of the CPU's (|d| <= rel_to_max * max|cpu|;
-    integer outputs equal). Returns ({op type: largest relative
-    difference}, the CPU values of every var)."""
+    integer outputs equal). ``witness`` maps an op type to another
+    lowering, run on the card on the same operands beside the port's.
+    Returns ({op type: largest relative difference}, the CPU values of
+    every var, and for each output of a witnessed op its difference from
+    the CPU's, the witness's and the two's, each relative to max|cpu|)."""
     import torch
 
+    from paddle_tpu_torch.core.registry import OpRegistry
     from paddle_tpu_torch.engine import lowering
 
     env = {n: torch.from_numpy(np.array(v)) for n, v in
            dict(state, **feed).items()}
     block = main.desc.global_block()
-    worst, bad = {}, []
+    worst, bad, witnessed = {}, [], []
     for i, op in enumerate(block.ops):
         if op.type in ("feed", "fetch"):
             continue
         card = {n: env[n].to("cuda") for n in op.input_arg_names()
                 if n != lowering.EMPTY_VAR_NAME}
+        alt = dict(card) if op.type in (witness or {}) else None
         lowering.run_op(op, block, env, "cpu", (2024, 1), i, False)
         lowering.run_op(op, block, card, "cuda", (2024, 1), i, False)
+        if alt is not None:
+            info = OpRegistry.get(op.type)
+            port = info.lower
+            info.lower = witness[op.type]
+            try:
+                lowering.run_op(op, block, alt, "cuda", (2024, 1), i, False)
+            finally:
+                info.lower = port
         for n in op.output_arg_names():
             if n == lowering.EMPTY_VAR_NAME:
                 continue
@@ -1799,10 +1908,22 @@ def replay_ops_on_card(main, state, feed, tol):
             worst[op.type] = max(worst.get(op.type, 0.0), d / (peak or 1.0))
             if d > tol["rel_to_max"] * peak:
                 bad.append([op.type, n, d, peak])
-        del card
+            if alt is not None and want.numel():
+                other = alt[n].cpu()
+                witnessed.append({
+                    "op": i, "type": op.type, "out": n,
+                    "slot": [k for k, v in op.outputs.items() if n in v][0],
+                    "causal": bool(op.attrs.get("causal", False)),
+                    "max_abs": peak,
+                    "port": d / (peak or 1.0),
+                    "witness": float((other - want).abs().max())
+                    / (peak or 1.0),
+                    "port_vs_witness": float((got - other).abs().max())
+                    / (peak or 1.0)})
+        del card, alt
     check(not bad, "ops on the card beyond %s of the CPU: %s"
           % (tol, bad[:5]))
-    return worst, env
+    return worst, env, witnessed
 
 
 def phase_resnet50_train(fa, main, startup, loss, handles, feed, smi):
@@ -1902,7 +2023,8 @@ def phase_resnet50_train(fa, main, startup, loss, handles, feed, smi):
     # initial state: the loss end to end, every op on the same operands
     state0 = start_state(main, startup)
     feed2 = resnet_feed(2, np.random.RandomState(12))
-    worst, cpu_env = replay_ops_on_card(main, state0, feed2, RESNET_OP_TOL)
+    worst, cpu_env, _ = replay_ops_on_card(main, state0, feed2,
+                                           RESNET_OP_TOL)
     fetch = [loss.name] + [n + "@GRAD" for n in RESNET_GRADS]
     step_scope = fluid.Scope()
     convert.load_numpy_state(step_scope, state0, "cuda", program=main)
@@ -2720,6 +2842,613 @@ def phase_mfu(smi, name):
     return rows
 
 
+# -- DeepFM CTR and word2vec (sparse embedding grads) -------------------
+
+
+def deepfm_program(is_sparse=True):
+    """DeepFM as ``models.deepfm.get_model(**CTR)`` builds it (the JAX
+    package's CTR bench, bench.py:341-344), random weights from the seed.
+    ``is_sparse=False`` is the dense control: the same desc with its
+    lookups' ``is_sparse`` turned off, so the tables take dense grads and
+    dense Adam. Returns (main, startup, handles)."""
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import deepfm
+
+    with unique_name.guard():
+        main, startup, handles = deepfm.get_model(**CTR)
+    if not is_sparse:
+        for op in main.desc.global_block().ops:
+            if op.type in ("lookup_table", "lookup_table_grad"):
+                op.attrs["is_sparse"] = False
+        main._bump_version()
+    main.random_seed = startup.random_seed = 2024
+    return main, startup, handles
+
+
+def ctr_feeds(batch, n, seed):
+    from paddle_tpu_torch.models import deepfm
+
+    rng = np.random.RandomState(seed)
+    return [deepfm.make_fake_batch(batch, CTR["num_features"],
+                                   CTR["num_fields"], rng) for _ in range(n)]
+
+
+def adam_state_names(main, param):
+    """(param, Moment1, Moment2) names of ``param``'s adam op."""
+    for op in main.desc.global_block().ops:
+        if op.type == "adam" and op.input("Param") == [param]:
+            return (param, op.input("Moment1")[0], op.input("Moment2")[0])
+    raise RuntimeError("no adam op updates %r" % param)
+
+
+def sparse_ops_without_sync():
+    """``lookup_table_grad`` (is_sparse) and the lazy ``adam`` branch run
+    directly on the card at the CTR geometry under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises at any op
+    that waits for the card (``.item()``, ``nonzero``, ``torch.unique``).
+    Returns the rows the merge kept."""
+    import torch
+
+    from paddle_tpu_torch.core.desc import OpDesc
+    from paddle_tpu_torch.core.registry import LowerContext, OpRegistry
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n_ids = CTR["batch_size"] * CTR["num_fields"]
+    shape = (CTR["num_features"], CTR["embed_dim"])
+    ids = torch.randint(0, CTR["num_features"] // 8, (n_ids, 1),
+                        generator=gen, device="cuda")
+    w = torch.randn(shape, generator=gen, device="cuda")
+    og = torch.randn((n_ids, CTR["embed_dim"]), generator=gen, device="cuda")
+    one = lambda v: torch.tensor([v], device="cuda")  # noqa: E731
+
+    def lower(op_type, ins, attrs):
+        ctx = LowerContext(OpDesc(op_type, {}, {}, attrs), None, "cuda")
+        return OpRegistry.get(op_type).lower(ctx, ins, attrs)
+
+    # every operand made first: a host value's copy to the card waits
+    adam_ins = {"Param": [w], "Moment1": [torch.zeros_like(w)],
+                "Moment2": [torch.zeros_like(w)],
+                "LearningRate": [one(1e-3)], "Beta1Pow": [one(0.9)],
+                "Beta2Pow": [one(0.999)]}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        (g,) = lower("lookup_table_grad",
+                     {"Ids": [ids], "W": [w], "Out@GRAD": [og]},
+                     {"is_sparse": True, "padding_idx": -1})["W@GRAD"]
+        outs = lower("adam", dict(adam_ins, Grad=[g]),
+                     {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8})
+        merged = g.merged()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    unique = int((merged.rows < merged.height).sum())
+    check(unique == int(torch.unique(ids).numel()),
+          "the merge kept %d rows, torch.unique %d" % (
+              unique, int(torch.unique(ids).numel())))
+    check(all(torch.isfinite(v[0]).all() for v in outs.values()),
+          "sparse adam outputs not finite")
+    return unique
+
+
+def phase_ctr(fa, smi):
+    """DeepFM at the CTR geometry (CTR): the sparse step captured and run
+    eagerly from the same state, step by step, bitwise equal; a second
+    captured run bitwise equal to the first; rows outside the batches
+    bitwise unchanged in each table and both its moments; no flash
+    launch; the sparse ops under the sync guard; one step at batch 64
+    against the CPU; sparse and dense step times. Returns the flash
+    launches of its steps (none)."""
+    import torch
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch import observability as obs
+
+    main, startup, handles = deepfm_program()
+    loss = handles["loss"]
+    feeds = ctr_feeds(CTR["batch_size"], CTR_STEPS, 61)
+    tables = [adam_state_names(main, p) for p in ("fm_v", "fm_w1")]
+    persistable = sorted(v.name for v in main.list_vars() if v.persistable)
+    unique_rows = sparse_ops_without_sync()
+
+    def run_steps(exe, scope):
+        with fluid.scope_guard(scope):
+            return [float(exe.run(main, feed=f, fetch_list=[loss])[0]
+                          .reshape(-1)[0]) for f in feeds]
+
+    before = step_counts(fa)
+    graph, graph_scope = fresh(startup)
+    initial = {n: graph_scope.get(n).clone() for t in tables for n in t}
+    eager, eager_scope = fresh(startup, graphs=False)
+    obs.set_enabled(True)
+    obs.reset()
+    losses = {"captured": [], "eager": []}
+    unequal = []
+    for step, feed in enumerate(feeds):
+        eager_before = obs.counter_value("engine.eager_runs")
+        with fluid.scope_guard(graph_scope):
+            (out,) = graph.run(main, feed=feed, fetch_list=[loss])
+        check(obs.counter_value("engine.eager_runs") == eager_before,
+              "the captured executor ran the sparse step eagerly")
+        losses["captured"].append(float(out.reshape(-1)[0]))
+        with fluid.scope_guard(eager_scope):
+            (out,) = eager.run(main, feed=feed, fetch_list=[loss])
+        losses["eager"].append(float(out.reshape(-1)[0]))
+        for n in persistable:
+            if not torch.equal(graph_scope.get(n), eager_scope.get(n)):
+                unequal.append([step + 1, n])
+    obs.set_enabled(None)
+    entries = captured(graph.engine)
+    again, again_scope = fresh(startup)
+    twice = run_steps(again, again_scope)
+    twice_equal = twice == losses["captured"] and all(
+        torch.equal(again_scope.get(n), graph_scope.get(n))
+        for n in persistable)
+    del eager, eager_scope, again, again_scope
+    # rows no batch touched: every table and both its moments unchanged
+    touched = torch.zeros(CTR["num_features"], dtype=torch.bool,
+                          device="cuda")
+    for f in feeds:
+        touched[torch.as_tensor(f["feat_ids"].reshape(-1),
+                                device="cuda")] = True
+    untouched = {}
+    for names in tables:
+        for n in names:
+            now, was = graph_scope.get(n), initial[n]
+            untouched[n] = bool(torch.equal(now[~touched], was[~touched]))
+        moved = not torch.equal(graph_scope.get(names[0])[touched],
+                                initial[names[0]][touched])
+        check(moved, "%s: the batches' rows did not move" % names[0])
+    launched = [a - b for a, b in zip(step_counts(fa), before)]
+    row = {"phase": "ctr", "card": smi, "model": "deepfm",
+           "config": CTR, "steps": CTR_STEPS, "losses": losses,
+           "unequal_state": unequal[:10],
+           "captured_equals_eager": losses["captured"] == losses["eager"]
+           and not unequal, "run_twice_equal": twice_equal,
+           "graphs": [(c.captures, c.replays) for c in entries],
+           "rows_touched": int(touched.sum()),
+           "untouched_rows_unchanged": untouched,
+           "sync_guard_unique_rows": unique_rows,
+           "flash_launches": launched}
+    emit(row)
+    check(all(np.isfinite(losses["captured"])), "ctr losses %s" % losses)
+    check(row["captured_equals_eager"],
+          "ctr: captured and eager steps differ: %s" % unequal[:5])
+    check(twice_equal, "ctr: two captured runs differ")
+    check(len(entries) == 1 and entries[0].captures == 1,
+          "ctr: graphs %s" % row["graphs"])
+    check(all(untouched.values()), "ctr: untouched rows changed: %s"
+          % untouched)
+    check(launched == [0, 0, 0], "ctr launched flash kernels %s" % launched)
+
+    # one step at batch 64 on the card and on the CPU, same state
+    state0 = start_state(main, startup)
+    feed64 = ctr_feeds(CTR_CPU_BATCH, 1, 62)[0]
+    grads = ["fm_v", "fm_w1"] + [p.name for p in main.all_parameters()
+                                 if p.name.startswith("fc_")][:2]
+    fetch = [loss.name] + [g + "@GRAD" for g in grads]
+    results = []
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        scope = fluid.Scope()
+        convert.load_numpy_state(scope, state0, place.torch_device(),
+                                 program=main)
+        with fluid.scope_guard(scope):
+            results.append(fluid.Executor(place).run(
+                main, feed=feed64, fetch_list=fetch))
+    del state0
+    card, cpu = results
+    loss_err = abs(float(card[0].reshape(-1)[0] - cpu[0].reshape(-1)[0]))
+    grad_errs = {n: {"max_abs_err": float(np.abs(a - b).max()),
+                     "max_abs": float(np.abs(b).max())}
+                 for n, a, b in zip(grads, card[1:], cpu[1:])}
+    emit({"phase": "ctr", "cpu_step": {
+        "batch": CTR_CPU_BATCH, "loss_card": float(card[0].reshape(-1)[0]),
+        "loss_cpu": float(cpu[0].reshape(-1)[0]), "loss_abs_err": loss_err,
+        "grads": grad_errs}, "tol": TRAIN_TOL})
+    check(loss_err <= TRAIN_TOL["loss_rtol"]
+          * abs(float(cpu[0].reshape(-1)[0])),
+          "ctr: card vs CPU loss error %g" % loss_err)
+    for n, e in grad_errs.items():
+        check(e["max_abs_err"] <= TRAIN_TOL["grad_rel_to_max"] * e["max_abs"],
+              "ctr: card vs CPU %s@GRAD error %g (max %g)"
+              % (n, e["max_abs_err"], e["max_abs"]))
+    del results, card, cpu
+
+    # sparse and dense step times (captured, one batch repeated)
+    dense_main = deepfm_program(is_sparse=False)[0]
+    times = {}
+    for label, (prog, exe, scope) in (
+            ("sparse", (main, graph, graph_scope)),
+            ("dense", (dense_main,) + fresh(startup))):
+        t = time_train_step(exe, scope, prog, loss, feeds[0])
+        t["examples_per_s"] = CTR["batch_size"] / (t["median_ms"] / 1e3)
+        times[label] = {k: t[k] for k in (
+            "median_ms", "min_ms", "max_ms", "examples_per_s",
+            "device_busy_ms", "device_idle_share", "top_kernels_ms")}
+        del exe, scope
+    emit({"phase": "ctr", "card": smi, "times": times,
+          "batch": CTR["batch_size"]})
+    del graph, graph_scope
+    release_memory()
+    return launched
+
+
+def phase_word2vec(smi):
+    """word2vec at its defaults (four lookups of one table, dense, SGD):
+    WORD2VEC_STEPS captured steps on the card against the same steps on
+    the CPU from the same state: losses within TRAIN_TOL, every parameter
+    within OPT_TOL * max|want|."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import word2vec
+
+    with unique_name.guard():
+        main, startup, h = word2vec.get_model()
+    main.random_seed = startup.random_seed = 2024
+    state0 = start_state(main, startup)
+    rng = np.random.RandomState(63)
+    feeds = [word2vec.make_fake_batch(WORD2VEC_BATCH, 1000, 4, rng)
+             for _ in range(WORD2VEC_STEPS)]
+    runs = []
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        scope = fluid.Scope()
+        convert.load_numpy_state(scope, state0, place.torch_device(),
+                                 program=main)
+        exe = fluid.Executor(place)
+        with fluid.scope_guard(scope):
+            losses = [float(exe.run(main, feed=f, fetch_list=[h["loss"]])[0]
+                            .reshape(-1)[0]) for f in feeds]
+        runs.append((losses, {n: scope.get(n).cpu() for n in state0},
+                     captured(exe.engine)))
+    (card, card_state, entries), (cpu, cpu_state, _) = runs
+    param_errs = {n: float((card_state[n] - cpu_state[n]).abs().max()
+                           / max(float(cpu_state[n].abs().max()), 1e-30))
+                  for n in state0 if card_state[n].is_floating_point()}
+    row = {"phase": "ctr", "card": smi, "model": "word2vec",
+           "losses_card": card, "losses_cpu": cpu,
+           "param_rel_errs": param_errs,
+           "graphs": [(c.captures, c.replays) for c in entries]}
+    emit(row)
+    check(all(abs(a - b) <= TRAIN_TOL["loss_rtol"] * abs(b)
+              for a, b in zip(card, cpu)),
+          "word2vec: card losses %s, CPU %s" % (card, cpu))
+    check(max(param_errs.values()) <= OPT_TOL,
+          "word2vec: params off the CPU's: %s" % param_errs)
+    check(len(entries) == 1 and entries[0].captures == 1,
+          "word2vec: graphs %s" % row["graphs"])
+    check(all(np.isfinite(card)), "word2vec losses %s" % card)
+
+
+# -- Transformer-base NMT -----------------------------------------------
+
+
+def nmt_program(amp=False, dropout=None):
+    """Transformer-base as ``models.transformer.get_model(**NMT)`` builds
+    it (bench.py:305-313), random weights from the seed; ``amp`` marks it
+    for bfloat16, ``dropout`` overrides the rate. Returns (main, startup,
+    handles)."""
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.contrib import mixed_precision
+    from paddle_tpu_torch.models import transformer
+
+    cfg = dict(NMT)
+    if dropout is not None:
+        cfg["dropout"] = dropout
+    with unique_name.guard():
+        main, startup, handles = transformer.get_model(**cfg)
+    main.random_seed = startup.random_seed = 2024
+    if amp:
+        mixed_precision.enable_bf16(main)
+    return main, startup, handles
+
+
+def nmt_feed(batch, seed):
+    from paddle_tpu_torch.models import transformer
+
+    return transformer.make_fake_batch(
+        batch, NMT["seq_len"], NMT["vocab_size"],
+        rng=np.random.RandomState(seed), varlen=True)
+
+
+def nmt_kernel_cases():
+    """The flash kernels' cases (KERNEL_CASES' form) at the shapes the
+    Transformer's training step gives them: B=32, H=8, T=256, D=64 at the
+    step's attention dropout, with the batch's source lengths (encoder
+    self and cross attention) and its target lengths (the causal decoder),
+    in float32 and in bfloat16 (AMP)."""
+    feed = nmt_feed(NMT["batch_size"], NMT_FEED_SEED)
+    B, H, T = NMT["batch_size"], NMT["n_heads"], NMT["seq_len"]
+    D, rate = NMT["d_model"] // H, NMT["dropout"]
+    cases = []
+    for dt in ("float32", "bfloat16"):
+        for causal, lens in ((False, feed["src_lens"]),
+                             (True, feed["trg_lens"])):
+            cases.append(("nmt_t256_%s%s_dropout_%g" % (
+                dt, "_causal" if causal else "", rate), B, H, T, T, D, dt,
+                causal, [int(n) for n in lens.reshape(-1)], None, rate))
+    return cases
+
+
+def nmt_steps(fa, main, startup, loss, feed, label, smi):
+    """NMT_STEPS steps of one program on a fresh captured executor:
+    losses, flash launches a step (every step 18 of each kernel, checked
+    against the profiler once), the eager first run's peak allocation,
+    one graph; then its step times. Returns (row, launches, executor,
+    scope)."""
+    import torch
+
+    import paddle_tpu_torch.fluid as fluid
+
+    want = [3 * NMT["n_layers"]] * 3
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    exe, scope = fresh(startup)
+    losses, per_step = [], []
+    release_memory()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.launches_dq = fa.launches_dkv = 0  # the path starts
+    with fluid.scope_guard(scope):
+        for step in range(NMT_STEPS):
+            before = step_counts(fa)
+            (out,) = exe.run(main, feed=feed, fetch_list=[loss])
+            losses.append(float(out.reshape(-1)[0]))
+            per_step.append([a - b for a, b in zip(step_counts(fa),
+                                                   before)])
+            if step == 0:
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.synchronize()
+    launches = flash_launches(fa)  # ... and ends here
+    with fluid.scope_guard(scope):
+        profiled, window, instances = flash_kernel_counts(
+            lambda: exe.run(main, feed=feed, fetch_list=[loss]),
+            dict(zip(names, want)))
+    release_memory()
+    entries = captured(exe.engine)
+    t = time_train_step(exe, scope, main, loss, feed)
+    tokens = int(feed["trg_lens"].sum())
+    row = {"phase": "nmt", "card": smi, "run": label, "batch":
+           NMT["batch_size"], "seq_len": NMT["seq_len"],
+           "target_tokens": tokens, "losses": losses,
+           "launches_per_step": per_step, "launches": launches,
+           "profiled_replay_launches": profiled,
+           "profiled_window": window, "flash_instances": instances,
+           "graphs": [(c.captures, c.replays) for c in entries],
+           "eager_first_run_peak_above_state_bytes": peak,
+           "memory_reserved_after_capture_bytes":
+           torch.cuda.memory_reserved(),
+           "target_tokens_per_s": tokens / (t["median_ms"] / 1e3)}
+    row.update({k: t[k] for k in ("median_ms", "min_ms", "max_ms",
+                                  "device_busy_ms", "device_idle_share",
+                                  "flash_kernels_ms", "top_kernels_ms")})
+    emit(row)
+    check(all(np.isfinite(losses)), "%s losses %s" % (label, losses))
+    check(per_step == [want] * NMT_STEPS
+          and profiled == dict(zip(names, want)),
+          "%s: flash launches a step %s, profiled %s, want %s"
+          % (label, per_step, profiled, want))
+    check(len(entries) == 1 and entries[0].captures == 1,
+          "%s: graphs %s" % (label, row["graphs"]))
+    return row, launches, exe, scope
+
+
+def _fused_attention_plain(ctx, ins, attrs):
+    """``fused_attention`` by the plain torch attention, on any device:
+    the witness that tells the kernel's part in a difference between the
+    card and the CPU from that of the card's other float32 sums."""
+    from paddle_tpu_torch.kernels.flash_attention import attention_lse_plain
+    from paddle_tpu_torch.ops.nn_ops import _attention_args
+
+    q, k, v, lens, rate, seed = _attention_args(ctx, ins, attrs)
+    out, lse = attention_lse_plain(q, k, v, lens, None, seed,
+                                   bool(attrs.get("causal", False)),
+                                   attrs.get("scale", None), rate)
+    return {"Out": [out], "Lse": [lse.unsqueeze(-1)]}
+
+
+def _fused_attention_grad_plain(ctx, ins, attrs):
+    """``fused_attention_grad`` by ``attention_bwd_plain``, on any
+    device, from the forward's saved Out and Lse (the witness of
+    ``_fused_attention_plain``)."""
+    import torch
+
+    from paddle_tpu_torch.kernels.flash_attention import attention_bwd_plain
+    from paddle_tpu_torch.ops.common import single
+    from paddle_tpu_torch.ops.nn_ops import _attention_args
+
+    q, k, v, lens, rate, seed = _attention_args(ctx, ins, attrs)
+    B, H, Tq = q.shape[:3]
+    g = single(ins, "Out@GRAD")
+    g = torch.zeros_like(q) if g is None else g.to(q.dtype).reshape(q.shape)
+    dq, dk, dv = attention_bwd_plain(
+        q, k, v, single(ins, "Out").to(q.dtype),
+        single(ins, "Lse").reshape(B, H, Tq), g, None, lens, None, seed,
+        bool(attrs.get("causal", False)), attrs.get("scale", None), rate)
+    return {"Q@GRAD": [dq], "K@GRAD": [dk], "V@GRAD": [dv]}
+
+
+PLAIN_ATTENTION = {"fused_attention": _fused_attention_plain,
+                   "fused_attention_grad": _fused_attention_grad_plain}
+
+
+def _relu_with_masks(masks):
+    """``relu`` and ``relu_grad`` lowerings that keep the elements another
+    run's relu kept, and pass their grads: ``masks`` maps each relu's
+    output name to that run's ``Out > 0``."""
+    import torch
+
+    from paddle_tpu_torch.ops.common import single
+
+    def relu(ctx, ins, attrs):
+        x = single(ins, "X")
+        keep = masks[ctx.op.output("Out")[0]].to(x.device)
+        return {"Out": [torch.where(keep, x, torch.zeros_like(x))]}
+
+    def relu_grad(ctx, ins, attrs):
+        g = single(ins, "Out@GRAD")
+        keep = masks[ctx.op.input("Out")[0]].to(g.device)
+        return {"X@GRAD": [torch.where(keep, g, torch.zeros_like(g))]}
+
+    return {"relu": relu, "relu_grad": relu_grad}
+
+
+def nmt_cpu_step():
+    """One Transformer-base step at batch NMT_CPU_BATCH and dropout 0
+    from one state: on the card (the flash kernels), on the card with the
+    plain torch attention in their place (PLAIN_ATTENTION), and on the
+    CPU. The loss end to end (TRAIN_TOL); every op of the step on the
+    CPU's operands (RESNET_OP_TOL), the attention ops also by the plain
+    attention on the card. A relu whose input lies within float32
+    rounding of 0 can decide the other way on the card than on the CPU,
+    and one such element moves its token's grads through every layer
+    below it by percents, so the end-to-end grads are also held against
+    the CPU run with each card run's relu decisions (``_relu_with_masks``):
+    the card's within TRAIN_TOL of it. Both card runs' decisions that
+    differ from the CPU's, and their end-to-end grads against both CPU
+    runs, are printed."""
+    import torch
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.core.registry import OpRegistry
+
+    main, startup, h = nmt_program(dropout=0.0)
+    state0 = start_state(main, startup)
+    params = [p.name for p in main.all_parameters()]
+    relus = [op.output("Out")[0] for op in main.desc.global_block().ops
+             if op.type == "relu"]
+    fetch = [h["loss"].name] + [p + "@GRAD" for p in params] + relus
+    feed2 = nmt_feed(NMT_CPU_BATCH, 72)
+
+    def run(place, lowers):
+        port = {t: OpRegistry.get(t).lower for t in lowers}
+        for t, fn in lowers.items():
+            OpRegistry.get(t).lower = fn
+        try:
+            scope = fluid.Scope()
+            convert.load_numpy_state(scope, state0, place.torch_device(),
+                                     program=main)
+            with fluid.scope_guard(scope):
+                out = fluid.Executor(place).run(main, feed=feed2,
+                                                fetch_list=fetch)
+        finally:
+            for t, fn in port.items():
+                OpRegistry.get(t).lower = fn
+        return {"loss": float(out[0].reshape(-1)[0]),
+                "grads": out[1:1 + len(params)],
+                "relu": dict(zip(relus, out[1 + len(params):]))}
+
+    def against(r, want):
+        rel = {n: float(np.abs(a - b).max()) / max(float(np.abs(b).max()),
+                                                   1e-30)
+               for n, a, b in zip(params, r["grads"], want["grads"])}
+        return {"loss_abs_err": abs(r["loss"] - want["loss"]),
+                "grads_rel_to_max": {n: rel[n] for n in NMT_GRADS},
+                "worst_grads_rel_to_max": sorted(
+                    rel.items(), key=lambda kv: -kv[1])[:5]}
+
+    cpu = run(fluid.CPUPlace(), {})
+    ends = {}
+    for label, lowers in (("card", {}),
+                          ("card_plain_attention", PLAIN_ATTENTION)):
+        r = run(fluid.CUDAPlace(0), lowers)
+        masks = {n: torch.from_numpy(v > 0) for n, v in r["relu"].items()}
+        pinned = run(fluid.CPUPlace(), _relu_with_masks(masks))
+        ends[label] = {
+            "relu_decisions_unlike_cpu": {
+                n: int(((v > 0) != (cpu["relu"][n] > 0)).sum())
+                for n, v in r["relu"].items()},
+            "against_cpu": against(r, cpu),
+            "against_cpu_with_its_relu_decisions": against(r, pinned)}
+        del r, masks, pinned
+    worst, _, witnessed = replay_ops_on_card(
+        main, state0, feed2, RESNET_OP_TOL,
+        witness={"fused_attention_grad": _fused_attention_grad_plain,
+                 "fused_attention": _fused_attention_plain})
+    del state0
+    by_slot = {}
+    for w in witnessed:
+        key = "%s %s" % (w["type"], w["slot"])
+        by_slot[key] = {k: max(by_slot.get(key, {}).get(k, 0.0), w[k])
+                        for k in ("port", "witness", "port_vs_witness")}
+    emit({"phase": "nmt", "cpu_step": {
+        "batch": NMT_CPU_BATCH, "dropout": 0.0, "loss_cpu": cpu["loss"],
+        "end_to_end": ends, "ops_worst_rel_to_max": worst,
+        "attention_ops_worst_rel_to_max": by_slot},
+        "tol": TRAIN_TOL, "op_tol": RESNET_OP_TOL})
+    emit({"phase": "nmt", "attention_ops_on_card": witnessed})
+    card = ends["card"]["against_cpu"]
+    check(card["loss_abs_err"] <= TRAIN_TOL["loss_rtol"] * abs(cpu["loss"]),
+          "nmt: card vs CPU loss error %g" % card["loss_abs_err"])
+    pinned = ends["card"]["against_cpu_with_its_relu_decisions"]
+    check(pinned["worst_grads_rel_to_max"][0][1]
+          <= TRAIN_TOL["grad_rel_to_max"],
+          "nmt: card vs CPU with the card's relu decisions: %s"
+          % pinned["worst_grads_rel_to_max"])
+
+
+def phase_nmt(fa, smi, name):
+    """Transformer-base NMT (NMT) on the card: the float32 and the AMP
+    step (captured, 18 launches of each kernel a step: 6 encoder, 6
+    causal decoder and 6 cross attentions), their times, memory and
+    mfu.* gauges, AMP's first loss against float32's; one step at batch 2
+    and dropout 0 against the CPU; the kernels at the Transformer's
+    shapes (T=256, causal and not, float32 and bfloat16). Returns
+    (launches by run, kernel rows)."""
+    import torch
+
+    feed = nmt_feed(NMT["batch_size"], NMT_FEED_SEED)
+    rows, launches = {}, {}
+    for amp in (False, True):
+        label = "nmt_amp" if amp else "nmt"
+        main, startup, h = nmt_program(amp=amp)
+        row, launches[label], exe, scope = nmt_steps(
+            fa, main, startup, h["loss"], feed, label, smi)
+        del exe, scope
+        release_memory()
+        peaks = MFU_PEAKS["H100" if "H100" in name else None]
+        row["mfu"] = mfu_run(label, main, startup, h["loss"], feed,
+                             peaks["bfloat16" if amp else "float32"],
+                             smi)["gauges"]
+        rows[label] = row
+        release_memory()
+    first_err = (abs(rows["nmt_amp"]["losses"][0] - rows["nmt"]["losses"][0])
+                 / abs(rows["nmt"]["losses"][0]))
+    emit({"phase": "nmt", "amp_first_loss_rel_err": first_err,
+          "tol": TRAIN_AMP_TOL})
+    check(first_err <= TRAIN_AMP_TOL["first_loss_rtol"],
+          "nmt: AMP first loss %g against float32 %g"
+          % (rows["nmt_amp"]["losses"][0], rows["nmt"]["losses"][0]))
+    check(rows["nmt_amp"]["flash_instances"] and all(
+        "bfloat16" in n for n in rows["nmt_amp"]["flash_instances"]),
+        "nmt AMP flash instances %s" % rows["nmt_amp"]["flash_instances"])
+
+    nmt_cpu_step()
+    release_memory()
+
+    # the kernels at the Transformer's shapes: the batch's source lengths
+    # (encoder, cross) and target lengths (the causal decoder)
+    B, H, T, D = (NMT["batch_size"], NMT["n_heads"], NMT["seq_len"],
+                  NMT["d_model"] // NMT["n_heads"])
+    kernel_rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).split(".")[-1]
+        for causal, lens in ((False, feed["src_lens"]),
+                             (True, feed["trg_lens"])):
+            case = "t256_%s%s" % (dt, "_causal" if causal else "")
+            lens = lens.reshape(-1).tolist()
+            fwd = time_kernel(fa, B, H, T, D, dtype, lens, causal=causal)
+            bwd = time_bwd_kernels(fa, B, H, T, D, dtype, lens,
+                                   causal=causal)
+            kernel_rows[case] = {"fwd": fwd, "bwd": bwd}
+            emit(dict({"phase": "times", "kernel": "flash_fwd",
+                       "case": "nmt_" + case, "peaks": PEAKS}, **fwd))
+            emit(dict({"phase": "times", "kernel": "flash_bwd",
+                       "case": "nmt_" + case, "peaks": PEAKS}, **bwd))
+    return launches, kernel_rows
+
+
 def release_memory():
     """Free what no live object holds, CUDA graphs and their pools too,
     and return the cached blocks to the card."""
@@ -2769,8 +3498,10 @@ def main():
                if v["spill_stores"] or v["spill_loads"]]
     check(ptxas and not spilled, "ptxas spills in %s" % spilled)
 
-    worst = phase_kernel(fa)
-    worst_bwd = phase_kernel_bwd(fa)
+    # KERNEL_CASES, then the kernels at the Transformer's shapes
+    nmt_cases = nmt_kernel_cases()
+    worst = phase_kernel(fa, nmt_cases)
+    worst_bwd = phase_kernel_bwd(fa, nmt_cases)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_bert_") as model_dir:
         predictor, serve_launches, feed8 = phase_serve(fa, model_dir)
         batched_launches = phase_serve_batched(fa, predictor, smi)
@@ -2819,6 +3550,12 @@ def main():
     r_pipe_launches = phase_resnet50_pipelined(fa, r_main, r_startup,
                                                r_loss, smi)
     phase_mfu(smi, torch.cuda.get_device_name(0))
+    release_memory()
+
+    # the two north-star models: DeepFM (sparse grads) and Transformer NMT
+    ctr_launches = phase_ctr(fa, smi)
+    phase_word2vec(smi)
+    nmt_launches, t256 = phase_nmt(fa, smi, torch.cuda.get_device_name(0))
     emit({"phase": "times", "partial_profiler_windows_rerun":
           len(PARTIAL_PROFILES), "partial_windows": PARTIAL_PROFILES})
     other_paths = {"resnet50_serve": r_serve_launches,
@@ -2827,6 +3564,20 @@ def main():
                     "resnet50_pipelined": r_pipe_launches}
     other_paths.update(("bert_recipe_" + p, n)
                         for p, n in recipe_launches.items())
+    other_paths["ctr"] = dict(zip(("flash_fwd", "flash_bwd_dq",
+                                   "flash_bwd_dkv"), ctr_launches))
+    other_paths.update(nmt_launches)
+
+    def t256_rows(name):
+        # the kernel at the Transformer's shapes (B=32 H=8 T=256 D=64)
+        out = {}
+        for case, r in t256.items():
+            row = r["fwd"] if name == "flash_fwd" else dict(
+                r["bwd"][name], plain_ms=r["bwd"]["plain_ms"],
+                library_ms=r["bwd"]["library_ms"])
+            out[case] = {k: row[k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+        return out
 
     # launches: the training path's (forward, dQ and dK/dV each 12 a
     # step, counted across replays); the forward's on the served paths and
@@ -2853,7 +3604,8 @@ def main():
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
-        "bf16": bf16(main_bf16_row, amp_launches["flash_fwd"])}]
+        "bf16": bf16(main_bf16_row, amp_launches["flash_fwd"]),
+        "nmt_t256": t256_rows("flash_fwd")}]
     for name, line in (("flash_bwd_dq", 269), ("flash_bwd_dkv", 328)):
         kernels.append({
             "name": name, "route": "cuda", "design": DESIGN, "seed": SEED,
@@ -2871,7 +3623,8 @@ def main():
             "bf16": bf16(dict(bwd_bf16_row[name],
                               plain_ms=bwd_bf16_row["plain_ms"],
                               library_ms=bwd_bf16_row["library_ms"]),
-                         amp_launches[name])})
+                         amp_launches[name]),
+            "nmt_t256": t256_rows(name)})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -21,6 +21,13 @@ RNG stream id of an op that draws a dropout seed under its attrs
 forward's slot by the same id, so it re-derives the same mask. It also
 says whether a CUDA graph may hold the block: every op's lowering is
 capturable (``OpInfo.capturable``), decided from the desc alone.
+
+A sparse grad (``core/selected_rows.py``) lives only inside one run of a
+block: each lowering densifies whatever leaves it, a fetch or a state
+write-back (lowering.py:230-237), like the reference's GetFetchVariable
+materializing a SelectedRows; under accumulation the micro-batches'
+sparse grads concatenate their rows, scaled by 1/k (``_mean_stacked``,
+:654).
 """
 
 import torch
@@ -29,6 +36,7 @@ from paddle_tpu_torch import ops as _ops  # noqa: F401  (registers lowerings)
 from paddle_tpu_torch.core.registry import (
     OpRegistry, LowerContext, amp_scope, draw_seed,
 )
+from paddle_tpu_torch.core.selected_rows import SelectedRows, densify
 
 # Ops that are pure host-side markers and skipped during execution.
 _SKIP_OPS = frozenset({"feed", "fetch"})
@@ -182,11 +190,25 @@ def lower_block(block_program, device, is_test=False, executor=None,
             for op_index, op in enumerate(block_program.ops):
                 run_op(op, block, env, device, rng_seed, op_index, is_test,
                        executor, seeds)
-        fetches = [env[n] for n in block_program.fetch_names]
-        state_out = [env[n] for n in block_program.state_out_names]
-        return fetches, state_out
+        return _block_outputs(block_program, env)
 
     return fn
+
+
+def _block_outputs(block_program, env):
+    """(fetches, state outputs) of a run's env, sparse grads densified."""
+    return ([densify(env[n]) for n in block_program.fetch_names],
+            [densify(env[n]) for n in block_program.state_out_names])
+
+
+def _mean_micro(vals, k):
+    """The average of one grad over ``k`` micro-batches; sparse grads
+    concatenate their rows, each value scaled by 1/k."""
+    if isinstance(vals[0], SelectedRows):
+        return SelectedRows(torch.cat([s.rows for s in vals]),
+                            torch.cat([s.values / k for s in vals]),
+                            vals[0].height)
+    return torch.stack(vals).mean(0)
 
 
 def run_op(op, block, env, device, rng_seed, op_index, is_test,
@@ -374,14 +396,14 @@ def lower_block_accumulated(block_program, k, device, is_test=False,
             for acc, n in zip(cross, cross_names):
                 acc.append(env[n])
             for acc, n in zip(fetched, fetch_loop):
-                acc.append(env[n])
+                acc.append(densify(env[n]))
         last = {n: env[n] for n in last_names}
 
         env = dict(base)
         env.update(zip(carry_names, carry))
         env.update(last)
         for n, vals in zip(cross_names, cross):
-            env[n] = torch.stack(vals).mean(0)
+            env[n] = _mean_micro(vals, k)
         with amp_scope(amp):
             for i, op in once_ops:
                 run_op(op, block, env, device, rng_seed, i, is_test,
@@ -392,7 +414,7 @@ def lower_block_accumulated(block_program, k, device, is_test=False,
         fetches = []
         for n in block_program.fetch_names:
             if n not in fetch_map:
-                fetches.append(env[n])
+                fetches.append(densify(env[n]))
                 continue
             s = torch.stack(fetch_map[n])
             # per-example fetches (leading dim == the micro-batch size)
@@ -403,7 +425,7 @@ def lower_block_accumulated(block_program, k, device, is_test=False,
             else:
                 fetches.append((s if s.is_floating_point()
                                 else s.float()).mean(0))
-        state_out = [env[n] for n in block_program.state_out_names]
+        state_out = [densify(env[n]) for n in block_program.state_out_names]
         return fetches, state_out
 
     return fn
@@ -622,8 +644,6 @@ def lower_block_remat(block_program, n_segments, device, is_test=False,
             for j, op in tail_ops:
                 run_op(op, block, out, device, rng_seed, j, is_test,
                        executor, seeds)
-        fetches = [out[n] for n in block_program.fetch_names]
-        state_out = [out[n] for n in block_program.state_out_names]
-        return fetches, state_out
+        return _block_outputs(block_program, out)
 
     return fn

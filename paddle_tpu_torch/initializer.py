@@ -3,8 +3,9 @@
 Port of ``paddle_tpu/initializer.py`` (reference:
 python/paddle/fluid/initializer.py): Constant (``fill_constant``),
 Uniform (``uniform_random``), Normal (``gaussian_random``),
-TruncatedNormal (``truncated_gaussian_random``), and Xavier and MSRA,
-uniform or normal, with the reference's fan rules.
+TruncatedNormal (``truncated_gaussian_random``), Xavier and MSRA,
+uniform or normal, with the reference's fan rules, and NumpyArray
+(``assign_value``, the values written into the desc).
 """
 
 import math
@@ -126,6 +127,31 @@ class MSRAInitializer(Initializer):
         else:
             std = math.sqrt(2.0 / fi)
             NormalInitializer(0.0, std, self.seed)(var, block)
+
+
+class NumpyArrayInitializer(Initializer):
+    """The array's values as an ``assign_value`` op (initializer.py:136):
+    floats in ``fp32_values`` as Python floats, so the desc's JSON holds
+    the same digits as the JAX package's."""
+
+    def __init__(self, value):
+        self.value = np.asarray(value)
+
+    def __call__(self, var, block):
+        arr = self.value
+        if arr.dtype in (np.float32, np.float64, np.float16):
+            key, vals = "fp32_values", [float(v) for v in arr.flatten()]
+        else:
+            key, vals = "int32_values", [int(v) for v in arr.flatten()]
+        block.append_op(
+            type="assign_value",
+            outputs={"Out": [var]},
+            attrs={
+                "shape": list(arr.shape),
+                "dtype": int(var.dtype),
+                key: vals,
+            },
+        )
 
 
 # Reference-compatible aliases

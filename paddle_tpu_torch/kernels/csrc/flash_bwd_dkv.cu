@@ -270,7 +270,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int j = 0; j < kN; ++j) {
           const int off = (8 * j + g) * kStride + 8 * c + t;
           flash::mma_3xtf32(s[j], ak, q_t[off], q_t[off + 4]);
-          flash::mma_3xtf32(dp[j], av, do_t[off], do_t[off + 4]);
+          flash::mma_3xtf32_acc<kD <= 64>(dp[j], av, do_t[off],
+                                          do_t[off + 4]);
         }
       }
     }
@@ -334,10 +335,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int r1 = (8 * j + flash::tf32_b_row(t, 1)) * kStride + g;
 #pragma unroll
         for (int dt = 0; dt < kD / 8; ++dt) {
-          flash::mma_3xtf32(dv_acc[dt], ap, do_t[r0 + 8 * dt],
-                            do_t[r1 + 8 * dt]);
-          flash::mma_3xtf32(dk_acc[dt], as, q_t[r0 + 8 * dt],
-                            q_t[r1 + 8 * dt]);
+          flash::mma_3xtf32_acc<kD <= 64>(dv_acc[dt], ap,
+                                          do_t[r0 + 8 * dt],
+                                          do_t[r1 + 8 * dt]);
+          flash::mma_3xtf32_acc<kD <= 64>(dk_acc[dt], as,
+                                          q_t[r0 + 8 * dt],
+                                          q_t[r1 + 8 * dt]);
         }
       }
     }

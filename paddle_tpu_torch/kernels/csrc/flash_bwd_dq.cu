@@ -231,7 +231,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int j = 0; j < kNTiles; ++j) {
           const int off = (8 * j + g) * kStride + 8 * c + t;
           flash::mma_3xtf32(s[j], aq, k_s[off], k_s[off + 4]);
-          flash::mma_3xtf32(dp[j], ado, v_s[off], v_s[off + 4]);
+          flash::mma_3xtf32_acc<kD <= 64>(dp[j], ado, v_s[off],
+                                          v_s[off + 4]);
         }
       }
     }
@@ -293,7 +294,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const T* k1r = k_s + (8 * j + flash::tf32_b_row(t, 1)) * kStride + g;
 #pragma unroll
         for (int dt = 0; dt < kD / 8; ++dt) {
-          flash::mma_3xtf32(acc[dt], a, k0r[8 * dt], k1r[8 * dt]);
+          flash::mma_3xtf32_acc<kD <= 64>(acc[dt], a, k0r[8 * dt],
+                                          k1r[8 * dt]);
         }
       }
     }

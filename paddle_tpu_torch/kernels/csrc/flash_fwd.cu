@@ -305,7 +305,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float* v1 = v_s + (8 * j + flash::tf32_b_row(t, 1)) * kStride + g;
 #pragma unroll
         for (int dt = 0; dt < kD / 8; ++dt) {
-          flash::mma_3xtf32(acc[dt], a, v0[8 * dt], v1[8 * dt]);
+          flash::mma_3xtf32_acc<kD <= 64>(acc[dt], a, v0[8 * dt],
+                                          v1[8 * dt]);
         }
       }
     }

@@ -99,6 +99,33 @@ __device__ __forceinline__ void mma_3xtf32(float c[4], const Tf32A& a,
   mma_tf32(c, a.big, b_big);
 }
 
+// c += a * b in the 3xTF32 form into an accumulator that runs over many
+// steps (P.V over the keys, dQ over the keys, dK and dV over the queries)
+// or whose sum cancels (dP, from which dS = P * (dP - delta)). With
+// kStepwise the step's three products are summed from zero and added to c
+// by a float32 add, which rounds to nearest. Chained into c, every step's
+// addition is the tensor cores', which cuts rather than rounds, so the sum
+// drifts towards zero (out by about 3e-6 of itself over 256 keys; the
+// model in tests/test_torch_flash_tolerances.py), and dP - delta, where the
+// two nearly cancel, carries it. On a Transformer-base step at random init
+// (H100) the decoder's query and key projection grads then came 1.5e-3 of
+// their largest element from the CPU's, and 4.3e-4 summed a step at a
+// time (the plain attention on the card: 3.6e-4). The head-dim-128
+// float32 instances stay chained: the step's four floats make ptxas spill
+// them at 255 registers.
+template <bool kStepwise>
+__device__ __forceinline__ void mma_3xtf32_acc(float c[4], const Tf32A& a,
+                                               float b0, float b1) {
+  if constexpr (kStepwise) {
+    float t[4] = {0.f, 0.f, 0.f, 0.f};
+    mma_3xtf32(t, a, b0, b1);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[i] += t[i];
+  } else {
+    mma_3xtf32(c, a, b0, b1);
+  }
+}
+
 // The A fragment of a TF32 product from one C fragment (see the top of this
 // file): the depth index is permuted so no value moves between lanes.
 __device__ __forceinline__ Tf32A c_to_tf32_a(const float c[4]) {

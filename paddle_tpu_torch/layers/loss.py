@@ -1,9 +1,10 @@
 """Loss layers — port of ``paddle_tpu/layers/loss.py`` for
-``softmax_with_cross_entropy`` (loss.py:33)."""
+``softmax_with_cross_entropy`` (loss.py:33) and
+``sigmoid_cross_entropy_with_logits`` (:65)."""
 
 from paddle_tpu_torch.layer_helper import LayerHelper
 
-__all__ = ["softmax_with_cross_entropy"]
+__all__ = ["softmax_with_cross_entropy", "sigmoid_cross_entropy_with_logits"]
 
 
 def softmax_with_cross_entropy(logits, label, soft_label=False,
@@ -25,3 +26,16 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     if return_softmax:
         return loss, softmax_out
     return loss
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100, name=None,
+                                      normalize=False):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(
+        type="sigmoid_cross_entropy_with_logits",
+        inputs={"X": [x], "Label": [label]},
+        outputs={"Out": [out]},
+        attrs={"ignore_index": ignore_index, "normalize": normalize},
+    )
+    return out

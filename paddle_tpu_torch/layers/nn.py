@@ -1,6 +1,6 @@
 """NN layers — port of ``paddle_tpu/layers/nn.py`` (reference:
 python/paddle/fluid/layers/nn.py), for the layer functions the BERT,
-ResNet and MNIST models need.
+ResNet, MNIST, Transformer and CTR models need.
 Each function appends the same op, slots and attrs as its JAX-package
 counterpart (cited beside it), so the two front ends build identical
 descs."""
@@ -38,7 +38,12 @@ __all__ = [
     "reduce_sum",
     "relu",
     "mean",
+    "scale",
     "sum",
+    "one_hot",
+    "label_smooth",
+    "merge_selected_rows",
+    "get_tensor_from_selected_rows",
 ]
 
 
@@ -478,6 +483,23 @@ def mean(x, name=None):
     return out
 
 
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
+    """(nn.py:1048)."""
+    helper = LayerHelper("scale", name=name, act=act)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(
+        type="scale",
+        inputs={"X": [x]},
+        outputs={"Out": [out]},
+        attrs={
+            "scale": float(scale),
+            "bias": float(bias),
+            "bias_after_scale": bias_after_scale,
+        },
+    )
+    return helper.append_activation(out)
+
+
 def sum(x):
     """(nn.py:1064)."""
     helper = LayerHelper("sum")
@@ -485,6 +507,46 @@ def sum(x):
     out = helper.create_variable_for_type_inference(dtype=x[0].dtype)
     helper.append_op(type="sum", inputs={"X": x}, outputs={"Out": [out]})
     return out
+
+
+def one_hot(input, depth):
+    """(nn.py:837)."""
+    helper = LayerHelper("one_hot")
+    out = helper.create_variable_for_type_inference(dtype="float32")
+    helper.append_op(
+        type="one_hot",
+        inputs={"X": [input]},
+        outputs={"Out": [out]},
+        attrs={"depth": depth},
+    )
+    out.stop_gradient = True
+    return out
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    """(nn.py:864)."""
+    helper = LayerHelper("label_smooth", name=name)
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    helper.append_op(
+        type="label_smooth",
+        inputs={"X": [label]},
+        outputs={"Out": [out]},
+        attrs={"epsilon": float(epsilon)},
+    )
+    return out
+
+
+def merge_selected_rows(x, name=None):
+    """(nn.py:2238) The identity: a sparse grad is merged inside the
+    lowerings that need unique rows (``core/selected_rows.py``)."""
+    return x
+
+
+def get_tensor_from_selected_rows(x, name=None):
+    """(nn.py:2245) The identity: whatever a run fetches is already
+    dense (``engine/lowering.py``)."""
+    return x
 
 
 def fused_attention(q, k, v, causal=False, scale=None, seq_lens=None,

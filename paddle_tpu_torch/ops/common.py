@@ -32,13 +32,13 @@ def fp32_accum(x):
 
 def amp_cast(*xs):
     """Under AMP, float32 operands cast to bfloat16, the compute dtype
-    (common.py:19); anything else passes through. One argument in, one
-    out."""
+    (common.py:19), a ``SelectedRows`` its values; anything else passes
+    through. One argument in, one out."""
     if not amp_enabled():
         return xs if len(xs) > 1 else xs[0]
     out = tuple(
-        x.to(torch.bfloat16)
-        if isinstance(x, torch.Tensor) and x.dtype == torch.float32 else x
+        x.to(torch.bfloat16) if getattr(x, "dtype", None) == torch.float32
+        else x
         for x in xs)
     return out if len(out) > 1 else out[0]
 

@@ -1,13 +1,15 @@
 """Loss ops — port of ``paddle_tpu/ops/loss_ops.py`` for
 ``softmax_with_cross_entropy`` (:33), its direct grad
-``softmax_with_cross_entropy_grad`` (:341), ``mean`` (:81) and
-``squared_l2_norm`` (:93). Losses
-compute in float32 whatever the logits' dtype, as in the reference."""
+``softmax_with_cross_entropy_grad`` (:341), ``mean`` (:81),
+``squared_l2_norm`` (:93), dense or a ``SelectedRows``, and
+``sigmoid_cross_entropy_with_logits`` (:116). The softmax losses compute
+in float32 whatever the logits' dtype, as in the reference."""
 
 import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch.core.registry import register_no_grad_op, register_op
+from paddle_tpu_torch.core.selected_rows import SelectedRows
 from paddle_tpu_torch.ops.common import single
 
 
@@ -82,5 +84,28 @@ def mean(ctx, ins, attrs):
 
 @register_op("squared_l2_norm")
 def squared_l2_norm(ctx, ins, attrs):
-    """sum(x**2) as a [1] tensor (the global-norm clip's per-grad term)."""
-    return {"Out": [torch.sum(torch.square(single(ins, "X"))).reshape(1)]}
+    """sum(x**2) as a [1] tensor (the global-norm clip's per-grad term);
+    a ``SelectedRows`` merges its duplicate rows first (the sentinel
+    rows' zeros add nothing)."""
+    x = single(ins, "X")
+    if isinstance(x, SelectedRows):
+        x = x.merged().values
+    return {"Out": [torch.sum(torch.square(x)).reshape(1)]}
+
+
+@register_op("sigmoid_cross_entropy_with_logits", no_grad_inputs=("Label",))
+def sigmoid_cross_entropy_with_logits(ctx, ins, attrs):
+    """max(x, 0) - x * label + log(1 + exp(-|x|)) elementwise, zero where
+    the label is ``ignore_index``; with ``normalize`` divided by the
+    count of labels that are not."""
+    x = single(ins, "X")
+    label = single(ins, "Label")
+    ignore_index = attrs.get("ignore_index", -100)
+    loss = (torch.clamp(x, min=0.0) - x * label
+            + torch.log1p(torch.exp(-torch.abs(x))))
+    ignored = label == ignore_index
+    loss = torch.where(ignored, torch.zeros_like(loss), loss)
+    if attrs.get("normalize", False):
+        n_valid = torch.clamp((~ignored).sum().to(x.dtype), min=1.0)
+        loss = loss / n_valid
+    return {"Out": [loss]}

@@ -4,11 +4,11 @@ and its grad (:94), ``pool2d`` (:149), ``batch_norm`` (:215) and its
 direct grad ``batch_norm_grad`` (:271), the ``sync_batch_norm`` alias
 (:331), ``fused_attention`` (:379) and its direct grad
 ``fused_attention_grad`` (:414), ``layer_norm`` (:480), ``dropout``
-(:506), ``lookup_table`` (:527) and its dense grad ``lookup_table_grad``
-(:538). ``pool2d``, ``layer_norm`` and ``dropout`` have no grad lowering
-of their own: the engine derives theirs as ``torch.func.vjp`` of the
-forward (``engine/lowering.py``), which re-draws the forward's dropout
-mask from the same seed.
+(:506), ``lookup_table`` (:527) and its grad ``lookup_table_grad``
+(:538), dense or a ``SelectedRows``. ``pool2d``, ``layer_norm`` and
+``dropout`` have no grad lowering of their own: the engine derives
+theirs as ``torch.func.vjp`` of the forward (``engine/lowering.py``),
+which re-draws the forward's dropout mask from the same seed.
 
 Convolutions run through cuDNN (``torch.nn.functional.conv2d``) in NCHW,
 the reference's layout; their grads are cuDNN's backward-data and
@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch.core.registry import register_no_grad_op, register_op
+from paddle_tpu_torch.core.selected_rows import SelectedRows
 from paddle_tpu_torch.ops.common import (
     amp_cast, flatten_lookup_ids, fp32_accum, hash_keep_mask, single,
 )
@@ -413,19 +414,17 @@ def lookup_table(ctx, ins, attrs):
 
 @register_no_grad_op("lookup_table_grad")
 def lookup_table_grad(ctx, ins, attrs):
-    """Dense table gradient (reference: lookup_table_op.cc grad kernel):
-    the output grads scatter-added into a zero table at the batch's ids,
-    padding rows contributing nothing. The scatter is ``index_put_`` with
-    ``accumulate=True``, whose CUDA path sorts the ids and adds each row's
-    grads in a fixed order, so repeated steps agree bit for bit (as the
-    reference's ``.at[rows].add`` does); ``index_add_`` adds with float
-    atomics on CUDA, in an order that changes from run to run."""
-    if attrs.get("is_sparse", False):
-        raise NotImplementedError(
-            "lookup_table_grad with is_sparse=True makes a SelectedRows "
-            "gradient, which is not ported yet (ROADMAP Queue 1, the "
-            "training path); build the embedding with "
-            "is_sparse=False")
+    """The table gradient (reference: lookup_table_op.cc grad kernel and
+    its SelectedRows path, framework/selected_rows.h:32), padding rows
+    contributing nothing. With ``is_sparse=True`` it is a
+    ``SelectedRows`` (rows = the batch's ids, values = the output grads)
+    and no table-sized tensor is built; the optimizer lowerings update the
+    rows. Dense, the output grads scatter-add into a zero table with
+    ``index_put_(accumulate=True)``, whose CUDA path sorts the ids and
+    adds each row's grads in a fixed order, so repeated steps agree bit
+    for bit (as the reference's ``.at[rows].add`` does); ``index_add_``
+    adds with float atomics on CUDA, in an order that changes from run to
+    run."""
     w = single(ins, "W")
     rows = flatten_lookup_ids(single(ins, "Ids")).reshape(-1).long()
     vals = single(ins, "Out@GRAD").reshape(
@@ -434,4 +433,6 @@ def lookup_table_grad(ctx, ins, attrs):
     if padding_idx is not None and padding_idx >= 0:
         vals = torch.where((rows == padding_idx).unsqueeze(-1),
                            torch.zeros_like(vals), vals)
+    if attrs.get("is_sparse", False):
+        return {"W@GRAD": [SelectedRows(rows, vals, w.shape[0])]}
     return {"W@GRAD": [_scatter_rows(w, rows, vals)]}

@@ -2,21 +2,23 @@
 ``sgd`` (:14), ``momentum`` (:28), ``lars_momentum`` (:57), ``adam``
 (:80), ``adamax`` (:120), ``adagrad`` (:145), ``decayed_adagrad`` (:168),
 ``adadelta`` (:183), ``rmsprop`` (:208), ``ftrl`` (:245) and
-``model_average_accum`` (:276), dense gradients only (reference:
-paddle/fluid/operators/optimizers/). Each returns new tensors for its
-``*Out`` slots, which the engine binds to the same persistable names and
-writes back to the scope after the run (in place under capture); each
-keeps the reference's ``inplace_map``.
+``model_average_accum`` (:276) (reference: paddle/fluid/operators/optimizers/). Each returns
+new tensors for its ``*Out`` slots, which the engine binds to the same
+persistable names and writes back to the scope after the run (in place
+under capture); each keeps the reference's ``inplace_map``.
 
-The JAX package also takes a ``SelectedRows`` (sparse) gradient here; the
-port has no SelectedRows type yet (ROADMAP Queue 1, the training path),
-and ``lookup_table_grad``, the only op that would make one, raises
-``NotImplementedError`` for ``is_sparse=True``.
+A ``SelectedRows`` (sparse) gradient takes a row-wise branch in ``sgd``,
+``momentum``, ``adam`` (lazy: only the batch's rows move) and
+``adagrad``, as in the JAX package (:19, :38, :100, :152); the other
+updates densify it. Each sum into rows is ``index_put_`` with
+``accumulate=True`` (a fixed order on CUDA), and each set writes merged,
+unique rows (``core/selected_rows.py``).
 """
 
 import torch
 
 from paddle_tpu_torch.core.registry import register_no_grad_op
+from paddle_tpu_torch.core.selected_rows import SelectedRows, densify
 from paddle_tpu_torch.ops.common import single
 
 
@@ -25,6 +27,11 @@ def sgd(ctx, ins, attrs):
     p = single(ins, "Param")
     g = single(ins, "Grad")
     lr = single(ins, "LearningRate").reshape(())
+    if isinstance(g, SelectedRows):
+        # sparse SGD (reference: sgd_op.cc's SelectedRows kernel): a
+        # scatter-add, duplicates summing, which is the dense update since
+        # it is linear in the gradient
+        return {"ParamOut": [g.add_rows(p, -lr * g.values.to(p.dtype))]}
     return {"ParamOut": [p - lr * g]}
 
 
@@ -37,8 +44,19 @@ def momentum(ctx, ins, attrs):
     v = single(ins, "Velocity")
     lr = single(ins, "LearningRate").reshape(())
     mu = attrs.get("mu")
+    use_nesterov = attrs.get("use_nesterov", False)
+    if isinstance(g, SelectedRows):
+        # the dense update without a dense grad: the velocity decays on
+        # every row, and the gradient enters linearly (no merge needed)
+        gv = g.values.to(p.dtype)
+        v_out = g.add_rows(mu * v, gv)
+        if use_nesterov:
+            p_out = g.add_rows(p - lr * mu * v_out, -lr * gv)
+        else:
+            p_out = p - lr * v_out
+        return {"ParamOut": [p_out], "VelocityOut": [v_out]}
     v_out = mu * v + g
-    if attrs.get("use_nesterov", False):
+    if use_nesterov:
         p_out = p - (g + mu * v_out) * lr
     else:
         p_out = p - lr * v_out
@@ -65,6 +83,17 @@ def adam(ctx, ins, attrs):
     b2 = attrs.get("beta2", 0.999)
     eps = attrs.get("epsilon", 1e-8)
     lr_t = lr * torch.sqrt(1.0 - b2p) / (1.0 - b1p)
+    if isinstance(g, SelectedRows):
+        # lazy Adam (reference: adam_op.h SparseAdamFunctor): only the
+        # rows in the gradient update their moments and param; the others
+        # keep stale moments rather than decaying every step
+        m = g.merged()
+        vals = m.values.to(p.dtype)
+        m1r = b1 * m.gather_rows(m1) + (1.0 - b1) * vals
+        m2r = b2 * m.gather_rows(m2) + (1.0 - b2) * torch.square(vals)
+        p_out = m.add_rows(p, -lr_t * m1r / (torch.sqrt(m2r) + eps))
+        return {"ParamOut": [p_out], "Moment1Out": [m.set_rows(m1, m1r)],
+                "Moment2Out": [m.set_rows(m2, m2r)]}
     m1o = b1 * m1 + (1.0 - b1) * g
     m2o = b2 * m2 + (1.0 - b2) * torch.square(g)
     p_out = p - lr_t * m1o / (torch.sqrt(m2o) + eps)
@@ -76,7 +105,7 @@ def adam(ctx, ins, attrs):
 )
 def lars_momentum(ctx, ins, attrs):
     p = single(ins, "Param")
-    g = single(ins, "Grad")
+    g = densify(single(ins, "Grad"))
     v = single(ins, "Velocity")
     lr = single(ins, "LearningRate").reshape(())
     mu = attrs.get("mu")
@@ -104,7 +133,7 @@ def lars_momentum(ctx, ins, attrs):
 )
 def adamax(ctx, ins, attrs):
     p = single(ins, "Param")
-    g = single(ins, "Grad")
+    g = densify(single(ins, "Grad"))
     m = single(ins, "Moment")
     inf = single(ins, "InfNorm")
     lr = single(ins, "LearningRate").reshape(())
@@ -128,6 +157,14 @@ def adagrad(ctx, ins, attrs):
     m = single(ins, "Moment")
     lr = single(ins, "LearningRate").reshape(())
     eps = attrs.get("epsilon", 1e-6)
+    if isinstance(g, SelectedRows):
+        # exactly dense Adagrad: a zero-grad row changes neither moment
+        # nor param (reference: adagrad_op.cc's sparse kernel)
+        sr = g.merged()
+        vals = sr.values.to(p.dtype)
+        mr = sr.gather_rows(m) + torch.square(vals)
+        p_out = sr.add_rows(p, -lr * vals / (torch.sqrt(mr) + eps))
+        return {"ParamOut": [p_out], "MomentOut": [sr.set_rows(m, mr)]}
     m_out = m + torch.square(g)
     p_out = p - lr * g / (torch.sqrt(m_out) + eps)
     return {"ParamOut": [p_out], "MomentOut": [m_out]}
@@ -138,7 +175,7 @@ def adagrad(ctx, ins, attrs):
 )
 def decayed_adagrad(ctx, ins, attrs):
     p = single(ins, "Param")
-    g = single(ins, "Grad")
+    g = densify(single(ins, "Grad"))
     m = single(ins, "Moment")
     lr = single(ins, "LearningRate").reshape(())
     decay = attrs.get("decay", 0.95)
@@ -158,7 +195,7 @@ def decayed_adagrad(ctx, ins, attrs):
 )
 def adadelta(ctx, ins, attrs):
     p = single(ins, "Param")
-    g = single(ins, "Grad")
+    g = densify(single(ins, "Grad"))
     asg = single(ins, "AvgSquaredGrad")
     asu = single(ins, "AvgSquaredUpdate")
     rho = attrs.get("rho", 0.95)
@@ -184,7 +221,7 @@ def adadelta(ctx, ins, attrs):
 )
 def rmsprop(ctx, ins, attrs):
     p = single(ins, "Param")
-    g = single(ins, "Grad")
+    g = densify(single(ins, "Grad"))
     mom = single(ins, "Moment")
     ms = single(ins, "MeanSquare")
     mg = single(ins, "MeanGrad")
@@ -218,7 +255,7 @@ def rmsprop(ctx, ins, attrs):
 )
 def ftrl(ctx, ins, attrs):
     p = single(ins, "Param")
-    g = single(ins, "Grad")
+    g = densify(single(ins, "Grad"))
     sq = single(ins, "SquaredAccumulator")
     lin = single(ins, "LinearAccumulator")
     lr = single(ins, "LearningRate").reshape(())

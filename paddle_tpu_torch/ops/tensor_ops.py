@@ -1,9 +1,10 @@
 """Tensor creation/manipulation ops — port of
 ``paddle_tpu/ops/tensor_ops.py`` for ``fill_constant`` (:18),
 ``uniform_random`` (:42), ``gaussian_random`` (:54),
-``truncated_gaussian_random`` (:65), ``reshape2`` (:103), ``transpose2``
-(:125), ``slice`` (:183), ``top_k`` (:225), ``top_k_grad`` (:233) and
-``increment`` (:329).
+``truncated_gaussian_random`` (:65), ``cast`` (:76), ``concat`` (:83),
+``reshape2`` (:103), ``transpose2`` (:125), ``slice`` (:183), ``top_k``
+(:225), ``top_k_grad`` (:233), ``one_hot`` (:272), ``label_smooth``
+(:299), ``increment`` (:329) and ``assign_value`` (:337).
 
 The random ops draw float32 on the op's device from its (seed, run, op)
 stream and cast, as the reference draws float32 and casts; their bits
@@ -13,10 +14,14 @@ these ops are not capturable (they run in startup programs, eagerly)."""
 
 import math
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from paddle_tpu_torch.core.registry import register_op, register_no_grad_op
-from paddle_tpu_torch.core.types import VarType, convert_dtype_to_torch
+from paddle_tpu_torch.core.types import (
+    VarType, convert_dtype_to_np, convert_dtype_to_torch,
+)
 from paddle_tpu_torch.ops.common import single
 
 
@@ -79,6 +84,16 @@ def _draw(ctx, attrs, draw):
     return {"Out": [out.to(dtype)]}
 
 
+@register_op("cast")
+def cast(ctx, ins, attrs):
+    return {"Out": [single(ins, "X").to(_torch_dtype(attrs.get("out_dtype")))]}
+
+
+@register_op("concat")
+def concat(ctx, ins, attrs):
+    return {"Out": [torch.cat(ins.get("X", []), dim=attrs.get("axis", 0))]}
+
+
 def _xshape(x):
     # XShape carries the input shape behind a leading 0 dim (no data)
     return torch.empty((0,) + tuple(x.shape), dtype=x.dtype, device=x.device)
@@ -130,6 +145,29 @@ def top_k_grad(ctx, ins, attrs):
     return {"X@GRAD": [torch.zeros_like(x).scatter_add_(-1, idx, g)]}
 
 
+@register_no_grad_op("one_hot")
+def one_hot(ctx, ins, attrs):
+    """float32 one-hot rows of depth ``depth``; a trailing dim of 1 is
+    squeezed. An id outside [0, depth) gives a zero row, as in the JAX
+    package."""
+    ids = single(ins, "X")
+    if ids.ndim >= 2 and ids.shape[-1] == 1:
+        ids = ids.squeeze(-1)
+    depth = attrs.get("depth")
+    ids = ids.long()
+    in_range = (ids >= 0) & (ids < depth)
+    out = F.one_hot(torch.where(in_range, ids, torch.zeros_like(ids)),
+                    depth).to(torch.float32)
+    return {"Out": [out * in_range.unsqueeze(-1)]}
+
+
+@register_op("label_smooth")
+def label_smooth(ctx, ins, attrs):
+    x = single(ins, "X")
+    eps = attrs.get("epsilon", 0.0)
+    return {"Out": [(1.0 - eps) * x + eps / x.shape[-1]]}
+
+
 @register_no_grad_op("increment")
 def increment(ctx, ins, attrs):
     """``x + step`` in x's dtype (an integer counter stays integer); the
@@ -139,3 +177,14 @@ def increment(ctx, ins, attrs):
     step = attrs.get("step", 1.0)
     step = float(step) if x.is_floating_point() else int(step)
     return {"Out": [x + step]}
+
+
+@register_no_grad_op("assign_value", capturable=False)
+def assign_value(ctx, ins, attrs):
+    """The attrs' values (``fp32_values``, else ``int32_values``) as a
+    tensor of the attrs' shape and dtype: a copy from the host, so no
+    graph holds it (it runs in startup programs, eagerly)."""
+    dtype = convert_dtype_to_np(VarType(attrs.get("dtype", int(VarType.FP32))))
+    vals = attrs.get("fp32_values") or attrs.get("int32_values", [])
+    arr = np.asarray(vals, dtype=dtype).reshape(attrs.get("shape"))
+    return {"Out": [torch.as_tensor(arr, device=ctx.device)]}

@@ -291,15 +291,32 @@ def test_l1_decay_step_matches_jax():
 
 
 def test_unported_training_ops_raise():
-    """A sparse embedding grad raises NotImplementedError naming the
-    ROADMAP item."""
+    """The sparse embedding grad, which raised before SelectedRows was
+    ported, is now the JAX package's: the batch's ids as rows, the output
+    grads as values, the padding row's zeroed (rtol 1e-6)."""
+    from paddle_tpu.core.desc import OpDesc as JOpDesc
+    from paddle_tpu.core.registry import (LowerContext as JLowerContext,
+                                          OpRegistry as JOpRegistry)
     from paddle_tpu_torch.core.desc import OpDesc
     from paddle_tpu_torch.core.registry import LowerContext, OpRegistry
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
 
-    attrs = {"is_sparse": True, "padding_idx": -1}
+    attrs = {"is_sparse": True, "padding_idx": 1}
+    ids = np.array([[2], [1], [2]], np.int64)
+    og = np.random.RandomState(3).randn(3, 3).astype(np.float32)
     ctx = LowerContext(OpDesc("lookup_table_grad", {}, {}, attrs), None,
                        "cpu")
-    ins = {"Ids": [torch.zeros((2, 1), dtype=torch.int64)],
-           "W": [torch.zeros((4, 3))], "Out@GRAD": [torch.ones((2, 3))]}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        OpRegistry.get("lookup_table_grad").lower(ctx, ins, attrs)
+    ins = {"Ids": [torch.from_numpy(ids)], "W": [torch.zeros((4, 3))],
+           "Out@GRAD": [torch.from_numpy(og)]}
+    (got,) = OpRegistry.get("lookup_table_grad").lower(
+        ctx, ins, attrs)["W@GRAD"]
+    j_ctx = JLowerContext(JOpDesc("lookup_table_grad", {}, {}, attrs), None)
+    (want,) = JOpRegistry.get("lookup_table_grad").lower(
+        j_ctx, {"Ids": [ids], "W": [np.zeros((4, 3), np.float32)],
+                "Out@GRAD": [og]}, attrs)["W@GRAD"]
+    assert isinstance(got, SelectedRows) and got.height == want.height
+    np.testing.assert_array_equal(got.rows.numpy(), np.asarray(want.rows))
+    np.testing.assert_allclose(got.values.numpy(), np.asarray(want.values),
+                               rtol=1e-6)
+    np.testing.assert_allclose(got.to_dense().numpy(),
+                               np.asarray(want.to_dense()), rtol=1e-6)

@@ -15,6 +15,10 @@ least 10x inside ``TOL``/``TOL_BWD``, and that one TF32 product per float32
 product would fail those limits in every case. For
 bfloat16 they emulate the forward's rounding of P at the running max and
 hold it to chip_smoke.py's bfloat16 limit, whose P term is derived there.
+Last, under a model of the tensor cores' float32 addition (operands cut
+to the largest one's exponent, not rounded), P.V chained into one
+accumulator comes out biased, though far inside the limit, and summed
+step by step, as ``mma_3xtf32_acc`` sums it, it does not.
 """
 
 import importlib.util
@@ -145,9 +149,11 @@ def emulate_dq(q, k, v, out, lse, g, lens, offsets, seed, causal, rate,
 
 
 def _cases(dtype):
-    """chip_smoke.py's kernel cases of ``dtype``, B cut to 2 and H to 2."""
+    """chip_smoke.py's kernel cases of ``dtype``, those at the
+    Transformer's shapes too, B cut to 2 and H to 2."""
     for i, (name, B, H, Tq, Tk, D, dt, causal, lens, offs, rate) in \
-            enumerate(chip_smoke.KERNEL_CASES):
+            enumerate(chip_smoke.KERNEL_CASES
+                      + chip_smoke.nmt_kernel_cases()):
         if dt == dtype:
             B, H = min(B, 2), min(H, 2)
             yield pytest.param(i, B, H, Tq, Tk, D, causal,
@@ -242,3 +248,60 @@ def test_bf16_forward_p_rounding_stays_inside_tol(i, B, H, Tq, Tk, D,
     allowed = (tol["out_rel"] * want.abs() + tol["out_abs_of_max_v"]
                * v.float().abs().max() / (1.0 - rate) + tol["out_abs"])
     assert ((got.float() - want).abs() <= allowed).all()
+
+
+def tensor_core_add(c, a8, b8):
+    """One m16n8k8 TF32 mma, c + a8 . b8, under a model of the tensor
+    cores' float32 addition: the eight exact products and c aligned to the
+    largest exponent among them and cut, not rounded, to 24 bits, summed,
+    and the sum cut to float32 towards zero."""
+    terms = torch.cat([c.double().unsqueeze(-2),
+                       a8.double().unsqueeze(-1) * b8.double().unsqueeze(-3)],
+                      dim=-2)
+    _, e = torch.frexp(terms.abs().amax(dim=-2))
+    ulp = torch.ldexp(torch.ones_like(e, dtype=torch.float64),
+                      e - 24).unsqueeze(-2)
+    total = (torch.trunc(terms / ulp) * ulp).sum(-2)
+    out = total.float()
+    over = out.double().abs() > total.abs()
+    return torch.where(over, torch.nextafter(out, torch.zeros_like(out)), out)
+
+
+def tensor_core_3xtf32(a, b, stepwise):
+    """a @ b as 3xTF32 mma steps 8 deep under ``tensor_core_add``: each
+    step's three products summed from zero and added to the accumulator in
+    float32 (``stepwise``), as ``mma_3xtf32_acc`` in csrc/flash_mma.cuh
+    sums P.V, dP, dQ, dK and dV up to head dim 64, or chained into the
+    accumulator itself, as the head-dim-128 float32 instances sum."""
+    a_big, b_big = tf32(a), tf32(b)
+    a_small, b_small = tf32(a - a_big), tf32(b - b_big)
+    c = torch.zeros(a.shape[:-1] + (b.shape[-1],))
+    for k0 in range(0, a.shape[-1], 8):
+        sl = slice(k0, k0 + 8)
+        t = torch.zeros_like(c) if stepwise else c
+        for x, y in ((a_small, b_big), (a_big, b_small), (a_big, b_big)):
+            t = tensor_core_add(t, x[..., sl], y[..., sl, :])
+        c = c + t if stepwise else t
+    return c
+
+
+def test_stepwise_3xtf32_keeps_pv_unbiased():
+    """P.V over 256 keys at head dim 64, values with a common part, as the
+    Transformer-base's activations have at random init. Chained into one
+    accumulator under the tensor cores' cut additions, out shrinks by
+    about 3e-6 of itself: a bias, a twentieth of chip_smoke.py's float32
+    limit on out, so the chained head-dim-128 instances stay inside it.
+    Summed step by step the bias is gone to a fiftieth."""
+    torch.manual_seed(0)
+    p = torch.softmax(torch.randn(2, 256, 256), -1)
+    v = torch.randn(2, 256, 64) + 1.0
+    exact = p.double() @ v.double()
+    shrink = {}
+    for stepwise in (False, True):
+        out = tensor_core_3xtf32(p, v, stepwise).double()
+        shrink[stepwise] = float((out * exact).sum() / (exact * exact).sum()
+                                 - 1.0)
+    assert shrink[False] < -1e-6, shrink
+    assert (abs(shrink[False]) * float(exact.abs().max())
+            <= chip_smoke.TOL["float32"]["out_abs"] / 10), shrink
+    assert abs(shrink[True]) < abs(shrink[False]) / 50, shrink

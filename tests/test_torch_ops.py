@@ -252,14 +252,18 @@ def test_lowering_matches_reference(case):
 
 
 def test_every_ported_lowering_has_a_case():
-    """Here, among the ResNet slice's ops in test_torch_ops_conv.py, or
-    among the training loop's in test_torch_ops_train.py."""
+    """Here, among the ResNet slice's ops in test_torch_ops_conv.py, among
+    the training loop's in test_torch_ops_train.py, or among the CTR and
+    NMT models' in test_torch_ctr_models.py and
+    test_torch_transformer_nmt.py."""
+    from test_torch_ctr_models import SLICE_OPS as CTR_OPS
     from test_torch_ops_conv import SLICE_OPS
     from test_torch_ops_train import SLICE_OPS as TRAIN_OPS
+    from test_torch_transformer_nmt import SLICE_OPS as NMT_OPS
 
     registered = set(TOpRegistry.all_types())
     assert {c[1] for c in CASES} | (SLICE_OPS & registered) | TRAIN_OPS \
-        == registered - {"uniform_random"}
+        | CTR_OPS | NMT_OPS == registered - {"uniform_random"}
 
 
 def test_uniform_random_draws_in_range_per_stream():

@@ -16,9 +16,10 @@ port's wrappers and prints one JSON line per shape: each kernel's device
 time (torch.profiler, as chip_smoke.py times them) and the largest
 difference of out, dq, dk and dv from the plain versions. Shapes: the
 training path's (B=8 H=12 T=128 D=64 float32, ragged lengths), T=512
-float32 and bfloat16, and T=512 float32 at head dim 128 (H=6, the same
-width). The first line gives the card and its power limit, and each
-build's registers and spills from ptxas.
+float32 and bfloat16, T=512 float32 at head dim 128 (H=6, the same
+width), and T=256 float32 at H=8 (the Transformer-base's heads). The
+first line gives the card and its power limit, and each build's
+registers and spills from ptxas.
 """
 
 import ctypes
@@ -37,6 +38,14 @@ VARIANTS = {
     "1xtf32": [("flash_mma.cuh",
                 "  mma_tf32(c, a.small, b_big);\n"
                 "  mma_tf32(c, a.big, b_small);\n", "")],
+    # every float32 product chained into its accumulator, dP and the long
+    # sums (P.V, dQ, dK, dV) too, not summed a step at a time
+    "chained_3xtf32": [("flash_mma.cuh",
+                        "    float t[4] = {0.f, 0.f, 0.f, 0.f};\n"
+                        "    mma_3xtf32(t, a, b0, b1);\n"
+                        "#pragma unroll\n"
+                        "    for (int i = 0; i < 4; ++i) c[i] += t[i];\n",
+                        "    mma_3xtf32(c, a, b0, b1);\n")],
     # dK/dV with 64-row Q tiles in float32 too
     "dkv_f32_q64": [("flash_bwd_dkv.cu",
                      "kBlockQ = kBf16 && kD <= 64 ? 64 : 32;",
@@ -157,7 +166,8 @@ def run(cs, fa, build, names, out_dir):
     shapes = (("main_path", 12, 128, 64, torch.float32, cs.LENS8),
               ("t512_f32", 12, 512, 64, torch.float32, None),
               ("t512_bf16", 12, 512, 64, torch.bfloat16, None),
-              ("t512_f32_d128", 6, 512, 128, torch.float32, None))
+              ("t512_f32_d128", 6, 512, 128, torch.float32, None),
+              ("t256_f32", 8, 256, 64, torch.float32, None))
     for name in names + names[::-1]:
         use_variant(fa, out_dir, name)
         for shape, H, T, D, dtype, lens in shapes:
