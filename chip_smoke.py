@@ -9,8 +9,9 @@ It drives the port's main paths, serving and training BERT-base and
 ResNet-50 (with the training loop's accumulation, remat, dispatch
 window, prefetching feeder, schedulers, clipping and optimizers),
 training DeepFM with sparse embedding grads, word2vec and the
-Transformer-base NMT model, and its kernels on the card and prints one
-JSON line per phase:
+Transformer-base NMT model, the stacked-LSTM classifier with the
+control-flow ops, and VGG, MobileNet and SE-ResNeXt, and its kernels on
+the card and prints one JSON line per phase:
 
 1. device  — the card's name and power limit (nvidia-smi), torch and CUDA
    versions; TF32 is turned off for matmul and cuDNN.
@@ -64,7 +65,10 @@ JSON line per phase:
    dense; float32 rows add bound_ffma_ms, the operations over 67 TFLOP/s,
    the float32 rate outside the tensor cores), at the main path's shape in
    float32 and in bfloat16 (the AMP path's), and the predictor's
-   per-request latency at batch 1 and 8 (replayed graphs).
+   per-request latency at batch 1 and 8 (replayed graphs). A profiler
+   window that holds no device activity is profiled again; a call whose
+   kernel no window recorded is timed whole by CUDA events instead, and
+   listed under ``event_timed`` in the last ``times`` line.
 8. determinism — one BERT-base training step (batch 8, dropout 0.1) run
    twice eagerly from the same state, feed and run counter: every grad and
    the loss must be bitwise equal. The same two steps with the embedding
@@ -191,11 +195,47 @@ JSON line per phase:
    both card runs' relu decisions unlike the CPU's printed. The kernels
    at B=32 H=8 T=256 D=64 with the batch's lengths, causal and not,
    float32 and bfloat16: ms, bound, plain and SDPA.
-23. kernels — one JSON object listing every ported kernel, with its
+23. lstm   — the stacked-LSTM classifier (``models.lstm``: two
+   ``StaticRNN`` LSTM layers, each one ``recurrent`` op looping over the
+   time steps) at the width of the reference benchmark the JAX builder
+   names (benchmark/fluid/models/stacked_dynamic_lstm.py: embedding and
+   LSTM 512 wide, 5000 words), batch 32, seq 256 (cut from the
+   benchmark's 1500-token crop), float32, Adam: 5 steps eagerly and
+   captured from the same state, the losses and every state tensor
+   bitwise equal at every step; the loss finite and lower after the first
+   step; one graph, captured once, no eager block; no flash launch;
+   ``memory_reserved`` after the capture; one step at batch 2 against the
+   CPU (loss TRAIN_TOL, every parameter grad within 1e-3 of its max). The
+   ``for_test`` clone served at batch 1 and 32, eager and then replayed,
+   the replays bitwise equal to the eager answer, batch 2 against the CPU
+   (SERVE_TOL). The captured and eager step's median ms, examples/s and
+   tokens/s, the device-busy share, kernel launches a captured step and
+   top kernels, the capture run's ms, and the ``recurrent`` and
+   ``recurrent_grad`` ops' ms in an eager step. ``dynamic_lstm`` and
+   ``dynamic_gru`` at [32, 256, 4x512 / 3x512] with ragged lengths,
+   reversed, with peepholes, ``origin_mode``: forward and grads against
+   the CPU (RNN_OP_TOL). A ``While`` loop writing a tensor array runs
+   eagerly and counts in ``engine.eager_runs``; an ``IfElse`` and a
+   ``Switch`` are captured and agree with the CPU; dropout inside a
+   ``StaticRNN`` cell, captured against eager, bitwise equal, its masks
+   differing between time steps.
+24. image_models — VGG-16 (``models.vgg``, 3x32x32, 10 classes, Adam),
+   MobileNet-V1 (224x224, 1000 classes, scale 1.0, Momentum) and
+   SE-ResNeXt-50 (224x224, 1000 classes, cardinality 32, Momentum), each
+   at batch 32, float32: 3 steps eagerly and captured from the same
+   state, bitwise equal (cuDNN's deterministic algorithms, grouped and
+   depthwise convolutions included); the loss finite; one graph; no
+   flash launch; one step at batch 2 against the CPU, every op on the
+   CPU's operands (IMAGE_OP_TOL: RESNET_OP_TOL, and for a grad that sums
+   to rounding noise, 1e-4 of the op's incoming grad) and the loss end to
+   end (TRAIN_TOL);
+   step ms, images/s, idle share and top kernels.
+25. kernels — one JSON object listing every ported kernel, with its
    design: all three run their products on the tensor cores (mma.sync
    bf16, 3xTF32 for float32) from a cp.async tile ring, and read their
    dropout seed from device memory; each kernel's launches on every path,
-   the ResNet-50, training-loop, CTR and NMT paths included, and its
+   the ResNet-50, training-loop, CTR, NMT, LSTM and image paths
+   included, and its
    times at the Transformer's shapes (``nmt_t256``).
 
 Served requests and dispatches run as captured CUDA graphs too: the first
@@ -317,6 +357,11 @@ RESNET_GRADS = ("conv2d_0.w_0_0", "batch_norm_52.w_0_0", "fc_0.w_0_0")
 # percents apart (tests/test_torch_resnet50.py measures it on the JAX
 # package against itself)
 RESNET_OP_TOL = {"rel_to_max": 1e-3}
+# the image builders' ops likewise, plus a term for grads that are sums
+# cancelling to rounding noise: a conv bias before a batch norm (VGG) has
+# a grad of 0 up to rounding, so its own largest element is noise; such a
+# grad is held to 1e-4 of the largest grad flowing into its op
+IMAGE_OP_TOL = dict(RESNET_OP_TOL, cot_rel=1e-4)
 # words cuDNN's convolution kernels carry in their names (its workspace
 # initialisation names the convolution it serves, and is not one)
 CONV_KERNEL = r"^(?!.*workspace).*(conv|fprop|dgrad|wgrad|winograd|scudnn)"
@@ -401,11 +446,53 @@ NMT_CPU_BATCH = 2
 # deepest), the first encoder weight and the output projection
 NMT_GRADS = ("src_word_emb", "trg_word_emb", "fc_0.w_0_0", "fc_96.w_0_0")
 
+# lstm: the stacked-LSTM classifier at the width of the reference
+# benchmark the JAX builder names (benchmark/fluid/models/
+# stacked_dynamic_lstm.py: 512-wide embedding and LSTM, 5000 words); the
+# sequence is cut from the benchmark's 1500-token crop to 256 to keep the
+# phase short
+LSTM = dict(batch_size=32, seq_len=256, dict_dim=5000, emb_dim=512,
+            hidden_dim=512, stacked_num=2)
+LSTM_STEPS = 5
+LSTM_CPU_BATCH = 2
+LSTM_SERVE_BATCHES = (1, 32)
+# dynamic_lstm and dynamic_gru at the classifier's width on the card
+# against the CPU, forward and grads: (op, attrs, gates a hidden unit)
+RNN_OP_CASES = [
+    ("dynamic_lstm", {}, 4),
+    ("dynamic_lstm", {"is_reverse": True}, 4),
+    ("dynamic_lstm", {"use_peepholes": True}, 4),
+    ("dynamic_gru", {}, 3),
+    ("dynamic_gru", {"is_reverse": True, "origin_mode": True}, 3),
+]
+# one op on the card against the CPU on the same operands: float32 (TF32
+# off) GEMMs summed in cuBLAS's order and the CPU's through 256 steps of
+# recurrence, each output held to its own largest element
+RNN_OP_TOL = {"rel_to_max": 1e-3}
+# image_models: the three image builders with all their ops ported, at
+# their own input sizes, batch 32, float32
+IMAGE_MODELS = {
+    "vgg": dict(class_num=10, image_shape=(3, 32, 32)),
+    "mobilenet": dict(class_num=1000, image_shape=(3, 224, 224),
+                      scale=1.0),
+    "se_resnext": dict(class_num=1000, image_shape=(3, 224, 224),
+                       small=False),
+}
+IMAGE_BATCH = 32
+IMAGE_STEPS = 3
+
 
 # profiler windows that dropped device activity and were run again: per
 # window, the calls and up to four kernels whose count was off (none: the
 # window held no device activity)
 PARTIAL_PROFILES = []
+# a window with no device activity at all is profiled again up to this many
+# times (seen: a few such windows in a whole run, one at a time; and a run
+# whose last retry of a window was empty after two partial ones)
+EMPTY_WINDOW_RETRIES = 5
+# calls whose device time came from CUDA events because the profiler
+# recorded none of their kernels in any window: [kernel name, ms]
+EVENT_TIMED = []
 
 
 def emit(obj):
@@ -449,6 +536,28 @@ def ptxas_summary(log):
     return found
 
 
+def profiled(fn, calls=1):
+    """Run ``fn`` (``calls`` calls of some function, for the record) under
+    torch.profiler and return the profile; a window
+    with no device activity at all (``fn`` always launches kernels) is
+    profiled again, up to EMPTY_WINDOW_RETRIES times, and recorded in
+    PARTIAL_PROFILES. Returns the last window."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(EMPTY_WINDOW_RETRIES + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        if any(e.device_type == DeviceType.CUDA for e in prof.events()):
+            return prof
+        PARTIAL_PROFILES.append({"calls": calls, "odd_counts": []})
+    return prof
+
+
 def profile_kernels(fn, n, attempts=3, expect=None):
     """Run ``fn`` ``n`` times under torch.profiler; returns {kernel name:
     {"ms": device ms per call, "per_call": launches per call, "count":
@@ -459,24 +568,21 @@ def profile_kernels(fn, n, attempts=3, expect=None):
     of torch's own kernels: 19 launches of 20, 39 of 40), so a kernel's
     launches per call are its count over ``n`` rounded, and its time per
     call its mean launch time times those launches.
-    A window with a kernel further off, or with no device activity at all,
-    dropped more (seen: a window of 20 calls with none, and one that held
+    A window with no device activity at all is rerun by ``profiled``. A
+    window with a kernel further off dropped more (seen: one that held
     about a quarter of each kernel's launches); so is one where the
     kernels whose names hold a key of ``expect`` launched, together, more
     than one launch off ``n`` times its value. Such a window is profiled
     again, up to ``attempts`` times, and recorded in PARTIAL_PROFILES.
     Returns the last window."""
-    import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    def calls():
+        for _ in range(n):
+            fn()
 
     for _ in range(attempts):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
+        prof = profiled(calls, n)
         kernels, odd = {}, []
         for e in prof.key_averages():
             if (e.device_type != DeviceType.CUDA
@@ -504,17 +610,38 @@ def device_kernels(fn, n):
     return {key: k["ms"] for key, k in profile_kernels(fn, n).items()}
 
 
+def event_ms(fn, n):
+    """Device ms per call of ``fn`` by CUDA events around ``n`` calls: the
+    time from the first call's first kernel to the last call's end, so
+    it holds whatever else ``fn`` launches too."""
+    import torch
+
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / n
+
+
 def device_ms(fn, name=None, n=20, warmup=3):
     """Device time per call (ms) of the kernels whose name contains
-    ``name`` (all kernels when None), from the profiler; raises when the
-    profiler recorded no such kernel."""
+    ``name`` (all kernels when None), from the profiler. When no window
+    of the profiler recorded such a kernel, the time of the whole call by
+    CUDA events instead, recorded in EVENT_TIMED; raises when that is not
+    positive either."""
     for _ in range(warmup):
         fn()
     kernels = device_kernels(fn, n)
     total = sum(ms for key, ms in kernels.items()
                 if name is None or name in key)
-    check(total > 0, "the profiler recorded no device time of kernel %r "
-          "(saw %s)" % (name, sorted(kernels)))
+    if total <= 0:
+        total = event_ms(fn, n)
+        EVENT_TIMED.append([name, total, sorted(kernels)[:4]])
+    check(total > 0, "no device time of kernel %r, by the profiler (saw "
+          "%s) or by CUDA events" % (name, sorted(kernels)))
     return total
 
 
@@ -1864,8 +1991,9 @@ def phase_resnet50_determinism(main, startup, loss, feed):
 def replay_ops_on_card(main, state, feed, tol, witness=None):
     """The step's ops one by one on the CPU (the port's lowerings), each
     op's operands copied to the card and the op run there too: every
-    output within ``tol`` of the CPU's (|d| <= rel_to_max * max|cpu|;
-    integer outputs equal). ``witness`` maps an op type to another
+    output within ``tol`` of the CPU's (|d| <= rel_to_max * max|cpu|,
+    plus, where ``tol`` has ``cot_rel``, that times the largest incoming
+    grad of the op; integer outputs equal). ``witness`` maps an op type to another
     lowering, run on the card on the same operands beside the port's.
     Returns ({op type: largest relative difference}, the CPU values of
     every var, and for each output of a witnessed op its difference from
@@ -1906,7 +2034,13 @@ def replay_ops_on_card(main, state, feed, tol, witness=None):
             peak = float(want.abs().max()) if want.numel() else 0.0
             d = float((got - want).abs().max()) if want.numel() else 0.0
             worst[op.type] = max(worst.get(op.type, 0.0), d / (peak or 1.0))
-            if d > tol["rel_to_max"] * peak:
+            limit = tol["rel_to_max"] * peak
+            if tol.get("cot_rel"):
+                limit += tol["cot_rel"] * max(
+                    [float(env[m].abs().max()) for m in op.input_arg_names()
+                     if m.endswith("@GRAD") and m in env
+                     and env[m].numel()] or [0.0])
+            if d > limit:
                 bad.append([op.type, n, d, peak])
             if alt is not None and want.numel():
                 other = alt[n].cpu()
@@ -2051,15 +2185,9 @@ def conv_kernel_dtypes(fn):
     """Names of the convolution kernels one profiled call of ``fn``
     launches (cuDNN's forward, data-grad and filter-grad kernels, by the
     words their names carry), and whether each names bf16."""
-    import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    prof = profiled(fn)
     names = sorted({e.key for e in prof.key_averages()
                     if e.device_type == DeviceType.CUDA
                     and re.search(CONV_KERNEL, e.key, re.I)})
@@ -2537,15 +2665,7 @@ def device_intervals(prof):
 def profiled_loop(run):
     """One profiled call of ``run`` (a loop of steps ending in a wait);
     its ``device_intervals``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    return device_intervals(prof)
+    return device_intervals(profiled(run))
 
 
 def phase_resnet50_pipelined(fa, main, startup, loss, smi):
@@ -3449,6 +3569,626 @@ def phase_nmt(fa, smi, name):
     return launches, kernel_rows
 
 
+# -- recurrence and control flow; the image builders ------------------------
+
+
+def lstm_program(is_train=True):
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import lstm
+
+    with unique_name.guard():
+        main, startup, h = lstm.get_model(is_train=is_train, **LSTM)
+    main.random_seed = startup.random_seed = 2024
+    return main, startup, h
+
+
+def lstm_feed(batch, rng):
+    return {"seq": rng.randint(0, LSTM["dict_dim"], (
+        batch, LSTM["seq_len"])).astype(np.int64),
+        "label": rng.randint(0, 2, (batch, 1)).astype(np.int64)}
+
+
+def lockstep_steps(fa, main, startup, loss, feed, steps):
+    """``steps`` training steps on two executors from the same startup
+    state, one eager and one captured, step by step: returns (the two
+    (executor, scope) pairs, their losses, the state tensors that
+    differed, the captured run's eager block runs, the flash launches, the
+    captured run's wall ms a step)."""
+    import torch
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import observability as obs
+
+    persistable = sorted(v.name for v in main.list_vars() if v.persistable)
+    eager, eager_scope = fresh(startup, graphs=False)
+    graph, graph_scope = fresh(startup)
+    losses = {"eager": [], "captured": []}
+    unequal, eager_runs, walls = [], 0, []
+    obs.set_enabled(True)
+    obs.reset()
+    torch.cuda.synchronize()
+    fa.launches = fa.launches_dq = fa.launches_dkv = 0  # the path starts
+    for step in range(steps):
+        before = obs.counter_value("engine.eager_runs")
+        t0 = time.perf_counter()
+        with fluid.scope_guard(graph_scope):
+            (out,) = graph.run(main, feed=feed, fetch_list=[loss])
+        walls.append((time.perf_counter() - t0) * 1e3)
+        eager_runs += obs.counter_value("engine.eager_runs") - before
+        losses["captured"].append(float(out.reshape(-1)[0]))
+        with fluid.scope_guard(eager_scope):
+            (out,) = eager.run(main, feed=feed, fetch_list=[loss])
+        losses["eager"].append(float(out.reshape(-1)[0]))
+        for n in persistable:
+            if not torch.equal(graph_scope.get(n), eager_scope.get(n)):
+                unequal.append([step + 1, n])
+    torch.cuda.synchronize()
+    launches = flash_launches(fa)  # ... and ends here
+    obs.set_enabled(None)
+    return ((eager, eager_scope), (graph, graph_scope), losses, unequal,
+            eager_runs, launches, walls)
+
+
+def profiled_step(exe, scope, main, loss, feed, n=10):
+    """``timed_runs`` of a step and its device profile over 3 more:
+    busy ms (the union of the kernels' intervals: a captured graph may
+    run independent kernels at once, so their times can sum past the
+    wall), idle share, kernel launches a step, the top kernels."""
+    import paddle_tpu_torch.fluid as fluid
+
+    def step():
+        return exe.run(main, feed=feed, fetch_list=[loss])
+
+    with fluid.scope_guard(scope):
+        row = timed_runs(step, n=n)
+        kernels = profile_kernels(step, 3)
+        _, _, active, _ = profiled_loop(lambda: [step() for _ in range(3)])
+    busy = active / 3
+    top = sorted(kernels.items(), key=lambda kv: -kv[1]["ms"])[:8]
+    row.update({"device_busy_ms": busy,
+                "kernel_ms_sum": sum(k["ms"] for k in kernels.values()),
+                "device_idle_share": 1.0 - busy / row["median_ms"],
+                "kernel_launches_per_step": sum(
+                    k["per_call"] for k in kernels.values()),
+                "top_kernels_ms": [[name[:80], k["ms"]]
+                                   for name, k in top]})
+    return row
+
+
+def recurrent_op_ms(exe, scope, main, loss, feed):
+    """Wall ms of each top-level ``recurrent`` and ``recurrent_grad`` op
+    of one eager step, the card synchronised around each (the vjp grad
+    runs the loop again before its backward)."""
+    import torch
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.engine import lowering
+
+    totals = {}
+    run_op = lowering.run_op
+
+    def timed(op, block, *args, **kwargs):
+        if op.type not in ("recurrent", "recurrent_grad") or \
+                block.idx != 0:
+            return run_op(op, block, *args, **kwargs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_op(op, block, *args, **kwargs)
+        torch.cuda.synchronize()
+        totals.setdefault(op.type, []).append(
+            (time.perf_counter() - t0) * 1e3)
+
+    lowering.run_op = timed
+    try:
+        with fluid.scope_guard(scope):
+            exe.run(main, feed=feed, fetch_list=[loss])
+    finally:
+        lowering.run_op = run_op
+    return totals
+
+
+def rnn_op_case(op_type, attrs, gates, seed):
+    """``op_type`` at the classifier's width ([B, T, gates * H], ragged
+    lengths) on the card and on the CPU from the same operands: the
+    outputs and every input's grad (``torch.func.vjp``, the engine's
+    generic grad, with the same cotangents); returns the worst difference
+    of each, relative to its largest element, and the card's ms."""
+    import torch
+
+    from paddle_tpu_torch.core.desc import OpDesc
+    from paddle_tpu_torch.core.registry import LowerContext, OpRegistry
+
+    B, T, H = LSTM["batch_size"], LSTM["seq_len"], LSTM["hidden_dim"]
+    rng = np.random.RandomState(seed)
+    n_bias = 7 * H if attrs.get("use_peepholes") else gates * H
+    ins = {"Input": rng.randn(B, T, gates * H).astype(np.float32) * 0.5,
+           "Weight": rng.randn(H, gates * H).astype(np.float32) * 0.05,
+           "Bias": rng.randn(1, n_bias).astype(np.float32) * 0.1,
+           "H0": rng.randn(B, H).astype(np.float32) * 0.1}
+    lens = rng.randint(1, T + 1, B).astype(np.int64)
+    lens[0] = T
+    outs = ("Hidden", "Cell") if op_type == "dynamic_lstm" else ("Hidden",)
+    cots = [rng.randn(B, T, H).astype(np.float32) for _ in outs]
+    op = OpDesc(op_type, {}, {}, attrs)
+    info = OpRegistry.get(op_type)
+    slots = sorted(ins)
+
+    def run(device):
+        ctx = LowerContext(op, None, device)
+        extra = {"SeqLen": [torch.from_numpy(lens).to(device)]}
+
+        def fwd(*prims):
+            fin = dict(extra, **{s: [p] for s, p in zip(slots, prims)})
+            out = info.lower(ctx, fin, attrs)
+            return tuple(out[s][0] for s in outs)
+
+        prims = [torch.from_numpy(ins[s]).to(device) for s in slots]
+        got, vjp = torch.func.vjp(fwd, *prims)
+        grads = vjp(tuple(torch.from_numpy(c).to(device) for c in cots))
+        return [t.cpu() for t in got + grads]
+
+    card, cpu = run("cuda"), run("cpu")
+    names = list(outs) + [s + "@GRAD" for s in slots]
+    worst = {}
+    for n, a, b in zip(names, card, cpu):
+        peak = float(b.abs().max())
+        worst[n] = float((a - b).abs().max()) / (peak or 1.0)
+
+    def on_card():
+        run("cuda")
+
+    ms = timed_runs(on_card, n=3, warmup=1)["median_ms"]
+    return worst, ms, int(lens.sum())
+
+
+def while_array_program():
+    """The JAX package's while-with-array test (tests/test_control_flow.py):
+    write i*i into a tensor array for i < 5, then its length and element
+    4."""
+    import paddle_tpu_torch.fluid as fluid
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        i = fluid.layers.fill_constant(shape=[1], dtype="int64", value=0)
+        limit = fluid.layers.fill_constant(shape=[1], dtype="int64", value=5)
+        arr = fluid.layers.create_array(dtype="float32", capacity=8)
+        zero = fluid.layers.fill_constant(shape=[1], dtype="float32",
+                                          value=0.0)
+        fluid.layers.array_write(zero, i, array=arr)
+        cond = fluid.layers.less_than(x=i, y=limit)
+        with fluid.While(cond=cond).block():
+            sq = fluid.layers.cast(i, "float32")
+            fluid.layers.array_write(fluid.layers.elementwise_mul(sq, sq),
+                                     i, array=arr)
+            fluid.layers.increment(i, value=1, in_place=True)
+            fluid.layers.less_than(x=i, y=limit, cond=cond)
+        ln = fluid.layers.array_length(arr)
+        last = fluid.layers.array_read(
+            arr, fluid.layers.fill_constant(shape=[1], dtype="int64",
+                                            value=4))
+    return main, startup, [ln, last]
+
+
+def branch_programs():
+    """An ``IfElse`` (rows whose sum is negative doubled, the rest through
+    an fc) and a ``Switch`` cascade (a piecewise rate by step), the JAX
+    package's control-flow test programs."""
+    import paddle_tpu_torch.fluid as fluid
+
+    ifelse, ifelse_startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(ifelse, ifelse_startup):
+        x = fluid.layers.data(name="x", shape=[64], dtype="float32")
+        zero = fluid.layers.fill_constant_batch_size_like(
+            input=x, shape=[-1, 1], dtype="float32", value=0.0)
+        cond = fluid.layers.less_than(
+            x=fluid.layers.reduce_sum(x, dim=1, keep_dim=True), y=zero)
+        ie = fluid.layers.IfElse(cond)
+        with ie.true_block():
+            ie.output(fluid.layers.scale(ie.input(x), scale=2.0))
+        with ie.false_block():
+            ie.output(fluid.layers.fc(input=ie.input(x), size=64))
+        (merged,) = ie()
+    switch, switch_startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(switch, switch_startup):
+        step = fluid.layers.data(name="step", shape=[1], dtype="float32",
+                                 append_batch_size=False)
+        lr = fluid.layers.fill_constant(shape=[1], dtype="float32",
+                                        value=0.001)
+        sw = fluid.Switch()
+        for bound, value in ((10.0, 1.0), (20.0, 0.1)):
+            b = fluid.layers.fill_constant(shape=[1], dtype="float32",
+                                           value=bound)
+            with sw.case(fluid.layers.less_than(x=step, y=b)):
+                fluid.layers.assign(fluid.layers.fill_constant(
+                    shape=[1], dtype="float32", value=value), output=lr)
+        with sw.default():
+            fluid.layers.assign(fluid.layers.fill_constant(
+                shape=[1], dtype="float32", value=0.01), output=lr)
+    return ((ifelse, ifelse_startup, merged), (switch, switch_startup, lr))
+
+
+def dropout_cell_program():
+    """A ``StaticRNN`` whose cell drops out its fc output (rate 0.5), with
+    its loss, SGD and a seed: the seed-table slot of a sub-block."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import unique_name
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 2024
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[32, 64], dtype="float32")
+        h0 = fluid.layers.fill_constant(shape=[32, 64], dtype="float32",
+                                        value=0.0)
+        rnn = fluid.StaticRNN()
+        with rnn.step():
+            xt = rnn.step_input(x)
+            hprev = rnn.memory(init=h0)
+            z = fluid.layers.fc(input=[xt, hprev], size=64, act="tanh")
+            d = fluid.layers.dropout(z, dropout_prob=0.5)
+            rnn.update_memory(hprev, d)
+            rnn.step_output(d)
+        out = rnn()
+        loss = fluid.layers.mean(fluid.layers.square(out))
+        fluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    return main, startup, out, loss
+
+
+def phase_control_flow(smi):
+    """The control-flow cases of the ``lstm`` phase: a ``While`` writing
+    a tensor array (eager, counted by ``engine.eager_runs``), an
+    ``IfElse`` and a ``Switch`` (captured, against the CPU), and dropout
+    in a ``StaticRNN`` cell captured against eager (bitwise) with the
+    masks differing between steps."""
+    import torch
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import observability as obs
+
+    row = {"phase": "lstm", "case": "control_flow", "card": smi}
+    def graphs_of(exe, prog):
+        # the engine's graphs of ``prog`` (its startup's are not counted)
+        return [c for c in captured(exe.engine)
+                if c.block_program.block is prog.desc.global_block()]
+
+    main, startup, fetch = while_array_program()
+    exe, scope = fresh(startup)
+    obs.set_enabled(True)
+    obs.reset()
+    with fluid.scope_guard(scope):
+        outs = [exe.run(main, feed={}, fetch_list=fetch) for _ in range(3)]
+    row["while"] = {"length": int(outs[-1][0][0]),
+                    "element_4": float(outs[-1][1][0]),
+                    "eager_runs": obs.counter_value("engine.eager_runs"),
+                    "graphs": len(graphs_of(exe, main))}
+    obs.set_enabled(None)
+    check(all(int(o[0][0]) == 5 and float(o[1][0]) == 16.0 for o in outs),
+          "the While loop's array: %s" % row["while"])
+    check(row["while"]["eager_runs"] == 3 and not row["while"]["graphs"],
+          "the While block ran eagerly %d of 3 times, %d graphs"
+          % (row["while"]["eager_runs"], row["while"]["graphs"]))
+
+    (ie, ie_startup, merged), (sw, sw_startup, lr) = branch_programs()
+    rng = np.random.RandomState(61)
+    x = rng.randn(32, 64).astype(np.float32)
+    cases = [(ie, ie_startup, merged, [{"x": x}] * 4),
+             (sw, sw_startup, lr, [{"step": np.array([v], np.float32)}
+                                   for v in (5.0, 15.0, 25.0, 5.0)])]
+    branch = {}
+    for name, (prog, prog_startup, out, feeds) in zip(("ifelse", "switch"),
+                                                     cases):
+        exe, scope = fresh(prog_startup)
+        cpu = fluid.Executor(fluid.CPUPlace())
+        cpu_scope = fluid.Scope()
+        for n in (v.name for v in prog.list_vars() if v.persistable):
+            cpu_scope.set(n, scope.get(n).cpu())
+        obs.set_enabled(True)
+        obs.reset()
+        with fluid.scope_guard(scope):
+            got = [exe.run(prog, feed=f, fetch_list=[out])[0]
+                   for f in feeds]
+        eager_runs = obs.counter_value("engine.eager_runs")
+        obs.set_enabled(None)
+        with fluid.scope_guard(cpu_scope):
+            want = [cpu.run(prog, feed=f, fetch_list=[out])[0]
+                    for f in feeds]
+        entries = graphs_of(exe, prog)
+        err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+        branch[name] = {"graphs": len(entries),
+                        "captures": [c.captures for c in entries],
+                        "replays": [c.replays for c in entries],
+                        "eager_runs": eager_runs, "max_abs_err_cpu": err}
+        check(entries and eager_runs == 0, "%s not captured: %s"
+              % (name, branch[name]))
+        check(all(np.allclose(g, w, rtol=SERVE_TOL["rtol"],
+                              atol=SERVE_TOL["atol"])
+                  for g, w in zip(got, want)),
+              "%s on the card against the CPU: %g" % (name, err))
+    check([float(g[0]) for g in got] == [float(np.float32(v)) for v in
+                                         (1.0, 0.1, 0.01, 1.0)],
+          "the Switch's rates %s" % [float(g[0]) for g in got])
+    row.update(branch)
+
+    # dropout inside a StaticRNN cell: captured against eager
+    main, startup, out, loss = dropout_cell_program()
+    feed = {"x": rng.randn(16, 32, 64).astype(np.float32)}
+    eager, eager_scope = fresh(startup, graphs=False)
+    graph, graph_scope = fresh(startup)
+    same, masks = True, None
+    for _ in range(4):
+        with fluid.scope_guard(graph_scope):
+            g = graph.run(main, feed=feed, fetch_list=[out, loss])
+        with fluid.scope_guard(eager_scope):
+            e = eager.run(main, feed=feed, fetch_list=[out, loss])
+        same = same and all(np.array_equal(a, b) for a, b in zip(g, e))
+        masks = g[0] != 0
+    per_step_differ = all(not np.array_equal(masks[0], masks[t])
+                          for t in range(1, masks.shape[0]))
+    row["dropout_cell"] = {
+        "captured_equals_eager": same, "keep_share": float(masks.mean()),
+        "masks_differ_between_steps": per_step_differ,
+        "graphs": len(graphs_of(graph, main))}
+    check(same and per_step_differ and row["dropout_cell"]["graphs"] == 1,
+          "dropout in a StaticRNN cell: %s" % row["dropout_cell"])
+    del exe, scope, eager, graph
+    torch.cuda.synchronize()
+    emit(row)
+
+
+def phase_lstm(fa, smi):
+    """The stacked-LSTM classifier on the card: 5 Adam steps eagerly and
+    captured, bitwise equal; one step at batch 2 against the CPU; the
+    ``for_test`` clone served at batch 1 and 32 (eager, then replayed,
+    bitwise equal) and at batch 2 against the CPU; times; the recurrent
+    ops against the CPU; the control-flow cases. Returns the flash
+    launches of the path (none)."""
+    import torch
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import convert
+
+    main, startup, h = lstm_program()
+    loss = h["loss"]
+    feed = lstm_feed(LSTM["batch_size"], np.random.RandomState(51))
+    t0 = time.perf_counter()
+    (eager, graph, losses, unequal, eager_runs, launches,
+     walls) = lockstep_steps(fa, main, startup, loss, feed, LSTM_STEPS)
+    lockstep_s = time.perf_counter() - t0
+    reserved = torch.cuda.memory_reserved()
+    entries = captured(graph[0].engine)
+    blocks = main.desc.blocks
+    row = {"phase": "lstm", "card": smi, "model": "stacked_dynamic_lstm",
+           "config": LSTM, "optimizer": "adam, lr 0.01",
+           "blocks": len(blocks),
+           "ops": [len(b.ops) for b in blocks],
+           "losses": losses, "unequal_state": unequal[:10],
+           "launches": launches, "graphs": len(entries),
+           "captures": [c.captures for c in entries],
+           "eager_runs": eager_runs,
+           "captured_run_walls_ms": walls,
+           "lockstep_seconds": lockstep_s,
+           "memory_reserved_after_capture": reserved}
+    emit(row)
+    check(all(np.isfinite(losses["captured"])), "LSTM losses %s" % losses)
+    # one batch repeated at Adam's 0.01 with no clipping: the first step
+    # lowers the loss, later ones may overshoot (the JAX package's step
+    # does too from the same state, PERF.md §6)
+    check(losses["captured"][1] < losses["captured"][0],
+          "LSTM loss did not fall: %s" % losses["captured"])
+    check(losses["captured"] == losses["eager"] and not unequal,
+          "LSTM captured and eager steps differ: losses %s, state %s"
+          % (losses, unequal[:5]))
+    check(len(entries) == 1 and entries[0].captures == 1
+          and eager_runs == 0,
+          "the LSTM step: %d graphs, captures %s, %d eager runs"
+          % (len(entries), row["captures"], eager_runs))
+    check(not any(launches.values()), "flash launches in the LSTM path: %s"
+          % launches)
+
+    # times: captured (with the device profile) and eager; the recurrent
+    # ops of an eager step
+    cap = profiled_step(graph[0], graph[1], main, loss, feed)
+    with fluid.scope_guard(eager[1]):
+        eag = timed_runs(lambda: eager[0].run(main, feed=feed,
+                                              fetch_list=[loss]))
+    rec = recurrent_op_ms(eager[0], eager[1], main, loss, feed)
+    tokens = LSTM["batch_size"] * LSTM["seq_len"]
+    for label, r in (("captured", cap), ("eager", eag)):
+        emit(dict({"phase": "times", "card": smi,
+                   "profile": "stacked LSTM training step", "run": label,
+                   "batch": LSTM["batch_size"], "seq_len": LSTM["seq_len"],
+                   "examples_per_s": LSTM["batch_size"] / (
+                       r["median_ms"] / 1e3),
+                   "tokens_per_s": tokens / (r["median_ms"] / 1e3),
+                   "tf32": False}, **r))
+    emit({"phase": "times", "card": smi,
+          "profile": "recurrent ops of an eager LSTM step (synchronised)",
+          "ms": rec, "capture_run_ms": walls[1],
+          "replay_ms": cap["median_ms"]})
+    del eager, graph, entries
+    release_memory()
+
+    # one step at batch 2 against the CPU, from the card's initial state
+    state0 = start_state(main, startup)
+    feed2 = lstm_feed(LSTM_CPU_BATCH, np.random.RandomState(52))
+    grads = [p.name + "@GRAD" for p in main.all_parameters()]
+    fetch = [loss.name] + grads
+    outs = {}
+    for device, place in (("cuda", fluid.CUDAPlace(0)),
+                          ("cpu", fluid.CPUPlace())):
+        scope = fluid.Scope()
+        convert.load_numpy_state(scope, state0, device, program=main)
+        with fluid.scope_guard(scope):
+            outs[device] = fluid.Executor(place).run(main, feed=feed2,
+                                                     fetch_list=fetch)
+    card, cpu = outs["cuda"], outs["cpu"]
+    loss_err = abs(float(card[0].reshape(-1)[0] - cpu[0].reshape(-1)[0]))
+    grad_rel = {n: float(np.abs(a - b).max() / (np.abs(b).max() or 1.0))
+                for n, a, b in zip(grads, card[1:], cpu[1:])}
+    emit({"phase": "lstm", "cpu_step": {
+        "batch": LSTM_CPU_BATCH, "loss_card": float(card[0].reshape(-1)[0]),
+        "loss_cpu": float(cpu[0].reshape(-1)[0]), "loss_abs_err": loss_err,
+        "grad_rel_to_max": grad_rel}, "tol": TRAIN_TOL})
+    check(loss_err <= TRAIN_TOL["loss_rtol"] * abs(float(
+        cpu[0].reshape(-1)[0])), "LSTM card vs CPU loss error %g" % loss_err)
+    bad = {n: d for n, d in grad_rel.items()
+           if d > TRAIN_TOL["grad_rel_to_max"]}
+    check(not bad, "LSTM card vs CPU grads beyond %s: %s" % (TRAIN_TOL, bad))
+
+    # inference on the for_test clone: batch 1 and 32 eager, then captured
+    # and replayed; batch 2 against the CPU
+    test_prog = main.clone(for_test=True)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    convert.load_numpy_state(scope, state0, "cuda", program=main)
+    serve = {}
+    rng = np.random.RandomState(53)
+    for batch in LSTM_SERVE_BATCHES:
+        seq = {"seq": lstm_feed(batch, rng)["seq"]}
+        with fluid.scope_guard(scope):
+            answers = [exe.run(test_prog, feed=seq,
+                               fetch_list=[h["logits"]])[0]
+                       for _ in range(4)]
+            ms = timed_runs(lambda: exe.run(test_prog, feed=seq,
+                                            fetch_list=[h["logits"]]))
+        serve[batch] = {"replays_equal_eager": all(
+            np.array_equal(a, answers[0]) for a in answers[1:]),
+            "shape": list(answers[0].shape), "request_ms": ms}
+        check(serve[batch]["replays_equal_eager"]
+              and answers[0].shape == (batch, 2)
+              and np.isfinite(answers[0]).all(),
+              "LSTM served at batch %d: %s" % (batch, serve[batch]))
+    test_entries = [c for c in captured(exe.engine)]
+    seq2 = {"seq": feed2["seq"]}
+    with fluid.scope_guard(scope):
+        (card2,) = exe.run(test_prog, feed=seq2, fetch_list=[h["logits"]])
+    cpu_scope = fluid.Scope()
+    convert.load_numpy_state(cpu_scope, state0, "cpu", program=main)
+    with fluid.scope_guard(cpu_scope):
+        (cpu2,) = fluid.Executor(fluid.CPUPlace()).run(
+            test_prog, feed=seq2, fetch_list=[h["logits"]])
+    serve_err = float(np.abs(card2 - cpu2).max())
+    emit({"phase": "lstm", "serve": serve, "graphs": len(test_entries),
+          "batch2_max_abs_err_cpu": serve_err, "tol": SERVE_TOL})
+    check(len(test_entries) == len(LSTM_SERVE_BATCHES),
+          "LSTM serving graphs: %d" % len(test_entries))
+    check(np.allclose(card2, cpu2, rtol=SERVE_TOL["rtol"],
+                      atol=SERVE_TOL["atol"]),
+          "LSTM served on the card against the CPU: %g" % serve_err)
+    del exe, scope, test_entries
+    release_memory()
+
+    # dynamic_lstm and dynamic_gru against the CPU
+    cases = []
+    for i, (op_type, attrs, gates) in enumerate(RNN_OP_CASES):
+        worst, ms, valid = rnn_op_case(op_type, attrs, gates, 80 + i)
+        cases.append({"op": op_type, "attrs": attrs,
+                      "shape": [LSTM["batch_size"], LSTM["seq_len"],
+                                gates * LSTM["hidden_dim"]],
+                      "valid_steps": valid, "rel_to_max": worst,
+                      "fwd_bwd_ms": ms})
+    emit({"phase": "lstm", "rnn_ops": cases, "tol": RNN_OP_TOL})
+    bad = [(c["op"], c["attrs"], n, d) for c in cases
+           for n, d in c["rel_to_max"].items()
+           if d > RNN_OP_TOL["rel_to_max"]]
+    check(not bad, "recurrent ops on the card beyond %s: %s"
+          % (RNN_OP_TOL, bad))
+    phase_control_flow(smi)
+    release_memory()
+    return launches
+
+
+def image_program(name, is_train=True):
+    import paddle_tpu_torch.models as models
+    from paddle_tpu_torch import unique_name
+
+    with unique_name.guard():
+        main, startup, h = getattr(models, name).get_model(
+            is_train=is_train, **IMAGE_MODELS[name])
+    main.random_seed = startup.random_seed = 2024
+    return main, startup, h
+
+
+def image_feed(name, batch, rng):
+    cfg = IMAGE_MODELS[name]
+    return {"img": rng.randn(batch, *cfg["image_shape"]).astype(np.float32),
+            "label": rng.randint(0, cfg["class_num"], (batch, 1)).astype(
+                np.int64)}
+
+
+def phase_image_models(fa, smi):
+    """VGG, MobileNet and SE-ResNeXt-50 trained on the card at batch 32:
+    IMAGE_STEPS steps eagerly and captured, bitwise equal; one step at
+    batch 2 against the CPU, op by op (IMAGE_OP_TOL) and the loss end to
+    end (TRAIN_TOL); step ms, images/s and idle share. Returns the flash
+    launches of the path (none)."""
+    import torch
+
+    paths = {}
+    for i, name in enumerate(IMAGE_MODELS):
+        main, startup, h = image_program(name)
+        loss = h["loss"]
+        feed = image_feed(name, IMAGE_BATCH, np.random.RandomState(90 + i))
+        (eager, graph, losses, unequal, eager_runs, launches,
+         walls) = lockstep_steps(fa, main, startup, loss, feed, IMAGE_STEPS)
+        entries = captured(graph[0].engine)
+        reserved = torch.cuda.memory_reserved()
+        row = {"phase": "image_models", "card": smi, "model": name,
+               "config": IMAGE_MODELS[name], "batch": IMAGE_BATCH,
+               "ops": len(main.desc.global_block().ops),
+               "losses": losses, "unequal_state": unequal[:10],
+               "launches": launches, "graphs": len(entries),
+               "captures": [c.captures for c in entries],
+               "eager_runs": eager_runs,
+               "memory_reserved_after_capture": reserved}
+        emit(row)
+        check(all(np.isfinite(losses["captured"])), "%s losses %s"
+              % (name, losses))
+        check(losses["captured"] == losses["eager"] and not unequal,
+              "%s captured and eager steps differ: losses %s, state %s"
+              % (name, losses, unequal[:5]))
+        check(len(entries) == 1 and entries[0].captures == 1
+              and eager_runs == 0,
+              "the %s step: %d graphs, captures %s, %d eager runs"
+              % (name, len(entries), row["captures"], eager_runs))
+        check(not any(launches.values()), "flash launches in %s: %s"
+              % (name, launches))
+        paths[name] = launches
+        cap = profiled_step(graph[0], graph[1], main, loss, feed)
+        emit(dict({"phase": "times", "card": smi,
+                   "profile": "%s training step" % name, "run": "captured",
+                   "batch": IMAGE_BATCH, "images_per_s": IMAGE_BATCH / (
+                       cap["median_ms"] / 1e3), "tf32": False}, **cap))
+        del eager, graph, entries
+        release_memory()
+
+        # one step at batch 2 on the card against the CPU
+        state0 = start_state(main, startup)
+        feed2 = image_feed(name, 2, np.random.RandomState(95 + i))
+        worst, cpu_env, _ = replay_ops_on_card(main, state0, feed2,
+                                               IMAGE_OP_TOL)
+        import paddle_tpu_torch.fluid as fluid
+        from paddle_tpu_torch import convert
+
+        step_scope = fluid.Scope()
+        convert.load_numpy_state(step_scope, state0, "cuda", program=main)
+        with fluid.scope_guard(step_scope):
+            (card,) = fluid.Executor(fluid.CUDAPlace(0)).run(
+                main, feed=feed2, fetch_list=[loss])
+        cpu = cpu_env[loss.name].numpy()
+        loss_err = abs(float(card.reshape(-1)[0] - cpu.reshape(-1)[0]))
+        emit({"phase": "image_models", "model": name, "cpu_step": {
+            "batch": 2, "loss_card": float(card.reshape(-1)[0]),
+            "loss_cpu": float(cpu.reshape(-1)[0]), "loss_abs_err": loss_err,
+            "ops_replayed_worst_rel_to_max": worst,
+            "op_tol": IMAGE_OP_TOL}, "tol": TRAIN_TOL})
+        check(loss_err <= TRAIN_TOL["loss_rtol"] * abs(float(
+            cpu.reshape(-1)[0])), "%s card vs CPU loss error %g"
+            % (name, loss_err))
+        del cpu_env, step_scope
+        release_memory()
+    return paths
+
+
 def release_memory():
     """Free what no live object holds, CUDA graphs and their pools too,
     and return the cached blocks to the card."""
@@ -3556,8 +4296,14 @@ def main():
     ctr_launches = phase_ctr(fa, smi)
     phase_word2vec(smi)
     nmt_launches, t256 = phase_nmt(fa, smi, torch.cuda.get_device_name(0))
+    release_memory()
+
+    # recurrence and control flow; the image builders
+    lstm_launches = phase_lstm(fa, smi)
+    image_launches = phase_image_models(fa, smi)
     emit({"phase": "times", "partial_profiler_windows_rerun":
-          len(PARTIAL_PROFILES), "partial_windows": PARTIAL_PROFILES})
+          len(PARTIAL_PROFILES), "partial_windows": PARTIAL_PROFILES,
+          "event_timed": EVENT_TIMED})
     other_paths = {"resnet50_serve": r_serve_launches,
                     "resnet50_train": r_launches,
                     "resnet50_train_amp": r_amp_launches,
@@ -3567,6 +4313,8 @@ def main():
     other_paths["ctr"] = dict(zip(("flash_fwd", "flash_bwd_dq",
                                    "flash_bwd_dkv"), ctr_launches))
     other_paths.update(nmt_launches)
+    other_paths["lstm"] = lstm_launches
+    other_paths.update(image_launches)
 
     def t256_rows(name):
         # the kernel at the Transformer's shapes (B=32 H=8 T=256 D=64)

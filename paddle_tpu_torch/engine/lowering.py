@@ -22,6 +22,20 @@ forward's slot by the same id, so it re-derives the same mask. It also
 says whether a CUDA graph may hold the block: every op's lowering is
 capturable (``OpInfo.capturable``), decided from the desc alone.
 
+An op that runs a sub-block (``while``, ``conditional_block``,
+``recurrent``: ``ops/controlflow_ops.py``) runs its ops through
+``run_sub_block``, the counterpart of ``_run_sub_block``
+(``paddle_tpu/ops/controlflow_ops.py:71``): op by op into an env, each
+with RNG stream id ``10_000 + i`` as in the JAX package. Such an op has
+one slot in the seed table when an op of its sub-block (nested ones
+included) draws a seed; the seed of sub-block op ``i`` at step ``t`` is
+that slot's seed folded with ``i`` and ``t`` on the device
+(``fold_seed``), so a CUDA graph holds it, and a generic grad of the op
+(``recurrent_grad``) re-draws the forward's masks. The block is
+capturable when every op of it and of its sub-blocks is. A tensor array
+(``{"buf", "len"}``) lives only inside one run, like a sparse grad: a
+fetch or state write of one raises.
+
 A sparse grad (``core/selected_rows.py``) lives only inside one run of a
 block: each lowering densifies whatever leaves it, a fetch or a state
 write-back (lowering.py:230-237), like the reference's GetFetchVariable
@@ -37,6 +51,7 @@ from paddle_tpu_torch.core.registry import (
     OpRegistry, LowerContext, amp_scope, draw_seed,
 )
 from paddle_tpu_torch.core.selected_rows import SelectedRows, densify
+from paddle_tpu_torch.ops.common import M32, hash_mix_bits, seed32
 
 # Ops that are pure host-side markers and skipped during execution.
 _SKIP_OPS = frozenset({"feed", "fetch"})
@@ -46,6 +61,15 @@ _INTERNAL_ATTR_PREFIX = "__"
 
 # Positional placeholder for absent gradient inputs (see backward.py).
 EMPTY_VAR_NAME = "@EMPTY@"
+
+# RNG stream id of sub-block op i: SUB_BLOCK_RNG_BASE + i (the JAX
+# package's, controlflow_ops.py:80)
+SUB_BLOCK_RNG_BASE = 10_000
+# the range of the seed an op running a sub-block draws, and of the seeds
+# folded from it: below every op's own seed range (dropout 2**32, the
+# flash kernels 2**31 - 1)
+SUB_BLOCK_SEED_HIGH = 2 ** 32
+FOLDED_SEED_MOD = 2 ** 31 - 1
 
 
 def clean_attrs(attrs):
@@ -134,17 +158,13 @@ class BlockProgram:
         self.state_out_names = state_out
 
         # the seed table's slots, (rng id, seed range), and the ops a CUDA
-        # graph cannot hold; an unregistered op raises when it runs
+        # graph cannot hold, sub-blocks' included; an unregistered op
+        # raises when it runs
         highs = {}
         self.uncapturable_ops = []
         for op_index, op in enumerate(self.ops):
-            info = _op_info(op)
-            if info is None:
-                continue
-            if not info.capturable:
-                self.uncapturable_ops.append(op.type)
-            high = (info.seed_range(op.attrs)
-                    if info.needs_rng and info.seed_range else None)
+            self.uncapturable_ops += _uncapturable(op, block)
+            high = _seed_high(op, block)
             if high is None:
                 continue
             rng_id = _rng_id(op, 0 if _is_generic_grad(op) else op_index)
@@ -174,6 +194,102 @@ def _op_info(op):
     return OpRegistry._ops.get(fwd)
 
 
+def _sub_block(op, block):
+    """The block ``op`` runs (its ``sub_block`` attr), or None."""
+    if "sub_block" not in op.attrs:
+        return None
+    return block.program.block(int(op.attrs["sub_block"]))
+
+
+def _seed_high(op, block):
+    """The range of the seed ``op`` draws from the run's seed table, or
+    None when it draws none. An op that runs a sub-block draws one where
+    any op of the sub-block does."""
+    info = _op_info(op)
+    if info is None:
+        return None
+    sub = _sub_block(op, block)
+    if sub is not None:
+        draws = any(_seed_high(o, sub) is not None for o in sub.ops)
+        return SUB_BLOCK_SEED_HIGH if draws else None
+    if info.needs_rng and info.seed_range:
+        return info.seed_range(op.attrs)
+    return None
+
+
+def _uncapturable(op, block):
+    """The types of the ops a CUDA graph cannot hold among ``op`` and the
+    ops of its sub-blocks."""
+    info = _op_info(op)
+    if info is None:
+        return []
+    out = [] if info.capturable else [op.type]
+    sub = _sub_block(op, block)
+    if sub is not None:
+        for o in sub.ops:
+            out += _uncapturable(o, sub)
+    return out
+
+
+def fold_seed(base, rng_id, step):
+    """The seed of sub-block op ``rng_id`` at step ``step`` of a run whose
+    sub-block seed is ``base`` (a 0-d int64 tensor): two rounds of the
+    dropout hash's mixer on the device, in [0, FOLDED_SEED_MOD)."""
+    h = hash_mix_bits(seed32(base) ^ ((int(rng_id) * 0x9E3779B9) & M32))
+    h = hash_mix_bits(h ^ (((int(step) + 1) * 0x85EBCA6B) & M32))
+    return h % FOLDED_SEED_MOD
+
+
+class SubBlockSeeds:
+    """The seeds of the ops of a sub-block that ``ctx``'s op runs:
+    ``at(step)`` is the seed table of one step, indexed by a sub-block
+    op's RNG stream id as ``LowerContext.seed`` indexes the run's table.
+    The base seed is the running op's own (``ctx.seed``), read on first
+    use, so an op whose sub-block draws nothing (or runs as a test) reads
+    no slot."""
+
+    def __init__(self, ctx):
+        self._ctx = ctx
+        self._base = None
+
+    def base(self):
+        if self._base is None:
+            base = self._ctx.seed(SUB_BLOCK_SEED_HIGH)
+            if not isinstance(base, torch.Tensor):
+                base = torch.tensor(base, dtype=torch.int64,
+                                    device=self._ctx.device)
+            self._base = base
+        return self._base
+
+    def at(self, step):
+        return _StepSeeds(self, step)
+
+
+class _StepSeeds:
+    def __init__(self, seeds, step):
+        self._seeds = seeds
+        self._step = step
+
+    def __getitem__(self, rng_id):
+        return fold_seed(self._seeds.base(), rng_id, self._step)
+
+
+def run_sub_block(ctx, sub_block, env, seeds=None, step=0):
+    """Run every op of ``sub_block`` into ``env`` (name -> value), the
+    counterpart of ``_run_sub_block`` (``controlflow_ops.py:71``): on
+    ``ctx``'s device, test flag and RNG pair, op ``i`` with RNG stream id
+    ``SUB_BLOCK_RNG_BASE + i`` and its seed from ``seeds`` (a
+    ``SubBlockSeeds`` of the running op) at ``step``."""
+    seeds = SubBlockSeeds(ctx) if seeds is None else seeds
+    table = seeds.at(step)
+    for i, op in enumerate(sub_block.ops):
+        if op.type in _SKIP_OPS:
+            continue
+        run_op(op, sub_block, env, ctx.device, ctx._rng_seed,
+               SUB_BLOCK_RNG_BASE + i, ctx.is_test, ctx.executor, table)
+    return env
+
+
 def lower_block(block_program, device, is_test=False, executor=None,
                 amp=False):
     """Returns fn(feeds: list, state_in: list, rng_seed, seeds=None) ->
@@ -197,8 +313,19 @@ def lower_block(block_program, device, is_test=False, executor=None,
 
 def _block_outputs(block_program, env):
     """(fetches, state outputs) of a run's env, sparse grads densified."""
-    return ([densify(env[n]) for n in block_program.fetch_names],
-            [densify(env[n]) for n in block_program.state_out_names])
+    return ([leave_run(n, env[n]) for n in block_program.fetch_names],
+            [leave_run(n, env[n]) for n in block_program.state_out_names])
+
+
+def leave_run(name, value):
+    """A value as it leaves a run (a fetch, a state write): a sparse grad
+    densified; a tensor array refused, since only its ops read one."""
+    if isinstance(value, dict):
+        raise TypeError(
+            "var %r is a tensor array; a fetch or a state write takes a "
+            "tensor: read an element with array_read (read_from_array) "
+            "or its length with array_length" % name)
+    return densify(value)
 
 
 def _mean_micro(vals, k):
@@ -396,7 +523,7 @@ def lower_block_accumulated(block_program, k, device, is_test=False,
             for acc, n in zip(cross, cross_names):
                 acc.append(env[n])
             for acc, n in zip(fetched, fetch_loop):
-                acc.append(densify(env[n]))
+                acc.append(leave_run(n, env[n]))
         last = {n: env[n] for n in last_names}
 
         env = dict(base)
@@ -414,7 +541,7 @@ def lower_block_accumulated(block_program, k, device, is_test=False,
         fetches = []
         for n in block_program.fetch_names:
             if n not in fetch_map:
-                fetches.append(densify(env[n]))
+                fetches.append(leave_run(n, env[n]))
                 continue
             s = torch.stack(fetch_map[n])
             # per-example fetches (leading dim == the micro-batch size)
@@ -425,7 +552,8 @@ def lower_block_accumulated(block_program, k, device, is_test=False,
             else:
                 fetches.append((s if s.is_floating_point()
                                 else s.float()).mean(0))
-        state_out = [densify(env[n]) for n in block_program.state_out_names]
+        state_out = [leave_run(n, env[n])
+                     for n in block_program.state_out_names]
         return fetches, state_out
 
     return fn

@@ -38,6 +38,11 @@ from paddle_tpu_torch.platform import (  # noqa: F401
     CUDAPlace,
     is_compiled_with_cuda,
 )
+from paddle_tpu_torch.layers.control_flow import (  # noqa: F401
+    While,
+    StaticRNN,
+    Switch,
+)
 from paddle_tpu_torch.param_attr import ParamAttr, WeightNormParamAttr  # noqa: F401
 from paddle_tpu_torch.io import (  # noqa: F401
     save_params,

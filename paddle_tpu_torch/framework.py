@@ -204,7 +204,15 @@ class Operator:
         if type.endswith("_grad") and OpRegistry.has(type[: -len("_grad")]):
             infer_grad_shapes(self.desc, block.desc)
         elif OpRegistry.has(type):
-            infer_shapes_for_op(self.desc, block.desc)
+            try:
+                infer_shapes_for_op(self.desc, block.desc)
+            except (RuntimeError, TypeError, ValueError, IndexError,
+                    KeyError):
+                # best effort, as in the JAX package (framework.py:249):
+                # an op whose inputs do not meet at the -1 batch sentinel
+                # (a step input [B, D] beside a memory [-1, H]) keeps the
+                # shapes it has, and the run establishes them
+                pass
 
     @property
     def type(self):
@@ -248,7 +256,9 @@ def _abstract_value(var_desc):
 
 def infer_shapes_for_op(op_desc, block_desc):
     """Propagate shapes/dtypes through ``op_desc`` by running its torch
-    lowering on ``meta`` tensors (no data, no kernel launch)."""
+    lowering on ``meta`` tensors (no data, no kernel launch). An op whose
+    inputs lack a shape (a tensor array, a var no op has written yet) is
+    left as it is."""
     info = OpRegistry.get(op_desc.type)
     ins = {}
     for slot, names in op_desc.inputs.items():
@@ -266,7 +276,9 @@ def infer_shapes_for_op(op_desc, block_desc):
     for slot, names in op_desc.outputs.items():
         vals = outs.get(slot, [])
         for i, n in enumerate(names):
-            if i >= len(vals) or vals[i] is None:
+            # a tensor array (``{"buf", "len"}``) keeps no shape in the
+            # desc, as in the JAX package
+            if i >= len(vals) or not isinstance(vals[i], torch.Tensor):
                 continue
             vd = block_desc.find_var_recursive(n)
             if vd is None:
@@ -431,6 +443,24 @@ class Program:
 
     def block(self, index):
         return self.blocks[index]
+
+    def create_block(self, parent_idx=None):
+        """A new block nested in the current one (or ``parent_idx``),
+        made current; the body of a ``While``, ``StaticRNN``,
+        ``DynamicRNN`` or ``Switch`` case (reference: framework.py
+        Program._create_block)."""
+        parent = (
+            self.current_block_idx if parent_idx is None else parent_idx
+        )
+        bd = self.desc.append_block(parent)
+        b = Block(self, bd.idx)
+        self.blocks.append(b)
+        self.current_block_idx = bd.idx
+        return b
+
+    def rollback(self):
+        """Make the current block's parent current again."""
+        self.current_block_idx = self.current_block().parent_idx
 
     def all_parameters(self):
         return list(self._parameters.values())

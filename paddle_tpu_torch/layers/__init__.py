@@ -1,5 +1,17 @@
 from paddle_tpu_torch.layers.tensor import *  # noqa: F401,F403
 from paddle_tpu_torch.layers.nn import *  # noqa: F401,F403
+from paddle_tpu_torch.layers.control_flow import (  # noqa: F401
+    While,
+    StaticRNN,
+    DynamicRNN,
+    IfElse,
+    Switch,
+    create_array,
+    array_write,
+    array_read,
+    array_length,
+    increment,
+)
 from paddle_tpu_torch.layers.ops import *  # noqa: F401,F403
 from paddle_tpu_torch.layers.loss import *  # noqa: F401,F403
 from paddle_tpu_torch.layers import nn  # noqa: F401

@@ -1,10 +1,11 @@
 """Loss layers — port of ``paddle_tpu/layers/loss.py`` for
-``softmax_with_cross_entropy`` (loss.py:33) and
-``sigmoid_cross_entropy_with_logits`` (:65)."""
+``softmax_with_cross_entropy`` (loss.py:33), ``square_error_cost``
+(:54) and ``sigmoid_cross_entropy_with_logits`` (:65)."""
 
 from paddle_tpu_torch.layer_helper import LayerHelper
 
-__all__ = ["softmax_with_cross_entropy", "sigmoid_cross_entropy_with_logits"]
+__all__ = ["softmax_with_cross_entropy", "square_error_cost",
+           "sigmoid_cross_entropy_with_logits"]
 
 
 def softmax_with_cross_entropy(logits, label, soft_label=False,
@@ -26,6 +27,17 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     if return_softmax:
         return loss, softmax_out
     return loss
+
+
+def square_error_cost(input, label):
+    helper = LayerHelper("square_error_cost")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(
+        type="square_error_cost",
+        inputs={"X": [input], "Y": [label]},
+        outputs={"Out": [out]},
+    )
+    return out
 
 
 def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100, name=None,

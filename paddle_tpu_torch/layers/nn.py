@@ -1,6 +1,9 @@
 """NN layers — port of ``paddle_tpu/layers/nn.py`` (reference:
 python/paddle/fluid/layers/nn.py), for the layer functions the BERT,
-ResNet, MNIST, Transformer and CTR models need.
+ResNet, MNIST, Transformer, CTR, LSTM and image models need, the
+compare and logical layers of the control-flow programs, and the
+recurrent layers (``dynamic_lstm``, ``dynamic_gru``, ``dynamic_lstmp``,
+``lstm``).
 Each function appends the same op, slots and attrs as its JAX-package
 counterpart (cited beside it), so the two front ends build identical
 descs."""
@@ -44,6 +47,24 @@ __all__ = [
     "label_smooth",
     "merge_selected_rows",
     "get_tensor_from_selected_rows",
+    "split",
+    "equal",
+    "not_equal",
+    "less_than",
+    "less_equal",
+    "greater_than",
+    "greater_equal",
+    "logical_and",
+    "logical_or",
+    "logical_xor",
+    "logical_not",
+    "where",
+    "dynamic_lstm",
+    "dynamic_gru",
+    "dynamic_lstmp",
+    "lstm",
+    "sequence_pool",
+    "sequence_last_step",
 ]
 
 
@@ -76,11 +97,14 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
         )
         mul_results.append(tmp)
 
-    if len(mul_results) != 1:
-        raise NotImplementedError(
-            "fc over several inputs appends a `sum` op, which this port "
-            "does not lower yet (ROADMAP Queue 1: the remaining op families)")
-    pre_act = helper.append_bias_op(mul_results[0], dim_start=num_flatten_dims)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_variable_for_type_inference(dtype)
+        helper.append_op(
+            type="sum", inputs={"X": mul_results}, outputs={"Out": [pre_bias]}
+        )
+    pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
     return helper.append_activation(pre_act)
 
 
@@ -577,3 +601,243 @@ def fused_attention(q, k, v, causal=False, scale=None, seq_lens=None,
     helper.append_op(type="fused_attention", inputs=inputs,
                      outputs=outputs, attrs=attrs)
     return out
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper("split", name=name)
+    dim = dim if dim >= 0 else dim + len(input.shape)
+    if isinstance(num_or_sections, int):
+        num = num_or_sections
+        sections = []
+        n_out = num
+    else:
+        num = 0
+        sections = list(num_or_sections)
+        n_out = len(sections)
+    outs = [
+        helper.create_variable_for_type_inference(dtype=input.dtype)
+        for _ in range(n_out)
+    ]
+    helper.append_op(
+        type="split",
+        inputs={"X": [input]},
+        outputs={"Out": outs},
+        attrs={"axis": dim, "num": num, "sections": sections},
+    )
+    return outs
+
+
+def _cmp_layer(op_type):
+    def layer(x, y, force_cpu=None, cond=None):
+        del force_cpu  # a placement knob; the op runs where its inputs are
+        helper = LayerHelper(op_type)
+        if cond is None:
+            cond = helper.create_variable_for_type_inference(dtype="bool")
+        cond.stop_gradient = True
+        helper.append_op(
+            type=op_type,
+            inputs={"X": [x], "Y": [y]},
+            outputs={"Out": [cond]},
+        )
+        return cond
+
+    layer.__name__ = op_type
+    return layer
+
+
+equal = _cmp_layer("equal")
+not_equal = _cmp_layer("not_equal")
+less_than = _cmp_layer("less_than")
+less_equal = _cmp_layer("less_equal")
+greater_than = _cmp_layer("greater_than")
+greater_equal = _cmp_layer("greater_equal")
+
+
+def _logical_layer(op_type, unary=False):
+    def layer(x, y=None, out=None, name=None):
+        helper = LayerHelper(op_type, name=name)
+        if out is None:
+            out = helper.create_variable_for_type_inference(dtype="bool")
+        inputs = {"X": [x]}
+        if not unary:
+            inputs["Y"] = [y]
+        helper.append_op(type=op_type, inputs=inputs,
+                         outputs={"Out": [out]})
+        return out
+
+    layer.__name__ = op_type
+    return layer
+
+
+logical_and = _logical_layer("logical_and")
+logical_or = _logical_layer("logical_or")
+logical_xor = _logical_layer("logical_xor")
+logical_not = _logical_layer("logical_not", unary=True)
+
+
+def where(condition, x, y):
+    helper = LayerHelper("where")
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(
+        type="where",
+        inputs={"Condition": [condition], "X": [x], "Y": [y]},
+        outputs={"Out": [out]},
+    )
+    return out
+
+
+def dynamic_lstm(input, size, h_0=None, c_0=None, seq_len=None,
+                 param_attr=None, bias_attr=None, use_peepholes=False,
+                 is_reverse=False, gate_activation="sigmoid",
+                 cell_activation="tanh", candidate_activation="tanh",
+                 dtype="float32", name=None):
+    """LSTM over a padded [B, T, 4H] pre-projected input (reference:
+    layers/nn.py:370 — the LoD-batched form becomes padded+masked via
+    ``seq_len``). Returns (hidden [B,T,H], cell [B,T,H])."""
+    helper = LayerHelper("dynamic_lstm", name=name, param_attr=param_attr,
+                         bias_attr=bias_attr)
+    hidden_size = size // 4
+    weight = helper.create_parameter(
+        attr=param_attr, shape=[hidden_size, 4 * hidden_size], dtype=dtype)
+    n_bias = 7 * hidden_size if use_peepholes else 4 * hidden_size
+    bias = helper.create_parameter(
+        attr=bias_attr if bias_attr not in (None, True) else None,
+        shape=[1, n_bias], dtype=dtype, is_bias=True)
+    hidden = helper.create_variable_for_type_inference(dtype)
+    cell = helper.create_variable_for_type_inference(dtype)
+    inputs = {"Input": [input], "Weight": [weight], "Bias": [bias]}
+    if h_0 is not None:
+        inputs["H0"] = [h_0]
+    if c_0 is not None:
+        inputs["C0"] = [c_0]
+    if seq_len is not None:
+        inputs["SeqLen"] = [seq_len]
+    helper.append_op(
+        type="dynamic_lstm",
+        inputs=inputs,
+        outputs={"Hidden": [hidden], "Cell": [cell]},
+        attrs={
+            "use_peepholes": use_peepholes,
+            "is_reverse": is_reverse,
+            "gate_activation": gate_activation,
+            "cell_activation": cell_activation,
+            "candidate_activation": candidate_activation,
+        },
+    )
+    return hidden, cell
+
+
+def dynamic_gru(input, size, param_attr=None, bias_attr=None,
+                is_reverse=False, gate_activation="sigmoid",
+                candidate_activation="tanh", h_0=None, origin_mode=False,
+                seq_len=None, dtype="float32", name=None):
+    """GRU over a padded [B, T, 3H] pre-projected input (reference:
+    layers/nn.py dynamic_gru). Returns hidden [B, T, H]."""
+    helper = LayerHelper("dynamic_gru", name=name, param_attr=param_attr,
+                         bias_attr=bias_attr)
+    weight = helper.create_parameter(
+        attr=param_attr, shape=[size, 3 * size], dtype=dtype)
+    bias = helper.create_parameter(
+        attr=bias_attr if bias_attr not in (None, True) else None,
+        shape=[1, 3 * size], dtype=dtype, is_bias=True)
+    hidden = helper.create_variable_for_type_inference(dtype)
+    inputs = {"Input": [input], "Weight": [weight], "Bias": [bias]}
+    if h_0 is not None:
+        inputs["H0"] = [h_0]
+    if seq_len is not None:
+        inputs["SeqLen"] = [seq_len]
+    helper.append_op(
+        type="dynamic_gru",
+        inputs=inputs,
+        outputs={"Hidden": [hidden]},
+        attrs={
+            "is_reverse": is_reverse,
+            "gate_activation": gate_activation,
+            "activation": candidate_activation,
+            "origin_mode": origin_mode,
+        },
+    )
+    return hidden
+
+
+def dynamic_lstmp(input, size, proj_size, h_0=None, c_0=None, seq_len=None,
+                  param_attr=None, bias_attr=None, use_peepholes=False,
+                  is_reverse=False, gate_activation="sigmoid",
+                  cell_activation="tanh", candidate_activation="tanh",
+                  proj_activation="tanh", dtype="float32", name=None):
+    """LSTM with a recurrent projection (reference: layers/nn.py
+    dynamic_lstmp → lstmp_op.cc): hidden H projected to P before the
+    recurrence. Built as dynamic_lstm + a learned projection applied to
+    the hidden sequence (the projected state feeds forward, matching the
+    reference's output contract; the recurrent path uses H)."""
+    hidden, cell = dynamic_lstm(
+        input, size, h_0=h_0, c_0=c_0, seq_len=seq_len,
+        param_attr=param_attr, bias_attr=bias_attr,
+        use_peepholes=use_peepholes, is_reverse=is_reverse,
+        gate_activation=gate_activation, cell_activation=cell_activation,
+        candidate_activation=candidate_activation, dtype=dtype, name=name)
+    proj = fc(input=hidden, size=proj_size, num_flatten_dims=2,
+              bias_attr=False, act=proj_activation)
+    return proj, cell
+
+
+def lstm(input, init_h, init_c, max_len, hidden_size, num_layers,
+         dropout_prob=0.0, is_bidirec=False, is_test=False, name=None,
+         default_initializer=None, seed=-1):
+    """Multi-layer (optionally bidirectional) LSTM (reference:
+    layers/nn.py lstm → cudnn_lstm_op; here stacked dynamic_lstm scans).
+    Returns (output, last_h, last_c) like the reference."""
+    x = input
+    for layer in range(num_layers):
+        fw_in = fc(input=x, size=4 * hidden_size, num_flatten_dims=2,
+                   bias_attr=False)
+        # initial states apply to the first layer (the reference threads
+        # per-layer init states; one shared pair covers the common case)
+        h0 = init_h if layer == 0 else None
+        c0 = init_c if layer == 0 else None
+        fw, fc_state = dynamic_lstm(fw_in, 4 * hidden_size, h_0=h0,
+                                    c_0=c0)
+        if is_bidirec:
+            bw_in = fc(input=x, size=4 * hidden_size, num_flatten_dims=2,
+                       bias_attr=False)
+            bw, _ = dynamic_lstm(bw_in, 4 * hidden_size, is_reverse=True)
+            x = _concat_last(fw, bw)
+        else:
+            x = fw
+        if dropout_prob and not is_test:
+            x = dropout(x, dropout_prob)
+    last_h = sequence_last_step(x)
+    last_c = sequence_last_step(fc_state)
+    return x, last_h, last_c
+
+
+def _concat_last(a, b):
+    helper = LayerHelper("concat")
+    out = helper.create_variable_for_type_inference(a.dtype)
+    helper.append_op(type="concat", inputs={"X": [a, b]},
+                     outputs={"Out": [out]}, attrs={"axis": 2})
+    return out
+
+
+def sequence_pool(input, pool_type, is_test=False, length=None):
+    # ``is_test`` only gates the reference kernel's MaxIndex scratch
+    # output (sequence_pool_op.cc); the functional lowering derives the
+    # backward from the forward, so it needs no flag
+    helper = LayerHelper("sequence_pool")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    inputs = {"X": [input]}
+    if length is not None:
+        inputs["Length"] = [length]
+    helper.append_op(
+        type="sequence_pool",
+        inputs=inputs,
+        outputs={"Out": [out]},
+        attrs={"pooltype": pool_type.upper()},
+    )
+    return out
+
+
+def sequence_last_step(input, length=None):
+    """Last valid timestep of each sequence (reference: layers/nn.py
+    sequence_last_step = sequence_pool LAST)."""
+    return sequence_pool(input, "last", length=length)

@@ -1,10 +1,15 @@
 """Tensor-building layers — port of ``paddle_tpu/layers/tensor.py`` for
-``fill_constant`` (tensor.py:46), ``cast`` (:83) and ``concat`` (:98)."""
+``fill_constant`` (tensor.py:46), ``fill_constant_batch_size_like``
+(:63), ``cast`` (:83), ``concat`` (:98) and ``assign`` (:118)."""
 
+import numpy as np
+
+from paddle_tpu_torch.framework import Variable
 from paddle_tpu_torch.layer_helper import LayerHelper
 from paddle_tpu_torch.core.types import convert_np_dtype_to_dtype_
 
-__all__ = ["fill_constant", "cast", "concat"]
+__all__ = ["fill_constant", "fill_constant_batch_size_like", "cast",
+           "concat", "assign"]
 
 
 def fill_constant(shape, dtype, value, force_cpu=False, out=None, block=None):
@@ -18,6 +23,26 @@ def fill_constant(shape, dtype, value, force_cpu=False, out=None, block=None):
             "shape": list(shape),
             "dtype": int(convert_np_dtype_to_dtype_(dtype)),
             "value": float(value),
+        },
+    )
+    out.stop_gradient = True
+    return out
+
+
+def fill_constant_batch_size_like(input, shape, dtype, value,
+                                  input_dim_idx=0, output_dim_idx=0):
+    helper = LayerHelper("fill_constant_batch_size_like")
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    helper.append_op(
+        type="fill_constant_batch_size_like",
+        inputs={"Input": [input]},
+        outputs={"Out": [out]},
+        attrs={
+            "shape": list(shape),
+            "dtype": int(convert_np_dtype_to_dtype_(dtype)),
+            "value": float(value),
+            "input_dim_idx": input_dim_idx,
+            "output_dim_idx": output_dim_idx,
         },
     )
     out.stop_gradient = True
@@ -49,3 +74,29 @@ def concat(input, axis=0, name=None):
         attrs={"axis": axis},
     )
     return out
+
+
+def assign(input, output=None):
+    helper = LayerHelper("assign")
+    if isinstance(input, Variable):
+        if output is None:
+            output = helper.create_variable_for_type_inference(dtype=input.dtype)
+        helper.append_op(
+            type="assign", inputs={"X": [input]}, outputs={"Out": [output]}
+        )
+    else:
+        arr = np.asarray(input)
+        if output is None:
+            output = helper.create_variable_for_type_inference(dtype=arr.dtype.name)
+        key = "fp32_values" if arr.dtype.kind == "f" else "int32_values"
+        helper.append_op(
+            type="assign_value",
+            outputs={"Out": [output]},
+            attrs={
+                "shape": list(arr.shape),
+                "dtype": int(convert_np_dtype_to_dtype_(arr.dtype)),
+                key: [float(v) if arr.dtype.kind == "f" else int(v)
+                      for v in arr.flatten()],
+            },
+        )
+    return output

@@ -15,3 +15,6 @@ from paddle_tpu_torch.ops import loss_ops  # noqa: F401
 from paddle_tpu_torch.ops import reduce_ops  # noqa: F401
 from paddle_tpu_torch.ops import optimizer_ops  # noqa: F401
 from paddle_tpu_torch.ops import metric_ops  # noqa: F401
+from paddle_tpu_torch.ops import controlflow_ops  # noqa: F401
+from paddle_tpu_torch.ops import rnn_ops  # noqa: F401
+from paddle_tpu_torch.ops import sequence_ops  # noqa: F401

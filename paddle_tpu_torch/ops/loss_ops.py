@@ -1,7 +1,7 @@
 """Loss ops — port of ``paddle_tpu/ops/loss_ops.py`` for
 ``softmax_with_cross_entropy`` (:33), its direct grad
 ``softmax_with_cross_entropy_grad`` (:341), ``mean`` (:81),
-``squared_l2_norm`` (:93), dense or a ``SelectedRows``, and
+``square_error_cost`` (:86), ``squared_l2_norm`` (:93), dense or a ``SelectedRows``, and
 ``sigmoid_cross_entropy_with_logits`` (:116). The softmax losses compute
 in float32 whatever the logits' dtype, as in the reference."""
 
@@ -80,6 +80,11 @@ def softmax_with_cross_entropy_grad(ctx, ins, attrs):
 @register_op("mean")
 def mean(ctx, ins, attrs):
     return {"Out": [torch.mean(single(ins, "X"))]}
+
+
+@register_op("square_error_cost")
+def square_error_cost(ctx, ins, attrs):
+    return {"Out": [torch.square(single(ins, "X") - single(ins, "Y"))]}
 
 
 @register_op("squared_l2_norm")

@@ -1,9 +1,9 @@
 """Tensor creation/manipulation ops — port of
 ``paddle_tpu/ops/tensor_ops.py`` for ``fill_constant`` (:18),
-``uniform_random`` (:42), ``gaussian_random`` (:54),
+``fill_constant_batch_size_like`` (:31), ``uniform_random`` (:42), ``gaussian_random`` (:54),
 ``truncated_gaussian_random`` (:65), ``cast`` (:76), ``concat`` (:83),
-``reshape2`` (:103), ``transpose2`` (:125), ``slice`` (:183), ``top_k``
-(:225), ``top_k_grad`` (:233), ``one_hot`` (:272), ``label_smooth``
+``split`` (:89), ``reshape2`` (:103), ``transpose2`` (:125), ``slice`` (:183), ``top_k``
+(:225), ``top_k_grad`` (:233), ``one_hot`` (:272), ``assign`` (:214), ``label_smooth``
 (:299), ``increment`` (:329) and ``assign_value`` (:337).
 
 The random ops draw float32 on the op's device from its (seed, run, op)
@@ -35,6 +35,19 @@ def fill_constant(ctx, ins, attrs):
     dtype = _torch_dtype(attrs.get("dtype", int(VarType.FP32)))
     return {"Out": [torch.full(list(shape), attrs.get("value", 0.0),
                                dtype=dtype, device=ctx.device)]}
+
+
+@register_no_grad_op("fill_constant_batch_size_like")
+def fill_constant_batch_size_like(ctx, ins, attrs):
+    """``value`` in the attrs' shape, dim ``output_dim_idx`` taken from
+    the input's dim ``input_dim_idx`` (the batch)."""
+    x = single(ins, "Input")
+    shape = list(attrs.get("shape"))
+    shape[attrs.get("output_dim_idx", 0)] = x.shape[
+        attrs.get("input_dim_idx", 0)]
+    dtype = _torch_dtype(attrs.get("dtype", int(VarType.FP32)))
+    return {"Out": [torch.full(shape, attrs.get("value", 0.0), dtype=dtype,
+                               device=ctx.device)]}
 
 
 @register_no_grad_op("uniform_random", needs_rng=True, capturable=False)
@@ -97,6 +110,23 @@ def concat(ctx, ins, attrs):
 def _xshape(x):
     # XShape carries the input shape behind a leading 0 dim (no data)
     return torch.empty((0,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+
+
+@register_op("split")
+def split(ctx, ins, attrs):
+    """``num`` equal parts, else parts of the ``sections`` sizes, along
+    ``axis``."""
+    x = single(ins, "X")
+    axis = attrs.get("axis", 0)
+    num = attrs.get("num", 0)
+    if num:
+        if x.shape[axis] % num:
+            raise ValueError("split: dim %d of size %d does not divide "
+                             "into %d parts" % (axis, x.shape[axis], num))
+        outs = torch.chunk(x, num, dim=axis)
+    else:
+        outs = torch.split(x, list(attrs.get("sections", [])), dim=axis)
+    return {"Out": list(outs)}
 
 
 @register_op("reshape2")
@@ -166,6 +196,11 @@ def label_smooth(ctx, ins, attrs):
     x = single(ins, "X")
     eps = attrs.get("epsilon", 0.0)
     return {"Out": [(1.0 - eps) * x + eps / x.shape[-1]]}
+
+
+@register_op("assign")
+def assign(ctx, ins, attrs):
+    return {"Out": [single(ins, "X")]}
 
 
 @register_no_grad_op("increment")

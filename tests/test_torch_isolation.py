@@ -109,6 +109,29 @@ for kw in ({"accumulate_steps": 2}, {"remat_segments": 2},
         out = exe.run(loop, feed=f, fetch_list=[loss], **kw)
     exe.sync()
     assert np.isfinite(np.asarray(out[0])).all()
+# control flow and recurrence: the stacked LSTM trained a step, its
+# for_test clone, and a While loop
+from paddle_tpu_torch.layers import control_flow
+from paddle_tpu_torch.models import lstm, mobilenet, se_resnext, vgg
+from paddle_tpu_torch.ops import controlflow_ops, rnn_ops, sequence_ops
+net, net_startup, h = lstm.get_model(batch_size=2, seq_len=4, dict_dim=20,
+                                     emb_dim=8, hidden_dim=8)
+exe.run(net_startup)
+seq = {"seq": np.ones((2, 4), np.int64), "label": np.array([[0], [1]])}
+(l2,) = exe.run(net, feed=seq, fetch_list=[h["loss"]])
+(lg,) = exe.run(net.clone(for_test=True), feed={"seq": seq["seq"]},
+                fetch_list=[h["logits"]])
+assert np.isfinite(l2).all() and lg.shape == (2, 2)
+loop, loop_startup = fluid.Program(), fluid.Program()
+with fluid.program_guard(loop, loop_startup):
+    i = fluid.layers.fill_constant(shape=[1], dtype="int64", value=0)
+    n = fluid.layers.fill_constant(shape=[1], dtype="int64", value=3)
+    cond = fluid.layers.less_than(x=i, y=n)
+    with fluid.While(cond=cond).block():
+        fluid.layers.increment(i, value=1, in_place=True)
+        fluid.layers.less_than(x=i, y=n, cond=cond)
+(iv,) = exe.run(loop, feed={}, fetch_list=[i])
+assert int(iv[0]) == 3
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "paddle_tpu" or m.startswith("paddle_tpu."))
