@@ -10,7 +10,9 @@ ResNet-50 (with the training loop's accumulation, remat, dispatch
 window, prefetching feeder, schedulers, clipping and optimizers),
 training DeepFM with sparse embedding grads, word2vec and the
 Transformer-base NMT model, the stacked-LSTM classifier with the
-control-flow ops, and VGG, MobileNet and SE-ResNeXt, and its kernels on
+control-flow ops, VGG, MobileNet and SE-ResNeXt, BERT-base and the
+Transformer built with unfused attention and fused back onto the
+kernels at ``opt_level`` 1, and the book programs, and its kernels on
 the card and prints one JSON line per phase:
 
 1. device  — the card's name and power limit (nvidia-smi), torch and CUDA
@@ -230,12 +232,40 @@ the card and prints one JSON line per phase:
    to rounding noise, 1e-4 of the op's incoming grad) and the loss end to
    end (TRAIN_TOL);
    step ms, images/s, idle share and top kernels.
-25. kernels — one JSON object listing every ported kernel, with its
+25. fuse_attention — BERT-base built unfused (``use_fused_attention=
+   False``: matmul, the ``attention_bias_from_lens`` mask, softmax,
+   dropout, matmul) from the ``train`` phase's initial state, trained at
+   the default ``opt_level`` 1: the engine's fuse-attention pass rewrites
+   the 12 attentions at the cache miss (``transform.*`` counters,
+   ``transform.pipeline_ms``), 5 steps eagerly and captured, bitwise
+   equal, 12 launches of each kernel a step. At dropout 0, 3 steps of the
+   fused builder's program, of the unfused one at level 1 (losses within
+   FUSE_TOL's 1e-6, printed whether bitwise, every grad within 1e-3 of
+   its max) and at level 0 (the composition: no flash launch, losses
+   within 1e-4 of level 1's): each one's captured step time and eager
+   first-run peak.
+26. verify — one unfused step with ``verify=True``: no ERROR finding;
+   the findings of the desc that ran, by severity.
+27. fuse_attention_serve — the unfused BERT-base saved for serving and
+   answered by the predictor at the default level (12 forward launches a
+   request) and with ``switch_ir_optim(False)`` (none), batch 1 and 8:
+   the answers across levels, batches and the CPU within SERVE_TOL;
+   replayed latencies.
+28. nmt_unfused — Transformer-base at its ``nmt`` width built unfused,
+   dropout 0: 12 rewrites (6 encoder self, 6 cross; the causal ones are
+   fused as built), 18 launches of each kernel a step, 2 captured steps
+   against the fused program's (FUSE_TOL's 1e-5), step ms.
+29. book — the four book programs (``models.book``: fit_a_line,
+   recognize_digits, word2vec, machine_translation) with Adam, 5 steps on
+   the card (captured) against the CPU's on the same seeded batches
+   (TRAIN_TOL), then saved, loaded and served against the training
+   program's ``for_test`` clone.
+30. kernels — one JSON object listing every ported kernel, with its
    design: all three run their products on the tensor cores (mma.sync
    bf16, 3xTF32 for float32) from a cp.async tile ring, and read their
    dropout seed from device memory; each kernel's launches on every path,
-   the ResNet-50, training-loop, CTR, NMT, LSTM and image paths
-   included, and its
+   the ResNet-50, training-loop, CTR, NMT, LSTM, image, unfused-attention
+   and book paths included, and its
    times at the Transformer's shapes (``nmt_t256``).
 
 Served requests and dispatches run as captured CUDA graphs too: the first
@@ -323,6 +353,17 @@ TRAIN_TOL = {"loss_rtol": 1e-4, "grad_rel_to_max": 1e-3}
 # and masks: bfloat16 GEMM operands and activations (8 bits of mantissa)
 # through 12 layers and the 30522-way softmax
 TRAIN_AMP_TOL = {"first_loss_rtol": 2e-2}
+# fuse_attention: the unfused program at level 1 against the fused
+# builder's at dropout 0 (the same kernels on the same operands; only the
+# ops' order and names may differ), and the composition at level 0
+# (cuBLAS and softmax in place of the kernels' 3xTF32 tiles)
+FUSE_STEPS = 3
+FUSE_TOL = {"loss_rtol": 1e-6, "grad_rel_to_max": 1e-3,
+            "level0_loss_rtol": 1e-4, "nmt_loss_rtol": 1e-5}
+NMT_UNFUSED_STEPS = 2
+# book: batches of the reference's book tests' size, Adam steps
+BOOK_BATCH = 64
+BOOK_STEPS = 5
 # the served model against the CPU: float32 GEMMs (TF32 off) summed in
 # another order by cuBLAS than by the CPU GEMM, over 12 layers
 SERVE_TOL = {"rtol": 1e-3, "atol": 2e-3}
@@ -1170,11 +1211,13 @@ def train_feed(batch, rng):
                                 rng=rng, varlen=True)
 
 
-def bert_train_program(amp):
+def bert_train_program(amp, fused=True, dropout=0.1):
     """BERT-base pre-training (dropout 0.1, Adam lr 1e-4), as
     ``models.bert.get_model(is_train=True)`` builds it; with ``amp`` the
     optimizer is wrapped by ``contrib.mixed_precision.decorate``, which
-    marks the program for bfloat16. Returns (main, startup, loss)."""
+    marks the program for bfloat16. ``fused`` False builds the unfused
+    attention composition (``use_fused_attention=False``), with the same
+    parameters. Returns (main, startup, loss)."""
     import paddle_tpu_torch.fluid as fluid
     from paddle_tpu_torch import unique_name
     from paddle_tpu_torch.contrib import mixed_precision
@@ -1197,8 +1240,8 @@ def bert_train_program(amp):
             data["src_ids"], data["pos_ids"], data["sent_ids"], seq_lens,
             BERT["vocab_size"], max_position=BERT["max_position"],
             d_model=BERT["d_model"], n_layers=BERT["n_layers"],
-            n_heads=BERT["n_heads"], d_inner=BERT["d_inner"], dropout=0.1,
-            is_train=True, use_fused_attention=True)
+            n_heads=BERT["n_heads"], d_inner=BERT["d_inner"],
+            dropout=dropout, is_train=True, use_fused_attention=fused)
         loss, _, _ = bert.pretrain_heads(
             enc, mask_label, mask_weight, ns_label, BERT["vocab_size"],
             BERT["d_model"], is_train=True)
@@ -1816,6 +1859,462 @@ def phase_times_train(fa, runs, main, loss, feed8):
                   **time_train_step(exe, scope, prog, prog_loss, feed8,
                                     host=label == "eager")))
     return rows["main_path"], rows["main_path_bf16"]
+
+
+# -- unfused attention, fused back at opt_level 1 ---------------------------
+
+
+def state_executor(main, state, graphs=True, place=None):
+    """A new executor (on the card unless ``place`` says) and a scope
+    holding ``state`` (host arrays by name), so that its first run is the
+    program's: two executors made here draw the same dropout seeds step
+    by step."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import convert
+
+    place = place or fluid.CUDAPlace(0)
+    scope = fluid.Scope()
+    convert.load_numpy_state(scope, state, place.torch_device(),
+                             program=main)
+    exe = fluid.Executor(place)
+    exe.engine.cuda_graphs = graphs
+    return exe, scope
+
+
+def block_op_types(exe):
+    """The op types of the block ``exe`` analyzed last: the desc that
+    ran, after the transforms."""
+    bp = list(exe.engine._blocks.values())[-1]
+    return [op.type for op in bp.ops]
+
+
+def fused_steps(fa, main, loss, state, feed, steps, grads=(),
+                opt_level=None):
+    """``steps`` runs of ``main`` on a fresh captured executor from
+    ``state``: the first fetches ``grads`` too (its own cache entry,
+    eager); the others run one entry (eager, captured, replayed). Returns
+    {losses, grads of the first step, flash launches a step, the first
+    run's peak allocation above the state, executor, scope}."""
+    import torch
+
+    import paddle_tpu_torch.fluid as fluid
+
+    exe, scope = state_executor(main, state)
+    release_memory()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, per_step, first = [], [], None
+    with fluid.scope_guard(scope):
+        for step in range(steps):
+            fetch = [loss.name] + (list(grads) if step == 0 else [])
+            before = step_counts(fa)
+            out = exe.run(main, feed=feed, fetch_list=fetch,
+                          opt_level=opt_level)
+            per_step.append([a - b for a, b in zip(step_counts(fa),
+                                                   before)])
+            losses.append(float(out[0].reshape(-1)[0]))
+            if step == 0:
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() - base
+                first = out[1:]
+    return {"losses": losses, "grads": first, "per_step": per_step,
+            "peak": peak, "exe": exe, "scope": scope}
+
+
+def phase_fuse_attention(fa, state0, feed8, smi):
+    """BERT-base built unfused (``use_fused_attention=False``: matmul,
+    the lengths mask, softmax, dropout, matmul) and trained at the
+    default opt_level 1, where the engine's fuse-attention pass rewrites
+    every attention back onto the flash kernels: TRAIN_STEPS steps eagerly
+    and captured from the train phase's initial state, step by step,
+    bitwise equal; 12 rewrites at the miss, 12 launches of each kernel a
+    step. At dropout 0 against the fused builder's program (FUSE_TOL),
+    and at opt_level 0 (the composition: no flash launch, FUSE_TOL's
+    level-0 bound), with both levels' captured step times and eager
+    first-run peaks. Then one step with ``verify=True``. Returns the
+    launches by path."""
+    import torch
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.analysis import Severity, verify_program
+
+    n_layers = BERT["n_layers"]
+    main, _, loss = bert_train_program(False, fused=False)
+    persistable = sorted(state0)
+    check(sorted(v.name for v in main.list_vars() if v.persistable)
+          == persistable, "the unfused program's state is not the fused "
+          "program's")
+    eager, eager_scope = state_executor(main, state0, graphs=False)
+    graph, graph_scope = state_executor(main, state0)
+    losses = {"eager": [], "captured": []}
+    per_step, unequal, rewrites = [], [], None
+    obs.set_enabled(True)
+    obs.reset()
+    torch.cuda.synchronize()
+    fa.launches = fa.launches_dq = fa.launches_dkv = 0  # the path starts
+    for step in range(TRAIN_STEPS):
+        before = step_counts(fa)
+        seen = obs.counter_value("transform.fuse-attention.rewrites")
+        with fluid.scope_guard(graph_scope):
+            (out,) = graph.run(main, feed=feed8, fetch_list=[loss])
+        if step == 0:
+            rewrites = obs.counter_value(
+                "transform.fuse-attention.rewrites") - seen
+        losses["captured"].append(float(out.reshape(-1)[0]))
+        per_step.append([a - b for a, b in zip(step_counts(fa), before)])
+        counted = step_counts(fa)
+        with fluid.scope_guard(eager_scope):
+            (out,) = eager.run(main, feed=feed8, fetch_list=[loss])
+        losses["eager"].append(float(out.reshape(-1)[0]))
+        # the eager executor's launches are not the captured path's
+        fa.launches, fa.launches_dq, fa.launches_dkv = counted
+        for n in persistable:
+            if not torch.equal(graph_scope.get(n), eager_scope.get(n)):
+                unequal.append([step + 1, n, float(
+                    (graph_scope.get(n) - eager_scope.get(n)).abs().max())])
+    torch.cuda.synchronize()
+    launches = flash_launches(fa)  # ... and ends here
+    snap = obs.snapshot()
+    obs.set_enabled(None)
+    types = block_op_types(graph)
+    entries = captured(graph.engine)
+    row = {"phase": "fuse_attention", "model": "bert_base", "card": smi,
+           "built": "use_fused_attention=False", "opt_level": 1,
+           "batch": 8, "seq_len": BERT["seq_len"], "dropout": 0.1,
+           "ops_built": len(main.desc.global_block().ops),
+           "ops_run": len(types),
+           "rewrites_at_miss": rewrites,
+           "pruned_ops": snap["counters"].get("transform.pruned_ops"),
+           "transform_pipeline_ms": snap["histograms"].get(
+               "transform.pipeline_ms"),
+           "engine_trace_ms": snap["histograms"].get("engine.trace_ms"),
+           "fused_ops_run": {t: types.count(t) for t in (
+               "fused_attention", "fused_attention_grad", "matmul",
+               "softmax", "sequence_mask")},
+           "losses": losses, "unequal_state": unequal[:10],
+           "launches_per_step": per_step, "launches": launches,
+           "graphs": [(c.captures, c.replays) for c in entries]}
+    emit(row)
+    check(rewrites == n_layers, "fuse-attention rewrote %s attentions at "
+          "the miss, want %d" % (rewrites, n_layers))
+    check(row["fused_ops_run"] == {
+        "fused_attention": n_layers, "fused_attention_grad": n_layers,
+        "matmul": 0, "softmax": 0, "sequence_mask": 0},
+        "ops run after the rewrite: %s" % row["fused_ops_run"])
+    check(all(np.isfinite(losses["captured"])),
+          "unfused training losses %s" % losses)
+    check(losses["captured"] == losses["eager"] and not unequal,
+          "captured and eager unfused steps differ: losses %s, state %s"
+          % (losses, unequal[:5]))
+    check(per_step == [[n_layers] * 3] * TRAIN_STEPS,
+          "unfused fwd/dq/dkv launches per step %s, want %d each"
+          % (per_step, n_layers))
+    check(len(entries) == 1 and entries[0].captures == 1,
+          "unfused step graphs %s" % row["graphs"])
+    del eager, eager_scope, graph, graph_scope
+    release_memory()
+
+    # dropout 0: the fused builder's program, the unfused one at level 1
+    # and at level 0, from the same state, the step-1 grads fetched
+    fused_main, _, fused_loss = bert_train_program(False, dropout=0.0)
+    main0, _, loss0 = bert_train_program(False, fused=False, dropout=0.0)
+    grads = [p.name + "@GRAD" for p in fused_main.all_parameters()]
+    runs = {}
+    for label, prog, prog_loss, level in (
+            ("fused", fused_main, fused_loss, None),
+            ("unfused_level1", main0, loss0, None),
+            ("unfused_level0", main0, loss0, 0)):
+        fa.launches = fa.launches_dq = fa.launches_dkv = 0
+        runs[label] = fused_steps(fa, prog, prog_loss, state0, feed8,
+                                  FUSE_STEPS, grads, opt_level=level)
+        runs[label]["launches"] = flash_launches(fa)
+        runs[label]["time"] = time_train_step(
+            runs[label]["exe"], runs[label]["scope"], prog, prog_loss, feed8,
+            run_kw={"opt_level": level})
+        runs[label]["ops_run"] = len(block_op_types(runs[label]["exe"]))
+        del runs[label]["exe"], runs[label]["scope"]
+        release_memory()
+    f, u1, u0 = (runs[k] for k in ("fused", "unfused_level1",
+                                   "unfused_level0"))
+    grad_rel = {}
+    for name, a, b in zip(grads, u1["grads"], f["grads"]):
+        grad_rel[name] = float(np.abs(a - b).max()) / max(
+            float(np.abs(b).max()), 1e-30)
+    grad_rel0 = {}
+    for name, a, b in zip(grads, u0["grads"], u1["grads"]):
+        grad_rel0[name] = float(np.abs(a - b).max()) / max(
+            float(np.abs(b).max()), 1e-30)
+    worst = max(grad_rel, key=grad_rel.get)
+    worst0 = max(grad_rel0, key=grad_rel0.get)
+    row = {"phase": "fuse_attention", "dropout": 0.0, "card": smi,
+           "steps": FUSE_STEPS, "tol": FUSE_TOL, "grads": len(grads),
+           "losses": {k: r["losses"] for k, r in runs.items()},
+           "unfused_level1_bitwise_fused": u1["losses"] == f["losses"],
+           "unfused_level1_grads_bitwise_fused": all(
+               np.array_equal(a, b) for a, b in zip(u1["grads"],
+                                                    f["grads"])),
+           "worst_grad_rel_to_max": [worst, grad_rel[worst]],
+           "level0_worst_grad_rel_to_max": [worst0, grad_rel0[worst0]],
+           "launches_per_step": {k: r["per_step"] for k, r in runs.items()},
+           "ops_run": {k: r["ops_run"] for k, r in runs.items()},
+           "eager_first_run_peak_above_state_bytes": {
+               k: r["peak"] for k, r in runs.items()},
+           "captured_step": {k: {m: r["time"][m] for m in (
+               "median_ms", "min_ms", "max_ms", "device_busy_ms",
+               "device_idle_share", "flash_kernels_ms")}
+               for k, r in runs.items()}}
+    emit(row)
+    check(np.allclose(u1["losses"], f["losses"], rtol=FUSE_TOL["loss_rtol"],
+                      atol=0.0),
+          "unfused level 1 losses %s against the fused program's %s"
+          % (u1["losses"], f["losses"]))
+    check(grad_rel[worst] <= FUSE_TOL["grad_rel_to_max"],
+          "unfused level 1 %s differs from the fused program's by %g of "
+          "its max" % (worst, grad_rel[worst]))
+    check(np.allclose(u0["losses"], u1["losses"],
+                      rtol=FUSE_TOL["level0_loss_rtol"], atol=0.0),
+          "level 0 losses %s against level 1's %s"
+          % (u0["losses"], u1["losses"]))
+    want = [[n_layers] * 3] * FUSE_STEPS
+    check(f["per_step"] == want and u1["per_step"] == want,
+          "flash launches a step: fused %s, unfused level 1 %s"
+          % (f["per_step"], u1["per_step"]))
+    check(u0["per_step"] == [[0, 0, 0]] * FUSE_STEPS,
+          "flash launches at level 0: %s" % u0["per_step"])
+
+    # the verifier on the card's unfused training step
+    exe, scope = state_executor(main, state0, graphs=False)
+    with fluid.scope_guard(scope):
+        (out,) = exe.run(main, feed=feed8, fetch_list=[loss], verify=True)
+    bp = list(exe.engine._blocks.values())[-1]
+    report = verify_program(bp.block.program,
+                            feed_names=sorted(feed8), fetch_names=[loss.name])
+    counts = {str(s): len(report.by_severity(s)) for s in Severity}
+    emit({"phase": "verify", "model": "bert_base", "program": "unfused "
+          "training step after the level-1 rewrite", "findings": counts,
+          "loss": float(out.reshape(-1)[0])})
+    check(counts["ERROR"] == 0 and np.isfinite(out).all(),
+          "verify=True on the unfused step: %s" % counts)
+    del exe, scope
+    release_memory()
+    return {"fuse_attention": launches,
+            "fuse_attention_level0": u0["launches"]}
+
+
+def phase_fuse_attention_serve(fa, smi):
+    """BERT-base built unfused for serving (``is_train=False``), saved and
+    served by the predictor at the default level (the rewrite at the
+    first run: 12 forward launches a request) and with
+    ``switch_ir_optim(False)`` (level 0: none), batch 1 and 8, each shape
+    eager, captured and replayed: the answers at both levels and both
+    batches, and against the same directory served on the CPU, within
+    SERVE_TOL; latencies of replayed requests. Returns the launches by
+    path."""
+    import torch
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import inference, unique_name
+    from paddle_tpu_torch.models import bert
+
+    n_layers = BERT["n_layers"]
+    feeds = ["src_ids", "pos_ids", "sent_ids", "seq_lens"]
+    feed8 = bert_feed(8, np.random.RandomState(17))
+    feed1 = {k: v[:1] for k, v in feed8.items()}
+    rows, launches, answers = {}, {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_unfused_") as d:
+        with unique_name.guard():
+            main, startup, handles = bert.get_model(
+                batch_size=8, dropout=0.1, is_train=False,
+                use_fused_attention=False, **BERT)
+        main.random_seed = startup.random_seed = 2024
+        exe, scope = fluid.Executor(), fluid.Scope()
+        with fluid.scope_guard(scope):
+            exe.run(startup)
+            fluid.io.save_inference_model(d, feeds, [handles["enc_out"]],
+                                          exe, main_program=main)
+        del exe, scope
+        for ir_optim in (True, False):
+            label = "level1" if ir_optim else "level0"
+            cfg = inference.AnalysisConfig(d)
+            cfg.switch_ir_optim(ir_optim)
+            pred = inference.create_paddle_predictor(cfg)
+            torch.cuda.synchronize()
+            fa.launches = fa.launches_dq = fa.launches_dkv = 0  # starts
+            per_request = []
+            for b, feed in ((1, feed1), (8, feed8)):
+                for rep in range(3):
+                    before = fa.launches
+                    (out,) = pred.run(feed)
+                    per_request.append(fa.launches - before)
+                    if rep == 0:
+                        answers[label, b] = out.data
+            torch.cuda.synchronize()
+            launches["fuse_attention_serve" + (
+                "" if ir_optim else "_level0")] = flash_launches(fa)  # ends
+            latency = {b: timed_runs(lambda f=feed: pred.run(f), n=20)
+                       for b, feed in ((1, feed1), (8, feed8))}
+            rows[label] = {"launches_per_request": per_request,
+                           "latency_ms": latency,
+                           "graphs": len(captured(pred._exe.engine))}
+            want = n_layers if ir_optim else 0
+            check(per_request == [want] * 6,
+                  "served unfused BERT (%s): flash launches a request %s, "
+                  "want %d" % (label, per_request, want))
+            del pred
+            release_memory()
+        cfg = inference.AnalysisConfig(d)
+        cfg.disable_gpu()
+        cpu = inference.create_paddle_predictor(cfg)
+        cpu_out = {b: cpu.run(f)[0].data for b, f in ((1, feed1),
+                                                      (8, feed8))}
+    errs = {
+        "level1_b1_vs_b8_row0": float(np.abs(
+            answers["level1", 1] - answers["level1", 8][:1]).max()),
+        "level0_vs_level1_b8": float(np.abs(
+            answers["level0", 8] - answers["level1", 8]).max()),
+        "level0_b1_vs_b8_row0": float(np.abs(
+            answers["level0", 1] - answers["level0", 8][:1]).max()),
+        "card_vs_cpu_b8": float(np.abs(
+            answers["level1", 8] - cpu_out[8]).max()),
+        "card_vs_cpu_b1": float(np.abs(
+            answers["level1", 1] - cpu_out[1]).max())}
+    emit({"phase": "fuse_attention_serve", "model": "bert_base",
+          "card": smi, "built": "use_fused_attention=False, is_train=False",
+          "seq_lens": feed8["seq_lens"].reshape(-1).tolist(),
+          "runs": rows, "max_abs_err": errs, "tol": SERVE_TOL})
+    pairs = ((answers["level1", 1], answers["level1", 8][:1]),
+             (answers["level0", 8], answers["level1", 8]),
+             (answers["level0", 1], answers["level0", 8][:1]),
+             (answers["level1", 8], cpu_out[8]),
+             (answers["level1", 1], cpu_out[1]))
+    check(all(np.isfinite(a).all() and np.allclose(a, b, **SERVE_TOL)
+              for a, b in pairs),
+          "served unfused answers beyond %s: %s" % (SERVE_TOL, errs))
+    return launches
+
+
+def phase_nmt_unfused(fa, smi):
+    """Transformer-base at its nmt width built unfused (the 6 encoder
+    self- and 6 cross-attentions; the 6 causal decoder self-attentions
+    are fused as built) at dropout 0: 12 rewrites, 18 launches of each
+    kernel a step, NMT_UNFUSED_STEPS captured steps against the fused
+    program's from the same state (FUSE_TOL's nmt bound). Returns the
+    launches by path."""
+    from paddle_tpu_torch import observability as obs
+
+    feed = nmt_feed(NMT["batch_size"], NMT_FEED_SEED)
+    fused_main, fused_startup, fh = nmt_program(dropout=0.0)
+    main, _, h = nmt_program(dropout=0.0, fused=False)
+    state = start_state(fused_main, fused_startup)
+    check(sorted(v.name for v in main.list_vars() if v.persistable)
+          == sorted(state), "the unfused NMT program's state differs")
+    want = [[3 * NMT["n_layers"]] * 3] * NMT_UNFUSED_STEPS
+    runs = {}
+    for label, prog, loss in (("fused", fused_main, fh["loss"]),
+                              ("unfused", main, h["loss"])):
+        obs.set_enabled(True)
+        obs.reset()
+        fa.launches = fa.launches_dq = fa.launches_dkv = 0  # starts
+        r = fused_steps(fa, prog, loss, state, feed, NMT_UNFUSED_STEPS)
+        r["launches"] = flash_launches(fa)  # ... and ends here
+        r["rewrites"] = obs.counter_value("transform.fuse-attention.rewrites")
+        obs.set_enabled(None)
+        r["time"] = timed_runs(lambda: r["exe"].run(
+            prog, feed=feed, fetch_list=[loss], scope=r["scope"]), n=5,
+            warmup=1)
+        del r["exe"], r["scope"], r["grads"]
+        runs[label] = r
+        release_memory()
+    emit({"phase": "nmt_unfused", "model": "transformer_base", "card": smi,
+          "batch": NMT["batch_size"], "seq_len": NMT["seq_len"],
+          "n_layers": NMT["n_layers"], "dropout": 0.0,
+          "tol": FUSE_TOL["nmt_loss_rtol"],
+          "runs": {k: {m: r[m] for m in ("losses", "per_step", "rewrites",
+                                         "peak", "time")}
+                   for k, r in runs.items()},
+          "bitwise": runs["unfused"]["losses"] == runs["fused"]["losses"]})
+    check(runs["unfused"]["rewrites"] == 2 * NMT["n_layers"]
+          and runs["fused"]["rewrites"] == 0,
+          "NMT rewrites: unfused %d, fused %d" % (
+              runs["unfused"]["rewrites"], runs["fused"]["rewrites"]))
+    check(runs["unfused"]["per_step"] == want
+          and runs["fused"]["per_step"] == want,
+          "NMT flash launches a step: unfused %s, fused %s"
+          % (runs["unfused"]["per_step"], runs["fused"]["per_step"]))
+    check(np.allclose(runs["unfused"]["losses"], runs["fused"]["losses"],
+                      rtol=FUSE_TOL["nmt_loss_rtol"], atol=0.0),
+          "unfused NMT losses %s against fused %s" % (
+              runs["unfused"]["losses"], runs["fused"]["losses"]))
+    return {"nmt_unfused": runs["unfused"]["launches"]}
+
+
+def phase_book(fa, smi):
+    """The four book programs (``models.book``: fit_a_line,
+    recognize_digits, word2vec, machine_translation) with Adam, from the
+    card's startup state: BOOK_STEPS steps on the card (captured) and on
+    the CPU on the same seeded batches, losses within TRAIN_TOL; then
+    saved, loaded and served on the card against the training program's
+    ``for_test`` clone (the reference's round trip). Returns the
+    launches by path (none)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import book
+
+    fa.launches = fa.launches_dq = fa.launches_dkv = 0  # the path starts
+    for i, name in enumerate(sorted(book.BOOK_BUILDERS)):
+        with unique_name.guard():
+            main, startup, _, fetch, loss = book.get_model(name)
+        main.random_seed = startup.random_seed = 2024
+        state = start_state(main, startup)
+        rng = np.random.RandomState(300 + i)
+        batches = [book.make_batch(name, BOOK_BATCH, rng)
+                   for _ in range(BOOK_STEPS)]
+        losses = {}
+        for where, place in (("card", None), ("cpu", fluid.CPUPlace())):
+            exe, scope = state_executor(main, state, place=place)
+            with fluid.scope_guard(scope):
+                losses[where] = [float(exe.run(
+                    main, feed=b, fetch_list=[loss])[0].reshape(-1)[0])
+                    for b in batches]
+            if where == "card":
+                card_exe, card_scope = exe, scope
+        save_names = book.SAVE_NAMES[name]
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_book_") as d, \
+                fluid.scope_guard(card_scope):
+            fluid.io.save_inference_model(d, save_names, [fetch], card_exe,
+                                          main_program=main)
+            prog, feed_names, fetches = fluid.io.load_inference_model(
+                d, card_exe)
+            feed = batches[0]
+            (out,) = card_exe.run(prog, feed={k: feed[k]
+                                              for k in save_names},
+                                  fetch_list=fetches)
+            (ref,) = card_exe.run(main.clone(for_test=True), feed=feed,
+                                  fetch_list=[fetch])
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses["card"],
+                                                   losses["cpu"])]
+        infer_err = float(np.abs(out - ref).max())
+        emit({"phase": "book", "program": name, "card": smi,
+              "batch": BOOK_BATCH, "losses": losses,
+              "worst_loss_rel_err": max(rel),
+              "graphs": len(captured(card_exe.engine)),
+              "saved_feeds": feed_names, "infer_shape": list(out.shape),
+              "infer_vs_for_test_max_abs_err": infer_err,
+              "tol": TRAIN_TOL})
+        check(all(np.isfinite(losses["card"]))
+              and max(rel) <= TRAIN_TOL["loss_rtol"],
+              "book %s: card losses %s against the CPU's %s"
+              % (name, losses["card"], losses["cpu"]))
+        check(feed_names == save_names
+              and np.allclose(out, ref, rtol=1e-4, atol=1e-5),
+              "book %s: the loaded model's answer differs by %g"
+              % (name, infer_err))
+        del card_exe, card_scope
+    launches = flash_launches(fa)  # ... and ends here
+    check(not any(launches.values()), "flash launches in book: %s"
+          % launches)
+    return {"book": launches}
 
 
 # -- ResNet-50 ----------------------------------------------------------
@@ -3243,16 +3742,17 @@ def phase_word2vec(smi):
 # -- Transformer-base NMT -----------------------------------------------
 
 
-def nmt_program(amp=False, dropout=None):
+def nmt_program(amp=False, dropout=None, fused=True):
     """Transformer-base as ``models.transformer.get_model(**NMT)`` builds
     it (bench.py:305-313), random weights from the seed; ``amp`` marks it
-    for bfloat16, ``dropout`` overrides the rate. Returns (main, startup,
+    for bfloat16, ``dropout`` overrides the rate, ``fused`` False builds
+    the unfused attention composition. Returns (main, startup,
     handles)."""
     from paddle_tpu_torch import unique_name
     from paddle_tpu_torch.contrib import mixed_precision
     from paddle_tpu_torch.models import transformer
 
-    cfg = dict(NMT)
+    cfg = dict(NMT, use_fused_attention=fused)
     if dropout is not None:
         cfg["dropout"] = dropout
     with unique_name.guard():
@@ -4301,6 +4801,16 @@ def main():
     # recurrence and control flow; the image builders
     lstm_launches = phase_lstm(fa, smi)
     image_launches = phase_image_models(fa, smi)
+    release_memory()
+
+    # unfused attention fused back onto the kernels at opt_level 1 (from
+    # BERT's initial state of the train phase); the book programs
+    fuse_launches = phase_fuse_attention(fa, state0, train_feed8, smi)
+    fuse_launches.update(phase_fuse_attention_serve(fa, smi))
+    release_memory()
+    fuse_launches.update(phase_nmt_unfused(fa, smi))
+    fuse_launches.update(phase_book(fa, smi))
+    release_memory()
     emit({"phase": "times", "partial_profiler_windows_rerun":
           len(PARTIAL_PROFILES), "partial_windows": PARTIAL_PROFILES,
           "event_timed": EVENT_TIMED})
@@ -4315,6 +4825,7 @@ def main():
     other_paths.update(nmt_launches)
     other_paths["lstm"] = lstm_launches
     other_paths.update(image_launches)
+    other_paths.update(fuse_launches)
 
     def t256_rows(name):
         # the kernel at the Transformer's shapes (B=32 H=8 T=256 D=64)

@@ -14,9 +14,23 @@ static feed buffers and its seed table and, on CUDA, one captured
 ``torch.cuda.CUDAGraph`` of the whole block. The key is the reference's,
 restricted to what the port has: the program's fingerprint, the block,
 the feeds' names, shapes and dtypes, the fetches, ``is_test``,
-``donate_state``, ``amp`` and ``cache_key_extra``; the port adds
-``state_writeback`` and whether the block is captured, which change what
-the entry runs.
+``donate_state``, ``amp``, ``cache_key_extra`` and ``opt_level``; the
+port adds ``state_writeback`` and whether the block is captured, which
+change what the entry runs.
+
+The desc that runs is the one the transform pipeline returns
+(``analysis.optimize_program``, the reference's cache-miss seam,
+executor.py:670-687): at ``opt_level`` 1, the default, an unfused
+attention composition becomes ``fused_attention`` and
+``fused_attention_grad``, which launch the flash kernels. It runs once
+for each (program, block, feeds, fetches, liveness roots, level), when
+the block is first analyzed; the key stays the ORIGINAL desc's
+fingerprint, and the block's seed table is sized from the desc that
+runs. With ``verify`` (or the flag) the static verifier checks that desc
+on every cache miss, before the block is lowered, and raises on ERROR
+findings. The ``trace`` span and ``engine.trace_ms`` time the transforms
+and the analysis of the block; ``verify`` and ``engine.verify_ms`` the
+verifier.
 
 On CUDA the first run of a key runs eagerly, op by op, on a side stream
 (the warm-up: it loads the kernel libraries, creates the cuBLAS handles
@@ -441,8 +455,12 @@ class Engine:
                   fetch_list=None, is_test=False, return_numpy=True,
                   seed=0, opt_level=None, cache_key_extra=None,
                   donate_state=True, state_writeback=None, amp=False,
-                  accumulate_steps=1, remat_segments=0, dispatch_steps=1):
-        """Run block ``block_idx`` once. ``state_writeback`` (default:
+                  accumulate_steps=1, remat_segments=0, dispatch_steps=1,
+                  verify=None):
+        """Run block ``block_idx`` once. ``opt_level`` (default: the flag,
+        1) picks the transforms the desc goes through before it runs;
+        ``verify`` (default: the flag) runs the static verifier on the
+        desc that runs, at a cache miss. ``state_writeback`` (default:
         not ``is_test``) writes the persistable outputs back into the
         scope, in place with ``donate_state``; ``False`` never does, as
         serving needs (the scope stays immutable under concurrent
@@ -464,7 +482,7 @@ class Engine:
                 program_desc, block_idx, scope, feed, fetch_list, is_test,
                 return_numpy, seed, opt_level, cache_key_extra,
                 donate_state, state_writeback, amp, int(accumulate_steps),
-                int(remat_segments or 0), dispatch_steps)
+                int(remat_segments or 0), dispatch_steps, verify)
         if not defer:
             # liveness: the heartbeat reports this counter; the windowed
             # path notes enqueue here and retire in the window
@@ -475,12 +493,7 @@ class Engine:
                         fetch_list, is_test, return_numpy, seed, opt_level,
                         cache_key_extra, donate_state, state_writeback,
                         amp, accumulate_steps=1, remat_segments=0,
-                        dispatch_steps=1):
-        if opt_level not in (None, 0):
-            raise NotImplementedError(
-                "opt_level=%r: the port runs the desc as given (level 0); "
-                "the transform passes are ROADMAP Queue 1, analysis and "
-                "transforms" % (opt_level,))
+                        dispatch_steps=1, verify=None):
         if accumulate_steps < 1:
             raise ValueError("accumulate_steps must be >= 1, got %d"
                              % accumulate_steps)
@@ -499,7 +512,8 @@ class Engine:
         compiled = self.get_compiled(
             program_desc, block_idx, feed_names, feed_values, fetch_list,
             bool(is_test), bool(donate_state), bool(amp), cache_key_extra,
-            bool(state_writeback), accumulate_steps, remat_segments)
+            bool(state_writeback), accumulate_steps, remat_segments,
+            opt_level, verify)
         with self._lock:
             self._run_counter += 1
             run_counter = self._run_counter
@@ -524,15 +538,18 @@ class Engine:
     def get_compiled(self, program_desc, block_idx, feed_names, feed_values,
                      fetch_list, is_test, donate_state, amp,
                      cache_key_extra=None, state_writeback=True,
-                     accumulate_steps=1, remat_segments=0):
+                     accumulate_steps=1, remat_segments=0, opt_level=None,
+                     verify=None):
         """The cached ``CompiledBlock`` of one key, made on a miss; the
         least recently used entry goes past ``executable_cache_size``."""
+        opt_level = int(flags.get_flag("opt_level") if opt_level is None
+                        else opt_level)
         specs = tuple((n, tuple(v.shape), _torch_dtype(v))
                       for n, v in zip(feed_names, feed_values))
         extra_live = (remat_live_vars(program_desc.block(block_idx))
                       if remat_segments else ())
         bp = self._block_program(program_desc, block_idx, feed_names,
-                                 fetch_list, extra_live)
+                                 fetch_list, extra_live, opt_level)
         capture = (self.device.type == "cuda"
                    and self.cuda_graphs
                    and bp.capturable
@@ -540,13 +557,21 @@ class Engine:
         key = (program_desc.cached_fingerprint(), block_idx, specs,
                tuple(fetch_list), is_test, donate_state, amp,
                cache_key_extra, state_writeback, capture, accumulate_steps,
-               remat_segments)
+               remat_segments, opt_level)
         with self._lock:
             compiled = self._cache.get(key)
             if compiled is not None:
                 self._cache.move_to_end(key)
                 obs.inc("engine.cache_hit")
                 return compiled
+        if flags.get_flag("verify") if verify is None else verify:
+            # once per cache entry, before lowering, on the desc that
+            # runs: every rewrite the transforms made is verified too
+            from paddle_tpu_torch.analysis import verify_program
+
+            with obs.span("verify"), obs.time_block("engine.verify_ms"):
+                verify_program(bp.block.program, feed_names=feed_names,
+                               fetch_names=fetch_list, raise_on_error=True)
         compiled = CompiledBlock(self, bp, specs, is_test, amp,
                                  donate_state, state_writeback, capture,
                                  accumulate_steps, remat_segments)
@@ -563,18 +588,31 @@ class Engine:
         return compiled
 
     def _block_program(self, program_desc, block_idx, feed_names,
-                       fetch_list, extra_live=()):
+                       fetch_list, extra_live=(), opt_level=0):
         """The analyzed block, shared by every key with these feeds,
-        fetches and liveness roots."""
+        fetches, liveness roots and opt level: the block of the desc that
+        ``optimize_program`` returns (the original when nothing
+        rewrote)."""
         key = (program_desc.cached_fingerprint(), block_idx,
-               tuple(feed_names), tuple(fetch_list), tuple(extra_live))
+               tuple(feed_names), tuple(fetch_list), tuple(extra_live),
+               opt_level)
         with self._lock:
             bp = self._blocks.get(key)
             if bp is not None:
                 self._blocks.move_to_end(key)
                 return bp
-        bp = BlockProgram(program_desc.block(block_idx), feed_names,
-                          fetch_list, extra_live)
+        with obs.span("trace", block=block_idx, opt_level=opt_level), \
+                obs.time_block("engine.trace_ms"):
+            run_desc = program_desc
+            if opt_level > 0:
+                from paddle_tpu_torch.analysis.transforms import (
+                    optimize_program)
+
+                run_desc, _ = optimize_program(
+                    program_desc, level=opt_level, feed_names=feed_names,
+                    fetch_names=fetch_list)
+            bp = BlockProgram(run_desc.block(block_idx), feed_names,
+                              fetch_list, extra_live)
         with self._lock:
             bp = self._blocks.setdefault(key, bp)
             if len(self._blocks) > _BLOCK_CACHE_SIZE:

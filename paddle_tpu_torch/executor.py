@@ -108,14 +108,16 @@ class Executor:
         ``check_nan_inf`` the verdict is deferred to retire time and
         names the original step.
 
-        The port runs the desc as given, which is ``opt_level`` 0; any
-        other level raises (ROADMAP Queue 1 item 8), as do ``verify``
-        (item 8) and ``mesh`` (item 10)."""
-        if verify:
-            raise NotImplementedError(
-                "verify=True: the static verifier (analysis/) is not "
-                "ported yet (ROADMAP Queue 1 item 8, analysis and "
-                "transforms)")
+        ``opt_level`` (default: the ``PADDLE_GPU_OPT_LEVEL`` flag, 1)
+        picks the desc-level transforms applied once per cache entry
+        (``analysis.optimize_program``): 0 runs the desc as given, 1
+        rewrites an unfused attention composition into the fused op,
+        which runs the flash kernels. Levels 2 and up raise (ROADMAP
+        Queue 1 item 8). ``verify=True`` (default: the
+        ``PADDLE_GPU_VERIFY`` flag) runs the static verifier on the desc
+        that runs, once per cache entry, and raises
+        ``analysis.VerificationError`` on ERROR findings. ``mesh`` raises
+        (item 10)."""
         if mesh is not None:
             raise NotImplementedError(
                 "mesh=: the SPMD path is not ported yet (ROADMAP Queue 1 "
@@ -140,6 +142,7 @@ class Executor:
                 return_numpy=return_numpy,
                 seed=getattr(program, "random_seed", 0) or 0,
                 opt_level=opt_level,
+                verify=verify,
                 amp=getattr(program, "_amp", False),
                 accumulate_steps=accumulate_steps,
                 remat_segments=remat_segments,

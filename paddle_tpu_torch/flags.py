@@ -29,6 +29,22 @@ DEFS = {
         bool, False,
         "Verify every fetch/state tensor is finite after each step "
         "(reference: FLAGS_check_nan_inf)."),
+    "verify": (
+        bool, False,
+        "Run the static program verifier (paddle_tpu_torch.analysis) "
+        "before each block is lowered: once per cache entry, on the desc "
+        "the transforms return, raising on ERROR-severity findings "
+        "(use-before-def, dtype clashes, orphan gradients...)."),
+    "opt_level": (
+        int, 1,
+        "Desc-level optimization applied once per cache entry at the "
+        "engine's cache-miss seam (analysis/transforms.py "
+        "optimize_program): 0 = off, 1 = the attention-pattern rewrite "
+        "to the fused flash-attention op (the reference's default). "
+        "Levels 2 and up (the reference's elementwise fusion, constant "
+        "folding, CSE, memory planning, layout) are not ported yet and "
+        "raise. Rewrites operate on a clone; the program desc is never "
+        "mutated."),
     "executable_cache_size": (
         int, 128,
         "LRU capacity of the engine's compiled-block cache: one entry, "

@@ -7,7 +7,11 @@ package) and answers ``run`` on the card, or on the CPU after
 ``config.disable_gpu()``; ``serve()`` puts a continuous-batching
 ``InferenceServer`` (serving.py) in front of it. On the card each input
 shape runs eagerly once, is captured in a CUDA graph at its second run
-and replayed from then on (``engine/executor.py``). INT8
+and replayed from then on (``engine/executor.py``). The engine's
+transforms run at its default ``opt_level`` (1: an unfused attention is
+fused back onto the flash kernels) unless ``config.switch_ir_optim(False)``
+asks for level 0; the continuous-batching server takes the same level.
+INT8
 (``enable_mkldnn``/``enable_tensorrt_engine``) is a later slice and
 raises, naming its ROADMAP item.
 """
@@ -30,6 +34,7 @@ class AnalysisConfig:
         self.params_file = params_file
         self._use_gpu = True
         self._device_id = 0
+        self._ir_optim = True
 
     def disable_gpu(self):
         self._use_gpu = False
@@ -40,6 +45,11 @@ class AnalysisConfig:
 
     def place(self):
         return CUDAPlace(self._device_id) if self._use_gpu else CPUPlace()
+
+    def switch_ir_optim(self, flag=True):
+        """Toggle the transform pipeline for this predictor's runs:
+        threaded to the engine's ``opt_level`` (0 when off)."""
+        self._ir_optim = bool(flag)
 
     def enable_mkldnn(self):
         raise NotImplementedError(
@@ -82,6 +92,12 @@ class AnalysisPredictor:
     def get_output_names(self):
         return list(self._fetch_names)
 
+    @property
+    def _opt_level(self):
+        # switch_ir_optim(False) forces level 0; True leaves the engine's
+        # flag in charge (None)
+        return None if self.config._ir_optim else 0
+
     def run(self, inputs):
         """inputs: list of PaddleTensor (positional by feed order) or dict
         name->array. Returns list of PaddleTensor."""
@@ -93,18 +109,20 @@ class AnalysisPredictor:
                 feed[t.name or name] = t.data
         with scope_guard(self._scope):
             outs = self._exe.run(self._program, feed=feed,
-                                 fetch_list=self._fetch_names)
+                                 fetch_list=self._fetch_names,
+                                 opt_level=self._opt_level)
         return [PaddleTensor(o, n) for o, n in zip(outs, self._fetch_names)]
 
     def serve(self, buckets=None, max_wait_ms=None, name="serving"):
         """Continuous-batching façade: an InferenceServer over this
         predictor's program, scope, and executor (reference:
         ``paddle_tpu/inference/predictor.py:208-221``). The caller starts
-        it (context manager or ``.start()``)."""
+        it (context manager or ``.start()``). The server runs at the
+        predictor's opt level."""
         return InferenceServer(
             self._program, self._feed_names, self._fetch_names,
             scope=self._scope, executor=self._exe, buckets=buckets,
-            max_wait_ms=max_wait_ms, name=name)
+            max_wait_ms=max_wait_ms, name=name, opt_level=self._opt_level)
 
 
 def create_paddle_predictor(config):

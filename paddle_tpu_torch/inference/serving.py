@@ -137,8 +137,11 @@ class InferenceServer:
     def __init__(self, program, feed_names, fetch_names, scope=None,
                  executor=None, buckets=None, max_wait_ms=None,
                  name="serving", slo_ms=None, slo_monitor=None,
-                 degraded_program=None):
+                 degraded_program=None, opt_level=None):
         self.program = program
+        # the engine's opt level for every dispatch (None: the flag's);
+        # the predictor passes its switch_ir_optim choice through
+        self.opt_level = opt_level
         self.feed_names = tuple(feed_names)
         self.fetch_names = tuple(
             f.name if hasattr(f, "name") else str(f) for f in fetch_names)
@@ -731,7 +734,7 @@ class InferenceServer:
             program.desc, 0, self.scope,
             feed=feed, fetch_list=list(self.fetch_names),
             is_test=True, donate_state=False, state_writeback=False,
-            cache_key_extra=key,
+            cache_key_extra=key, opt_level=self.opt_level,
             return_numpy=True)
 
     def _resolve(self, batch, outs, bucket):

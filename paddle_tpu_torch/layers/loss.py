@@ -1,11 +1,23 @@
 """Loss layers — port of ``paddle_tpu/layers/loss.py`` for
-``softmax_with_cross_entropy`` (loss.py:33), ``square_error_cost``
+``cross_entropy`` (loss.py:21), ``softmax_with_cross_entropy`` (:33), ``square_error_cost``
 (:54) and ``sigmoid_cross_entropy_with_logits`` (:65)."""
 
 from paddle_tpu_torch.layer_helper import LayerHelper
 
-__all__ = ["softmax_with_cross_entropy", "square_error_cost",
+__all__ = ["cross_entropy", "softmax_with_cross_entropy", "square_error_cost",
            "sigmoid_cross_entropy_with_logits"]
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    helper = LayerHelper("cross_entropy")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(
+        type="cross_entropy",
+        inputs={"X": [input], "Label": [label]},
+        outputs={"Y": [out]},
+        attrs={"soft_label": soft_label, "ignore_index": ignore_index},
+    )
+    return out
 
 
 def softmax_with_cross_entropy(logits, label, soft_label=False,

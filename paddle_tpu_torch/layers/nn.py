@@ -3,7 +3,9 @@ python/paddle/fluid/layers/nn.py), for the layer functions the BERT,
 ResNet, MNIST, Transformer, CTR, LSTM and image models need, the
 compare and logical layers of the control-flow programs, and the
 recurrent layers (``dynamic_lstm``, ``dynamic_gru``, ``dynamic_lstmp``,
-``lstm``).
+``lstm``), the layers of the book programs (``matmul``, the reduce
+family, ``unsqueeze``, ``expand``...) and the unfused attention's mask
+(``attention_bias_from_lens``).
 Each function appends the same op, slots and attrs as its JAX-package
 counterpart (cited beside it), so the two front ends build identical
 descs."""
@@ -28,6 +30,9 @@ __all__ = [
     "layer_norm",
     "dropout",
     "softmax",
+    "log_softmax",
+    "matmul",
+    "mul",
     "elementwise_add",
     "elementwise_sub",
     "elementwise_mul",
@@ -37,8 +42,22 @@ __all__ = [
     "elementwise_pow",
     "reshape",
     "transpose",
+    "unsqueeze",
+    "expand",
     "slice",
     "reduce_sum",
+    "reduce_mean",
+    "reduce_max",
+    "reduce_min",
+    "reduce_prod",
+    "topk",
+    "leaky_relu",
+    "clip",
+    "clip_by_norm",
+    "sequence_mask",
+    "gaussian_random",
+    "pow",
+    "autoincreased_step_counter",
     "relu",
     "mean",
     "scale",
@@ -402,6 +421,50 @@ def softmax(input, use_cudnn=True, name=None, axis=-1):
     return out
 
 
+def log_softmax(input, axis=-1, name=None):
+    """(nn.py:572)."""
+    helper = LayerHelper("log_softmax", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(
+        type="log_softmax",
+        inputs={"X": [input]},
+        outputs={"Out": [out]},
+        attrs={"axis": axis},
+    )
+    return out
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    """(nn.py:584)."""
+    helper = LayerHelper("matmul", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(
+        type="matmul",
+        inputs={"X": [x], "Y": [y]},
+        outputs={"Out": [out]},
+        attrs={
+            "transpose_X": transpose_x,
+            "transpose_Y": transpose_y,
+            "alpha": float(alpha),
+        },
+    )
+    return out
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    """(nn.py:600)."""
+    helper = LayerHelper("mul", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(
+        type="mul",
+        inputs={"X": [x], "Y": [y]},
+        outputs={"Out": [out]},
+        attrs={"x_num_col_dims": x_num_col_dims,
+               "y_num_col_dims": y_num_col_dims},
+    )
+    return out
+
+
 def _elementwise_layer(op_type):
     """(nn.py:612)."""
 
@@ -472,23 +535,77 @@ def slice(input, axes, starts, ends):
     return out
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    """(nn.py:794 ``_reduce_layer``)."""
-    helper = LayerHelper("reduce_sum", name=name)
+def _reduce_layer(op_type):
+    """(nn.py:794)."""
+    def layer(input, dim=None, keep_dim=False, name=None):
+        helper = LayerHelper(op_type, name=name)
+        out = helper.create_variable_for_type_inference(dtype=input.dtype)
+        if dim is None:
+            dim_attr, reduce_all = [0], True
+        else:
+            dim_attr = dim if isinstance(dim, (list, tuple)) else [dim]
+            reduce_all = False
+        helper.append_op(
+            type=op_type,
+            inputs={"X": [input]},
+            outputs={"Out": [out]},
+            attrs={"dim": list(dim_attr), "keep_dim": keep_dim,
+                   "reduce_all": reduce_all},
+        )
+        return out
+
+    layer.__name__ = op_type
+    return layer
+
+
+reduce_sum = _reduce_layer("reduce_sum")
+reduce_mean = _reduce_layer("reduce_mean")
+reduce_max = _reduce_layer("reduce_max")
+reduce_min = _reduce_layer("reduce_min")
+reduce_prod = _reduce_layer("reduce_prod")
+
+
+def unsqueeze(input, axes, name=None):
+    """(nn.py:703)."""
+    helper = LayerHelper("unsqueeze2", name=name)
     out = helper.create_variable_for_type_inference(dtype=input.dtype)
-    if dim is None:
-        dim_attr, reduce_all = [0], True
-    else:
-        dim_attr = dim if isinstance(dim, (list, tuple)) else [dim]
-        reduce_all = False
+    xshape = helper.create_variable_for_type_inference(dtype=input.dtype,
+                                                       stop_gradient=True)
     helper.append_op(
-        type="reduce_sum",
+        type="unsqueeze2",
         inputs={"X": [input]},
-        outputs={"Out": [out]},
-        attrs={"dim": list(dim_attr), "keep_dim": keep_dim,
-               "reduce_all": reduce_all},
+        outputs={"Out": [out], "XShape": [xshape]},
+        attrs={"axes": axes},
     )
     return out
+
+
+def expand(x, expand_times, name=None):
+    """(nn.py:747)."""
+    helper = LayerHelper("expand", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(
+        type="expand",
+        inputs={"X": [x]},
+        outputs={"Out": [out]},
+        attrs={"expand_times": list(expand_times)},
+    )
+    return out
+
+
+def topk(input, k, name=None):
+    """(nn.py:823)."""
+    helper = LayerHelper("top_k", name=name)
+    values = helper.create_variable_for_type_inference(dtype=input.dtype)
+    indices = helper.create_variable_for_type_inference(dtype="int64")
+    helper.append_op(
+        type="top_k",
+        inputs={"X": [input]},
+        outputs={"Out": [values], "Indices": [indices]},
+        attrs={"k": k},
+    )
+    indices.stop_gradient = True
+    return values, indices
 
 
 def relu(x, name=None):
@@ -496,6 +613,45 @@ def relu(x, name=None):
     helper = LayerHelper("relu", name=name)
     out = helper.create_variable_for_type_inference(dtype=x.dtype)
     helper.append_op(type="relu", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def leaky_relu(x, alpha=0.02, name=None):
+    """(nn.py:946)."""
+    helper = LayerHelper("leaky_relu", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(
+        type="leaky_relu",
+        inputs={"X": [x]},
+        outputs={"Out": [out]},
+        attrs={"alpha": alpha},
+    )
+    return out
+
+
+def clip(x, min, max, name=None):
+    """(nn.py:1008)."""
+    helper = LayerHelper("clip", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(
+        type="clip",
+        inputs={"X": [x]},
+        outputs={"Out": [out]},
+        attrs={"min": float(min), "max": float(max)},
+    )
+    return out
+
+
+def clip_by_norm(x, max_norm, name=None):
+    """(nn.py:1020)."""
+    helper = LayerHelper("clip_by_norm", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(
+        type="clip_by_norm",
+        inputs={"X": [x]},
+        outputs={"Out": [out]},
+        attrs={"max_norm": float(max_norm)},
+    )
     return out
 
 
@@ -841,3 +997,80 @@ def sequence_last_step(input, length=None):
     """Last valid timestep of each sequence (reference: layers/nn.py
     sequence_last_step = sequence_pool LAST)."""
     return sequence_pool(input, "last", length=length)
+
+
+def sequence_mask(x, maxlen=None, dtype="int64", name=None):
+    """(nn.py:1132) The op's output is float32 whatever ``dtype`` says,
+    as in the JAX package."""
+    helper = LayerHelper("sequence_mask", name=name)
+    out = helper.create_variable_for_type_inference(dtype="float32")
+    helper.append_op(
+        type="sequence_mask",
+        inputs={"X": [x]},
+        outputs={"Y": [out]},
+        attrs={"maxlen": maxlen if maxlen is not None else -1},
+    )
+    return out
+
+
+def gaussian_random(shape, mean=0.0, std=1.0, seed=0, dtype="float32"):
+    """(nn.py:1806)."""
+    from paddle_tpu_torch.core.types import convert_np_dtype_to_dtype_
+
+    helper = LayerHelper("gaussian_random")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="gaussian_random", outputs={"Out": [out]},
+                     attrs={"shape": list(shape), "mean": mean,
+                            "std": std, "seed": seed,
+                            "dtype": int(convert_np_dtype_to_dtype_(dtype))})
+    out.stop_gradient = True
+    return out
+
+
+def pow(x, factor=1.0, name=None):
+    """(nn.py:2111)."""
+    helper = LayerHelper("pow", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="pow", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"factor": factor})
+    return out
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """(nn.py:2158) A persistable int64 counter, incremented once a run
+    of the program."""
+    helper = LayerHelper("global_step_counter")
+    counter = helper.block.program.global_block().create_var(
+        name=counter_name or "@STEP_COUNTER@",
+        dtype="int64", shape=[1], persistable=True)
+    helper.block.program.global_block().vars[counter.name].desc.attrs[
+        "init_value"] = float(begin - step)
+    helper.append_op(
+        type="increment", inputs={"X": [counter.name]},
+        outputs={"Out": [counter.name]}, attrs={"step": float(step)})
+    counter.stop_gradient = True
+    return counter
+
+
+# Additive mask magnitude: large enough that softmax zeroes the masked
+# keys in every float dtype, small enough not to overflow float16
+# (nn.py:2475).
+_ATTN_MASK_BIG = 1e9
+
+
+def attention_bias_from_lens(seq_lens, max_len, name=None):
+    """(nn.py:2478) Additive key-padding bias [B, 1, 1, max_len] from a
+    lengths vector: 0 for valid keys, -1e9 past each sequence's length.
+    The unfused attention's mask, built from exactly the ops
+    (sequence_mask -> scale -> reshape2) that the fuse-attention pass
+    (``analysis/transforms.py``) recognizes, so the lengths become the
+    fused op's ``SeqLens`` when the rewrite fires. Every intermediate is
+    stop_gradient: the mask is data."""
+    mask = sequence_mask(seq_lens, maxlen=int(max_len))  # [B, T] of 0/1
+    mask.stop_gradient = True
+    bias = scale(mask, scale=_ATTN_MASK_BIG, bias=-_ATTN_MASK_BIG,
+                 name=name)  # 1 -> 0, 0 -> -BIG
+    bias.stop_gradient = True
+    bias = reshape(bias, shape=[-1, 1, 1, int(max_len)])
+    bias.stop_gradient = True
+    return bias

@@ -1,6 +1,7 @@
 """Tensor-building layers — port of ``paddle_tpu/layers/tensor.py`` for
 ``fill_constant`` (tensor.py:46), ``fill_constant_batch_size_like``
-(:63), ``cast`` (:83), ``concat`` (:98) and ``assign`` (:118)."""
+(:63), ``cast`` (:83), ``concat`` (:98), ``sums`` (:110) and ``assign``
+(:118)."""
 
 import numpy as np
 
@@ -9,7 +10,7 @@ from paddle_tpu_torch.layer_helper import LayerHelper
 from paddle_tpu_torch.core.types import convert_np_dtype_to_dtype_
 
 __all__ = ["fill_constant", "fill_constant_batch_size_like", "cast",
-           "concat", "assign"]
+           "concat", "sums", "assign"]
 
 
 def fill_constant(shape, dtype, value, force_cpu=False, out=None, block=None):
@@ -73,6 +74,14 @@ def concat(input, axis=0, name=None):
         outputs={"Out": [out]},
         attrs={"axis": axis},
     )
+    return out
+
+
+def sums(input, out=None):
+    helper = LayerHelper("sum")
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype=input[0].dtype)
+    helper.append_op(type="sum", inputs={"X": input}, outputs={"Out": [out]})
     return out
 
 

@@ -1,6 +1,8 @@
-"""Model definitions of the port (``paddle_tpu/models/``, imports switched)."""
+"""Model definitions of the port (``paddle_tpu/models/``, imports
+switched), and the book programs of ``tests/book/`` (``book``)."""
 
 from paddle_tpu_torch.models import bert  # noqa: F401
+from paddle_tpu_torch.models import book  # noqa: F401
 from paddle_tpu_torch.models import deepfm  # noqa: F401
 from paddle_tpu_torch.models import lstm  # noqa: F401
 from paddle_tpu_torch.models import mnist  # noqa: F401

@@ -8,17 +8,24 @@ over the encoder's keys at ``src_lens``.
 
 The attention core is one ``fused_attention`` op (the CUDA flash kernels
 on the card): padding as per-sequence lengths, causality as a flag,
-attention dropout inside the kernel. The unfused composition (a dense
-additive ``mask``, or ``use_fused_attention=False`` without causality)
-needs ``matmul``, which is not ported yet (ROADMAP item 5), and the
-sequence-parallel ring path is multi-GPU work (item 10): both raise.
+attention dropout inside the kernel. A dense additive ``mask``, or
+``use_fused_attention=False`` without causality, emits the unfused
+composition (matmul -> [+mask] -> softmax -> [dropout] -> matmul), the
+lengths as the additive bias of ``layers.nn.attention_bias_from_lens``;
+at ``opt_level`` 1, the default, the engine's fuse-attention pass
+(``analysis/transforms.py``) rewrites it back to the fused op. The
+sequence-parallel ring path is multi-GPU work (ROADMAP item 10) and
+raises.
 """
 
 import numpy as np
 
 import paddle_tpu_torch.fluid as fluid
 from paddle_tpu_torch.initializer import NumpyArrayInitializer
-from paddle_tpu_torch.layers.nn import fused_attention as _fused_attention_layer
+from paddle_tpu_torch.layers.nn import (
+    attention_bias_from_lens as _attention_bias_from_lens,
+    fused_attention as _fused_attention_layer,
+)
 
 
 def positional_encoding_table(max_len, d_model):
@@ -37,15 +44,14 @@ def multi_head_attention(q_in, k_in, v_in, d_model, n_heads, dropout_rate,
                          sequence_parallel=False, sp_axis="sp",
                          use_fused_attention=True):
     """Scaled dot-product attention with head split/merge
-    (reference: dist_transformer.py multi_head_attention)."""
+    (reference: dist_transformer.py multi_head_attention). With no dense
+    ``mask``, and ``use_fused_attention`` or ``causal``, the core is one
+    ``fused_attention`` op; otherwise the unfused composition, causal
+    attention having no unfused form (transformer.py:86-103)."""
     if sequence_parallel:
         raise NotImplementedError(
             "sequence_parallel attention (ring attention) is ROADMAP "
             "item 10, multi-GPU")
-    if mask is not None or not (use_fused_attention or causal):
-        raise NotImplementedError(
-            "the unfused attention composition (matmul, softmax) is ROADMAP "
-            "item 5, the remaining op families; use the fused op")
     d_head = d_model // n_heads
     q = fluid.layers.fc(input=q_in, size=d_model, num_flatten_dims=2,
                         bias_attr=False)
@@ -59,10 +65,24 @@ def multi_head_attention(q_in, k_in, v_in, d_model, n_heads, dropout_rate,
         return fluid.layers.transpose(x, perm=[0, 2, 1, 3])  # [B,H,T,dh]
 
     q, k, v = split_heads(q), split_heads(k), split_heads(v)
-    ctx = _fused_attention_layer(
-        q, k, v, causal=causal, scale=d_head ** -0.5,
-        seq_lens=seq_lens,
-        dropout_rate=dropout_rate if is_train else 0.0)
+    if mask is None and (use_fused_attention or causal):
+        ctx = _fused_attention_layer(
+            q, k, v, causal=causal, scale=d_head ** -0.5,
+            seq_lens=seq_lens,
+            dropout_rate=dropout_rate if is_train else 0.0)
+    else:
+        if mask is None and seq_lens is not None:
+            mask = _attention_bias_from_lens(seq_lens, k.shape[2])
+        scores = fluid.layers.matmul(q, k, transpose_y=True,
+                                     alpha=d_head ** -0.5)
+        if mask is not None:
+            scores = fluid.layers.elementwise_add(scores, mask)
+        weights = fluid.layers.softmax(scores)
+        if dropout_rate > 0:
+            weights = fluid.layers.dropout(
+                weights, dropout_prob=dropout_rate, is_test=not is_train,
+                dropout_implementation="upscale_in_train")
+        ctx = fluid.layers.matmul(weights, v)  # [B,H,T,dh]
     ctx = fluid.layers.transpose(ctx, perm=[0, 2, 1, 3])
     ctx = fluid.layers.reshape(ctx, shape=[0, 0, d_model])
     return fluid.layers.fc(input=ctx, size=d_model, num_flatten_dims=2,

@@ -1,8 +1,9 @@
 """Loss ops — port of ``paddle_tpu/ops/loss_ops.py`` for
-``softmax_with_cross_entropy`` (:33), its direct grad
-``softmax_with_cross_entropy_grad`` (:341), ``mean`` (:81),
-``square_error_cost`` (:86), ``squared_l2_norm`` (:93), dense or a ``SelectedRows``, and
-``sigmoid_cross_entropy_with_logits`` (:116). The softmax losses compute
+``cross_entropy`` (:18, on probabilities), ``softmax_with_cross_entropy``
+(:33), its direct grad ``softmax_with_cross_entropy_grad`` (:341),
+``mean`` (:81), ``square_error_cost`` (:86), ``squared_l2_norm`` (:93),
+dense or a ``SelectedRows``, and ``sigmoid_cross_entropy_with_logits``
+(:116). The softmax losses compute
 in float32 whatever the logits' dtype, as in the reference."""
 
 import torch
@@ -17,6 +18,23 @@ def _squeeze_label(label):
     if label.ndim >= 2 and label.shape[-1] == 1:
         return label.squeeze(-1)
     return label
+
+
+@register_op("cross_entropy", no_grad_inputs=("Label",))
+def cross_entropy(ctx, ins, attrs):
+    """-log of the label's probability (or the soft label's sum), the
+    probability floored at 1e-8, in the input's dtype."""
+    x = single(ins, "X")  # probabilities
+    label = single(ins, "Label")
+    eps = 1e-8
+    if attrs.get("soft_label", False):
+        loss = -(label * torch.log(torch.clamp_min(x, eps))).sum(
+            dim=-1, keepdim=True)
+    else:
+        idx = _squeeze_label(label).to(torch.int64)
+        picked = torch.gather(x, -1, idx[..., None])
+        loss = -torch.log(torch.clamp_min(picked, eps))
+    return {"Y": [loss]}
 
 
 @register_op("softmax_with_cross_entropy", no_grad_inputs=("Label",))

@@ -1,14 +1,16 @@
 """Math ops — port of ``paddle_tpu/ops/math_ops.py`` for ``mul`` (:17),
-``mul_grad`` (:36), ``elementwise_add/sub/mul/div/max/min/pow``
-(:178-184), ``scale`` (:212), ``sum`` (:233), ``pow`` (:255), ``clip``
-(:261) and ``clip_by_norm`` (:276). The GEMMs are
-``torch.matmul`` (cuBLAS on the card), as the JAX package leaves them to
-XLA; float32 GEMMs run in full float32 unless the caller turns TF32 on.
+``mul_grad`` (:36), ``matmul`` (:119), ``matmul_grad`` (:71),
+``elementwise_add/sub/mul/div/max/min/pow`` (:178-184), ``scale``
+(:212), ``sum`` (:233), ``pow`` (:255), ``clip`` (:261) and
+``clip_by_norm`` (:276). The GEMMs are ``torch.matmul`` (cuBLAS on the
+card), as the JAX package leaves them to XLA; float32 GEMMs run in full
+float32 unless the caller turns TF32 on.
 
 Under AMP (``core/registry.py`` ``amp_scope``) the reference's dtype rules
 hold exactly: ``mul`` and ``mul_grad`` take bfloat16 operands and give a
-bfloat16 product (cuBLAS accumulates it in float32), and a bfloat16
-activation combined elementwise with a float32 operand stays bfloat16.
+bfloat16 product (cuBLAS accumulates it in float32), so do ``matmul``
+and ``matmul_grad``, and a bfloat16 activation combined elementwise with
+a float32 operand stays bfloat16.
 
 A ``SelectedRows`` (a sparse embedding grad) keeps its rows where the
 reference's SelectedRows kernels do: times or over a scalar (the
@@ -64,6 +66,90 @@ def mul_grad(ctx, ins, attrs):
     dy = _matmul(x2.t(), g2)
     return {"X@GRAD": [dx.reshape(x.shape).to(x.dtype)],
             "Y@GRAD": [dy.reshape(y.shape).to(y.dtype)]}
+
+
+def _mm(a, b):
+    """a @ b in the operands' promoted type (JAX's ``result_type``):
+    bfloat16 and float32 products stay in it, float16 accumulates to a
+    float32 product (math_ops.py:129-135); integers stay integers."""
+    rt = torch.promote_types(a.dtype, b.dtype)
+    a, b = a.to(rt), b.to(rt)
+    return _matmul(a, b) if rt.is_floating_point else torch.matmul(a, b)
+
+
+def _t(a):
+    return a.transpose(-1, -2) if a.ndim > 1 else a
+
+
+def _sum_to_shape(g, shape):
+    """Reduce broadcast batch dims of a matmul cotangent back to the
+    operand's shape (math_ops.py:56)."""
+    shape = tuple(shape)
+    if tuple(g.shape) == shape:
+        return g
+    extra = g.ndim - len(shape)
+    if extra > 0:
+        g = g.sum(dim=tuple(range(extra)))
+    axes = tuple(i for i, (gs, ss) in enumerate(zip(g.shape, shape))
+                 if gs != ss)
+    if axes:
+        g = g.sum(dim=axes, keepdim=True)
+    return g.reshape(shape)
+
+
+@register_op("matmul")
+def matmul(ctx, ins, attrs):
+    """``alpha * op(X) @ op(Y)``, op a transpose of the last two dims
+    when ``transpose_X``/``transpose_Y`` ask (rank-1 operands stay as
+    they are), batch dims broadcast as numpy's matmul does."""
+    x = single(ins, "X")
+    y = single(ins, "Y")
+    if attrs.get("transpose_X", False):
+        x = _t(x)
+    if attrs.get("transpose_Y", False):
+        y = _t(y)
+    x, y = amp_cast(x, y)
+    out = _mm(x, y)
+    alpha = attrs.get("alpha", 1.0)
+    if alpha != 1.0:
+        out = out * alpha
+    return {"Out": [out]}
+
+
+@register_no_grad_op("matmul_grad")
+def matmul_grad(ctx, ins, attrs):
+    """Direct matmul gradients for every transpose combination
+    (reference: matmul_op.cc MatMulGradKernel): transposed products of
+    the saved operands, broadcast batch dims summed back; a rank-1
+    operand takes ``torch.func.vjp`` of the product, as the reference
+    takes its own vjp."""
+    x = single(ins, "X")
+    y = single(ins, "Y")
+    g = single(ins, "Out@GRAD")
+    tx = attrs.get("transpose_X", False)
+    ty = attrs.get("transpose_Y", False)
+    alpha = attrs.get("alpha", 1.0)
+    xa, ya = amp_cast(x, y)
+    if g.dtype != xa.dtype:
+        g = g.to(torch.promote_types(xa.dtype, ya.dtype))
+    if alpha != 1.0:
+        g = g * alpha
+    if x.ndim == 1 or y.ndim == 1:
+        _, vjp = torch.func.vjp(
+            lambda xx, yy: _mm(_t(xx) if tx else xx, _t(yy) if ty else yy),
+            xa, ya)
+        dx, dy = vjp(g)
+        return {"X@GRAD": [dx.to(x.dtype)], "Y@GRAD": [dy.to(y.dtype)]}
+    if not tx and not ty:
+        dx, dy = _mm(g, _t(ya)), _mm(_t(xa), g)
+    elif tx and not ty:
+        dx, dy = _mm(ya, _t(g)), _mm(xa, g)
+    elif not tx and ty:
+        dx, dy = _mm(g, ya), _mm(_t(g), xa)
+    else:
+        dx, dy = _mm(_t(ya), _t(g)), _mm(_t(g), _t(xa))
+    return {"X@GRAD": [_sum_to_shape(dx, x.shape).to(x.dtype)],
+            "Y@GRAD": [_sum_to_shape(dy, y.shape).to(y.dtype)]}
 
 
 def _elementwise(fn):

@@ -1,6 +1,7 @@
 """Sequence ops — port of ``paddle_tpu/ops/sequence_ops.py`` for
 ``sequence_pool`` (:21), which ``layers.lstm`` takes the last step with
-(``sequence_last_step``).
+(``sequence_last_step``), and ``sequence_mask`` (:70), the first op of
+the key-padding mask ``layers.attention_bias_from_lens`` builds.
 
 The reference's LoDTensor batches become padded [B, T, ...] tensors with
 a [B] ``Length``, as in the JAX package: each pooling masks the padding.
@@ -44,3 +45,15 @@ def sequence_pool(ctx, ins, attrs):
     else:
         raise NotImplementedError(pooltype)
     return {"Out": [out]}
+
+
+@register_op("sequence_mask", grad=None)
+def sequence_mask(ctx, ins, attrs):
+    """[B, maxlen] float32 of 1 where the step is below the row's length
+    (the reference's ``_mask`` dtype), from lengths of any shape read as
+    [B]; ``maxlen`` must be static, as in the reference."""
+    x = single(ins, "X")
+    maxlen = attrs.get("maxlen", -1)
+    if maxlen < 0:
+        raise ValueError("sequence_mask needs a static maxlen")
+    return {"Y": [_mask(x, maxlen, torch.float32)]}

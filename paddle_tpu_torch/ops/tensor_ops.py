@@ -2,7 +2,8 @@
 ``paddle_tpu/ops/tensor_ops.py`` for ``fill_constant`` (:18),
 ``fill_constant_batch_size_like`` (:31), ``uniform_random`` (:42), ``gaussian_random`` (:54),
 ``truncated_gaussian_random`` (:65), ``cast`` (:76), ``concat`` (:83),
-``split`` (:89), ``reshape2`` (:103), ``transpose2`` (:125), ``slice`` (:183), ``top_k``
+``split`` (:89), ``reshape2`` (:103), ``transpose2`` (:125), ``unsqueeze2``
+(:152), ``expand`` (:176), ``slice`` (:183), ``top_k``
 (:225), ``top_k_grad`` (:233), ``one_hot`` (:272), ``assign`` (:214), ``label_smooth``
 (:299), ``increment`` (:329) and ``assign_value`` (:337).
 
@@ -145,6 +146,22 @@ def transpose2(ctx, ins, attrs):
     x = single(ins, "X")
     out = x.permute(list(attrs.get("axis")))
     return {"Out": [out], "XShape": [_xshape(x)]}
+
+
+@register_op("unsqueeze2")
+def unsqueeze2(ctx, ins, attrs):
+    x = single(ins, "X")
+    out = x
+    for ax in sorted(attrs.get("axes", [])):
+        out = out.unsqueeze(ax)
+    return {"Out": [out], "XShape": [_xshape(x)]}
+
+
+@register_op("expand")
+def expand(ctx, ins, attrs):
+    """``X`` tiled ``expand_times`` along each dim (``jnp.tile``)."""
+    return {"Out": [torch.tile(single(ins, "X"),
+                               tuple(attrs.get("expand_times")))]}
 
 
 @register_op("slice")

@@ -238,7 +238,7 @@ def test_unported_paths_raise():
         fluid.io.save_inference_model("unused", [], [], None,
                                       export_format="aot")
     exe = fluid.Executor(fluid.CPUPlace())
-    for kw, item in (({"verify": True}, "item 8"), ({"mesh": "dp"}, "item 10"),
-                     ({"opt_level": 2}, "analysis and transforms")):
+    for kw, item in (({"opt_level": 2}, "item 8"), ({"mesh": "dp"}, "item 10"),
+                     ({"opt_level": 3}, "analysis and transforms")):
         with pytest.raises(NotImplementedError, match=item):
             exe.run(fluid.Program(), **kw)

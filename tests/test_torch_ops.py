@@ -255,10 +255,13 @@ def test_every_ported_lowering_has_a_case():
     """Here, among the ResNet slice's ops in test_torch_ops_conv.py, among
     the training loop's in test_torch_ops_train.py, among the CTR and
     NMT models' in test_torch_ctr_models.py and
-    test_torch_transformer_nmt.py, or among the control-flow and
-    recurrent ops in test_torch_control_flow.py and test_torch_rnn.py."""
+    test_torch_transformer_nmt.py, among the control-flow and
+    recurrent ops in test_torch_control_flow.py and test_torch_rnn.py, or
+    among the book programs' and the unfused attention's in
+    test_torch_ops_book.py."""
     from test_torch_control_flow import SLICE_OPS as CF_OPS
     from test_torch_ctr_models import SLICE_OPS as CTR_OPS
+    from test_torch_ops_book import SLICE_OPS as BOOK_OPS
     from test_torch_ops_conv import SLICE_OPS
     from test_torch_ops_train import SLICE_OPS as TRAIN_OPS
     from test_torch_rnn import SLICE_OPS as RNN_OPS
@@ -266,7 +269,7 @@ def test_every_ported_lowering_has_a_case():
 
     registered = set(TOpRegistry.all_types())
     assert {c[1] for c in CASES} | (SLICE_OPS & registered) | TRAIN_OPS \
-        | CTR_OPS | NMT_OPS | CF_OPS | RNN_OPS \
+        | CTR_OPS | NMT_OPS | CF_OPS | RNN_OPS | BOOK_OPS \
         == registered - {"uniform_random"}
 
 
