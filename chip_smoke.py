@@ -12,7 +12,8 @@ training DeepFM with sparse embedding grads, word2vec and the
 Transformer-base NMT model, the stacked-LSTM classifier with the
 control-flow ops, VGG, MobileNet and SE-ResNeXt, BERT-base and the
 Transformer built with unfused attention and fused back onto the
-kernels at ``opt_level`` 1, and the book programs, and its kernels on
+kernels at ``opt_level`` 1, the book programs, the dense op families, an
+FCN decoder head and DeepFM with its streaming AUC, and its kernels on
 the card and prints one JSON line per phase:
 
 1. device  — the card's name and power limit (nvidia-smi), torch and CUDA
@@ -260,12 +261,35 @@ the card and prints one JSON line per phase:
    the card (captured) against the CPU's on the same seeded batches
    (TRAIN_TOL), then saved, loaded and served against the training
    program's ``for_test`` clone.
-30. kernels — one JSON object listing every ported kernel, with its
+30. dense_ops — every lowering of the dense op families (the tensor
+   ops, the image ops of nn_ops, the regression losses, auc,
+   precision_recall, chunk_eval, elementwise mod and floordiv) on the card
+   against the same lowering on the CPU from the same seeded operands, at
+   the shapes their users give them (``dense_cases``: group_norm(32) at
+   ResNet-50's stage 2, the 28 -> 56 transposed convolution and resizes,
+   AlexNet's lrn, BERT's tokens and vocab logits, DeepFM's 2048 x 39 ids
+   into a 1M-row table, ...): forward and the vjp grads within DENSE_TOL,
+   integer and bool outputs exact; gather, scatter, the resizes and
+   maxout run twice, bitwise equal; device ms of each forward and vjp.
+31. upsample_head — an FCN decoder (UPSAMPLE) built from
+   ``fluid.layers`` on ResNet-50's last stage at 224x224, batch 8:
+   ``conv2d_transpose``, ``group_norm``, ``prelu``, a 1x1 conv to 21
+   classes, ``resize_bilinear`` to 224x224, per-pixel softmax cross
+   entropy, Momentum: 5 steps eagerly and captured, bitwise equal; one
+   graph; no flash launch; one step against the CPU (UPSAMPLE_TOL); step
+   ms, idle share and top kernels.
+32. ctr_auc — the ctr phase's DeepFM with ``layers.auc`` on its
+   predictions: 20 steps captured and eagerly, the int64 histograms
+   bitwise equal step by step and equal to ``metrics.Auc`` fed the
+   fetched predictions on the host, the AUC within CTR_AUC_TOL of the
+   ``auc`` lowering on the CPU; one graph, captured once; the step's ms
+   against the program without the auc op.
+33. kernels — one JSON object listing every ported kernel, with its
    design: all three run their products on the tensor cores (mma.sync
    bf16, 3xTF32 for float32) from a cp.async tile ring, and read their
    dropout seed from device memory; each kernel's launches on every path,
-   the ResNet-50, training-loop, CTR, NMT, LSTM, image, unfused-attention
-   and book paths included, and its
+   the ResNet-50, training-loop, CTR, NMT, LSTM, image, unfused-attention,
+   book and dense-op paths included, and its
    times at the Transformer's shapes (``nmt_t256``).
 
 Served requests and dispatches run as captured CUDA graphs too: the first
@@ -279,6 +303,7 @@ and the script exits non-zero; it exits non-zero without a result when
 CUDA is unavailable or the port's package is not beside it.
 """
 
+import contextlib
 import gc
 import json
 import os
@@ -521,6 +546,28 @@ IMAGE_MODELS = {
 }
 IMAGE_BATCH = 32
 IMAGE_STEPS = 3
+# dense_ops: each lowering of the dense op families on the card against
+# the same lowering on the CPU from the same operands: float outputs and
+# grads within 1e-5 of the CPU's largest element, integer and bool
+# outputs exact; the ops whose grads add into a zero input (or take a max
+# among ties) run twice, bitwise equal
+DENSE_TOL = {"rel_to_max": 1e-5}
+DENSE_TWICE = ("gather", "scatter", "bilinear_interp", "nearest_interp",
+               "maxout")
+# upsample_head: the FCN decoder (Long et al., Fully Convolutional
+# Networks) on ResNet-50's last stage at 224x224 (2048 x 7 x 7), two
+# stride-2 transposed convolutions (k4 p1) to 512 and 256 channels, each
+# with group_norm(32) and a per-channel prelu, a 1x1 conv to PASCAL VOC's
+# 21 classes, resized to 224x224, Momentum 0.9
+UPSAMPLE = dict(channels=2048, hw=7, widths=(512, 256), groups=32,
+                classes=21, out_hw=224, lr=0.01)
+UPSAMPLE_BATCH = 8
+UPSAMPLE_STEPS = 5
+UPSAMPLE_TOL = {"loss_rtol": 1e-4, "grad_rel_to_max": 1e-3}
+# ctr_auc: the ctr phase's DeepFM with the streaming auc layer on its
+# predictions; AUC within 1e-6 of the CPU's over the same predictions
+CTR_AUC_STEPS = 20
+CTR_AUC_TOL = 1e-6
 
 
 # profiler windows that dropped device activity and were run again: per
@@ -2499,7 +2546,6 @@ def replay_ops_on_card(main, state, feed, tol, witness=None):
     the CPU's, the witness's and the two's, each relative to max|cpu|)."""
     import torch
 
-    from paddle_tpu_torch.core.registry import OpRegistry
     from paddle_tpu_torch.engine import lowering
 
     env = {n: torch.from_numpy(np.array(v)) for n, v in
@@ -2515,13 +2561,8 @@ def replay_ops_on_card(main, state, feed, tol, witness=None):
         lowering.run_op(op, block, env, "cpu", (2024, 1), i, False)
         lowering.run_op(op, block, card, "cuda", (2024, 1), i, False)
         if alt is not None:
-            info = OpRegistry.get(op.type)
-            port = info.lower
-            info.lower = witness[op.type]
-            try:
+            with lowered_by(op.type, witness[op.type]):
                 lowering.run_op(op, block, alt, "cuda", (2024, 1), i, False)
-            finally:
-                info.lower = port
         for n in op.output_arg_names():
             if n == lowering.EMPTY_VAR_NAME:
                 continue
@@ -3299,8 +3340,6 @@ def phase_optimizers(smi):
 
     import paddle_tpu_torch.fluid as fluid
     from paddle_tpu_torch import unique_name
-    from paddle_tpu_torch.core.desc import OpDesc
-    from paddle_tpu_torch.core.registry import LowerContext, OpRegistry
 
     worst = {}
     for i, op_type in enumerate(OPTIMIZER_OPS):
@@ -3309,10 +3348,9 @@ def phase_optimizers(smi):
             ins, attrs = optimizer_operands(op_type, shape, 80 + i)
             outs = {}
             for device in ("cpu", "cuda"):
-                op = OpDesc(op_type, {s: ["x"] for s in ins}, {}, attrs)
-                ctx = LowerContext(op, None, device)
-                got = OpRegistry.get(op_type).lower(
-                    ctx, {s: [v.to(device)] for s, v in ins.items()}, attrs)
+                got = lower_op(op_type, {s: [v.to(device)]
+                                         for s, v in ins.items()},
+                               attrs, device)
                 outs[device] = {s: v[0].cpu() for s, v in got.items()}
             errs = {}
             for slot, want in outs["cpu"].items():
@@ -3508,9 +3546,6 @@ def sparse_ops_without_sync():
     Returns the rows the merge kept."""
     import torch
 
-    from paddle_tpu_torch.core.desc import OpDesc
-    from paddle_tpu_torch.core.registry import LowerContext, OpRegistry
-
     gen = torch.Generator(device="cuda").manual_seed(5)
     n_ids = CTR["batch_size"] * CTR["num_fields"]
     shape = (CTR["num_features"], CTR["embed_dim"])
@@ -3521,8 +3556,7 @@ def sparse_ops_without_sync():
     one = lambda v: torch.tensor([v], device="cuda")  # noqa: E731
 
     def lower(op_type, ins, attrs):
-        ctx = LowerContext(OpDesc(op_type, {}, {}, attrs), None, "cuda")
-        return OpRegistry.get(op_type).lower(ctx, ins, attrs)
+        return lower_op(op_type, ins, attrs, "cuda")
 
     # every operand made first: a host value's copy to the card waits
     adam_ins = {"Param": [w], "Moment1": [torch.zeros_like(w)],
@@ -4689,6 +4723,589 @@ def phase_image_models(fa, smi):
     return paths
 
 
+# -- the dense op families (ROADMAP Queue 1, step 5c) --------------------
+
+
+@contextlib.contextmanager
+def lowered_by(op_type, fn):
+    """Op ``op_type`` lowered by ``fn`` in the block (a witness beside the
+    port's lowering), the port's lowering restored after."""
+    from paddle_tpu_torch.core.registry import OpRegistry
+
+    info = OpRegistry.get(op_type)
+    port, info.lower = info.lower, fn
+    try:
+        yield
+    finally:
+        info.lower = port
+
+
+def _conv2d_transpose_cudnn(ctx, ins, attrs):
+    """cuDNN's float32 transposed convolution (``F.conv_transpose2d``):
+    the witness run beside the port's lowering, which sums in float64."""
+    import torch.nn.functional as F
+
+    return {"Output": [F.conv_transpose2d(
+        ins["Input"][0], ins["Filter"][0],
+        stride=tuple(attrs.get("strides", [1, 1])),
+        padding=tuple(attrs.get("paddings", [0, 0])),
+        dilation=tuple(attrs.get("dilations", [1, 1])),
+        groups=attrs.get("groups", 1))]}
+
+
+# lowerings run on the card beside the port's in dense_ops, printed and
+# held to no limit
+DENSE_WITNESS = {"conv2d_transpose": _conv2d_transpose_cudnn}
+
+
+def dense_cases():
+    """(name, op type, a function of a RandomState giving the inputs as
+    numpy arrays, attrs) of the dense_ops phase: every lowering of the
+    dense op families at the shapes its users give it."""
+    def f(*shape):
+        return lambda rng: rng.randn(*shape).astype(np.float32)
+
+    def ins(**makers):
+        return lambda rng: {slot: [m(rng) for m in ms]
+                            for slot, ms in makers.items()}
+
+    def ints(low, high, *shape):
+        return lambda rng: rng.randint(low, high, shape).astype(np.int64)
+
+    def probs(*shape):
+        def make(rng):
+            p = np.abs(rng.randn(*shape)) + 0.05
+            return (p / p.sum(-1, keepdims=True)).astype(np.float32)
+        return make
+
+    def binary(*shape):
+        return lambda rng: rng.randint(0, 2, shape).astype(np.float32)
+
+    def table_ids(unique):
+        # DeepFM's batch of 2048 x 39 ids into a 1M-row table
+        n = CTR["batch_size"] * CTR["num_fields"]
+        if unique:
+            return lambda rng: rng.permutation(CTR["num_features"])[:n]
+        return ints(0, CTR["num_features"], n)
+
+    def tags(rng):
+        # IOB tags of 8 chunk types over [64, 256], 17 = outside
+        return rng.randint(0, 17, (64, 256)).astype(np.int64)
+
+    def mod_operands(rng):
+        x = rng.randint(-1000, 1000, (1024, 1024)).astype(np.int64)
+        y = rng.randint(1, 50, (1024, 1024)) * rng.choice([-1, 1],
+                                                         (1024, 1024))
+        return {"X": [x], "Y": [y.astype(np.int64)]}
+
+    def float_mod_operands(rng):
+        y = (rng.rand(1024, 1024) * 4 + 0.25) * rng.choice([-1, 1],
+                                                           (1024, 1024))
+        return {"X": [(rng.randn(1024, 1024) * 10).astype(np.float32)],
+                "Y": [y.astype(np.float32)]}
+
+    bert = (1024, 768)  # BERT-base tokens
+    vocab = (1024, 30522)  # BERT's vocab logits
+    img = (32, 256, 28, 28)
+    interp = [("bilinear_" + ("align_corners" if ac else "mode%d" % am),
+               "bilinear_interp", ins(X=[f(*img)]),
+               {"out_h": 56, "out_w": 56, "align_corners": ac,
+                "align_mode": am})
+              for ac, am in ((True, 1), (False, 1), (False, 0))]
+    interp += [("nearest_" + ("align_corners" if ac else "floor"),
+                "nearest_interp",
+                ins(X=[f(*img)]), {"out_h": 56, "out_w": 56,
+                                   "align_corners": ac})
+               for ac in (True, False)]
+    cases = [
+        ("fill_zeros_like", "fill_zeros_like", ins(X=[f(*bert)]), {}),
+        ("reshape", "reshape", ins(X=[f(8, 128, 768)]),
+         {"shape": [0, 0, 12, 64]}),
+        ("transpose", "transpose", ins(X=[f(8, 128, 12, 64)]),
+         {"axis": [0, 2, 1, 3]}),
+        ("squeeze2", "squeeze2", ins(X=[f(32, 2048, 1, 1)]),
+         {"axes": [2, 3]}),
+        ("stack", "stack", ins(X=[f(8, 128, 768)] * 12), {"axis": 0}),
+        ("unstack", "unstack", ins(X=[f(12, 8, 128, 768)]), {"axis": 0}),
+        ("gather", "gather", ins(X=[f(CTR["num_features"], 16)],
+                                 Index=[table_ids(False)]), {}),
+        ("scatter", "scatter",
+         ins(X=[f(CTR["num_features"], 16)], Ids=[table_ids(True)],
+             Updates=[f(CTR["batch_size"] * CTR["num_fields"], 16)]),
+         {"overwrite": True}),
+        ("scatter_add", "scatter",
+         ins(X=[f(CTR["num_features"], 16)], Ids=[table_ids(False)],
+             Updates=[f(CTR["batch_size"] * CTR["num_fields"], 16)]),
+         {"overwrite": False}),
+        ("shape", "shape", ins(Input=[f(32, 3, 224, 224)]), {}),
+        ("arg_max", "arg_max", ins(X=[f(*vocab)]), {"axis": -1}),
+        ("arg_min", "arg_min", ins(X=[f(*vocab)]), {"axis": -1}),
+        ("argsort", "argsort", ins(X=[f(*vocab)]), {"axis": -1}),
+        ("range", "range",
+         ins(Start=[lambda rng: np.array([0.0], np.float32)],
+             End=[lambda rng: np.array([512.0], np.float32)],
+             Step=[lambda rng: np.array([0.125], np.float32)]), {}),
+        ("pad", "pad", ins(X=[f(8, 120, 768)]),
+         {"paddings": [0, 0, 0, 8, 0, 0], "pad_value": 0.0}),
+        ("pad2d_reflect", "pad2d", ins(X=[f(32, 3, 224, 224)]),
+         {"paddings": [3, 3, 3, 3], "mode": "reflect"}),
+        ("pad2d_edge", "pad2d", ins(X=[f(32, 3, 224, 224)]),
+         {"paddings": [3, 3, 3, 3], "mode": "edge"}),
+        ("isfinite", "isfinite", ins(X=[f(*bert), f(768, 3072)]), {}),
+        ("cumsum", "cumsum", ins(X=[f(2048, 4096)]), {"axis": -1}),
+        ("cumsum_exclusive", "cumsum", ins(X=[f(2048, 4096)]),
+         {"axis": -1, "exclusive": True}),
+        ("cumsum_reverse", "cumsum", ins(X=[f(2048, 4096)]),
+         {"axis": -1, "reverse": True}),
+        ("reverse", "reverse", ins(X=[f(32, 256, 768)]), {"axis": [1]}),
+        ("conv2d_transpose", "conv2d_transpose",
+         ins(Input=[f(32, 512, 28, 28)],
+             Filter=[lambda rng: (rng.randn(512, 256, 4, 4) * 0.02).astype(
+                 np.float32)]),
+         {"strides": [2, 2], "paddings": [1, 1], "dilations": [1, 1],
+          "groups": 1}),
+        ("conv2d_transpose_grouped", "conv2d_transpose",
+         ins(Input=[f(32, 512, 28, 28)],
+             Filter=[lambda rng: (rng.randn(512, 8, 4, 4) * 0.05).astype(
+                 np.float32)]),
+         {"strides": [2, 2], "paddings": [1, 1], "dilations": [1, 1],
+          "groups": 32}),
+        ("lrn", "lrn", ins(X=[f(32, 96, 55, 55)]),
+         {"n": 5, "k": 2.0, "alpha": 1e-4, "beta": 0.75}),
+        ("l2_normalize", "l2_normalize", ins(X=[f(*bert)]),
+         {"axis": -1, "epsilon": 1e-12}),
+        ("norm", "norm", ins(X=[f(*bert)]), {"axis": 1, "epsilon": 1e-10}),
+        ("group_norm", "group_norm",
+         ins(X=[f(32, 256, 56, 56)], Scale=[f(256)], Bias=[f(256)]),
+         {"groups": 32, "epsilon": 1e-5}),
+    ] + interp + [
+        ("prelu_" + mode, "prelu",
+         ins(X=[f(32, 64, 112, 112)], Alpha=[f(*shape)]), {"mode": mode})
+        for mode, shape in (("all", (1,)), ("channel", (1, 64, 1, 1)),
+                            ("element", (1, 64, 112, 112)))
+    ] + [
+        ("maxout", "maxout", ins(X=[f(32, 256, 14, 14)]), {"groups": 2}),
+        ("squared_l2_distance", "squared_l2_distance",
+         ins(X=[f(2048, 128)], Y=[f(2048, 128)]), {}),
+        ("log_loss", "log_loss",
+         ins(Predicted=[lambda rng: rng.rand(2048, 1).astype(np.float32)],
+             Labels=[binary(2048, 1)]), {"epsilon": 1e-4}),
+        ("huber_loss", "huber_loss", ins(X=[f(2048, 1)], Y=[f(2048, 1)]),
+         {"delta": 1.0}),
+        ("smooth_l1_loss", "smooth_l1_loss",
+         ins(X=[f(2048, 4)], Y=[f(2048, 4)]), {"sigma": 3.0}),
+        ("kldiv_loss", "kldiv_loss",
+         ins(X=[lambda rng: np.log(probs(*vocab)(rng))],
+             Target=[probs(*vocab)]), {"reduction": "batchmean"}),
+        ("hinge_loss", "hinge_loss",
+         ins(Logits=[f(2048, 1)], Labels=[binary(2048, 1)]), {}),
+        ("elementwise_mod", "elementwise_mod", mod_operands, {"axis": -1}),
+        ("elementwise_mod_float", "elementwise_mod", float_mod_operands,
+         {"axis": -1}),
+        ("elementwise_floordiv", "elementwise_floordiv", mod_operands,
+         {"axis": -1}),
+        ("elementwise_floordiv_float", "elementwise_floordiv",
+         float_mod_operands, {"axis": -1}),
+        ("auc", "auc",
+         ins(Predict=[probs(2048, 2)], Label=[ints(0, 2, 2048, 1)],
+             StatPos=[ints(0, 100, 4096)], StatNeg=[ints(0, 100, 4096)]),
+         {"curve": "ROC", "num_thresholds": 4095}),
+        ("precision_recall", "precision_recall",
+         ins(Indices=[ints(0, 10, 2048, 1)], Labels=[ints(0, 10, 2048, 1)],
+             StatesInfo=[lambda rng: rng.randint(0, 500, (10, 4)).astype(
+                 np.float32)]), {"class_number": 10}),
+        ("chunk_eval", "chunk_eval",
+         ins(Inference=[tags], Label=[tags],
+             SeqLength=[ints(1, 257, 64)]),
+         {"chunk_scheme": "IOB", "num_chunk_types": 8}),
+    ]
+    return cases
+
+
+def lower_op(op_type, ins, attrs, device):
+    """One run of the port's lowering of ``op_type`` on ``ins`` (torch
+    tensors on ``device``)."""
+    from paddle_tpu_torch.core.desc import OpDesc
+    from paddle_tpu_torch.core.registry import LowerContext, OpRegistry
+
+    names = {s: ["x"] * len(v) for s, v in ins.items()}
+    ctx = LowerContext(OpDesc(op_type, names, {}, attrs), None, device,
+                       rng_seed=(0, 1))
+    return OpRegistry.get(op_type).lower(ctx, ins, attrs)
+
+
+def grad_primals(op_type, ins):
+    """(slot, index) of each input the op's grad flows to: floats outside
+    its ``no_grad_inputs``; none for an op without a grad."""
+    from paddle_tpu_torch.core.registry import OpRegistry
+
+    info = OpRegistry.get(op_type)
+    if info.grad_maker is None:
+        return []
+    return [(s, i) for s in sorted(ins) if s not in info.no_grad_inputs
+            for i, v in enumerate(ins[s]) if v.is_floating_point()]
+
+
+def op_vjp(op_type, ins, attrs, device, cots):
+    """The grads the engine derives for the op (``torch.func.vjp`` of its
+    lowering) on the cotangents ``cots`` of its float outputs, in
+    ``grad_primals`` order."""
+    import torch
+
+    primals = grad_primals(op_type, ins)
+
+    def fwd(*xs):
+        run_ins = {s: list(v) for s, v in ins.items()}
+        for (s, i), x in zip(primals, xs):
+            run_ins[s][i] = x
+        out = lower_op(op_type, run_ins, attrs, device)
+        return tuple(v for s in sorted(out) for v in out[s]
+                     if v.is_floating_point())
+
+    _, vjp = torch.func.vjp(fwd, *[ins[s][i] for s, i in primals])
+    return vjp(tuple(cots))
+
+
+def dense_errors(cpu, primals, out, grads):
+    """Card outputs ``out`` and grads ``grads`` against the CPU run
+    ``cpu`` ({"out", "grads"}): {output or grad: [max |card - cpu|, max
+    |cpu|]} of the float ones, and those off DENSE_TOL or, for integer
+    and bool ones, not equal."""
+    import torch
+
+    pairs = [("out." + s, a, b) for s in sorted(cpu["out"])
+             for a, b in zip(out[s], cpu["out"][s])]
+    pairs += [("grad.%s%d" % p, a, b) for p, a, b in zip(
+        primals, grads, cpu.get("grads", []))]
+    errs, off = {}, []
+    for key, a, b in pairs:
+        if not b.is_floating_point():
+            if not torch.equal(a, b):
+                off.append([key, "integer or bool outputs differ"])
+            continue
+        scale = float(b.abs().max()) if b.numel() else 0.0
+        err = float((a - b).abs().max()) if b.numel() else 0.0
+        errs[key] = [err, scale]
+        if err > DENSE_TOL["rel_to_max"] * scale:
+            off.append([key, err, scale])
+    return errs, off
+
+
+def phase_dense_ops(fa, smi):
+    """Every lowering of the dense op families (``dense_cases``) on the
+    card against the same lowering on the CPU from the same operands,
+    forward and, for an op with a grad, the vjp grads on seeded
+    cotangents (DENSE_TOL); the DENSE_TWICE ops run twice on the card,
+    bitwise equal; device ms of the forward and of the vjp. Returns the
+    flash launches of the phase (none)."""
+    import torch
+
+    import paddle_tpu_torch.fluid as fluid
+
+    fluid.Executor(fluid.CUDAPlace(0))  # cuDNN's deterministic algorithms
+    fa.launches = fa.launches_dq = fa.launches_dkv = 0  # the path starts
+    rows, failed = [], []
+    for k, (name, op_type, make, attrs) in enumerate(dense_cases()):
+        host = make(np.random.RandomState(500 + k))
+        runs = {}
+        for device in ("cuda", "cpu"):
+            ins = {s: [torch.as_tensor(a, device=device) for a in v]
+                   for s, v in host.items()}
+            out = lower_op(op_type, ins, attrs, device)
+            runs[device] = {"ins": ins, "out": {s: [v.cpu() for v in vs]
+                                                for s, vs in out.items()}}
+        card_ins = runs["cuda"]["ins"]
+        floats = [v for s in sorted(runs["cpu"]["out"])
+                  for v in runs["cpu"]["out"][s] if v.is_floating_point()]
+        crng = np.random.RandomState(900 + k)
+        cots = [torch.as_tensor(np.asarray(crng.randn(*v.shape),
+                                           np.float32)) for v in floats]
+        card_cots = [c.cuda() for c in cots]
+        primals = grad_primals(op_type, runs["cpu"]["ins"])
+        if primals:
+            for device, dev_cots in (("cuda", card_cots), ("cpu", cots)):
+                runs[device]["grads"] = [g.cpu() for g in op_vjp(
+                    op_type, runs[device]["ins"], attrs, device, dev_cots)]
+        errs, off = dense_errors(runs["cpu"], primals, runs["cuda"]["out"],
+                                 runs["cuda"].get("grads", []))
+        failed += [[name] + o for o in off]
+        exact = not any(isinstance(o[1], str) for o in off)
+        row = {"case": name, "op": op_type,
+               "shapes": {s: [list(a.shape) for a in v]
+                          for s, v in host.items()},
+               "max_abs_err_and_max": errs, "exact_ints": exact}
+        if op_type in DENSE_TWICE:
+            again = lower_op(op_type, card_ins, attrs, "cuda")
+            same = all(torch.equal(a.cpu(), b) for s in again
+                       for a, b in zip(again[s], runs["cuda"]["out"][s]))
+            if primals:
+                grads = op_vjp(op_type, card_ins, attrs, "cuda", card_cots)
+                same = same and all(torch.equal(a.cpu(), b) for a, b in
+                                    zip(grads, runs["cuda"]["grads"]))
+            row["twice_bitwise_equal"] = same
+            if not same:
+                failed.append([name, "run twice on the card differs"])
+        row["ms"] = device_ms(lambda: lower_op(op_type, card_ins, attrs,
+                                               "cuda"), n=5, warmup=1)
+        if primals:
+            row["vjp_ms"] = device_ms(lambda: op_vjp(
+                op_type, card_ins, attrs, "cuda", card_cots), n=5, warmup=1)
+        if op_type in DENSE_WITNESS:
+            with lowered_by(op_type, DENSE_WITNESS[op_type]):
+                out = lower_op(op_type, card_ins, attrs, "cuda")
+                grads = op_vjp(op_type, card_ins, attrs, "cuda", card_cots)
+                row["witness"] = {
+                    "max_abs_err_and_max": dense_errors(
+                        runs["cpu"], primals,
+                        {s: [v.cpu() for v in vs] for s, vs in out.items()},
+                        [g.cpu() for g in grads])[0],
+                    "ms": device_ms(lambda: lower_op(
+                        op_type, card_ins, attrs, "cuda"), n=5, warmup=1),
+                    "vjp_ms": device_ms(lambda: op_vjp(
+                        op_type, card_ins, attrs, "cuda", card_cots), n=5,
+                        warmup=1)}
+        rows.append(row)
+        del runs, card_ins, host
+        release_memory()
+    launches = flash_launches(fa)  # ... and ends here
+    emit({"phase": "dense_ops", "card": smi, "tol": DENSE_TOL,
+          "ops": sorted({r["op"] for r in rows}), "cases": rows,
+          "flash_launches": launches})
+    check(not failed, "dense_ops: %s" % failed[:10])
+    check(not any(launches.values()), "flash launches in dense_ops: %s"
+          % launches)
+    return launches
+
+
+def upsample_head(fluid, channels, hw, widths, groups, classes, out_hw, lr):
+    """The FCN-style decoder of UPSAMPLE, built from ``fluid.layers`` of
+    ``fluid`` (either package's: the parity tests build it with both)
+    under the caller's ``program_guard``: feeds ``feat`` [B, channels, hw,
+    hw] and ``label`` [B * out_hw * out_hw, 1]; returns the loss."""
+    feat = fluid.layers.data(name="feat", shape=[channels, hw, hw],
+                             dtype="float32")
+    label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+    x = feat
+    for width in widths:
+        x = fluid.layers.conv2d_transpose(x, num_filters=width,
+                                          filter_size=4, stride=2, padding=1,
+                                          bias_attr=False)
+        x = fluid.layers.group_norm(x, groups=groups)
+        x = fluid.layers.prelu(x, mode="channel")
+    logits = fluid.layers.conv2d(x, num_filters=classes, filter_size=1)
+    logits = fluid.layers.resize_bilinear(logits, out_shape=[out_hw, out_hw])
+    rows = fluid.layers.reshape(
+        fluid.layers.transpose(logits, perm=[0, 2, 3, 1]),
+        shape=[-1, classes])
+    loss = fluid.layers.mean(
+        fluid.layers.softmax_with_cross_entropy(rows, label))
+    fluid.optimizer.Momentum(learning_rate=lr, momentum=0.9).minimize(loss)
+    return loss
+
+
+def upsample_feed(batch, channels, hw, classes, out_hw, seed, **_):
+    rng = np.random.RandomState(seed)
+    return {"feat": rng.randn(batch, channels, hw, hw).astype(np.float32),
+            "label": rng.randint(0, classes, (batch * out_hw * out_hw, 1))
+            .astype(np.int64)}
+
+
+def phase_upsample_head(fa, smi):
+    """The FCN decoder (UPSAMPLE) at batch 8: UPSAMPLE_STEPS steps eagerly
+    and captured from the same state, the losses and every state tensor
+    bitwise equal; one graph, captured once; no flash launch; one step
+    against the CPU from the same state (UPSAMPLE_TOL: the loss, every
+    parameter grad); the captured step's ms, idle share and top kernels.
+    Returns the flash launches of the path (none)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import unique_name
+
+    main, startup = fluid.Program(), fluid.Program()
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        loss = upsample_head(fluid, **UPSAMPLE)
+    main.random_seed = startup.random_seed = 2024
+    feed = upsample_feed(UPSAMPLE_BATCH, seed=81, **UPSAMPLE)
+    (eager, graph, losses, unequal, eager_runs, launches,
+     walls) = lockstep_steps(fa, main, startup, loss, feed, UPSAMPLE_STEPS)
+    entries = captured(graph[0].engine)
+    emit({"phase": "upsample_head", "card": smi, "config": UPSAMPLE,
+          "batch": UPSAMPLE_BATCH, "ops": [op.type for op in
+                                           main.desc.global_block().ops],
+          "losses": losses, "unequal_state": unequal[:10],
+          "launches": launches, "graphs": len(entries),
+          "captures": [c.captures for c in entries],
+          "eager_runs": eager_runs})
+    check(all(np.isfinite(losses["captured"])), "upsample_head losses %s"
+          % losses)
+    check(losses["captured"] == losses["eager"] and not unequal,
+          "upsample_head: captured and eager steps differ: losses %s, "
+          "state %s" % (losses, unequal[:5]))
+    check(len(entries) == 1 and entries[0].captures == 1
+          and eager_runs == 0, "upsample_head: graphs %s, %d eager runs"
+          % ([c.captures for c in entries], eager_runs))
+    check(not any(launches.values()), "flash launches in upsample_head: %s"
+          % launches)
+    cap = profiled_step(graph[0], graph[1], main, loss, feed)
+    emit(dict({"phase": "times", "card": smi,
+               "profile": "upsample_head training step", "run": "captured",
+               "batch": UPSAMPLE_BATCH, "images_per_s": UPSAMPLE_BATCH / (
+                   cap["median_ms"] / 1e3), "tf32": False}, **cap))
+    del eager, graph, entries
+    release_memory()
+
+    # one step on the card and on the CPU from the same state
+    state0 = start_state(main, startup)
+    grads = [p.name + "@GRAD" for p in main.all_parameters()]
+    results = []
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        exe, scope = state_executor(main, state0, place=place)
+        with fluid.scope_guard(scope):
+            results.append(exe.run(main, feed=feed,
+                                   fetch_list=[loss.name] + grads))
+        del exe, scope
+    card, cpu = results
+    loss_err = abs(float(card[0].reshape(-1)[0] - cpu[0].reshape(-1)[0]))
+    grad_errs = {n: [float(np.abs(a - b).max()), float(np.abs(b).max())]
+                 for n, a, b in zip(grads, card[1:], cpu[1:])}
+    emit({"phase": "upsample_head", "cpu_step": {
+        "batch": UPSAMPLE_BATCH, "loss_card": float(card[0].reshape(-1)[0]),
+        "loss_cpu": float(cpu[0].reshape(-1)[0]), "loss_abs_err": loss_err,
+        "grads_max_abs_err_and_max": grad_errs}, "tol": UPSAMPLE_TOL})
+    check(loss_err <= UPSAMPLE_TOL["loss_rtol"]
+          * abs(float(cpu[0].reshape(-1)[0])),
+          "upsample_head: card vs CPU loss error %g" % loss_err)
+    bad = {n: e for n, e in grad_errs.items()
+           if e[0] > UPSAMPLE_TOL["grad_rel_to_max"] * e[1]}
+    check(not bad, "upsample_head: card vs CPU grads %s" % bad)
+    # the same step with cuDNN's float32 transposed convolution in the
+    # port's place (printed, held to no limit)
+    with lowered_by("conv2d_transpose", _conv2d_transpose_cudnn):
+        exe, scope = state_executor(main, state0)
+        with fluid.scope_guard(scope):
+            witness = exe.run(main, feed=feed,
+                              fetch_list=[loss.name] + grads)
+        del exe, scope
+    emit({"phase": "upsample_head", "cpu_step_witness_cudnn": {
+        n: [float(np.abs(a - b).max()), float(np.abs(b).max())]
+        for n, a, b in zip(grads, witness[1:], cpu[1:])}})
+    del results, card, cpu, state0, witness
+    release_memory()
+    return launches
+
+
+def with_auc(fluid, main, startup, pred, label):
+    """The streaming ``auc`` layer of ``fluid`` (either package's) appended
+    to a CTR program on ``concat([1 - pred, pred])``: returns (AUC, the
+    two-column predictions, [stat_pos, stat_neg])."""
+    with fluid.program_guard(main, startup):
+        probs = fluid.layers.concat(
+            [fluid.layers.scale(pred, scale=-1.0, bias=1.0), pred], axis=1)
+        value, stats = fluid.layers.auc(probs, label)
+    return value, probs, stats
+
+
+def phase_ctr_auc(fa, smi):
+    """The ctr phase's DeepFM with ``layers.auc`` on its predictions:
+    CTR_AUC_STEPS steps captured and eagerly from the same state, the
+    histograms bitwise equal step by step and equal to ``metrics.Auc``
+    fed the fetched predictions on the host, the AUC within CTR_AUC_TOL of
+    the ``auc`` lowering run on the CPU over the same predictions; the
+    step one graph, captured once; no flash launch; the step's ms against
+    the same program without the auc op. Returns the flash launches of
+    the path (none)."""
+    import torch
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import metrics, unique_name
+    from paddle_tpu_torch.models import deepfm
+
+    with unique_name.guard():
+        main, startup, h = deepfm.get_model(**CTR)
+        value, probs, stats = with_auc(fluid, main, startup, h["pred"],
+                                       h["label"])
+    main.random_seed = startup.random_seed = 2024
+    stat_names = [v.name for v in stats]
+    feeds = ctr_feeds(CTR["batch_size"], CTR_AUC_STEPS, 63)
+    fetch = [h["loss"], value, probs]
+    fa.launches = fa.launches_dq = fa.launches_dkv = 0  # the path starts
+    graph, graph_scope = fresh(startup)
+    eager, eager_scope = fresh(startup, graphs=False)
+    host = metrics.Auc(num_thresholds=4095)
+    aucs = {"captured": [], "eager": []}
+    fetched, unequal = [], []
+    for step, feed in enumerate(feeds):
+        with fluid.scope_guard(graph_scope):
+            _, auc_v, p = graph.run(main, feed=feed, fetch_list=fetch)
+        aucs["captured"].append(float(auc_v))
+        host.update(p, feed["label"])
+        fetched.append(p)
+        with fluid.scope_guard(eager_scope):
+            _, auc_v, _ = eager.run(main, feed=feed, fetch_list=fetch)
+        aucs["eager"].append(float(auc_v))
+        for n in stat_names:
+            if not torch.equal(graph_scope.get(n), eager_scope.get(n)):
+                unequal.append([step + 1, n])
+    launches = flash_launches(fa)  # ... and ends here
+    entries = captured(graph.engine)
+    card_stats = [graph_scope.get(n).cpu().numpy() for n in stat_names]
+    host_equal = (np.array_equal(card_stats[0], host._stat_pos)
+                  and np.array_equal(card_stats[1], host._stat_neg))
+    # the auc lowering on the CPU over the same predictions, step by step
+    cpu_stats = [torch.zeros(4096, dtype=torch.int64) for _ in range(2)]
+    cpu_aucs = []
+    for p, feed in zip(fetched, feeds):
+        out = lower_op("auc", {
+            "Predict": [torch.as_tensor(p)],
+            "Label": [torch.as_tensor(feed["label"])],
+            "StatPos": [cpu_stats[0]], "StatNeg": [cpu_stats[1]]},
+            {"curve": "ROC", "num_thresholds": 4095}, "cpu")
+        cpu_stats = [out["StatPosOut"][0], out["StatNegOut"][0]]
+        cpu_aucs.append(float(out["AUC"][0]))
+    auc_err = max(abs(a - b) for a, b in zip(aucs["captured"], cpu_aucs))
+    row = {"phase": "ctr_auc", "card": smi, "config": CTR,
+           "steps": CTR_AUC_STEPS, "auc": aucs, "auc_cpu": cpu_aucs,
+           "auc_host_metric": host.eval(), "auc_max_abs_err_vs_cpu": auc_err,
+           "stats_equal_host_metric": host_equal,
+           "stats_equal_cpu": all(np.array_equal(a, b.numpy()) for a, b in
+                                  zip(card_stats, cpu_stats)),
+           "unequal_stats": unequal[:10],
+           "positives_negatives": [int(card_stats[0].sum()),
+                                   int(card_stats[1].sum())],
+           "graphs": [(c.captures, c.replays) for c in entries],
+           "flash_launches": launches}
+    emit(row)
+    check(aucs["captured"] == aucs["eager"] and not unequal,
+          "ctr_auc: captured and eager differ: %s, %s" % (aucs, unequal[:5]))
+    check(host_equal and row["stats_equal_cpu"],
+          "ctr_auc: the card's stats differ from metrics.Auc's or the CPU's")
+    check(auc_err <= CTR_AUC_TOL, "ctr_auc: AUC off the CPU's by %g"
+          % auc_err)
+    check(len(entries) == 1 and entries[0].captures == 1,
+          "ctr_auc: graphs %s" % row["graphs"])
+    check(not any(launches.values()), "flash launches in ctr_auc: %s"
+          % launches)
+    del eager, eager_scope
+    release_memory()
+
+    # the step's ms with the auc op and without it (the ctr phase's
+    # program), captured, one batch repeated
+    plain, plain_startup, plain_h = deepfm_program()
+    times = {}
+    for label, (prog, exe, scope, loss) in (
+            ("with_auc", (main, graph, graph_scope, h["loss"])),
+            ("ctr", (plain,) + fresh(plain_startup) + (plain_h["loss"],))):
+        t = time_train_step(exe, scope, prog, loss, feeds[0])
+        times[label] = {k: t[k] for k in (
+            "median_ms", "min_ms", "max_ms", "device_busy_ms",
+            "device_idle_share", "top_kernels_ms")}
+        del exe, scope
+    emit({"phase": "ctr_auc", "card": smi, "times": times,
+          "batch": CTR["batch_size"]})
+    del graph, graph_scope
+    release_memory()
+    return launches
+
+
 def release_memory():
     """Free what no live object holds, CUDA graphs and their pools too,
     and return the cached blocks to the card."""
@@ -4811,6 +5428,12 @@ def main():
     fuse_launches.update(phase_nmt_unfused(fa, smi))
     fuse_launches.update(phase_book(fa, smi))
     release_memory()
+
+    # the dense op families, an FCN decoder head and DeepFM with auc
+    dense_launches = {"dense_ops": phase_dense_ops(fa, smi)}
+    dense_launches["upsample_head"] = phase_upsample_head(fa, smi)
+    dense_launches["ctr_auc"] = phase_ctr_auc(fa, smi)
+    release_memory()
     emit({"phase": "times", "partial_profiler_windows_rerun":
           len(PARTIAL_PROFILES), "partial_windows": PARTIAL_PROFILES,
           "event_timed": EVENT_TIMED})
@@ -4826,6 +5449,7 @@ def main():
     other_paths["lstm"] = lstm_launches
     other_paths.update(image_launches)
     other_paths.update(fuse_launches)
+    other_paths.update(dense_launches)
 
     def t256_rows(name):
         # the kernel at the Transformer's shapes (B=32 H=8 T=256 D=64)

@@ -16,6 +16,8 @@ from paddle_tpu_torch import regularizer  # noqa: F401
 from paddle_tpu_torch import clip  # noqa: F401
 from paddle_tpu_torch import backward  # noqa: F401
 from paddle_tpu_torch import contrib  # noqa: F401
+from paddle_tpu_torch import metrics  # noqa: F401
+from paddle_tpu_torch import nets  # noqa: F401
 from paddle_tpu_torch.backward import append_backward, calc_gradient  # noqa: F401
 from paddle_tpu_torch.framework import (  # noqa: F401
     Program,
@@ -58,5 +60,5 @@ __all__ = [
     "unique_name", "io", "append_backward", "Program", "Variable", "Operator", "program_guard",
     "default_main_program", "default_startup_program",
     "Executor", "global_scope", "scope_guard", "Scope",
-    "CPUPlace", "CUDAPlace", "ParamAttr",
+    "CPUPlace", "CUDAPlace", "ParamAttr", "metrics",
 ]

@@ -16,7 +16,7 @@ from paddle_tpu_torch.layers.ops import *  # noqa: F401,F403
 from paddle_tpu_torch.layers.loss import *  # noqa: F401,F403
 from paddle_tpu_torch.layers import nn  # noqa: F401
 from paddle_tpu_torch.layers.io import data  # noqa: F401
-from paddle_tpu_torch.layers.metric_op import accuracy  # noqa: F401
+from paddle_tpu_torch.layers.metric_op import accuracy, auc  # noqa: F401
 from paddle_tpu_torch.layers import learning_rate_scheduler  # noqa: F401
 from paddle_tpu_torch.layers.learning_rate_scheduler import (  # noqa: F401
     append_LARS,

@@ -4,8 +4,13 @@ ResNet, MNIST, Transformer, CTR, LSTM and image models need, the
 compare and logical layers of the control-flow programs, and the
 recurrent layers (``dynamic_lstm``, ``dynamic_gru``, ``dynamic_lstmp``,
 ``lstm``), the layers of the book programs (``matmul``, the reduce
-family, ``unsqueeze``, ``expand``...) and the unfused attention's mask
-(``attention_bias_from_lens``).
+family, ``unsqueeze``, ``expand``...), the unfused attention's mask
+(``attention_bias_from_lens``), and the dense families' layers: the
+image layers (``conv2d_transpose``, ``group_norm``, ``lrn``, ``prelu``,
+``maxout``, the resizes, ``adaptive_pool2d``), the tensor layers
+(``squeeze``, ``stack``, ``gather``, ``scatter``, ``pad``, ``cumsum``,
+``shape``, ``flatten``...), ``dot_product_attention`` and
+``chunk_eval``.
 Each function appends the same op, slots and attrs as its JAX-package
 counterpart (cited beside it), so the two front ends build identical
 descs."""
@@ -84,6 +89,30 @@ __all__ = [
     "lstm",
     "sequence_pool",
     "sequence_last_step",
+    "conv2d_transpose",
+    "group_norm",
+    "squeeze",
+    "stack",
+    "unstack",
+    "gather",
+    "scatter",
+    "l2_normalize",
+    "pad",
+    "pad2d",
+    "lrn",
+    "prelu",
+    "maxout",
+    "image_resize",
+    "resize_bilinear",
+    "resize_nearest",
+    "shape",
+    "cumsum",
+    "dot_product_attention",
+    "flatten",
+    "adaptive_pool2d",
+    "image_resize_short",
+    "create_parameter",
+    "chunk_eval",
 ]
 
 
@@ -1074,3 +1103,369 @@ def attention_bias_from_lens(seq_lens, max_len, name=None):
     bias = reshape(bias, shape=[-1, 1, 1, int(max_len)])
     bias.stop_gradient = True
     return bias
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=1,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None):
+    """(nn.py:319) Transposed 2-D convolution, NCHW, filter IOHW [C_in,
+    num_filters / groups, kh, kw]."""
+    helper = LayerHelper("conv2d_transpose", name=name, act=act,
+                         bias_attr=bias_attr)
+    dtype = input.dtype
+    num_channels = input.shape[1]
+    if isinstance(filter_size, int):
+        filter_size = [filter_size, filter_size]
+    if isinstance(stride, int):
+        stride = [stride, stride]
+    if isinstance(padding, int):
+        padding = [padding, padding]
+    if isinstance(dilation, int):
+        dilation = [dilation, dilation]
+    filter_shape = [num_channels, num_filters // (groups or 1)] + list(
+        filter_size)
+    w = helper.create_parameter(attr=param_attr, shape=filter_shape,
+                                dtype=dtype)
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="conv2d_transpose",
+        inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [pre_bias]},
+        attrs={
+            "strides": stride,
+            "paddings": padding,
+            "dilations": dilation,
+            "groups": groups or 1,
+        },
+    )
+    pre_act = _conv_bias(helper, pre_bias)
+    return helper.append_activation(pre_act)
+
+
+def group_norm(input, groups, epsilon=1e-5, param_attr=None, bias_attr=None,
+               act=None, data_layout="NCHW", name=None):
+    """(nn.py:511) Scale initialised to 1, bias to 0; ``False`` drops
+    either."""
+    helper = LayerHelper("group_norm", name=name, act=act)
+    dtype = input.dtype
+    channel_num = input.shape[1]
+    inputs = {"X": [input]}
+    if param_attr is not False:
+        inputs["Scale"] = [helper.create_parameter(
+            attr=param_attr, shape=[channel_num], dtype=dtype,
+            default_initializer=ConstantInitializer(1.0))]
+    if bias_attr is not False:
+        inputs["Bias"] = [helper.create_parameter(
+            attr=bias_attr, shape=[channel_num], dtype=dtype, is_bias=True)]
+    mean_out = helper.create_variable_for_type_inference(dtype,
+                                                         stop_gradient=True)
+    var_out = helper.create_variable_for_type_inference(dtype,
+                                                        stop_gradient=True)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="group_norm",
+        inputs=inputs,
+        outputs={"Y": [out], "Mean": [mean_out], "Variance": [var_out]},
+        attrs={"groups": groups, "epsilon": epsilon},
+    )
+    return helper.append_activation(out)
+
+
+def squeeze(input, axes, name=None):
+    """(nn.py:689)."""
+    helper = LayerHelper("squeeze2", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    xshape = helper.create_variable_for_type_inference(dtype=input.dtype,
+                                                       stop_gradient=True)
+    helper.append_op(
+        type="squeeze2",
+        inputs={"X": [input]},
+        outputs={"Out": [out], "XShape": [xshape]},
+        attrs={"axes": axes},
+    )
+    return out
+
+
+def stack(x, axis=0):
+    """(nn.py:717)."""
+    helper = LayerHelper("stack")
+    x = x if isinstance(x, (list, tuple)) else [x]
+    out = helper.create_variable_for_type_inference(dtype=x[0].dtype)
+    helper.append_op(type="stack", inputs={"X": x}, outputs={"Y": [out]},
+                     attrs={"axis": axis})
+    return out
+
+
+def unstack(x, axis=0, num=None):
+    """(nn.py:730)."""
+    helper = LayerHelper("unstack")
+    if num is None:
+        num = x.shape[axis]
+    outs = [helper.create_variable_for_type_inference(dtype=x.dtype)
+            for _ in range(num)]
+    helper.append_op(type="unstack", inputs={"X": [x]},
+                     outputs={"Y": outs}, attrs={"axis": axis, "num": num})
+    return outs
+
+
+def gather(input, index):
+    """(nn.py:771)."""
+    helper = LayerHelper("gather")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type="gather",
+                     inputs={"X": [input], "Index": [index]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def scatter(input, index, updates, name=None, overwrite=True):
+    """(nn.py:782)."""
+    helper = LayerHelper("scatter", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(
+        type="scatter",
+        inputs={"X": [input], "Ids": [index], "Updates": [updates]},
+        outputs={"Out": [out]},
+        attrs={"overwrite": overwrite},
+    )
+    return out
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    """(nn.py:850)."""
+    helper = LayerHelper("l2_normalize", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    norm = helper.create_variable_for_type_inference(dtype=x.dtype,
+                                                     stop_gradient=True)
+    helper.append_op(
+        type="l2_normalize",
+        inputs={"X": [x]},
+        outputs={"Out": [out], "Norm": [norm]},
+        attrs={"axis": axis, "epsilon": epsilon},
+    )
+    return out
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    """(nn.py:877)."""
+    helper = LayerHelper("pad", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(
+        type="pad",
+        inputs={"X": [x]},
+        outputs={"Out": [out]},
+        attrs={"paddings": list(paddings), "pad_value": float(pad_value)},
+    )
+    return out
+
+
+def pad2d(input, paddings=(0, 0, 0, 0), mode="constant", pad_value=0.0,
+          data_format="NCHW", name=None):
+    """(nn.py:889)."""
+    helper = LayerHelper("pad2d", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(
+        type="pad2d",
+        inputs={"X": [input]},
+        outputs={"Out": [out]},
+        attrs={"paddings": list(paddings), "mode": mode,
+               "pad_value": float(pad_value)},
+    )
+    return out
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    """(nn.py:903)."""
+    helper = LayerHelper("lrn", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    mid = helper.create_variable_for_type_inference(dtype=input.dtype,
+                                                    stop_gradient=True)
+    helper.append_op(
+        type="lrn",
+        inputs={"X": [input]},
+        outputs={"Out": [out], "MidOut": [mid]},
+        attrs={"n": n, "k": k, "alpha": alpha, "beta": beta},
+    )
+    return out
+
+
+def prelu(x, mode, param_attr=None, name=None):
+    """(nn.py:924) ``alpha`` initialised to 0.25: [1] (``all``), [1, C, 1,
+    1] (``channel``) or [1] + the sample's shape (``element``)."""
+    helper = LayerHelper("prelu", name=name)
+    if mode == "all":
+        alpha_shape = [1]
+    elif mode == "channel":
+        alpha_shape = [1, x.shape[1], 1, 1]
+    else:
+        alpha_shape = [1] + list(x.shape[1:])
+    alpha = helper.create_parameter(
+        attr=param_attr, shape=alpha_shape, dtype=x.dtype,
+        default_initializer=ConstantInitializer(0.25),
+    )
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(
+        type="prelu",
+        inputs={"X": [x], "Alpha": [alpha]},
+        outputs={"Out": [out]},
+        attrs={"mode": mode},
+    )
+    return out
+
+
+def maxout(x, groups, name=None):
+    """(nn.py:958)."""
+    helper = LayerHelper("maxout", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="maxout", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"groups": groups})
+    return out
+
+
+def image_resize(input, out_shape=None, scale=None, name=None,
+                 resample="BILINEAR", actual_shape=None, align_corners=True,
+                 align_mode=1):
+    """(nn.py:970) ``bilinear_interp`` or ``nearest_interp`` to
+    ``out_shape``, else the input's size times ``scale``. A shape fed at
+    run time (``actual_shape``) raises: the output's shape is fixed when
+    the program is built."""
+    if actual_shape is not None:
+        raise NotImplementedError(
+            "image_resize: actual_shape (an output shape fed at run time) "
+            "is not supported; pass out_shape or scale")
+    if out_shape is None:
+        out_shape = [int(input.shape[2] * scale), int(input.shape[3] * scale)]
+    op_type = "bilinear_interp" if resample == "BILINEAR" else "nearest_interp"
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(
+        type=op_type,
+        inputs={"X": [input]},
+        outputs={"Out": [out]},
+        attrs={"out_h": int(out_shape[0]), "out_w": int(out_shape[1]),
+               "align_corners": bool(align_corners),
+               "align_mode": int(align_mode)},
+    )
+    return out
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None,
+                    actual_shape=None, align_corners=True, align_mode=1):
+    """(nn.py:993)."""
+    return image_resize(input, out_shape, scale, name, "BILINEAR",
+                        actual_shape=actual_shape,
+                        align_corners=align_corners, align_mode=align_mode)
+
+
+def resize_nearest(input, out_shape=None, scale=None, name=None,
+                   actual_shape=None, align_corners=True):
+    """(nn.py:1001)."""
+    return image_resize(input, out_shape, scale, name, "NEAREST",
+                        actual_shape=actual_shape,
+                        align_corners=align_corners)
+
+
+def shape(input):
+    """(nn.py:1039) The input's shape, int32."""
+    helper = LayerHelper("shape")
+    out = helper.create_variable_for_type_inference(dtype="int32")
+    helper.append_op(type="shape", inputs={"Input": [input]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def cumsum(x, axis=None, exclusive=None, reverse=None):
+    """(nn.py:1072) Only the attrs given are set."""
+    helper = LayerHelper("cumsum")
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    attrs = {}
+    if axis is not None:
+        attrs["axis"] = axis
+    if exclusive is not None:
+        attrs["exclusive"] = exclusive
+    if reverse is not None:
+        attrs["reverse"] = reverse
+    helper.append_op(type="cumsum", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs=attrs)
+    return out
+
+
+def dot_product_attention(querys, keys, values):
+    """(nn.py:1275) Scaled dot-product attention from ``matmul`` and
+    ``softmax``; returns (context, weights)."""
+    product = matmul(querys, keys, transpose_y=True,
+                     alpha=1.0 / math.sqrt(querys.shape[-1]))
+    weights = softmax(product)
+    return matmul(weights, values), weights
+
+
+def flatten(x, axis=1, name=None):
+    """(nn.py:1484) [-1, product of the dims from ``axis``]; those dims
+    must be known when the program is built."""
+    trail = 1
+    for d in x.shape[axis:]:
+        if d is None or d < 0:
+            raise ValueError(
+                "flatten needs static dims after axis=%d; got shape %s"
+                % (axis, (x.shape,)))
+        trail *= d
+    return reshape(x, shape=[-1, trail], name=name)
+
+
+def adaptive_pool2d(input, pool_size, pool_type="max", require_index=False,
+                    name=None):
+    """(nn.py:1933) A ``pool2d`` whose window and stride tile the input
+    into ``pool_size``; the output size must divide the input's."""
+    h, w = input.shape[2], input.shape[3]
+    oh, ow = ((pool_size, pool_size) if isinstance(pool_size, int)
+              else pool_size)
+    if h % oh or w % ow:
+        raise ValueError(
+            "adaptive_pool2d needs output size dividing the input "
+            "spatial dims (%dx%d -> %dx%d)" % (h, w, oh, ow))
+    return pool2d(input, pool_size=[h // oh, w // ow], pool_type=pool_type,
+                  pool_stride=[h // oh, w // ow], name=name)
+
+
+def image_resize_short(input, out_short_len, resample="BILINEAR"):
+    """(nn.py:1948) Resized so that the short side is ``out_short_len``."""
+    h, w = input.shape[2], input.shape[3]
+    short = min(h, w)
+    out_shape = [int(h * out_short_len / short),
+                 int(w * out_short_len / short)]
+    return image_resize(input, out_shape=out_shape, resample=resample)
+
+
+def create_parameter(shape, dtype, name=None, attr=None,
+                     is_bias=False, default_initializer=None):
+    """(nn.py:2174)."""
+    helper = LayerHelper("create_parameter")
+    attr = attr or ParamAttr(name=name)
+    return helper.create_parameter(attr, shape, dtype, is_bias=is_bias,
+                                   default_initializer=default_initializer)
+
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types,
+               excluded_chunk_types=None, seq_length=None):
+    """(nn.py:2329) Returns (precision, recall, f1, num_infer_chunks,
+    num_label_chunks, num_correct_chunks)."""
+    helper = LayerHelper("chunk_eval")
+    precision = helper.create_variable_for_type_inference("float32")
+    recall = helper.create_variable_for_type_inference("float32")
+    f1 = helper.create_variable_for_type_inference("float32")
+    n_inf = helper.create_variable_for_type_inference("int64")
+    n_lab = helper.create_variable_for_type_inference("int64")
+    n_cor = helper.create_variable_for_type_inference("int64")
+    inputs = {"Inference": [input], "Label": [label]}
+    if seq_length is not None:
+        inputs["SeqLength"] = [seq_length]
+    helper.append_op(
+        type="chunk_eval", inputs=inputs,
+        outputs={"Precision": [precision], "Recall": [recall],
+                 "F1-Score": [f1], "NumInferChunks": [n_inf],
+                 "NumLabelChunks": [n_lab], "NumCorrectChunks": [n_cor]},
+        attrs={"chunk_scheme": chunk_scheme,
+               "num_chunk_types": num_chunk_types,
+               "excluded_chunk_types": excluded_chunk_types or []})
+    return precision, recall, f1, n_inf, n_lab, n_cor

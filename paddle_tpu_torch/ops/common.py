@@ -93,6 +93,47 @@ def single(ins, slot, default=None):
     return vals[0] if vals else default
 
 
+def scatter_rows(shape, rows, vals):
+    """A zero tensor of ``shape`` with ``vals`` added at ``rows`` of its
+    first dim, by ``index_put_(accumulate=True)``: on CUDA it sorts the
+    ids and adds each row's values in a fixed order, so repeated steps
+    agree bit for bit; ``index_add_`` adds with float atomics, in an
+    order that changes from run to run."""
+    out = torch.zeros(shape, dtype=vals.dtype, device=vals.device)
+    return out.index_put_((rows,), vals, accumulate=True)
+
+
+class _Take(torch.autograd.Function):
+    """``x.index_select(dim, idx)`` whose grad adds the output grad back
+    with ``scatter_rows`` (``index_select``'s own grad is ``index_add_``)."""
+
+    @staticmethod
+    def forward(x, idx, dim):
+        return x.index_select(dim, idx)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, idx, dim = inputs
+        ctx.save_for_backward(idx)
+        ctx.dim = dim
+        ctx.x_meta = (x.shape[dim], x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        n, dtype = ctx.x_meta
+        rows = g.movedim(ctx.dim, 0).to(dtype)
+        dx = scatter_rows((n,) + tuple(rows.shape[1:]), idx, rows)
+        return dx.movedim(0, ctx.dim), None, None
+
+
+def take(x, idx, dim=0):
+    """The entries of ``x`` at the indices ``idx`` (flattened) along
+    ``dim``, with a grad that is bitwise repeatable on the card
+    (``_Take``)."""
+    return _Take.apply(x, idx.reshape(-1).long(), dim)
+
+
 def flatten_lookup_ids(ids):
     """lookup_table id normalization: a trailing dim of 1 is squeezed
     (reference: lookup_table_op.cc treats ids as a column of indices)."""

@@ -3,8 +3,11 @@
 (:33), its direct grad ``softmax_with_cross_entropy_grad`` (:341),
 ``mean`` (:81), ``square_error_cost`` (:86), ``squared_l2_norm`` (:93),
 dense or a ``SelectedRows``, and ``sigmoid_cross_entropy_with_logits``
-(:116). The softmax losses compute
-in float32 whatever the logits' dtype, as in the reference."""
+(:116), and the regression and margin losses ``squared_l2_distance``
+(:105), ``log_loss`` (:129), ``huber_loss`` (:138), ``smooth_l1_loss``
+(:149), ``kldiv_loss`` (:162) and ``hinge_loss`` (:178), whose grads the
+engine derives by vjp. The softmax losses compute in float32 whatever
+the logits' dtype, as in the reference."""
 
 import torch
 import torch.nn.functional as F
@@ -132,3 +135,76 @@ def sigmoid_cross_entropy_with_logits(ctx, ins, attrs):
         n_valid = torch.clamp((~ignored).sum().to(x.dtype), min=1.0)
         loss = loss / n_valid
     return {"Out": [loss]}
+
+
+@register_op("squared_l2_distance")
+def squared_l2_distance(ctx, ins, attrs):
+    """The squared L2 distance of each row of X to Y's, [N, 1];
+    ``sub_result`` is X - Y."""
+    diff = single(ins, "X") - single(ins, "Y")
+    return {"sub_result": [diff],
+            "Out": [torch.sum(torch.square(diff), dim=-1, keepdim=True)]}
+
+
+@register_op("log_loss", no_grad_inputs=("Labels",))
+def log_loss(ctx, ins, attrs):
+    pred = single(ins, "Predicted")
+    label = single(ins, "Labels")
+    eps = attrs.get("epsilon", 1e-4)
+    return {"Loss": [-label * torch.log(pred + eps)
+                     - (1.0 - label) * torch.log(1.0 - pred + eps)]}
+
+
+@register_op("huber_loss", no_grad_inputs=("Y",))
+def huber_loss(ctx, ins, attrs):
+    """Quadratic within ``delta`` of the label, linear beyond;
+    ``Residual`` is Y - X."""
+    x = single(ins, "X")  # prediction
+    r = single(ins, "Y") - x
+    delta = attrs.get("delta", 1.0)
+    ar = torch.abs(r)
+    return {"Residual": [r],
+            "Out": [torch.where(ar <= delta, 0.5 * r * r,
+                                delta * (ar - 0.5 * delta))]}
+
+
+@register_op("smooth_l1_loss", no_grad_inputs=("Y",))
+def smooth_l1_loss(ctx, ins, attrs):
+    """Each row's sum of 0.5 (sigma d)^2 where |d| < 1 / sigma^2, else
+    |d| - 0.5 / sigma^2; ``Diff`` is d = X - Y."""
+    diff = single(ins, "X") - single(ins, "Y")
+    sigma = attrs.get("sigma", 1.0)
+    s2 = sigma * sigma
+    ad = torch.abs(diff)
+    elem = torch.where(ad < 1.0 / s2, 0.5 * s2 * diff * diff, ad - 0.5 / s2)
+    return {"Diff": [diff],
+            "Out": [torch.sum(elem.reshape(elem.shape[0], -1), dim=1,
+                              keepdim=True)]}
+
+
+@register_op("kldiv_loss", no_grad_inputs=("Target",))
+def kldiv_loss(ctx, ins, attrs):
+    """``target * (log(target) - x)`` where the target is positive (x holds
+    log-probabilities), reduced by ``reduction``: ``mean``, ``sum``,
+    ``batchmean`` (the sum over the batch size) or ``none``."""
+    x = single(ins, "X")
+    target = single(ins, "Target")
+    loss = target * (torch.log(torch.clamp_min(target, 1e-8)) - x)
+    loss = torch.where(target > 0, loss, torch.zeros_like(loss))
+    reduction = attrs.get("reduction", "mean")
+    if reduction == "mean":
+        loss = torch.mean(loss)
+    elif reduction == "sum":
+        loss = torch.sum(loss)
+    elif reduction == "batchmean":
+        loss = torch.sum(loss) / x.shape[0]
+    return {"Loss": [loss]}
+
+
+@register_op("hinge_loss", no_grad_inputs=("Labels",))
+def hinge_loss(ctx, ins, attrs):
+    """``max(1 - (2 label - 1) logit, 0)`` for labels in {0, 1}."""
+    logits = single(ins, "Logits")
+    labels = single(ins, "Labels")
+    return {"Loss": [torch.clamp_min(1.0 - (2.0 * labels - 1.0) * logits,
+                                     0.0)]}

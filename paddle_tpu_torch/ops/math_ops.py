@@ -1,6 +1,9 @@
 """Math ops — port of ``paddle_tpu/ops/math_ops.py`` for ``mul`` (:17),
 ``mul_grad`` (:36), ``matmul`` (:119), ``matmul_grad`` (:71),
-``elementwise_add/sub/mul/div/max/min/pow`` (:178-184), ``scale``
+``elementwise_add/sub/mul/div/max/min/pow`` (:178-184),
+``elementwise_mod`` and ``elementwise_floordiv`` (:185-186: the floor
+modulo, ``torch.remainder``, not ``torch.fmod``, and the floor
+quotient, as ``jnp.mod`` and ``jnp.floor_divide``), ``scale``
 (:212), ``sum`` (:233), ``pow`` (:255), ``clip`` (:261) and
 ``clip_by_norm`` (:276). The GEMMs are ``torch.matmul`` (cuBLAS on the
 card), as the JAX package leaves them to XLA; float32 GEMMs run in full
@@ -185,6 +188,16 @@ register_op("elementwise_div")(_elementwise(torch.div))
 register_op("elementwise_max")(_elementwise(torch.maximum))
 register_op("elementwise_min")(_elementwise(torch.minimum))
 register_op("elementwise_pow")(_elementwise(torch.pow))
+
+
+def _floor_divide(x, y):
+    """The floor quotient: a step function, whose grad is zero (as JAX
+    derives it; torch defines none for ``floor_divide``)."""
+    return torch.floor_divide(x.detach(), y.detach())
+
+
+register_op("elementwise_mod", grad=None)(_elementwise(torch.remainder))
+register_op("elementwise_floordiv", grad=None)(_elementwise(_floor_divide))
 
 
 @register_op("scale")

@@ -5,14 +5,24 @@ direct grad ``batch_norm_grad`` (:271), the ``sync_batch_norm`` alias
 (:331), ``fused_attention`` (:379) and its direct grad
 ``fused_attention_grad`` (:414), ``layer_norm`` (:480), ``dropout``
 (:506), ``lookup_table`` (:527) and its grad ``lookup_table_grad``
-(:538), dense or a ``SelectedRows``. ``pool2d``, ``layer_norm`` and
-``dropout`` have no grad lowering of their own: the engine derives
-theirs as ``torch.func.vjp`` of the forward (``engine/lowering.py``),
-which re-draws the forward's dropout mask from the same seed.
+(:538), dense or a ``SelectedRows``; and the image ops
+``conv2d_transpose`` (:110), ``lrn`` (:560), ``l2_normalize`` (:578),
+``norm`` (:587), ``group_norm`` (:596), ``bilinear_interp`` (:632),
+``nearest_interp`` (:656), ``prelu`` (:675) and ``maxout`` (:689), each
+the reference's formula (not ``F.local_response_norm``, whose ``alpha``
+is divided by ``n``, nor ``F.interpolate``, which has no ``align_mode``
+1). ``pool2d``, ``layer_norm``, ``dropout`` and the image ops have no
+grad lowering of their own: the engine derives theirs as
+``torch.func.vjp`` of the forward (``engine/lowering.py``), which
+re-draws the forward's dropout mask from the same seed. The
+interpolations gather rows and columns with ``take``, whose grad adds
+back in a fixed order on the card.
 
 Convolutions run through cuDNN (``torch.nn.functional.conv2d``) in NCHW,
 the reference's layout; their grads are cuDNN's backward-data and
 backward-filter (``aten.convolution_backward``), never a second forward.
+The transposed convolution is a float64 GEMM and ``F.fold`` instead
+(``conv2d_transpose``).
 Batch norm computes its statistics as the reference does, not as
 ``F.batch_norm`` would: the biased variance ``E[x^2] - mean^2`` in
 float32, and Paddle's momentum (``running = m * running + (1 - m) *
@@ -30,7 +40,8 @@ import torch.nn.functional as F
 from paddle_tpu_torch.core.registry import register_no_grad_op, register_op
 from paddle_tpu_torch.core.selected_rows import SelectedRows
 from paddle_tpu_torch.ops.common import (
-    amp_cast, flatten_lookup_ids, fp32_accum, hash_keep_mask, single,
+    amp_cast, flatten_lookup_ids, fp32_accum, hash_keep_mask, scatter_rows,
+    single, take,
 )
 
 ATTENTION_SEED_HIGH = 2 ** 31 - 1
@@ -366,44 +377,14 @@ def dropout(ctx, ins, attrs):
     return {"Out": [out], "Mask": [mask]}
 
 
-def _scatter_rows(w, rows, vals):
-    """A zero table of ``w``'s shape with ``vals`` added at ``rows``, by
-    ``index_put_(accumulate=True)``: on CUDA it sorts the ids and adds
-    each row's grads in a fixed order, so repeated steps agree bit for
-    bit; ``index_add_`` (float atomics) does not."""
-    return torch.zeros_like(w).index_put_((rows,), vals, accumulate=True)
-
-
-class _Embedding(torch.autograd.Function):
-    """``F.embedding`` whose autograd backward is ``lookup_table_grad``'s
-    scatter, so the grads that autograd derives (the remat lowering) are
-    as deterministic as the explicit chain's."""
-
-    @staticmethod
-    def forward(w, ids):
-        return F.embedding(ids, w)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        w, ids = inputs
-        ctx.save_for_backward(ids)
-        ctx.w_meta = (w.shape, w.dtype, w.device)
-
-    @staticmethod
-    def backward(ctx, g):
-        (ids,) = ctx.saved_tensors
-        shape, dtype, device = ctx.w_meta
-        rows = ids.reshape(-1)
-        vals = g.reshape((rows.shape[0],) + tuple(shape[1:])).to(dtype)
-        w = torch.empty(shape, dtype=dtype, device=device)
-        return _scatter_rows(w, rows, vals), None
-
-
 @register_op("lookup_table", no_grad_inputs=("Ids",))
 def lookup_table(ctx, ins, attrs):
     w = single(ins, "W")
     flat_ids = flatten_lookup_ids(single(ins, "Ids")).long()
-    out = _Embedding.apply(w, flat_ids)
+    # the rows by ``take``, whose grad (the remat lowering derives it) is
+    # lookup_table_grad's sorted scatter
+    out = take(w, flat_ids, 0).reshape(tuple(flat_ids.shape)
+                                       + tuple(w.shape[1:]))
     padding_idx = attrs.get("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
         # the padding row contributes no output (lookup_table_op.h)
@@ -435,4 +416,181 @@ def lookup_table_grad(ctx, ins, attrs):
                            torch.zeros_like(vals), vals)
     if attrs.get("is_sparse", False):
         return {"W@GRAD": [SelectedRows(rows, vals, w.shape[0])]}
-    return {"W@GRAD": [_scatter_rows(w, rows, vals)]}
+    return {"W@GRAD": [scatter_rows(w.shape, rows, vals)]}
+
+
+@register_op("conv2d_transpose")
+def conv2d_transpose(ctx, ins, attrs):
+    """The transposed convolution of an NCHW input with an IOHW filter
+    (I = C_in, O = C_out / groups), (H - 1) * s - 2p + d * (k - 1) + 1
+    high: one GEMM lays each input pixel's kh x kw patch of every output
+    channel (the filter times the pixel), and ``F.fold`` adds the
+    overlapping patches into the output (the reference: the input
+    dilated by the stride, convolved with the flipped, IO-swapped
+    filter). Both sum in float64 and the output is rounded once, to the
+    operands' result dtype: a float32 GEMM or cuDNN's transposed
+    convolution sums each output's C_in * kh * kw / s^2 products in one
+    float32 register, about 1e-6 of the output's largest element off,
+    and a group norm after it magnifies that to 1e-3 of the filter's
+    grad (PERF.md, Findings). On the H100 the FP64 tensor cores run float64
+    GEMMs at float32's FFMA rate. The grads (a GEMM and ``F.unfold``)
+    are float64 too, and deterministic."""
+    _nchw(attrs, "conv2d_transpose")
+    x, w = single(ins, "Input"), single(ins, "Filter")
+    s = tuple(attrs.get("strides", [1, 1]))
+    p = tuple(attrs.get("paddings", [0, 0]))
+    d = tuple(attrs.get("dilations", [1, 1]))
+    g = attrs.get("groups", 1)
+    n, c_in, h, wd = x.shape
+    _, o_g, kh, kw = w.shape
+    out_hw = ((h - 1) * s[0] - 2 * p[0] + d[0] * (kh - 1) + 1,
+              (wd - 1) * s[1] - 2 * p[1] + d[1] * (kw - 1) + 1)
+    patches = torch.matmul(
+        w.double().reshape(g, c_in // g, o_g * kh * kw).transpose(1, 2),
+        x.double().reshape(n, g, c_in // g, h * wd))
+    out = F.fold(patches.reshape(n, g * o_g * kh * kw, h * wd), out_hw,
+                 (kh, kw), dilation=d, padding=p, stride=s)
+    return {"Output": [out.to(torch.result_type(x, w))]}
+
+
+@register_op("lrn")
+def lrn(ctx, ins, attrs):
+    """``x / (k + alpha * s) ** beta``, ``s`` the sum of squares over a
+    window of ``n`` channels centred on each (zero beyond the edges);
+    ``MidOut`` is ``k + alpha * s``."""
+    x = single(ins, "X")  # NCHW
+    n = attrs.get("n", 5)
+    k = attrs.get("k", 2.0)
+    alpha = attrs.get("alpha", 1e-4)
+    half = n // 2
+    padded = F.pad(torch.square(x), [0, 0, 0, 0, half, half])
+    window = sum(padded[:, i:i + x.shape[1]] for i in range(n))
+    mid = k + alpha * window
+    return {"Out": [x / torch.pow(mid, attrs.get("beta", 0.75))],
+            "MidOut": [mid]}
+
+
+@register_op("l2_normalize")
+def l2_normalize(ctx, ins, attrs):
+    """``x / max(||x||, epsilon)`` along ``axis``; ``Norm`` is ``||x||``."""
+    x = single(ins, "X")
+    norm = torch.sqrt(torch.sum(torch.square(x), dim=attrs.get("axis", -1),
+                                keepdim=True))
+    return {"Out": [x / torch.clamp_min(norm, attrs.get("epsilon", 1e-10))],
+            "Norm": [norm]}
+
+
+@register_op("norm")
+def norm(ctx, ins, attrs):
+    """``x / sqrt(sum(x^2) + epsilon)`` along ``axis``."""
+    x = single(ins, "X")
+    norm_v = torch.sqrt(torch.sum(torch.square(x), dim=attrs.get("axis", -1),
+                                  keepdim=True) + attrs.get("epsilon", 1e-10))
+    return {"Out": [x / norm_v], "Norm": [norm_v]}
+
+
+@register_op("group_norm")
+def group_norm(ctx, ins, attrs):
+    """Each sample's channels normalised in ``groups`` groups (biased
+    variance), then scaled and shifted per channel. ``Mean`` and
+    ``Variance`` are [N, G] with every unit dim squeezed, as the
+    reference's ``jnp.squeeze`` (N or G of 1 drops that axis too)."""
+    x = single(ins, "X")  # NCHW
+    scale, bias = single(ins, "Scale"), single(ins, "Bias")
+    groups = attrs.get("groups", 1)
+    n, c = x.shape[0], x.shape[1]
+    g = x.reshape((n, groups, c // groups) + tuple(x.shape[2:]))
+    axes = tuple(range(2, g.ndim))
+    mean = torch.mean(g, dim=axes, keepdim=True)
+    var = torch.mean(torch.square(g - mean), dim=axes, keepdim=True)
+    y = ((g - mean) * torch.rsqrt(var + attrs.get("epsilon", 1e-5))).reshape(
+        x.shape)
+    pshape = (1, c) + (1,) * (x.ndim - 2)
+    if scale is not None:
+        y = y * scale.reshape(pshape)
+    if bias is not None:
+        y = y + bias.reshape(pshape)
+    return {"Y": [y], "Mean": [mean.squeeze()], "Variance": [var.squeeze()]}
+
+
+def _interp_src(out_n, in_n, align_corners, align_mode, device):
+    """Source coordinate of each output index (nn_ops.py:617):
+    ``align_corners`` scales by (in - 1) / (out - 1); otherwise
+    ``align_mode`` 1 is src = ratio * dst, 0 the half-pixel
+    src = ratio * (dst + 0.5) - 0.5, both clamped to [0, in - 1]."""
+    i = torch.arange(out_n, dtype=torch.float32, device=device)
+    if align_corners:
+        return i * ((in_n - 1) / float(max(out_n - 1, 1)))
+    ratio = in_n / float(out_n)
+    src = i * ratio if align_mode == 1 else (i + 0.5) * ratio - 0.5
+    return torch.clamp(src, 0.0, in_n - 1.0)
+
+
+@register_op("bilinear_interp")
+def bilinear_interp(ctx, ins, attrs):
+    """NCHW resized to ``out_h`` x ``out_w``: the four neighbours of each
+    source point gathered (``take``) and weighted as the reference does."""
+    x = single(ins, "X")
+    out_h, out_w = attrs.get("out_h"), attrs.get("out_w")
+    ac = bool(attrs.get("align_corners", True))
+    am = int(attrs.get("align_mode", 1))
+    H, W = x.shape[2], x.shape[3]
+    sy = _interp_src(out_h, H, ac, am, x.device)
+    sx = _interp_src(out_w, W, ac, am, x.device)
+    y0, x0 = torch.floor(sy).long(), torch.floor(sx).long()
+    y1, x1 = torch.clamp_max(y0 + 1, H - 1), torch.clamp_max(x0 + 1, W - 1)
+    wy = (sy - y0)[None, None, :, None]
+    wx = (sx - x0)[None, None, None, :]
+    row0, row1 = take(x, y0, 2), take(x, y1, 2)
+    v00, v01 = take(row0, x0, 3), take(row0, x1, 3)
+    v10, v11 = take(row1, x0, 3), take(row1, x1, 3)
+    out = (v00 * (1 - wy) * (1 - wx) + v01 * (1 - wy) * wx
+           + v10 * wy * (1 - wx) + v11 * wy * wx)
+    return {"Out": [out.to(x.dtype)]}
+
+
+@register_op("nearest_interp")
+def nearest_interp(ctx, ins, attrs):
+    """NCHW resized to ``out_h`` x ``out_w`` by the nearest source row and
+    column: rounded half to even under ``align_corners`` (as
+    ``jnp.round``), floored otherwise."""
+    x = single(ins, "X")
+    out_h, out_w = attrs.get("out_h"), attrs.get("out_w")
+    H, W = x.shape[2], x.shape[3]
+
+    def src(out_n, in_n):
+        i = torch.arange(out_n, device=x.device)
+        if attrs.get("align_corners", True):
+            idx = torch.round(i * (in_n - 1) / max(out_n - 1, 1))
+        else:
+            idx = torch.floor(i * (in_n / out_n))
+        return torch.clamp(idx.long(), 0, in_n - 1)
+
+    return {"Out": [take(take(x, src(out_h, H), 2), src(out_w, W), 3)]}
+
+
+@register_op("prelu")
+def prelu(ctx, ins, attrs):
+    """``x`` where positive, else ``alpha * x``; ``alpha`` one value
+    (``all``), one a channel (``channel``) or one an element of a sample
+    (``element``)."""
+    x = single(ins, "X")
+    alpha = single(ins, "Alpha")
+    mode = attrs.get("mode", "all")
+    if mode == "all":
+        a = alpha.reshape(())
+    elif mode == "channel":
+        a = alpha.reshape((1, -1) + (1,) * (x.ndim - 2))
+    else:
+        a = alpha.reshape((1,) + tuple(x.shape[1:]))
+    return {"Out": [torch.where(x > 0, x, a * x)]}
+
+
+@register_op("maxout")
+def maxout(ctx, ins, attrs):
+    """The max of each run of ``groups`` channels (NCHW). ``amax``: its
+    grad splits among ties, as JAX's ``max`` does."""
+    x = single(ins, "X")
+    groups = attrs.get("groups")
+    n, c, h, w = x.shape
+    return {"Out": [x.reshape(n, c // groups, groups, h, w).amax(dim=2)]}

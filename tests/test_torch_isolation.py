@@ -132,6 +132,36 @@ with fluid.program_guard(loop, loop_startup):
         fluid.layers.less_than(x=i, y=n, cond=cond)
 (iv,) = exe.run(loop, feed={}, fetch_list=[i])
 assert int(iv[0]) == 3
+# the dense op families: an FCN-style head (conv2d_transpose,
+# group_norm, prelu, resize_bilinear) trained a step, a nets block, and
+# the streaming auc against the host-side metric
+from paddle_tpu_torch import metrics as host_metrics, nets
+from paddle_tpu_torch.ops import loss_ops, math_ops, nn_ops, tensor_ops
+head, head_startup = fluid.Program(), fluid.Program()
+with fluid.program_guard(head, head_startup):
+    img = fluid.layers.data(name="img", shape=[4, 3, 3], dtype="float32")
+    label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+    up = fluid.layers.conv2d_transpose(img, num_filters=4, filter_size=4,
+                                       stride=2, padding=1)
+    up = fluid.layers.prelu(fluid.layers.group_norm(up, groups=2),
+                            mode="channel")
+    up = nets.simple_img_conv_pool(up, num_filters=2, filter_size=1,
+                                   pool_size=2, pool_stride=2)
+    up = fluid.layers.resize_bilinear(up, out_shape=[4, 4])
+    logits = fluid.layers.reshape(fluid.layers.transpose(
+        up, perm=[0, 2, 3, 1]), shape=[-1, 2])
+    probs = fluid.layers.softmax(logits)
+    auc, _ = fluid.layers.auc(probs, label)
+    loss = fluid.layers.mean(
+        fluid.layers.softmax_with_cross_entropy(logits, label))
+    fluid.optimizer.Momentum(learning_rate=0.1, momentum=0.9).minimize(loss)
+exe.run(head_startup)
+hfeed = {"img": np.ones((2, 4, 3, 3), np.float32),
+         "label": np.array([[0], [1]] * 16)}
+l3, a3, p3 = exe.run(head, feed=hfeed, fetch_list=[loss, auc, probs])
+host_auc = host_metrics.Auc()
+host_auc.update(p3, hfeed["label"])
+assert np.isfinite(l3).all() and abs(host_auc.eval() - float(a3)) < 1e-6
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "paddle_tpu" or m.startswith("paddle_tpu."))
