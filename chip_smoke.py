@@ -13,8 +13,9 @@ Transformer-base NMT model, the stacked-LSTM classifier with the
 control-flow ops, VGG, MobileNet and SE-ResNeXt, BERT-base and the
 Transformer built with unfused attention and fused back onto the
 kernels at ``opt_level`` 1, the book programs, the dense op families, an
-FCN decoder head and DeepFM with its streaming AUC, and its kernels on
-the card and prints one JSON line per phase:
+FCN decoder head and DeepFM with its streaming AUC, the sequence ops, a
+beam-search decoder, a text-convolution classifier and a CRF tagger, and
+its kernels on the card and prints one JSON line per phase:
 
 1. device  — the card's name and power limit (nvidia-smi), torch and CUDA
    versions; TF32 is turned off for matmul and cuDNN.
@@ -271,6 +272,9 @@ the card and prints one JSON line per phase:
    into a 1M-row table, ...): forward and the vjp grads within DENSE_TOL,
    integer and bool outputs exact; gather, scatter, the resizes and
    maxout run twice, bitwise equal; device ms of each forward and vjp.
+   ``top_k`` at BERT's vocab logits, and with ties (rows of zeros,
+   repeated maxima, float32 and bfloat16), its indices the CPU's
+   exactly; its ms as ``torch.topk`` and as the port's stable sort.
 31. upsample_head — an FCN decoder (UPSAMPLE) built from
    ``fluid.layers`` on ResNet-50's last stage at 224x224, batch 8:
    ``conv2d_transpose``, ``group_norm``, ``prelu``, a 1x1 conv to 21
@@ -284,12 +288,43 @@ the card and prints one JSON line per phase:
    fetched predictions on the host, the AUC within CTR_AUC_TOL of the
    ``auc`` lowering on the CPU; one graph, captured once; the step's ms
    against the program without the auc op.
-33. kernels — one JSON object listing every ported kernel, with its
+33. sequence_ops — every lowering of the sequence and beam-search slice
+   (the 11 remaining sequence ops, beam_search, beam_search_decode, the
+   CRF, gru_unit, lstm_unit, row_conv, sequence_reshape,
+   sequence_scatter, tensor_array_to_tensor) on the card against the
+   CPU at its users' shapes (``sequence_cases``), as ``dense_ops`` holds
+   its ops; sequence_scatter twice, bitwise equal.
+34. nmt_beam — the PaddlePaddle book's chapter-8 encoder-decoder
+   (NMT_BEAM: dictionaries of 30,000, 512 wide, a bidirectional
+   dynamic_gru encoder, a gru_unit decoder cell, no attention) decoded by
+   ``contrib.BeamSearchDecoder`` through ``Executor.run`` on the
+   ``for_test`` clone: 16 sources of 10-50 words, 3 beams, 250 steps.
+   The decode twice, bitwise equal; one loop step built as a flat
+   program (``nmt_beam_step``) replayed op by op on the card's own
+   operands from the decode's lattice (DENSE_TOL; top_k and beam_search
+   exact); beam_search_decode on the card's arrays equal to the CPU's and
+   to the decode's; at batch 2 the steps equal to a CPU decode
+   (printed); the decode's ms, ms and launches a step, target tokens/s,
+   host ms a step and idle share.
+35. sentiment_conv — chapter 6's convolution_net (SENTIMENT: two
+   ``nets.sequence_conv_pool`` branches over 128-wide embeddings, hid
+   512, Adagrad) at batch 128 over reviews of 32-400 words: 5 steps
+   eagerly and captured, bitwise equal, one graph; a batch-2 step
+   against the CPU (TRAIN_TOL); step ms, examples/s, idle share, an
+   eager step's peak.
+36. srl_crf — chapter 7's db_lstm (SRL: 8 stacked LSTMs of alternating
+   direction, 59 labels) under ``linear_chain_crf`` at batch 10 over
+   sentences of 8-64 words, SGD: 3 steps eagerly and captured, bitwise
+   equal; a batch-2 step op by op against the CPU (RNN_OP_TOL); on the
+   ``for_test`` clone crf_decoding's paths and chunk_eval's counts equal
+   to the CPU's on the card's emissions; step ms, tokens/s, launches a
+   step, idle share.
+37. kernels — one JSON object listing every ported kernel, with its
    design: all three run their products on the tensor cores (mma.sync
    bf16, 3xTF32 for float32) from a cp.async tile ring, and read their
    dropout seed from device memory; each kernel's launches on every path,
    the ResNet-50, training-loop, CTR, NMT, LSTM, image, unfused-attention,
-   book and dense-op paths included, and its
+   book, dense-op and sequence paths included, and its
    times at the Transformer's shapes (``nmt_t256``).
 
 Served requests and dispatches run as captured CUDA graphs too: the first
@@ -568,6 +603,37 @@ UPSAMPLE_TOL = {"loss_rtol": 1e-4, "grad_rel_to_max": 1e-3}
 # predictions; AUC within 1e-6 of the CPU's over the same predictions
 CTR_AUC_STEPS = 20
 CTR_AUC_TOL = 1e-6
+# sequence_ops: each lowering of the sequence and beam-search slice alone
+# at its users' shapes (the three programs below), on the card against
+# the CPU, at DENSE_TOL; sequence_scatter run twice, bitwise equal
+SEQUENCE_TWICE = ("sequence_scatter",)
+# nmt_beam: the PaddlePaddle book's chapter 8 (machine_translation)
+# encoder-decoder at its widths, decoded by contrib's BeamSearchDecoder:
+# a bidirectional dynamic_gru encoder, the boot fc(first step of the
+# backward GRU, tanh), a gru_unit cell over the previous word's
+# embedding (the chapter's attention is left out: it needs the encoder's
+# states for every beam row); 16 sources of 10-50 words, 3 beams, 250
+# steps (a tensor array holds 256 entries)
+NMT_BEAM = dict(src_dict=30000, trg_dict=30000, word_dim=512, hidden=512,
+                beam_size=3, max_length=250, start_id=0, end_id=1)
+NMT_BEAM_BATCH, NMT_BEAM_SRC_LEN, NMT_BEAM_MIN_LEN = 16, 50, 10
+NMT_BEAM_CPU_BATCH = 2
+NMT_BEAM_PROBE_STEP = 7      # the loop step replayed op by op
+# sentiment_conv: chapter 6's (understand_sentiment) convolution_net,
+# two sequence_conv_pool branches over the IMDB dictionary's 5,147 words
+# (synthetic ids), batch 128 reviews of 32-400 words, Adagrad
+SENTIMENT = dict(dict_dim=5147, emb_dim=128, hid_dim=512, class_dim=2,
+                 lr=0.002)
+SENTIMENT_BATCH, SENTIMENT_LEN, SENTIMENT_MIN_LEN = 128, 400, 32
+SENTIMENT_STEPS = 5
+# srl_crf: chapter 7's (label_semantic_roles) db_lstm, 8 stacked LSTMs
+# of alternating direction under a linear-chain CRF, batch 10 sentences
+# of 8-64 words, SGD; crf_decoding and chunk_eval (IOB, 29 chunk types)
+# on the for_test clone
+SRL = dict(word_dict=44068, pred_dict=3162, mark_dict=2, label_dict=59,
+           word_dim=32, mark_dim=5, hidden_dim=512, depth=8, lr=0.01)
+SRL_BATCH, SRL_LEN, SRL_MIN_LEN = 10, 64, 8
+SRL_STEPS = 3
 
 
 # profiler windows that dropped device activity and were run again: per
@@ -583,7 +649,15 @@ EMPTY_WINDOW_RETRIES = 5
 EVENT_TIMED = []
 
 
+# the script's start on the host clock; each phase line carries the
+# seconds since it (``elapsed_s``), so a run's log shows where its time
+# went
+STARTED = time.perf_counter()
+
+
 def emit(obj):
+    if "phase" in obj:
+        obj = dict(obj, elapsed_s=time.perf_counter() - STARTED)
     print(json.dumps(obj), flush=True)
 
 
@@ -4163,11 +4237,12 @@ def lockstep_steps(fa, main, startup, loss, feed, steps):
             eager_runs, launches, walls)
 
 
-def profiled_step(exe, scope, main, loss, feed, n=10):
-    """``timed_runs`` of a step and its device profile over 3 more:
-    busy ms (the union of the kernels' intervals: a captured graph may
-    run independent kernels at once, so their times can sum past the
-    wall), idle share, kernel launches a step, the top kernels."""
+def profiled_step(exe, scope, main, loss, feed, n=10, profiled_steps=3):
+    """``timed_runs`` of a step and its device profile over
+    ``profiled_steps`` more: busy ms (the union of the kernels'
+    intervals: a captured graph may run independent kernels at once, so
+    their times can sum past the wall), idle share, kernel launches a
+    step, the top kernels."""
     import paddle_tpu_torch.fluid as fluid
 
     def step():
@@ -4175,9 +4250,10 @@ def profiled_step(exe, scope, main, loss, feed, n=10):
 
     with fluid.scope_guard(scope):
         row = timed_runs(step, n=n)
-        kernels = profile_kernels(step, 3)
-        _, _, active, _ = profiled_loop(lambda: [step() for _ in range(3)])
-    busy = active / 3
+        kernels = profile_kernels(step, profiled_steps)
+        _, _, active, _ = profiled_loop(
+            lambda: [step() for _ in range(profiled_steps)])
+    busy = active / profiled_steps
     top = sorted(kernels.items(), key=lambda kv: -kv[1]["ms"])[:8]
     row.update({"device_busy_ms": busy,
                 "kernel_ms_sum": sum(k["ms"] for k in kernels.values()),
@@ -4502,21 +4578,12 @@ def phase_lstm(fa, smi):
            "lockstep_seconds": lockstep_s,
            "memory_reserved_after_capture": reserved}
     emit(row)
-    check(all(np.isfinite(losses["captured"])), "LSTM losses %s" % losses)
+    lockstep_checks("lstm", losses, unequal, entries, eager_runs, launches)
     # one batch repeated at Adam's 0.01 with no clipping: the first step
     # lowers the loss, later ones may overshoot (the JAX package's step
     # does too from the same state, PERF.md §6)
     check(losses["captured"][1] < losses["captured"][0],
           "LSTM loss did not fall: %s" % losses["captured"])
-    check(losses["captured"] == losses["eager"] and not unequal,
-          "LSTM captured and eager steps differ: losses %s, state %s"
-          % (losses, unequal[:5]))
-    check(len(entries) == 1 and entries[0].captures == 1
-          and eager_runs == 0,
-          "the LSTM step: %d graphs, captures %s, %d eager runs"
-          % (len(entries), row["captures"], eager_runs))
-    check(not any(launches.values()), "flash launches in the LSTM path: %s"
-          % launches)
 
     # times: captured (with the device profile) and eager; the recurrent
     # ops of an eager step
@@ -4544,29 +4611,9 @@ def phase_lstm(fa, smi):
     # one step at batch 2 against the CPU, from the card's initial state
     state0 = start_state(main, startup)
     feed2 = lstm_feed(LSTM_CPU_BATCH, np.random.RandomState(52))
-    grads = [p.name + "@GRAD" for p in main.all_parameters()]
-    fetch = [loss.name] + grads
-    outs = {}
-    for device, place in (("cuda", fluid.CUDAPlace(0)),
-                          ("cpu", fluid.CPUPlace())):
-        scope = fluid.Scope()
-        convert.load_numpy_state(scope, state0, device, program=main)
-        with fluid.scope_guard(scope):
-            outs[device] = fluid.Executor(place).run(main, feed=feed2,
-                                                     fetch_list=fetch)
-    card, cpu = outs["cuda"], outs["cpu"]
-    loss_err = abs(float(card[0].reshape(-1)[0] - cpu[0].reshape(-1)[0]))
-    grad_rel = {n: float(np.abs(a - b).max() / (np.abs(b).max() or 1.0))
-                for n, a, b in zip(grads, card[1:], cpu[1:])}
-    emit({"phase": "lstm", "cpu_step": {
-        "batch": LSTM_CPU_BATCH, "loss_card": float(card[0].reshape(-1)[0]),
-        "loss_cpu": float(cpu[0].reshape(-1)[0]), "loss_abs_err": loss_err,
-        "grad_rel_to_max": grad_rel}, "tol": TRAIN_TOL})
-    check(loss_err <= TRAIN_TOL["loss_rtol"] * abs(float(
-        cpu[0].reshape(-1)[0])), "LSTM card vs CPU loss error %g" % loss_err)
-    bad = {n: d for n, d in grad_rel.items()
-           if d > TRAIN_TOL["grad_rel_to_max"]}
-    check(not bad, "LSTM card vs CPU grads beyond %s: %s" % (TRAIN_TOL, bad))
+    cpu_row, ok = card_cpu_step(main, state0, loss, feed2)
+    emit({"phase": "lstm", "cpu_step": dict(cpu_row, batch=LSTM_CPU_BATCH)})
+    check(ok, "LSTM card vs CPU step %s" % cpu_row)
 
     # inference on the for_test clone: batch 1 and 32 eager, then captured
     # and replayed; batch 2 against the CPU
@@ -4804,6 +4851,21 @@ def dense_cases():
         return {"X": [(rng.randn(1024, 1024) * 10).astype(np.float32)],
                 "Y": [y.astype(np.float32)]}
 
+    def tied(*shape):
+        # values on a coarse grid, the first rows all zero: ties at the
+        # top of every row, which top_k takes lowest index first
+        def make(rng):
+            x = np.round(rng.randn(*shape) * 0.5).astype(np.float32)
+            x[:8] = 0.0
+            return x
+        return make
+
+    def tied_bf16(*shape):
+        def make(rng):
+            import torch
+            return torch.from_numpy(tied(*shape)(rng)).to(torch.bfloat16)
+        return make
+
     bert = (1024, 768)  # BERT-base tokens
     vocab = (1024, 30522)  # BERT's vocab logits
     img = (32, 256, 28, 28)
@@ -4918,6 +4980,11 @@ def dense_cases():
          ins(Inference=[tags], Label=[tags],
              SeqLength=[ints(1, 257, 64)]),
          {"chunk_scheme": "IOB", "num_chunk_types": 8}),
+        # top_k at BERT's vocab logits, with ties (the cases above keep
+        # their seeds)
+        ("top_k", "top_k", ins(X=[f(*vocab)]), {"k": 5}),
+        ("top_k_ties", "top_k", ins(X=[tied(*vocab)]), {"k": 5}),
+        ("top_k_ties_bf16", "top_k", ins(X=[tied_bf16(*vocab)]), {"k": 5}),
     ]
     return cases
 
@@ -4943,7 +5010,8 @@ def grad_primals(op_type, ins):
     if info.grad_maker is None:
         return []
     return [(s, i) for s in sorted(ins) if s not in info.no_grad_inputs
-            for i, v in enumerate(ins[s]) if v.is_floating_point()]
+            for i, v in enumerate(ins[s])
+            if not isinstance(v, dict) and v.is_floating_point()]
 
 
 def op_vjp(op_type, ins, attrs, device, cots):
@@ -4991,26 +5059,33 @@ def dense_errors(cpu, primals, out, grads):
     return errs, off
 
 
-def phase_dense_ops(fa, smi):
-    """Every lowering of the dense op families (``dense_cases``) on the
-    card against the same lowering on the CPU from the same operands,
-    forward and, for an op with a grad, the vjp grads on seeded
-    cotangents (DENSE_TOL); the DENSE_TWICE ops run twice on the card,
-    bitwise equal; device ms of the forward and of the vjp. Returns the
-    flash launches of the phase (none)."""
+def phase_op_cases(fa, smi, phase, cases, twice, witness=None):
+    """Each case of ``cases`` ((name, op type, a function of a
+    RandomState giving the inputs: numpy arrays, torch tensors, or
+    tensor arrays of them, attrs)) on the card against the same lowering
+    on the CPU from the same operands, forward and, for an op with a
+    grad, the vjp grads on seeded cotangents (DENSE_TOL); the ops in
+    ``twice`` run twice on the card, bitwise equal; ``witness`` lowerings
+    run beside the port's, printed; device ms of the forward and of the
+    vjp. Emits ``phase``'s row and returns its flash launches (none)."""
     import torch
 
     import paddle_tpu_torch.fluid as fluid
 
+    def on(device, v):
+        if isinstance(v, dict):  # a tensor array
+            return {k: torch.as_tensor(a, device=device)
+                    for k, a in v.items()}
+        return torch.as_tensor(v, device=device)
+
     fluid.Executor(fluid.CUDAPlace(0))  # cuDNN's deterministic algorithms
     fa.launches = fa.launches_dq = fa.launches_dkv = 0  # the path starts
     rows, failed = [], []
-    for k, (name, op_type, make, attrs) in enumerate(dense_cases()):
+    for k, (name, op_type, make, attrs) in enumerate(cases):
         host = make(np.random.RandomState(500 + k))
         runs = {}
         for device in ("cuda", "cpu"):
-            ins = {s: [torch.as_tensor(a, device=device) for a in v]
-                   for s, v in host.items()}
+            ins = {s: [on(device, a) for a in v] for s, v in host.items()}
             out = lower_op(op_type, ins, attrs, device)
             runs[device] = {"ins": ins, "out": {s: [v.cpu() for v in vs]
                                                 for s, vs in out.items()}}
@@ -5019,7 +5094,8 @@ def phase_dense_ops(fa, smi):
                   for v in runs["cpu"]["out"][s] if v.is_floating_point()]
         crng = np.random.RandomState(900 + k)
         cots = [torch.as_tensor(np.asarray(crng.randn(*v.shape),
-                                           np.float32)) for v in floats]
+                                           np.float32)).to(v.dtype)
+                for v in floats]
         card_cots = [c.cuda() for c in cots]
         primals = grad_primals(op_type, runs["cpu"]["ins"])
         if primals:
@@ -5031,10 +5107,11 @@ def phase_dense_ops(fa, smi):
         failed += [[name] + o for o in off]
         exact = not any(isinstance(o[1], str) for o in off)
         row = {"case": name, "op": op_type,
-               "shapes": {s: [list(a.shape) for a in v]
-                          for s, v in host.items()},
+               "shapes": {s: [{k: list(np.shape(x)) for k, x in a.items()}
+                              if isinstance(a, dict) else list(a.shape)
+                              for a in v] for s, v in host.items()},
                "max_abs_err_and_max": errs, "exact_ints": exact}
-        if op_type in DENSE_TWICE:
+        if op_type in twice:
             again = lower_op(op_type, card_ins, attrs, "cuda")
             same = all(torch.equal(a.cpu(), b) for s in again
                        for a, b in zip(again[s], runs["cuda"]["out"][s]))
@@ -5050,8 +5127,8 @@ def phase_dense_ops(fa, smi):
         if primals:
             row["vjp_ms"] = device_ms(lambda: op_vjp(
                 op_type, card_ins, attrs, "cuda", card_cots), n=5, warmup=1)
-        if op_type in DENSE_WITNESS:
-            with lowered_by(op_type, DENSE_WITNESS[op_type]):
+        if op_type in (witness or {}):
+            with lowered_by(op_type, witness[op_type]):
                 out = lower_op(op_type, card_ins, attrs, "cuda")
                 grads = op_vjp(op_type, card_ins, attrs, "cuda", card_cots)
                 row["witness"] = {
@@ -5068,12 +5145,39 @@ def phase_dense_ops(fa, smi):
         del runs, card_ins, host
         release_memory()
     launches = flash_launches(fa)  # ... and ends here
-    emit({"phase": "dense_ops", "card": smi, "tol": DENSE_TOL,
+    emit({"phase": phase, "card": smi, "tol": DENSE_TOL,
           "ops": sorted({r["op"] for r in rows}), "cases": rows,
           "flash_launches": launches})
-    check(not failed, "dense_ops: %s" % failed[:10])
-    check(not any(launches.values()), "flash launches in dense_ops: %s"
-          % launches)
+    check(not failed, "%s: %s" % (phase, failed[:10]))
+    check(not any(launches.values()), "flash launches in %s: %s"
+          % (phase, launches))
+    return launches
+
+
+def phase_dense_ops(fa, smi):
+    """Every lowering of the dense op families (``dense_cases``) through
+    ``phase_op_cases``, the DENSE_TWICE ops twice, cuDNN's transposed
+    convolution beside the port's; then ``top_k``'s ranking at BERT's
+    vocab logits, device ms of each way: ``torch.topk`` (ties in its own
+    order, the port's until it took ``lax.top_k``'s rule), a stable
+    descending sort cut to k, and the port's
+    ``topk_lowest_index_first``. Returns the flash launches of the phase
+    (none)."""
+    import torch
+
+    from paddle_tpu_torch.ops.common import topk_lowest_index_first
+
+    launches = phase_op_cases(fa, smi, "dense_ops", dense_cases(),
+                              DENSE_TWICE, DENSE_WITNESS)
+    x = torch.as_tensor(np.random.RandomState(7).randn(1024, 30522).astype(
+        np.float32), device="cuda")
+    emit({"phase": "dense_ops", "card": smi, "top_k": {
+        "shape": [1024, 30522], "k": 5,
+        "torch_topk_ms": device_ms(lambda: torch.topk(x, 5, dim=-1), n=10),
+        "stable_sort_ms": device_ms(lambda: torch.sort(
+            x, dim=-1, descending=True, stable=True), n=10),
+        "port_ms": device_ms(lambda: topk_lowest_index_first(x, 5),
+                             n=10)}})
     return launches
 
 
@@ -5306,6 +5410,836 @@ def phase_ctr_auc(fa, smi):
     return launches
 
 
+# -- sequences and beam search (ROADMAP Queue 1, step 5d) -----------------
+
+
+def nmt_beam(fluid, src_dict, trg_dict, word_dim, hidden, beam_size,
+             max_length, start_id, end_id, src_len):
+    """The chapter-8 encoder-decoder built by ``fluid`` (either
+    package's) and decoded by ``contrib.BeamSearchDecoder``. Feeds:
+    ``src`` [B, src_len] ids and ``src_len`` [B, 1] lengths; the beam
+    rows' ``init_ids`` and ``init_scores`` [B * beam_size, 1]
+    (``start_id`` is the caller's to feed). Returns {"ids", "scores": the
+    decoded sentences [B * beam, 256] and their scores [B * beam, 1];
+    "encoded": the encoder's states [B, src_len, 2 * hidden], which the
+    chapter's attention reads; "lattice": the decoder's ids [B * beam,
+    256], scores [B * beam, 256], parents [256 * B * beam] and states
+    [256 * B * beam, hidden] arrays as tensors (``tensor_array_to_tensor``),
+    and "steps": their live length}."""
+    del start_id  # the init_ids feed carries it
+    layers = fluid.layers
+    src = layers.data(name="src", shape=[src_len], dtype="int64")
+    lens = layers.data(name="src_len", shape=[1], dtype="int64")
+    emb = layers.embedding(src, size=[src_dict, word_dim], dtype="float32",
+                           param_attr=fluid.ParamAttr(name="src_emb"))
+    grus = [layers.dynamic_gru(
+        layers.fc(input=emb, size=3 * hidden, num_flatten_dims=2,
+                  bias_attr=False),
+        size=hidden, is_reverse=reverse,
+        seq_len=layers.reshape(lens, shape=[-1]))
+        for reverse in (False, True)]
+    encoded = layers.concat(grus, axis=2)
+    boot = layers.fc(input=layers.sequence_first_step(grus[1], length=lens),
+                     size=hidden, act="tanh", bias_attr=False)
+    init_ids = layers.data(name="init_ids", shape=[1], dtype="int64")
+    init_scores = layers.data(name="init_scores", shape=[1],
+                              dtype="float32")
+    # each source's boot state gathered for its beam rows, row r taking
+    # source floor((r + 0.5) / beam): rows counted from init_ids keep the
+    # batch dim unknown at build time, as the decoder's states need
+    rows = layers.cumsum(layers.fill_constant_batch_size_like(
+        init_ids, shape=[-1, 1], dtype="float32", value=1.0), axis=0,
+        exclusive=True)
+    source = layers.cast(layers.floor(layers.scale(
+        rows, scale=1.0 / beam_size, bias=0.5 / beam_size)), "int64")
+    boot = layers.gather(boot, layers.reshape(source, shape=[-1]))
+    cell = fluid.contrib.StateCell(
+        inputs={"x": None},
+        states={"h": fluid.contrib.InitState(init=boot)}, out_state="h")
+
+    @cell.state_updater
+    def updater(c):
+        gates = layers.fc(input=c.get_input("x"), size=3 * hidden,
+                          bias_attr=False)
+        h, _, _ = layers.gru_unit(gates, c.get_state("h"), size=3 * hidden)
+        c.set_state("h", h)
+
+    decoder = fluid.contrib.BeamSearchDecoder(
+        state_cell=cell, init_ids=init_ids, init_scores=init_scores,
+        target_dict_dim=trg_dict, word_dim=word_dim, sparse_emb=False,
+        max_len=max_length, beam_size=beam_size, end_id=end_id)
+    decoder.decode()
+    ids, scores = decoder()
+    arrays = (decoder._ids_array, decoder._scores_array,
+              decoder._parents_array,
+              cell._states_holder["h"][id(decoder)]._array)
+    lattice = [layers.tensor_array_to_tensor(a, axis=axis)
+               for a, axis in zip(arrays, (1, 1, 0, 0))]
+    return {"ids": ids, "scores": scores, "encoded": encoded,
+            "lattice": [t for t, _ in lattice], "steps": lattice[0][1]}
+
+
+def nmt_beam_feed(batch, src_len, min_len, src_dict, beam_size, start_id,
+                  end_id, seed, **_):
+    """Sources of ``min_len``-``src_len`` words (ids past a row's length
+    are ``end_id``), start ids, and initial scores 0 for each source's
+    first beam and -1e9 for the others, so the beams differ."""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(min_len, src_len + 1, (batch, 1)).astype(np.int64)
+    src = rng.randint(2, src_dict, (batch, src_len)).astype(np.int64)
+    src[np.arange(src_len)[None, :] >= lens] = end_id
+    rows = batch * beam_size
+    scores = np.where(np.arange(rows) % beam_size == 0, 0.0, -1e9)
+    return {"src": src, "src_len": lens,
+            "init_ids": np.full((rows, 1), start_id, np.int64),
+            "init_scores": scores.astype(np.float32).reshape(rows, 1)}
+
+
+def sentiment_conv(fluid, dict_dim, emb_dim, hid_dim, class_dim, lr,
+                   seq_len, conv_pool=None):
+    """Chapter 6's ``convolution_net`` built by ``fluid`` (either
+    package's): an ``is_sparse`` embedding, two ``conv_pool`` branches
+    (``nets.sequence_conv_pool`` of ``fluid`` by default) of filter
+    sizes 3 and 4 over the rows' ``lens`` words, ``fc`` to the classes
+    with softmax, cross entropy, accuracy, Adagrad. Feeds ``words`` [B,
+    seq_len], ``lens`` [B, 1], ``label`` [B, 1]; returns {"loss", "acc",
+    "pred"}."""
+    layers = fluid.layers
+    conv_pool = conv_pool or fluid.nets.sequence_conv_pool
+    words = layers.data(name="words", shape=[seq_len], dtype="int64")
+    lens = layers.data(name="lens", shape=[1], dtype="int64")
+    label = layers.data(name="label", shape=[1], dtype="int64")
+    emb = layers.embedding(words, size=[dict_dim, emb_dim], is_sparse=True)
+    convs = [conv_pool(input=emb, num_filters=hid_dim, filter_size=k,
+                       act="tanh", pool_type="sqrt", length=lens)
+             for k in (3, 4)]
+    pred = layers.fc(input=convs, size=class_dim, act="softmax")
+    loss = layers.mean(layers.cross_entropy(input=pred, label=label))
+    acc = layers.accuracy(input=pred, label=label)
+    fluid.optimizer.Adagrad(learning_rate=lr).minimize(loss)
+    return {"loss": loss, "acc": acc, "pred": pred}
+
+
+def sentiment_feed(batch, seq_len, min_len, dict_dim, seed, **_):
+    """Reviews of ``min_len``-``seq_len`` synthetic word ids (0 past a
+    row's length) and 0/1 labels."""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(min_len, seq_len + 1, (batch, 1)).astype(np.int64)
+    words = rng.randint(1, dict_dim, (batch, seq_len)).astype(np.int64)
+    words[np.arange(seq_len)[None, :] >= lens] = 0
+    return {"words": words, "lens": lens,
+            "label": rng.randint(0, 2, (batch, 1)).astype(np.int64)}
+
+
+SRL_WORDS = ("word", "ctx_n2", "ctx_n1", "ctx_0", "ctx_p1", "ctx_p2")
+
+
+def srl_crf(fluid, word_dict, pred_dict, mark_dict, label_dict, word_dim,
+            mark_dim, hidden_dim, depth, lr, seq_len):
+    """Chapter 7's ``db_lstm`` built by ``fluid`` (either package's): the
+    word and its five context words through one frozen embedding
+    (``emb``), the predicate's (``vemb``) and the mark's; each through an
+    ``fc`` (tanh) and summed; ``depth`` stacked ``dynamic_lstm``s (relu
+    candidates, sigmoid gates and cells, alternating direction), each
+    fed the sum of ``fc``s of the layer below's mix and LSTM; the label
+    scores the sum of two such ``fc``s; the loss the mean of the negated
+    ``linear_chain_crf`` log-likelihood (transitions ``crfw``), SGD; then
+    ``crf_decoding`` and ``chunk_eval`` (IOB) for the ``for_test`` clone.
+    Feeds [B, seq_len] ids ``SRL_WORDS``, ``verb``, ``mark`` and
+    ``target``, and ``lens`` [B, 1]; returns {"loss", "feature",
+    "path", "chunks": chunk_eval's six outputs}."""
+    layers = fluid.layers
+
+    def ids(name):
+        return layers.data(name=name, shape=[seq_len], dtype="int64")
+
+    def fc(x, size):
+        return layers.fc(input=x, size=size, act="tanh", num_flatten_dims=2)
+
+    words = [ids(n) for n in SRL_WORDS]
+    verb, mark, target = ids("verb"), ids("mark"), ids("target")
+    lens = layers.data(name="lens", shape=[1], dtype="int64")
+    steps = layers.reshape(lens, shape=[-1])
+    embs = [layers.embedding(w, size=[word_dict, word_dim],
+                             param_attr=fluid.ParamAttr(name="emb",
+                                                        trainable=False))
+            for w in words]
+    embs.append(layers.embedding(verb, size=[pred_dict, word_dim],
+                                 param_attr="vemb"))
+    embs.append(layers.embedding(mark, size=[mark_dict, mark_dim]))
+    mix = layers.sums([fc(e, hidden_dim) for e in embs])
+    lstm = None
+    for i in range(depth):
+        if i:
+            mix = layers.sums([fc(mix, hidden_dim), fc(lstm, hidden_dim)])
+        lstm, _ = layers.dynamic_lstm(
+            mix, size=hidden_dim, candidate_activation="relu",
+            gate_activation="sigmoid", cell_activation="sigmoid",
+            is_reverse=i % 2 == 1, seq_len=steps)
+    feature = layers.sums([fc(mix, label_dict), fc(lstm, label_dict)])
+    crfw = fluid.ParamAttr(name="crfw")
+    ll = layers.linear_chain_crf(feature, target, param_attr=crfw,
+                                 length=lens)
+    loss = layers.mean(layers.scale(ll, scale=-1.0))
+    fluid.optimizer.SGD(learning_rate=lr).minimize(loss)
+    path = layers.crf_decoding(feature, param_attr=crfw, length=lens)
+    chunks = layers.chunk_eval(path, target, chunk_scheme="IOB",
+                               num_chunk_types=(label_dict - 1) // 2,
+                               seq_length=lens)
+    return {"loss": loss, "feature": feature, "path": path,
+            "chunks": list(chunks)}
+
+
+def srl_feed(batch, seq_len, min_len, word_dict, pred_dict, mark_dict,
+             label_dict, seed, **_):
+    """Sentences of ``min_len``-``seq_len`` words: random ids of each
+    input's dictionary, IOB labels, 0 past a row's length."""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(min_len, seq_len + 1, (batch, 1)).astype(np.int64)
+    pad = np.arange(seq_len)[None, :] >= lens
+    feed = {"lens": lens}
+    for name, high in [(n, word_dict) for n in SRL_WORDS] + [
+            ("verb", pred_dict), ("mark", mark_dict),
+            ("target", label_dict)]:
+        v = rng.randint(0, high, (batch, seq_len)).astype(np.int64)
+        v[pad] = 0
+        feed[name] = v
+    return feed
+
+
+def sequence_cases():
+    """(name, op type, a function of a RandomState giving the inputs,
+    attrs) of the sequence_ops phase: each lowering of the sequence and
+    beam-search slice at the shapes its users give it: the nmt_beam
+    decoder's 48 beam rows over 30,000 words (top 50 candidates) and
+    its 16 sources of 10-50 words, 512 wide; sentiment_conv's 128 reviews
+    of 32-400 words, 128 wide, its 512 filters; srl_crf's 10 sentences of
+    8-64 words over 59 labels; ``row_conv`` at DeepSpeech 2's lookahead
+    (2 future steps) over [32, 256, 1024] and ``im2sequence`` at the OCR
+    CRNN's columns ([32, 128, 6, 96] features, 6 x 1 windows)."""
+    bw = NMT_BEAM_BATCH * NMT_BEAM["beam_size"]
+    width, vocab, cap = NMT_BEAM["hidden"], NMT_BEAM["trg_dict"], 256
+    top = min(50, vocab)  # the decoder's candidates a row
+
+    def f(*shape, scale=1.0):
+        return lambda rng: (rng.randn(*shape) * scale).astype(np.float32)
+
+    def ins(**makers):
+        return lambda rng: {slot: [m(rng) for m in ms]
+                            for slot, ms in makers.items()}
+
+    def lengths(batch, low, high):
+        return lambda rng: rng.randint(low, high + 1, batch).astype(np.int64)
+
+    def ints(high, *shape):
+        return lambda rng: rng.randint(0, high, shape).astype(np.int64)
+
+    src = lengths(NMT_BEAM_BATCH, NMT_BEAM_MIN_LEN, NMT_BEAM_SRC_LEN)
+    reviews = lengths(SENTIMENT_BATCH, SENTIMENT_MIN_LEN, SENTIMENT_LEN)
+    sentences = lengths(SRL_BATCH, SRL_MIN_LEN, SRL_LEN)
+    review = (SENTIMENT_BATCH, SENTIMENT_LEN, SENTIMENT["emb_dim"])
+    source = (NMT_BEAM_BATCH, NMT_BEAM_SRC_LEN, width)
+
+    def beam_rows(finished):
+        # the decoder's previous ids and scores, some beams finished
+        def make(rng):
+            ids = rng.randint(2, vocab, (bw, 1)).astype(np.int64)
+            ids[rng.rand(bw) < finished] = NMT_BEAM["end_id"]
+            return ids
+        return make
+
+    def candidates(rng):
+        # each row's best words, accumulated log-probabilities
+        ids = np.stack([rng.permutation(vocab)[:top] for _ in range(bw)])
+        return ids.astype(np.int64)
+
+    def acc_scores(rng):
+        return -np.sort(rng.rand(bw, top).astype(np.float32) * 5.0 + 2.0)
+
+    def equal_beams(rng):
+        # every beam of a source the same scores, rounded: exact ties
+        one = np.round(rng.randn(NMT_BEAM_BATCH, top) * 2).astype(np.float32)
+        return np.repeat(one, NMT_BEAM["beam_size"], axis=0)
+
+    def lattice(rng):
+        # a finished decode's arrays: 251 live entries of 256, parents
+        # within each source's beams
+        n = NMT_BEAM["max_length"] + 1
+        beam = NMT_BEAM["beam_size"]
+        par = (np.arange(bw) // beam * beam)[None, :] + rng.randint(
+            0, beam, (cap, bw))
+        return {"Ids": [{"buf": rng.randint(0, vocab, (cap, bw, 1)),
+                         "len": np.int32(n)}],
+                "ParentIdx": [{"buf": par.astype(np.int64),
+                               "len": np.int32(n)}],
+                "Scores": [{"buf": rng.randn(cap, bw, 1).astype(np.float32),
+                            "len": np.int32(n)}]}
+
+    def crf(label):
+        def make(rng):
+            c = SRL["label_dict"]
+            out = {"Emission": [f(SRL_BATCH, SRL_LEN, c)(rng)],
+                   "Transition": [f(c + 2, c, scale=0.1)(rng)],
+                   "Length": [sentences(rng)]}
+            if label:
+                out["Label"] = [ints(c, SRL_BATCH, SRL_LEN)(rng)]
+            return out
+        return make
+
+    def scatter(rng):
+        # a bag of words: each review's ids counted into its row
+        words = rng.randint(0, SENTIMENT["dict_dim"],
+                            (SENTIMENT_BATCH, SENTIMENT_LEN))
+        return {"X": [np.zeros((SENTIMENT_BATCH, SENTIMENT["dict_dim"]),
+                               np.float32)],
+                "Ids": [words.astype(np.int64)],
+                "Updates": [rng.rand(SENTIMENT_BATCH,
+                                     SENTIMENT_LEN).astype(np.float32)]}
+
+    beam = {"beam_size": NMT_BEAM["beam_size"], "end_id": NMT_BEAM["end_id"]}
+    return [
+        ("sequence_softmax", "sequence_softmax",
+         ins(X=[f(bw, NMT_BEAM_SRC_LEN)],
+             Length=[lambda rng: np.repeat(src(rng),
+                                           NMT_BEAM["beam_size"])]), {}),
+        ("sequence_expand", "sequence_expand",
+         ins(X=[f(NMT_BEAM_BATCH, width)],
+             Y=[f(NMT_BEAM_BATCH, NMT_BEAM_SRC_LEN, 2 * width)]), {}),
+        ("sequence_reverse", "sequence_reverse",
+         ins(X=[f(*source)], Length=[src]), {}),
+        ("im2sequence", "im2sequence", ins(X=[f(32, 128, 6, 96)]),
+         {"kernels": [6, 1], "strides": [1, 1], "paddings": [0, 0, 0, 0]}),
+        ("sequence_concat", "sequence_concat",
+         ins(X=[f(*source), f(*source)], Length=[src, src]), {}),
+        ("sequence_slice", "sequence_slice",
+         ins(X=[f(*review)], Offset=[lengths(SENTIMENT_BATCH, 0, 16)],
+             Length=[lengths(SENTIMENT_BATCH, 16, 384)]), {}),
+        ("sequence_expand_as", "sequence_expand_as",
+         ins(X=[f(NMT_BEAM_BATCH, 2 * width)],
+             Y=[f(NMT_BEAM_BATCH, NMT_BEAM_SRC_LEN, 1)]), {}),
+        ("sequence_pad", "sequence_pad",
+         ins(X=[f(*review)], Length=[reviews],
+             PadValue=[lambda rng: np.array([0.0], np.float32)]),
+         {"padded_length": SENTIMENT_LEN}),
+        ("sequence_unpad", "sequence_unpad",
+         ins(X=[f(*review)], Length=[reviews]), {}),
+        ("sequence_conv_3", "sequence_conv",
+         ins(X=[f(*review)], Length=[reviews],
+             Filter=[f(3 * review[2], SENTIMENT["hid_dim"], scale=0.05)]),
+         {"contextLength": 3, "contextStart": -1, "contextStride": 1}),
+        ("sequence_conv_4", "sequence_conv",
+         ins(X=[f(*review)], Length=[reviews],
+             Filter=[f(4 * review[2], SENTIMENT["hid_dim"], scale=0.05)]),
+         {"contextLength": 4, "contextStart": -1, "contextStride": 1}),
+        ("sequence_enumerate", "sequence_enumerate",
+         ins(X=[ints(SENTIMENT["dict_dim"], SENTIMENT_BATCH,
+                     SENTIMENT_LEN)], Length=[reviews]),
+         {"win_size": 3, "pad_value": 0}),
+        ("row_conv", "row_conv",
+         ins(X=[f(32, 256, 1024)], Filter=[f(3, 1024)]), {}),
+        ("lstm_unit", "lstm_unit",
+         ins(X=[f(bw, 4 * width)], C_prev=[f(bw, width)]),
+         {"forget_bias": 0.0}),
+        ("gru_unit", "gru_unit",
+         ins(Input=[f(bw, 3 * width)], HiddenPrev=[f(bw, width)],
+             Weight=[f(width, 3 * width, scale=0.05)],
+             Bias=[f(1, 3 * width)]), {}),
+        ("linear_chain_crf", "linear_chain_crf", crf(True), {}),
+        ("crf_decoding", "crf_decoding", crf(False), {}),
+        ("crf_decoding_label", "crf_decoding", crf(True), {}),
+        ("sequence_reshape", "sequence_reshape", ins(X=[f(*review)]),
+         {"new_dim": 2 * review[2]}),
+        ("sequence_scatter", "sequence_scatter", scatter, {}),
+        ("tensor_array_to_tensor", "tensor_array_to_tensor",
+         ins(X=[lambda rng: {"buf": f(cap, bw, width)(rng),
+                             "len": np.int32(NMT_BEAM["max_length"] + 1)}]),
+         {"axis": 0}),
+        ("beam_search", "beam_search",
+         ins(pre_ids=[beam_rows(0.2)], pre_scores=[f(bw, 1)],
+             ids=[candidates], scores=[acc_scores]), dict(beam)),
+        ("beam_search_probabilities", "beam_search",
+         ins(pre_ids=[beam_rows(0.2)], pre_scores=[f(bw, 1)],
+             ids=[candidates],
+             scores=[lambda rng: rng.rand(bw, top).astype(np.float32)]),
+         dict(beam, is_accumulated=False)),
+        ("beam_search_first_step", "beam_search",
+         ins(pre_ids=[beam_rows(0.0)], pre_scores=[f(bw, 1)],
+             ids=[candidates], scores=[acc_scores]),
+         dict(beam, first_step=True)),
+        ("beam_search_equal_beams", "beam_search",
+         ins(pre_ids=[beam_rows(0.0)],
+             pre_scores=[lambda rng: np.zeros((bw, 1), np.float32)],
+             ids=[candidates], scores=[equal_beams]), dict(beam)),
+        ("beam_search_decode", "beam_search_decode", lattice, dict(beam)),
+    ]
+
+
+def phase_sequence_ops(fa, smi):
+    """Every lowering of the sequence and beam-search slice
+    (``sequence_cases``) through ``phase_op_cases``, ``sequence_scatter``
+    twice. Returns the flash launches of the phase (none)."""
+    return phase_op_cases(fa, smi, "sequence_ops", sequence_cases(),
+                          SEQUENCE_TWICE)
+
+
+def decoder_params(main):
+    """{role: parameter name} of the decode loop's layers in an
+    ``nmt_beam`` program, which ``BeamSearchDecoder.decode`` names: the
+    target embedding, the cell's input projection, the ``gru_unit``'s
+    weight and bias, and the output ``fc``'s weight and bias."""
+    ops = [op for b in main.desc.blocks[1:] for op in b.ops]
+    muls = [op for op in ops if op.type == "mul"]
+    gru = next(op for op in ops if op.type == "gru_unit")
+    out_add = next(op for op in ops if op.type == "elementwise_add"
+                   and op.inputs["X"] == muls[1].outputs["Out"])
+    return {"trg_emb": next(op for op in ops
+                            if op.type == "lookup_table").inputs["W"][0],
+            "cell_w": muls[0].inputs["Y"][0],
+            "gru_w": gru.inputs["Weight"][0], "gru_b": gru.inputs["Bias"][0],
+            "out_w": muls[1].inputs["Y"][0], "out_b": out_add.inputs["Y"][0]}
+
+
+def nmt_beam_step(fluid, names, trg_dict, word_dim, hidden, beam_size,
+                  end_id, topk_size=50, **_):
+    """One step of ``nmt_beam``'s decode loop as a flat program of
+    ``fluid`` over the decode's parameters ``names``
+    (``decoder_params``), the layers ``BeamSearchDecoder.decode`` appends
+    in its loop: feeds ``prev_ids`` and ``prev_scores`` [B * beam, 1]
+    and the state ``h`` [B * beam, hidden]; returns [the selected ids,
+    their scores, the parent rows, the next state]."""
+    layers = fluid.layers
+
+    def attr(role):
+        return fluid.ParamAttr(name=names[role])
+
+    prev_ids = layers.data(name="prev_ids", shape=[1], dtype="int64")
+    prev_scores = layers.data(name="prev_scores", shape=[1],
+                              dtype="float32")
+    h = layers.data(name="h", shape=[hidden], dtype="float32")
+    x = layers.embedding(prev_ids, size=[trg_dict, word_dim],
+                         dtype="float32", param_attr=attr("trg_emb"))
+    gates = layers.fc(input=x, size=3 * hidden, bias_attr=False,
+                      param_attr=attr("cell_w"))
+    h, _, _ = layers.gru_unit(gates, h, size=3 * hidden,
+                              param_attr=attr("gru_w"),
+                              bias_attr=attr("gru_b"))
+    probs = layers.fc(input=h, size=trg_dict, act="softmax",
+                      param_attr=attr("out_w"), bias_attr=attr("out_b"))
+    top_scores, top_ids = layers.topk(probs, k=min(topk_size, trg_dict))
+    acc = layers.elementwise_add(
+        x=layers.log(top_scores),
+        y=layers.reshape(prev_scores, shape=[-1, 1]), axis=0)
+    ids, scores, parents = layers.beam_search(
+        prev_ids, prev_scores, top_ids, acc, beam_size, end_id=end_id,
+        return_parent_idx=True)
+    return [ids, scores, parents,
+            layers.gather(h, layers.reshape(parents, shape=[-1]))]
+
+
+def lattice_step(lattice, k, rows):
+    """The operands of decode step ``k`` from ``nmt_beam``'s lattice (its
+    arrays as host arrays, ``rows`` beam rows): {prev_ids, prev_scores,
+    h} and the step's results [ids, scores, parents, next state]."""
+    ids, scores, parents, states = lattice
+    feed = {"prev_ids": ids[:, k:k + 1], "prev_scores": scores[:, k:k + 1],
+            "h": states[k * rows:(k + 1) * rows]}
+    return feed, [ids[:, k + 1:k + 2], scores[:, k + 1:k + 2],
+                  parents[(k + 1) * rows:(k + 2) * rows],
+                  states[(k + 1) * rows:(k + 2) * rows]]
+
+
+def loop_host_ms(run):
+    """Host ms of one call of ``run`` spent in the engine's ``run_op`` on
+    the ops of sub-blocks (a loop's body), each op's own time (its nested
+    sub-block ops' taken out), summed by op type; garbage is collected
+    first, so that no collection of earlier objects lands in an op."""
+    from paddle_tpu_torch.engine import lowering
+
+    totals, stack = {}, []
+    run_op = lowering.run_op
+
+    def timed(op, block, *args, **kwargs):
+        stack.append(0.0)
+        t0 = time.perf_counter()
+        try:
+            return run_op(op, block, *args, **kwargs)
+        finally:
+            spent = time.perf_counter() - t0
+            nested = stack.pop()
+            if stack:
+                stack[-1] += spent
+            if block.idx != 0:
+                totals[op.type] = (totals.get(op.type, 0.0)
+                                   + (spent - nested) * 1e3)
+
+    gc.collect()
+    lowering.run_op = timed
+    try:
+        run()
+    finally:
+        lowering.run_op = run_op
+    return totals
+
+
+def phase_nmt_beam(fa, smi):
+    """The chapter-8 encoder-decoder (NMT_BEAM) decoding 16 sources into
+    3 beams of 250 words through ``Executor.run`` on the ``for_test``
+    clone (its ``while`` block eager): the decode twice, bitwise equal;
+    one loop step (NMT_BEAM_PROBE_STEP) as a flat program replayed op by
+    op on the card's own operands from the lattice (DENSE_TOL; ``top_k``
+    and ``beam_search`` exact); ``beam_search_decode`` on the card's
+    arrays equal to the CPU's and to the decode's; at batch 2 the steps
+    equal to a CPU decode (printed); the decode's ms, target tokens/s,
+    launches and host ms a step, idle share. Returns the flash launches
+    of the path (none)."""
+    import torch
+    from torch.autograd import DeviceType
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import convert, unique_name
+    from paddle_tpu_torch import observability as obs
+
+    with unique_name.guard():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            h = nmt_beam(fluid, src_len=NMT_BEAM_SRC_LEN, **NMT_BEAM)
+    main.random_seed = startup.random_seed = 2024
+    test_prog = main.clone(for_test=True)
+    fetch = [h["ids"], h["scores"], h["encoded"], h["steps"]] + h["lattice"]
+    feed = nmt_beam_feed(NMT_BEAM_BATCH, NMT_BEAM_SRC_LEN, NMT_BEAM_MIN_LEN,
+                         seed=61, **NMT_BEAM)
+    rows = NMT_BEAM_BATCH * NMT_BEAM["beam_size"]
+    steps = NMT_BEAM["max_length"]
+    exe, scope = fresh(startup)
+    state0 = {v.name: scope.get(v.name).cpu().numpy()
+              for v in main.list_vars() if v.persistable}
+
+    def decode(f=feed):
+        with fluid.scope_guard(scope):
+            return exe.run(test_prog, feed=f, fetch_list=fetch)
+
+    obs.set_enabled(True)
+    obs.reset()
+    torch.cuda.synchronize()
+    fa.launches = fa.launches_dq = fa.launches_dkv = 0  # the path starts
+    t0 = time.perf_counter()
+    first = decode()
+    first_s = time.perf_counter() - t0
+    second = decode()
+    torch.cuda.synchronize()
+    launches = flash_launches(fa)  # ... and ends here
+    eager_runs = obs.counter_value("engine.eager_runs")
+    obs.set_enabled(None)
+    ids, scores, encoded, n, *lattice = first
+    n = int(n.reshape(-1)[0])
+    same = all(np.array_equal(a, b) for a, b in zip(first, second))
+    row = {"phase": "nmt_beam", "card": smi, "config": NMT_BEAM,
+           "batch": NMT_BEAM_BATCH, "src_len": NMT_BEAM_SRC_LEN,
+           "beam_rows": rows, "lattice_steps": n,
+           "first_decode_s": first_s, "eager_runs": eager_runs,
+           "twice_bitwise_equal": same, "flash_launches": launches,
+           "sentence_ids_head": ids[:3, :12].tolist(),
+           "sentence_scores_head": scores[:6].ravel().tolist()}
+    emit(row)
+    check(same, "nmt_beam: the decode twice differs")
+    check(n == steps + 1 and ids.shape == (rows, 256)
+          and (ids[:, 0] == NMT_BEAM["start_id"]).all()
+          and ((ids >= 0) & (ids < NMT_BEAM["trg_dict"])).all()
+          and np.isfinite(scores).all() and np.isfinite(encoded).all()
+          and encoded.shape == (NMT_BEAM_BATCH, NMT_BEAM_SRC_LEN,
+                                2 * NMT_BEAM["hidden"]),
+          "nmt_beam: the decode's outputs: %s" % row)
+    check(eager_runs >= 2, "nmt_beam: the while block ran %d times eagerly"
+          % eager_runs)
+    check(not any(launches.values()), "flash launches in nmt_beam: %s"
+          % launches)
+
+    # one loop step as a flat program, op by op on the card's operands
+    names = decoder_params(main)
+    with unique_name.guard():
+        step_main, step_startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(step_main, step_startup):
+            step_out = nmt_beam_step(fluid, names, **NMT_BEAM)
+    k = NMT_BEAM_PROBE_STEP
+    step_feed, step_next = lattice_step(lattice, k, rows)
+    worst, env, _ = replay_ops_on_card(
+        step_main, {r: state0[r] for r in names.values()}, step_feed,
+        DENSE_TOL)
+    exact = {t: worst.get(t, 0.0) for t in ("top_k", "beam_search")}
+    cpu_next = [env[v.name].numpy() for v in step_out]
+    emit({"phase": "nmt_beam", "probe_step": k, "ops_rel_to_max": worst,
+          "tol": DENSE_TOL, "exact": exact,
+          "cpu_step_equals_card_lattice": {
+              part: bool(np.array_equal(a.reshape(-1), b.reshape(-1)))
+              for part, a, b in zip(("ids", "scores", "parents", "state"),
+                                    cpu_next, step_next)}})
+    check(not any(exact.values()),
+          "nmt_beam: top_k or beam_search not exact on the card: %s" % exact)
+
+    # beam_search_decode on the card's arrays, card and CPU
+    ids_l, scores_l, parents_l, _ = lattice
+    cap = ids_l.shape[1]
+    arrays = {"Ids": ids_l.T.reshape(cap, rows, 1),
+              "ParentIdx": parents_l.reshape(cap, rows),
+              "Scores": scores_l.T.reshape(cap, rows, 1)}
+    back = {}
+    for device in ("cuda", "cpu"):
+        ins = {s: [{"buf": torch.as_tensor(np.ascontiguousarray(a),
+                                           device=device),
+                    "len": torch.tensor(n, dtype=torch.int32,
+                                        device=device)}]
+               for s, a in arrays.items()}
+        out = lower_op("beam_search_decode", ins, {
+            "beam_size": NMT_BEAM["beam_size"],
+            "end_id": NMT_BEAM["end_id"]}, device)
+        back[device] = [out["sentence_ids"][0].cpu().numpy(),
+                        out["sentence_scores"][0].cpu().numpy()]
+    backtrack = {"card_equals_cpu": all(np.array_equal(a, b) for a, b in
+                                        zip(back["cuda"], back["cpu"])),
+                 "equals_decode": bool(np.array_equal(back["cuda"][0], ids)
+                                       and np.array_equal(back["cuda"][1],
+                                                          scores))}
+    emit({"phase": "nmt_beam", "beam_search_decode": backtrack})
+    check(all(backtrack.values()), "nmt_beam: backtrack %s" % backtrack)
+
+    # times: the decode's wall, its launches and idle share (profiler),
+    # the host time of its loop's ops
+    gc.collect()
+    wall = timed_runs(decode, n=3, warmup=0)
+    prof = profiled(decode)
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and e.self_device_time_total > 0),
+                     key=lambda e: -e.self_device_time_total)
+    _, _, active, _ = device_intervals(prof)
+    host = loop_host_ms(decode)
+    ms = wall["median_ms"]
+    emit({"phase": "times", "card": smi, "profile": "nmt_beam decode",
+          "beam_rows": rows, "steps": steps, "decode_ms": wall,
+          "ms_per_step": ms / steps,
+          "target_tokens_per_s": rows * steps / (ms / 1e3),
+          "launches_per_step": sum(e.count for e in kernels) / steps,
+          "device_busy_ms": active, "device_idle_share": 1.0 - active / ms,
+          "loop_ops_host_ms_per_step": sum(host.values()) / steps,
+          "loop_ops_host_ms_per_step_by_op": {
+              t: v / steps for t, v in sorted(host.items(),
+                                              key=lambda kv: -kv[1])[:12]},
+          "top_kernels_ms": [[e.key[:80], e.self_device_time_total / 1e3]
+                             for e in kernels[:8]]})
+
+    # batch 2 on the card and on the CPU from the same state
+    feed2 = nmt_beam_feed(NMT_BEAM_CPU_BATCH, NMT_BEAM_SRC_LEN,
+                          NMT_BEAM_MIN_LEN, seed=62, **NMT_BEAM)
+    card2 = decode(feed2)
+    cpu_scope = fluid.Scope()
+    convert.load_numpy_state(cpu_scope, state0, "cpu", program=main)
+    with fluid.scope_guard(cpu_scope):
+        cpu2 = fluid.Executor(fluid.CPUPlace()).run(test_prog, feed=feed2,
+                                                    fetch_list=fetch[:2])
+    agree = (card2[0] == cpu2[0]).all(axis=0)[:steps + 1]
+    emit({"phase": "nmt_beam", "cpu_decode": {
+        "batch": NMT_BEAM_CPU_BATCH, "steps_equal": int(agree.sum()),
+        "of": steps + 1, "first_step_differing": int(np.argmin(agree))
+        if not agree.all() else None,
+        "scores_max_abs_diff": float(np.abs(card2[1] - cpu2[1]).max())}})
+    del exe, scope, cpu_scope
+    release_memory()
+    return launches
+
+
+def card_cpu_step(main, state0, loss, feed):
+    """One training step of ``main`` from ``state0`` on the card and on
+    the CPU: the loss and every parameter grad of each; returns the row
+    and whether it holds TRAIN_TOL."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import convert
+
+    grads = [p.name + "@GRAD" for p in main.all_parameters()
+             if p.trainable]
+    outs = {}
+    for device, place in (("cuda", fluid.CUDAPlace(0)),
+                          ("cpu", fluid.CPUPlace())):
+        scope = fluid.Scope()
+        convert.load_numpy_state(scope, state0, device, program=main)
+        with fluid.scope_guard(scope):
+            outs[device] = fluid.Executor(place).run(
+                main, feed=feed, fetch_list=[loss.name] + grads)
+    card, cpu = outs["cuda"], outs["cpu"]
+    want = float(cpu[0].reshape(-1)[0])
+    loss_err = abs(float(card[0].reshape(-1)[0]) - want)
+    rel = {n: float(np.abs(a - b).max() / (np.abs(b).max() or 1.0))
+           for n, a, b in zip(grads, card[1:], cpu[1:])}
+    ok = loss_err <= TRAIN_TOL["loss_rtol"] * abs(want) and all(
+        d <= TRAIN_TOL["grad_rel_to_max"] for d in rel.values())
+    return {"loss_card": float(card[0].reshape(-1)[0]), "loss_cpu": want,
+            "loss_abs_err": loss_err, "grad_rel_to_max": rel,
+            "tol": TRAIN_TOL}, ok
+
+
+def eager_step_peak(exe, scope, main, loss, feed):
+    """Bytes one eager step of ``main`` allocates above what was held
+    before it (the peak)."""
+    import torch
+
+    import paddle_tpu_torch.fluid as fluid
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with fluid.scope_guard(scope):
+        exe.run(main, feed=feed, fetch_list=[loss])
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def lockstep_checks(phase, losses, unequal, entries, eager_runs, launches):
+    """The checks of a ``lockstep_steps`` run: finite losses, captured
+    and eager equal step by step, one graph captured once, no eager
+    block, no flash launch."""
+    check(all(np.isfinite(losses["captured"])), "%s losses %s"
+          % (phase, losses))
+    check(losses["captured"] == losses["eager"] and not unequal,
+          "%s: captured and eager steps differ: losses %s, state %s"
+          % (phase, losses, unequal[:5]))
+    check(len(entries) == 1 and entries[0].captures == 1
+          and eager_runs == 0, "%s: %d graphs, captures %s, %d eager runs"
+          % (phase, len(entries), [c.captures for c in entries],
+             eager_runs))
+    check(not any(launches.values()), "flash launches in %s: %s"
+          % (phase, launches))
+
+
+def phase_sentiment_conv(fa, smi):
+    """Chapter 6's convolution_net (SENTIMENT) at batch 128 over reviews
+    of 32-400 words: SENTIMENT_STEPS Adagrad steps eagerly and captured
+    from the same state, bitwise equal, one graph; one step at batch 2
+    against the CPU (TRAIN_TOL); step ms, examples/s, idle share, an
+    eager step's peak memory. Returns the flash launches (none)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import unique_name
+
+    with unique_name.guard():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            h = sentiment_conv(fluid, seq_len=SENTIMENT_LEN, **SENTIMENT)
+    main.random_seed = startup.random_seed = 2024
+    loss = h["loss"]
+    feed = sentiment_feed(SENTIMENT_BATCH, SENTIMENT_LEN, SENTIMENT_MIN_LEN,
+                          seed=71, **SENTIMENT)
+    (eager, graph, losses, unequal, eager_runs, launches,
+     walls) = lockstep_steps(fa, main, startup, loss, feed, SENTIMENT_STEPS)
+    entries = captured(graph[0].engine)
+    emit({"phase": "sentiment_conv", "card": smi, "config": SENTIMENT,
+          "batch": SENTIMENT_BATCH, "seq_len": SENTIMENT_LEN,
+          "words": int(feed["lens"].sum()), "losses": losses,
+          "unequal_state": unequal[:10], "graphs": len(entries),
+          "eager_runs": eager_runs, "launches": launches,
+          "captured_run_walls_ms": walls})
+    lockstep_checks("sentiment_conv", losses, unequal, entries, eager_runs,
+                    launches)
+    peak = eager_step_peak(eager[0], eager[1], main, loss, feed)
+    cap = profiled_step(graph[0], graph[1], main, loss, feed)
+    emit(dict({"phase": "times", "card": smi,
+               "profile": "sentiment_conv training step", "run": "captured",
+               "batch": SENTIMENT_BATCH,
+               "examples_per_s": SENTIMENT_BATCH / (cap["median_ms"] / 1e3),
+               "eager_step_peak_bytes": peak}, **cap))
+    del eager, graph, entries
+    release_memory()
+    state0 = start_state(main, startup)
+    row, ok = card_cpu_step(main, state0, loss, sentiment_feed(
+        2, SENTIMENT_LEN, SENTIMENT_MIN_LEN, seed=72, **SENTIMENT))
+    emit({"phase": "sentiment_conv", "cpu_step": row})
+    check(ok, "sentiment_conv: card vs CPU step %s" % row)
+    release_memory()
+    return launches
+
+
+def phase_srl_crf(fa, smi):
+    """Chapter 7's db_lstm under a linear-chain CRF (SRL) at batch 10
+    over sentences of 8-64 words: SRL_STEPS SGD steps eagerly and
+    captured from the same state, bitwise equal, one graph; one step at
+    batch 2 op by op against the CPU (RNN_OP_TOL); on the ``for_test``
+    clone ``crf_decoding``'s paths equal to the CPU's on the card's
+    emissions and ``crfw``, and ``chunk_eval``'s counts equal to the
+    CPU's; step ms, tokens/s, launches a step, idle share. Returns the
+    flash launches (none)."""
+    import torch
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import unique_name
+
+    with unique_name.guard():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            h = srl_crf(fluid, seq_len=SRL_LEN, **SRL)
+    main.random_seed = startup.random_seed = 2024
+    loss = h["loss"]
+    feed = srl_feed(SRL_BATCH, SRL_LEN, SRL_MIN_LEN, seed=81, **SRL)
+    (eager, graph, losses, unequal, eager_runs, launches,
+     walls) = lockstep_steps(fa, main, startup, loss, feed, SRL_STEPS)
+    entries = captured(graph[0].engine)
+    emit({"phase": "srl_crf", "card": smi, "config": SRL,
+          "batch": SRL_BATCH, "seq_len": SRL_LEN,
+          "words": int(feed["lens"].sum()), "losses": losses,
+          "unequal_state": unequal[:10], "graphs": len(entries),
+          "eager_runs": eager_runs, "launches": launches,
+          "captured_run_walls_ms": walls})
+    lockstep_checks("srl_crf", losses, unequal, entries, eager_runs,
+                    launches)
+    # one step profiled: it launches 69 K kernels
+    cap = profiled_step(graph[0], graph[1], main, loss, feed,
+                        profiled_steps=1)
+    emit(dict({"phase": "times", "card": smi,
+               "profile": "srl_crf training step", "run": "captured",
+               "batch": SRL_BATCH,
+               "tokens_per_s": int(feed["lens"].sum())
+               / (cap["median_ms"] / 1e3),
+               "padded_tokens_per_s": SRL_BATCH * SRL_LEN
+               / (cap["median_ms"] / 1e3)}, **cap))
+
+    # the for_test clone: the Viterbi paths and the chunk counts against
+    # the CPU's lowerings on the card's emissions
+    test_prog = main.clone(for_test=True)
+    exe, scope = graph
+    with fluid.scope_guard(scope):
+        feature, path, *chunks = exe.run(
+            test_prog, feed=feed,
+            fetch_list=[h["feature"], h["path"]] + h["chunks"])
+    lens = torch.as_tensor(feed["lens"])
+    cpu_path = lower_op("crf_decoding", {
+        "Emission": [torch.as_tensor(feature)],
+        "Transition": [scope.get("crfw").cpu()], "Length": [lens]}, {},
+        "cpu")["ViterbiPath"][0].numpy()
+    cpu_chunks = lower_op("chunk_eval", {
+        "Inference": [torch.as_tensor(path)],
+        "Label": [torch.as_tensor(feed["target"])], "SeqLength": [lens]},
+        {"chunk_scheme": "IOB", "num_chunk_types": (SRL["label_dict"] - 1)
+         // 2, "excluded_chunk_types": []}, "cpu")
+    counts = [int(np.asarray(c).reshape(-1)[0]) for c in chunks[3:]]
+    cpu_counts = [int(cpu_chunks[s][0].reshape(-1)[0]) for s in (
+        "NumInferChunks", "NumLabelChunks", "NumCorrectChunks")]
+    decode = {"paths_equal_cpu": bool(np.array_equal(path, cpu_path)),
+              "chunk_counts": counts, "chunk_counts_cpu": cpu_counts,
+              "precision_recall_f1": [float(np.asarray(c).reshape(-1)[0])
+                                      for c in chunks[:3]]}
+    emit({"phase": "srl_crf", "decode": decode})
+    check(decode["paths_equal_cpu"] and counts == cpu_counts,
+          "srl_crf: crf_decoding or chunk_eval off the CPU's: %s" % decode)
+    del eager, graph, entries, exe, scope
+    release_memory()
+
+    # one step at batch 2, op by op against the CPU
+    state0 = start_state(main, startup)
+    worst, _, _ = replay_ops_on_card(
+        main, state0, srl_feed(2, SRL_LEN, SRL_MIN_LEN, seed=82, **SRL),
+        RNN_OP_TOL)
+    emit({"phase": "srl_crf", "cpu_ops_rel_to_max": worst,
+          "tol": RNN_OP_TOL})
+    release_memory()
+    return launches
+
+
 def release_memory():
     """Free what no live object holds, CUDA graphs and their pools too,
     and return the cached blocks to the card."""
@@ -5434,6 +6368,14 @@ def main():
     dense_launches["upsample_head"] = phase_upsample_head(fa, smi)
     dense_launches["ctr_auc"] = phase_ctr_auc(fa, smi)
     release_memory()
+
+    # the sequence ops, beam-search decoding, the text-convolution
+    # classifier and the CRF tagger
+    seq_launches = {"sequence_ops": phase_sequence_ops(fa, smi)}
+    seq_launches["nmt_beam"] = phase_nmt_beam(fa, smi)
+    seq_launches["sentiment_conv"] = phase_sentiment_conv(fa, smi)
+    seq_launches["srl_crf"] = phase_srl_crf(fa, smi)
+    release_memory()
     emit({"phase": "times", "partial_profiler_windows_rerun":
           len(PARTIAL_PROFILES), "partial_windows": PARTIAL_PROFILES,
           "event_timed": EVENT_TIMED})
@@ -5450,6 +6392,7 @@ def main():
     other_paths.update(image_launches)
     other_paths.update(fuse_launches)
     other_paths.update(dense_launches)
+    other_paths.update(seq_launches)
 
     def t256_rows(name):
         # the kernel at the Transformer's shapes (B=32 H=8 T=256 D=64)

@@ -1,6 +1,14 @@
 """contrib — port of ``paddle_tpu/contrib/__init__.py`` for the subset the
-port carries: ``mixed_precision`` (bfloat16 AMP). Quantization, the
-decoder API and the statistics tools are later slices (ROADMAP Queue 1,
-item 12)."""
+port carries: ``mixed_precision`` (bfloat16 AMP) and the decoder API
+(``InitState``, ``StateCell``, ``TrainingDecoder``,
+``BeamSearchDecoder``). Quantization and the statistics tools are later
+slices (ROADMAP Queue 1, items 9 and 12)."""
 
 from paddle_tpu_torch.contrib import mixed_precision  # noqa: F401
+from paddle_tpu_torch.contrib import decoder  # noqa: F401
+from paddle_tpu_torch.contrib.decoder import (  # noqa: F401
+    BeamSearchDecoder,
+    InitState,
+    StateCell,
+    TrainingDecoder,
+)

@@ -10,7 +10,11 @@ image layers (``conv2d_transpose``, ``group_norm``, ``lrn``, ``prelu``,
 ``maxout``, the resizes, ``adaptive_pool2d``), the tensor layers
 (``squeeze``, ``stack``, ``gather``, ``scatter``, ``pad``, ``cumsum``,
 ``shape``, ``flatten``...), ``dot_product_attention`` and
-``chunk_eval``.
+``chunk_eval``; and the sequence and beam-search slice's: the
+``sequence_*`` layers, ``im2sequence``, ``beam_search``,
+``beam_search_decode``, the CRF (``linear_chain_crf``, ``crf_decoding``),
+the step cells (``lstm_unit``, ``gru_unit``), ``row_conv`` and
+``tensor_array_to_tensor``.
 Each function appends the same op, slots and attrs as its JAX-package
 counterpart (cited beside it), so the two front ends build identical
 descs."""
@@ -113,6 +117,28 @@ __all__ = [
     "image_resize_short",
     "create_parameter",
     "chunk_eval",
+    "sequence_softmax",
+    "sequence_expand",
+    "sequence_reverse",
+    "sequence_concat",
+    "sequence_slice",
+    "sequence_first_step",
+    "sequence_expand_as",
+    "sequence_pad",
+    "sequence_unpad",
+    "sequence_conv",
+    "sequence_enumerate",
+    "beam_search",
+    "beam_search_decode",
+    "row_conv",
+    "lstm_unit",
+    "gru_unit",
+    "linear_chain_crf",
+    "crf_decoding",
+    "sequence_reshape",
+    "sequence_scatter",
+    "im2sequence",
+    "tensor_array_to_tensor",
 ]
 
 
@@ -1469,3 +1495,362 @@ def chunk_eval(input, label, chunk_scheme, num_chunk_types,
                "num_chunk_types": num_chunk_types,
                "excluded_chunk_types": excluded_chunk_types or []})
     return precision, recall, f1, n_inf, n_lab, n_cor
+
+
+# -- the sequence and beam-search slice (nn.py:1107-2212) ---------------
+
+
+def sequence_softmax(input, use_cudnn=False, name=None, length=None):
+    del use_cudnn  # the lowering is the same either way
+    helper = LayerHelper("sequence_softmax", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    inputs = {"X": [input]}
+    if length is not None:
+        inputs["Length"] = [length]
+    helper.append_op(
+        type="sequence_softmax", inputs=inputs, outputs={"Out": [out]}
+    )
+    return out
+
+
+def sequence_expand(x, y, ref_level=-1, name=None):
+    helper = LayerHelper("sequence_expand", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(
+        type="sequence_expand",
+        inputs={"X": [x], "Y": [y]},
+        outputs={"Out": [out]},
+        attrs={"ref_level": ref_level},
+    )
+    return out
+
+
+def sequence_reverse(x, length=None, name=None):
+    helper = LayerHelper("sequence_reverse", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    inputs = {"X": [x]}
+    if length is not None:
+        inputs["Length"] = [length]
+    helper.append_op(
+        type="sequence_reverse", inputs=inputs, outputs={"Y": [out]}
+    )
+    return out
+
+
+def sequence_concat(input, lengths=None, name=None):
+    """Per-row concat of ragged sequences (reference: layers/nn.py
+    sequence_concat → sequence_concat_op.cc). ``input`` is a list of
+    padded [B, T_k, D] tensors, ``lengths`` the matching [B] length
+    tensors; the result is left-compacted. The output's lengths are
+    elementwise sums of ``lengths`` (compute via elementwise_add)."""
+    helper = LayerHelper("sequence_concat", name=name)
+    xs = input if isinstance(input, (list, tuple)) else [input]
+    out = helper.create_variable_for_type_inference(dtype=xs[0].dtype)
+    inputs = {"X": list(xs)}
+    if lengths is not None:
+        inputs["Length"] = list(lengths)
+    helper.append_op(type="sequence_concat", inputs=inputs,
+                     outputs={"Out": [out]})
+    return out
+
+
+def sequence_slice(input, offset, length, name=None):
+    """Per-row subsequence (reference: layers/nn.py sequence_slice)."""
+    helper = LayerHelper("sequence_slice", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(
+        type="sequence_slice",
+        inputs={"X": [input], "Offset": [offset], "Length": [length]},
+        outputs={"Out": [out]})
+    return out
+
+
+def sequence_first_step(input, length=None):
+    """First timestep of each sequence (reference: layers/nn.py
+    sequence_first_step = sequence_pool FIRST)."""
+    return sequence_pool(input, "first", length=length)
+
+
+def sequence_expand_as(x, y, name=None):
+    """Broadcast x rows along y's time dim (reference: layers/nn.py
+    sequence_expand_as)."""
+    helper = LayerHelper("sequence_expand_as", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="sequence_expand_as",
+                     inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def sequence_pad(x, pad_value, maxlen=None, length=None, name=None):
+    """Pad each row to maxlen with pad_value; returns (Out, Length)
+    (reference: layers/nn.py sequence_pad)."""
+    helper = LayerHelper("sequence_pad", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    len_out = helper.create_variable_for_type_inference(dtype="int64")
+    inputs = {"X": [x], "PadValue": [pad_value]}
+    if length is not None:
+        inputs["Length"] = [length]
+    helper.append_op(
+        type="sequence_pad", inputs=inputs,
+        outputs={"Out": [out], "Length": [len_out]},
+        attrs={"padded_length": maxlen if maxlen is not None else -1})
+    return out, len_out
+
+
+def sequence_unpad(x, length, name=None):
+    """Strip pad values back to the zero-padded convention (reference:
+    layers/nn.py sequence_unpad)."""
+    helper = LayerHelper("sequence_unpad", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="sequence_unpad",
+                     inputs={"X": [x], "Length": [length]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
+                  padding=None, bias_attr=None, param_attr=None, act=None,
+                  length=None, name=None):
+    """Context-window convolution over time (reference: layers/nn.py
+    sequence_conv → sequence_conv_op.cc)."""
+    helper = LayerHelper("sequence_conv", name=name, act=act,
+                         bias_attr=bias_attr, param_attr=param_attr)
+    dtype = input.dtype
+    d = input.shape[-1]
+    filter_shape = [filter_size * d, num_filters]
+    filter_param = helper.create_parameter(
+        attr=param_attr, shape=filter_shape, dtype=dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    inputs = {"X": [input], "Filter": [filter_param]}
+    if length is not None:
+        inputs["Length"] = [length]
+    helper.append_op(
+        type="sequence_conv", inputs=inputs, outputs={"Out": [out]},
+        attrs={"contextLength": filter_size,
+               "contextStart": -((filter_size - 1) // 2),
+               "contextStride": filter_stride})
+    pre_act = helper.append_bias_op(out, dim_start=2)
+    return helper.append_activation(pre_act)
+
+
+def sequence_enumerate(input, win_size, pad_value=0, length=None,
+                       name=None):
+    """Sliding id windows (reference: layers/nn.py sequence_enumerate);
+    ``length`` bounds windows per row like the reference's LoD."""
+    helper = LayerHelper("sequence_enumerate", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    inputs = {"X": [input]}
+    if length is not None:
+        inputs["Length"] = [length]
+    helper.append_op(
+        type="sequence_enumerate", inputs=inputs,
+        outputs={"Out": [out]},
+        attrs={"win_size": win_size, "pad_value": pad_value})
+    return out
+
+
+def beam_search(pre_ids, pre_scores, ids, scores, beam_size, end_id,
+                level=0, is_accumulated=True, name=None,
+                return_parent_idx=False, first_step=False):
+    """One beam-search step (reference: layers/nn.py:3873 — fixed
+    batch*beam rows instead of LoD shrinking). ``ids`` optionally maps
+    score columns to token ids (None means column index IS the id, the
+    common vocab-scores case); ``level`` (the reference's LoD level) is
+    meaningless in the padded form; with ``is_accumulated=False`` the
+    scores are per-step probabilities and are log-accumulated onto
+    pre_scores here, as the reference op does. Returns (selected_ids,
+    selected_scores), or a 3-tuple including parent_idx when
+    ``return_parent_idx=True``."""
+    del level
+    helper = LayerHelper("beam_search", name=name)
+    sel_ids = helper.create_variable_for_type_inference("int64")
+    sel_scores = helper.create_variable_for_type_inference(scores.dtype)
+    parent = helper.create_variable_for_type_inference("int64")
+    inputs = {"pre_ids": [pre_ids], "pre_scores": [pre_scores],
+              "scores": [scores]}
+    if ids is not None:
+        inputs["ids"] = [ids]
+    helper.append_op(
+        type="beam_search",
+        inputs=inputs,
+        outputs={"selected_ids": [sel_ids],
+                 "selected_scores": [sel_scores],
+                 "parent_idx": [parent]},
+        attrs={"beam_size": beam_size, "end_id": end_id,
+               "is_accumulated": bool(is_accumulated),
+               "first_step": first_step},
+    )
+    if return_parent_idx:
+        return sel_ids, sel_scores, parent
+    return sel_ids, sel_scores
+
+
+def beam_search_decode(ids, scores, beam_size, end_id, name=None,
+                       parent_array=None):
+    """Backtrack a finished beam decode from the step arrays (reference:
+    layers beam_search_decode). Returns (sentence_ids [BW, max_len],
+    sentence_scores [BW, 1]). The padded representation needs the
+    parent-pointer array our beam_search emits (the reference recovers
+    parents from LoD; here they are explicit)."""
+    ids_array, scores_array = ids, scores
+    if parent_array is None:
+        raise ValueError(
+            "beam_search_decode needs parent_array= (the parent_idx "
+            "array collected from beam_search steps); the padded beam "
+            "representation stores parent pointers explicitly where the "
+            "reference recovers them from LoD")
+    helper = LayerHelper("beam_search_decode", name=name)
+    sent_ids = helper.create_variable_for_type_inference("int64")
+    sent_scores = helper.create_variable_for_type_inference("float32")
+    helper.append_op(
+        type="beam_search_decode",
+        inputs={"Ids": [ids_array], "Scores": [scores_array],
+                "ParentIdx": [parent_array]},
+        outputs={"sentence_ids": [sent_ids],
+                 "sentence_scores": [sent_scores]},
+        attrs={"beam_size": beam_size, "end_id": end_id},
+    )
+    return sent_ids, sent_scores
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None):
+    """(reference: layers/nn.py row_conv)"""
+    helper = LayerHelper("row_conv", param_attr=param_attr, act=act)
+    d = input.shape[-1]
+    filt = helper.create_parameter(
+        attr=param_attr, shape=[future_context_size + 1, d],
+        dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="row_conv",
+                     inputs={"X": [input], "Filter": [filt]},
+                     outputs={"Out": [out]})
+    return helper.append_activation(out)
+
+
+def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias=0.0,
+              param_attr=None, bias_attr=None, name=None):
+    """(reference: layers/nn.py lstm_unit) — fc of [x, h] then one cell
+    step."""
+    helper = LayerHelper("lstm_unit", name=name)
+    hsz = hidden_t_prev.shape[1]
+    gates = fc(input=[x_t, hidden_t_prev], size=4 * hsz,
+               param_attr=param_attr, bias_attr=bias_attr)
+    c = helper.create_variable_for_type_inference(x_t.dtype)
+    h = helper.create_variable_for_type_inference(x_t.dtype)
+    helper.append_op(type="lstm_unit",
+                     inputs={"X": [gates], "C_prev": [cell_t_prev]},
+                     outputs={"C": [c], "H": [h]},
+                     attrs={"forget_bias": forget_bias})
+    return h, c
+
+
+def gru_unit(input, hidden, size, param_attr=None, bias_attr=None,
+             activation="tanh", gate_activation="sigmoid",
+             origin_mode=False):
+    """(reference: layers/nn.py gru_unit); size = 3*hidden_dim."""
+    helper = LayerHelper("gru_unit", param_attr=param_attr,
+                         bias_attr=bias_attr)
+    hsz = size // 3
+    w = helper.create_parameter(attr=param_attr, shape=[hsz, 3 * hsz],
+                                dtype=input.dtype)
+    inputs = {"Input": [input], "HiddenPrev": [hidden], "Weight": [w]}
+    if bias_attr is not False:
+        bias = helper.create_parameter(
+            attr=bias_attr if bias_attr not in (None, True) else ParamAttr(),
+            shape=[1, 3 * hsz], dtype=input.dtype, is_bias=True)
+        inputs["Bias"] = [bias]
+    h = helper.create_variable_for_type_inference(input.dtype)
+    r = helper.create_variable_for_type_inference(input.dtype)
+    g = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="gru_unit", inputs=inputs,
+                     outputs={"Hidden": [h], "ResetHiddenPrev": [r],
+                              "Gate": [g]})
+    return h, r, g
+
+
+def linear_chain_crf(input, label, param_attr=None, length=None):
+    """(reference: layers/nn.py linear_chain_crf). Padded [B, T, C]
+    emissions + optional lengths; returns per-sequence log-likelihood."""
+    helper = LayerHelper("linear_chain_crf", param_attr=param_attr)
+    num_tags = input.shape[-1]
+    trans = helper.create_parameter(
+        attr=param_attr, shape=[num_tags + 2, num_tags], dtype=input.dtype)
+    ll = helper.create_variable_for_type_inference(input.dtype)
+    alpha = helper.create_variable_for_type_inference(input.dtype)
+    eexp = helper.create_variable_for_type_inference(input.dtype)
+    texp = helper.create_variable_for_type_inference(input.dtype)
+    inputs = {"Emission": [input], "Transition": [trans],
+              "Label": [label]}
+    if length is not None:
+        inputs["Length"] = [length]
+    helper.append_op(
+        type="linear_chain_crf", inputs=inputs,
+        outputs={"LogLikelihood": [ll], "Alpha": [alpha],
+                 "EmissionExps": [eexp], "TransitionExps": [texp]})
+    return ll
+
+
+def crf_decoding(input, param_attr, label=None, length=None):
+    """(reference: layers/nn.py crf_decoding)"""
+    helper = LayerHelper("crf_decoding", param_attr=param_attr)
+    # the transition parameter is shared with linear_chain_crf by name
+    trans = helper.main_program.global_block().var(param_attr.name)
+    out = helper.create_variable_for_type_inference("int64")
+    inputs = {"Emission": [input], "Transition": [trans]}
+    if label is not None:
+        inputs["Label"] = [label]
+    if length is not None:
+        inputs["Length"] = [length]
+    helper.append_op(type="crf_decoding", inputs=inputs,
+                     outputs={"ViterbiPath": [out]})
+    return out
+
+
+def sequence_reshape(input, new_dim):
+    """(reference: layers/nn.py sequence_reshape)"""
+    helper = LayerHelper("sequence_reshape")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="sequence_reshape", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"new_dim": new_dim})
+    return out
+
+
+def sequence_scatter(input, index, updates, name=None):
+    """(reference: layers/nn.py sequence_scatter)"""
+    helper = LayerHelper("sequence_scatter", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="sequence_scatter",
+                     inputs={"X": [input], "Ids": [index],
+                             "Updates": [updates]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0, input_image_size=None,
+                out_stride=1, name=None):
+    """(reference: layers/nn.py im2sequence; op in ops/sequence_ops.py)"""
+    helper = LayerHelper("im2sequence", name=name)
+    to2 = lambda v: [v, v] if isinstance(v, int) else list(v)
+    fs, st = to2(filter_size), to2(stride)
+    pd = padding if isinstance(padding, (list, tuple)) and len(padding) == 4 \
+        else to2(padding) * 2
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="im2sequence", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"kernels": fs, "strides": st,
+                            "paddings": list(pd)})
+    return out
+
+
+def tensor_array_to_tensor(input, axis=1, name=None):
+    """(reference: layers/tensor.py tensor_array_to_tensor) — stack the
+    live prefix of a tensor array."""
+    helper = LayerHelper("tensor_array_to_tensor", name=name)
+    out = helper.create_variable_for_type_inference("float32")
+    out_idx = helper.create_variable_for_type_inference("int64")
+    helper.append_op(type="tensor_array_to_tensor",
+                     inputs={"X": [input]},
+                     outputs={"Out": [out], "OutIndex": [out_idx]},
+                     attrs={"axis": axis})
+    return out, out_idx

@@ -1,11 +1,10 @@
 """Composite network blocks — port of ``paddle_tpu/nets.py`` (reference:
 python/paddle/fluid/nets.py): ``simple_img_conv_pool`` (nets.py:13),
-``img_conv_group`` (:31), ``glu`` (:75) and
-``scaled_dot_product_attention`` (:80), compositions of ``fluid.layers``
-that build the reference's descs. The attention splits and merges heads
-around one ``fused_attention`` op, so it runs on the flash kernels on
-the card. ``sequence_conv_pool`` (:67) needs ``sequence_conv``, which is
-not ported yet."""
+``img_conv_group`` (:31), ``sequence_conv_pool`` (:63), ``glu`` (:75)
+and ``scaled_dot_product_attention`` (:80), compositions of
+``fluid.layers`` that build the reference's descs. The attention splits
+and merges heads around one ``fused_attention`` op, so it runs on the
+flash kernels on the card."""
 
 from paddle_tpu_torch import layers
 from paddle_tpu_torch.layers.nn import fused_attention
@@ -68,10 +67,19 @@ def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
 
 
 def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
-                       act="sigmoid", pool_type="max", bias_attr=None):
-    raise NotImplementedError(
-        "sequence_conv_pool needs the sequence_conv op, which is not "
-        "ported yet (ROADMAP Queue 1, step 5d: sequence_ops)")
+                       act="sigmoid", pool_type="max", bias_attr=None,
+                       length=None):
+    """A ``sequence_conv`` over time and a ``sequence_pool`` of its
+    output (nets.py:63), both over the rows' first ``length`` steps
+    (every step without one). The JAX package's takes no ``length``, and
+    its ``sequence_conv`` needs one; with ``length`` this builds the desc
+    of its ``layers.sequence_conv(length=)`` and
+    ``layers.sequence_pool(length=)``."""
+    conv_out = layers.sequence_conv(
+        input=input, num_filters=num_filters, filter_size=filter_size,
+        param_attr=param_attr, bias_attr=bias_attr, act=act, length=length)
+    return layers.sequence_pool(input=conv_out, pool_type=pool_type,
+                                length=length)
 
 
 def glu(input, dim=-1):

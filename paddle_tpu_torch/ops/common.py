@@ -134,6 +134,33 @@ def take(x, idx, dim=0):
     return _Take.apply(x, idx.reshape(-1).long(), dim)
 
 
+_SAME_WIDTH_INT = {torch.float64: torch.int64, torch.float32: torch.int32,
+                   torch.bfloat16: torch.int16, torch.float16: torch.int16}
+
+
+def topk_lowest_index_first(x, k):
+    """(values, int64 indices) of the ``k`` largest entries along the last
+    dim, in descending order, as ``lax.top_k`` returns them: floats in
+    IEEE total order (-0.0 below +0.0) and ties taken lowest index first
+    (``torch.topk`` orders ties otherwise). Each float's bits are read as
+    an integer whose order is the total order (the magnitude bits
+    flipped where the sign bit is set); a key of at most 32 bits goes
+    into the high half of an int64 whose low half ranks the index
+    downwards, so one ``torch.topk`` of distinct values picks and orders
+    them; a 64-bit key takes a stable descending sort cut to ``k``."""
+    key = x
+    if x.is_floating_point():
+        bits = x.view(_SAME_WIDTH_INT[x.dtype])
+        key = torch.where(bits < 0, bits ^ torch.iinfo(bits.dtype).max, bits)
+    if key.dtype == torch.int64:
+        idx = torch.sort(key, dim=-1, descending=True, stable=True).indices
+        idx = idx[..., :k]
+    else:
+        rank = (1 << 32) - 1 - torch.arange(x.shape[-1], device=x.device)
+        idx = torch.topk(key.long() * (1 << 32) + rank, k, dim=-1).indices
+    return x.gather(-1, idx), idx
+
+
 def flatten_lookup_ids(ids):
     """lookup_table id normalization: a trailing dim of 1 is squeezed
     (reference: lookup_table_op.cc treats ids as a column of indices)."""

@@ -37,7 +37,7 @@ from paddle_tpu_torch.core.registry import register_op, register_no_grad_op
 from paddle_tpu_torch.core.types import (
     VarType, convert_dtype_to_np, convert_dtype_to_torch,
 )
-from paddle_tpu_torch.ops.common import single, take
+from paddle_tpu_torch.ops.common import single, take, topk_lowest_index_first
 
 
 def _torch_dtype(attr_dtype):
@@ -192,8 +192,8 @@ def slice_op(ctx, ins, attrs):
 @register_op("top_k")
 def top_k(ctx, ins, attrs):
     """The k largest along the last dim, in descending order, and their
-    int64 indices."""
-    vals, idx = torch.topk(single(ins, "X"), attrs.get("k", 1), dim=-1)
+    int64 indices, ties lowest index first (tensor_ops.py:229)."""
+    vals, idx = topk_lowest_index_first(single(ins, "X"), attrs.get("k", 1))
     return {"Out": [vals], "Indices": [idx]}
 
 
@@ -202,7 +202,7 @@ def top_k_grad(ctx, ins, attrs):
     """The value grads scattered back to the selected positions of a
     zero X grad (tensor_ops.py:233)."""
     x = single(ins, "X")
-    _, idx = torch.topk(x, attrs.get("k", 1), dim=-1)
+    _, idx = topk_lowest_index_first(x, attrs.get("k", 1))
     g = single(ins, "Out@GRAD").to(x.dtype)
     return {"X@GRAD": [torch.zeros_like(x).scatter_add_(-1, idx, g)]}
 

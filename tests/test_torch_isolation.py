@@ -162,6 +162,57 @@ l3, a3, p3 = exe.run(head, feed=hfeed, fetch_list=[loss, auc, probs])
 host_auc = host_metrics.Auc()
 host_auc.update(p3, hfeed["label"])
 assert np.isfinite(l3).all() and abs(host_auc.eval() - float(a3)) < 1e-6
+# the sequence and beam-search slice: a BeamSearchDecoder decode over a
+# gru_unit cell, and a CRF tagger's step and Viterbi path
+from paddle_tpu_torch.contrib import decoder
+from paddle_tpu_torch.ops import beam_search_ops, misc_ops
+dec, dec_startup = fluid.Program(), fluid.Program()
+with fluid.program_guard(dec, dec_startup):
+    init_ids = fluid.layers.data(name="init_ids", shape=[1], dtype="int64")
+    init_scores = fluid.layers.data(name="init_scores", shape=[1],
+                                    dtype="float32")
+    boot = fluid.layers.data(name="boot", shape=[4], dtype="float32")
+    cell = decoder.StateCell(inputs={"x": None},
+                             states={"h": decoder.InitState(init=boot)},
+                             out_state="h")
+
+    @cell.state_updater
+    def updater(c):
+        gates = fluid.layers.fc(input=c.get_input("x"), size=12)
+        c.set_state("h", fluid.layers.gru_unit(gates, c.get_state("h"),
+                                               size=12)[0])
+
+    beam = decoder.BeamSearchDecoder(
+        state_cell=cell, init_ids=init_ids, init_scores=init_scores,
+        target_dict_dim=9, word_dim=4, sparse_emb=False, max_len=3,
+        beam_size=2, end_id=1)
+    beam.decode()
+    sent_ids, sent_scores = beam()
+exe.run(dec_startup)
+ids, scores = exe.run(dec, feed={
+    "init_ids": np.zeros((4, 1), np.int64),
+    "init_scores": np.array([[0.0], [-1e9]] * 2, np.float32),
+    "boot": np.ones((4, 4), np.float32)}, fetch_list=[sent_ids, sent_scores])
+assert ids.shape == (4, 256) and np.isfinite(scores).all()
+tag, tag_startup = fluid.Program(), fluid.Program()
+with fluid.program_guard(tag, tag_startup):
+    words = fluid.layers.data(name="words", shape=[5, 3], dtype="float32")
+    labels = fluid.layers.data(name="labels", shape=[5], dtype="int64")
+    lens = fluid.layers.data(name="lens", shape=[1], dtype="int64")
+    emission = fluid.layers.fc(input=words, size=4, num_flatten_dims=2)
+    ll = fluid.layers.linear_chain_crf(
+        emission, labels, param_attr=fluid.ParamAttr(name="crfw"),
+        length=lens)
+    crf_loss = fluid.layers.mean(fluid.layers.scale(ll, scale=-1.0))
+    fluid.optimizer.SGD(learning_rate=0.1).minimize(crf_loss)
+    path = fluid.layers.crf_decoding(
+        emission, param_attr=fluid.ParamAttr(name="crfw"), length=lens)
+exe.run(tag_startup)
+l4, p4 = exe.run(tag, feed={"words": np.ones((2, 5, 3), np.float32),
+                            "labels": np.ones((2, 5), np.int64),
+                            "lens": np.array([[5], [2]])},
+                 fetch_list=[crf_loss, path])
+assert np.isfinite(l4).all() and p4.shape == (2, 5) and not p4[1, 2:].any()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "paddle_tpu" or m.startswith("paddle_tpu."))

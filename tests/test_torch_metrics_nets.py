@@ -8,8 +8,9 @@ and the streaming ``auc`` layer in a training program, on the CPU.
 - Each ``nets`` function builds a main and a startup desc byte-identical
   to the reference's; ``scaled_dot_product_attention`` is one
   ``fused_attention`` op in both, and the port runs it on the CPU as the
-  reference does (rtol 1e-5 / atol 1e-6). ``sequence_conv_pool`` raises
-  until ``sequence_conv`` is ported.
+  reference does (rtol 1e-5 / atol 1e-6). ``sequence_conv_pool`` with
+  the rows' lengths builds and answers as the reference's spelled-out
+  ``sequence_conv`` and ``sequence_pool``.
 - A tiny DeepFM (``models.deepfm``) with ``layers.auc`` on its
   predictions: the same descs; 3 Adam steps on each executor from the
   reference's startup state: the histograms equal, the AUC rtol 1e-5 and
@@ -162,11 +163,54 @@ def test_nets_attention_runs_as_the_reference():
 
 
 def test_sequence_conv_pool_raises_until_sequence_conv():
-    main, startup = tfluid.Program(), tfluid.Program()
-    with tfluid.program_guard(main, startup):
-        seq = tfluid.layers.data(name="seq", shape=[5, 8], dtype="float32")
-        with pytest.raises(NotImplementedError, match="5d"):
-            t_nets.sequence_conv_pool(seq, num_filters=4, filter_size=3)
+    """``sequence_conv`` is ported, so ``nets.sequence_conv_pool`` no
+    longer raises: given the rows' lengths it builds the desc the JAX
+    package builds from ``layers.sequence_conv(length=)`` and
+    ``layers.sequence_pool(length=)`` (the reference's own
+    ``sequence_conv_pool`` takes no lengths, and its ``sequence_conv``
+    needs them), and answers as the reference on the same state and a
+    ragged batch (rtol 1e-5 / atol 1e-6)."""
+    def reference(layers, seq, lens):
+        conv = layers.sequence_conv(seq, num_filters=4, filter_size=3,
+                                    act="tanh", length=lens)
+        return layers.sequence_pool(conv, "sqrt", length=lens)
+
+    def port(layers, seq, lens):
+        return t_nets.sequence_conv_pool(seq, num_filters=4, filter_size=3,
+                                         act="tanh", pool_type="sqrt",
+                                         length=lens)
+
+    feed = {"seq": np.random.RandomState(4).randn(3, 6, 8).astype(
+        np.float32), "lens": np.array([[6], [2], [4]], np.int64)}
+    runs = []
+    for (fluid_mod, prog_cls, guard, unique), build in zip(
+            FRONT_ENDS, (reference, port)):
+        main, startup = prog_cls(), prog_cls()
+        with unique.guard(), guard(main, startup):
+            seq = fluid_mod.layers.data(name="seq", shape=[6, 8],
+                                        dtype="float32")
+            lens = fluid_mod.layers.data(name="lens", shape=[1],
+                                         dtype="int64")
+            out = build(fluid_mod.layers, seq, lens)
+        runs.append((main, startup, out))
+    (j_main, j_startup, j_out), (t_main, t_startup, t_out) = runs
+    assert t_main.desc.serialize_to_string() == \
+        j_main.desc.serialize_to_string()
+    assert t_startup.desc.serialize_to_string() == \
+        j_startup.desc.serialize_to_string()
+    scope = jfluid.Scope()
+    with jfluid.scope_guard(scope):
+        exe = jfluid.Executor(jfluid.CPUPlace())
+        exe.run(j_startup)
+        state = {v.name: np.array(scope.get(v.name))
+                 for v in j_main.list_vars() if v.persistable}
+        (want,) = exe.run(j_main, feed=feed, fetch_list=[j_out])
+    t_scope = tfluid.Scope()
+    convert.load_numpy_state(t_scope, state, "cpu", program=t_main)
+    with tfluid.scope_guard(t_scope):
+        (got,) = tfluid.Executor(tfluid.CPUPlace()).run(
+            t_main, feed=feed, fetch_list=[t_out])
+    np.testing.assert_allclose(got, np.asarray(want), rtol=RTOL, atol=ATOL)
 
 
 CTR = dict(batch_size=16, num_features=200, num_fields=5, embed_dim=4,

@@ -226,6 +226,19 @@ case("top_k_3", "top_k", {"X": _f((2, 3, 7), 23)}, {"k": 3},
 case("top_k_grad", "top_k_grad",
      {"X": _f((2, 3, 7), 23), "Out@GRAD": _f((2, 3, 3), 24)}, {"k": 3},
      ["X@GRAD"])
+# ties: all-zero rows and repeated maxima take the lowest index first, as
+# lax.top_k does (torch.topk orders them otherwise)
+_TIED = np.array([[0, 0, 0, 0, 0], [1, 3, 3, 3, -1], [2, 2, 5, 5, 2],
+                  [-1, -1, -1, 4, -1]], np.float32)
+case("top_k_ties", "top_k", {"X": _TIED}, {"k": 3}, ["Out", "Indices"])
+case("top_k_ties_bf16", "top_k", {"X": _TIED}, {"k": 2},
+     ["Out", "Indices"], bf16=("X",))
+case("top_k_ties_bf16_rounded", "top_k",
+     {"X": np.array([[1.0, 1.001, 1.002, 0.5], [0.0, -0.0, 0.0, 0.0]],
+                    np.float32)}, {"k": 2}, ["Out", "Indices"],
+     bf16=("X",))
+case("top_k_grad_ties", "top_k_grad",
+     {"X": _TIED, "Out@GRAD": _f((4, 2), 27)}, {"k": 2}, ["X@GRAD"])
 case("accuracy_top1", "accuracy",
      {"Out": _f((6, 1), 25), "Indices": np.array(
          [[3], [1], [4], [1], [5], [9]], np.int64),
