@@ -14,8 +14,9 @@ control-flow ops, VGG, MobileNet and SE-ResNeXt, BERT-base and the
 Transformer built with unfused attention and fused back onto the
 kernels at ``opt_level`` 1, the book programs, the dense op families, an
 FCN decoder head and DeepFM with its streaming AUC, the sequence ops, a
-beam-search decoder, a text-convolution classifier and a CRF tagger, and
-its kernels on the card and prints one JSON line per phase:
+beam-search decoder, a text-convolution classifier and a CRF tagger, the
+misc ops, skip-gram with NCE and hsigmoid heads and the C3D video model,
+and its kernels on the card and prints one JSON line per phase:
 
 1. device  — the card's name and power limit (nvidia-smi), torch and CUDA
    versions; TF32 is turned off for matmul and cuDNN.
@@ -271,7 +272,8 @@ its kernels on the card and prints one JSON line per phase:
    AlexNet's lrn, BERT's tokens and vocab logits, DeepFM's 2048 x 39 ids
    into a 1M-row table, ...): forward and the vjp grads within DENSE_TOL,
    integer and bool outputs exact; gather, scatter, the resizes and
-   maxout run twice, bitwise equal; device ms of each forward and vjp.
+   maxout run twice, bitwise equal; device ms of each forward and vjp,
+   all in one profiler window (``window_ms``).
    ``top_k`` at BERT's vocab logits, and with ties (rows of zeros,
    repeated maxima, float32 and bfloat16), its indices the CPU's
    exactly; its ms as ``torch.topk`` and as the port's stable sort.
@@ -319,12 +321,37 @@ its kernels on the card and prints one JSON line per phase:
    ``for_test`` clone crf_decoding's paths and chunk_eval's counts equal
    to the CPU's on the card's emissions; step ms, tokens/s, launches a
    step, idle share.
-37. kernels — one JSON object listing every ported kernel, with its
+37. misc_ops — every lowering of the misc family (the 40 remaining
+   misc_ops) on the card against the CPU at its users' shapes
+   (``misc_cases``: the skip-gram heads at 692K words, C3D's
+   convolutions and pools, a 3-D U-Net up-convolution beside cuDNN's
+   float32 one, R-FCN's position-sensitive pooling, a spatial
+   transformer, a CTC head, ...), as ``dense_ops`` holds its ops; the
+   gathers whose grads add rows back, and the float64 up-convolution,
+   twice, bitwise equal; the random ops by their contract, and a
+   program of the four captured once, each replay equal to the eager
+   run and drawing anew; a ``py_func``/``Print`` program trained on the
+   card (its block eager) against the CPU.
+38. skipgram_nce — skip-gram at word2vec's published widths (SKIPGRAM:
+   692K words, 300 dims, 5 negatives, batch 4096, SGD) with the NCE and
+   the hsigmoid head: 5 steps eagerly and captured, bitwise equal, one
+   graph; step ms, pairs/s, idle share, eager peak; 3 steps at batch
+   256 against the CPU (losses TRAIN_TOL, parameters OPT_TOL), the NCE
+   negatives equal.
+39. c3d — C3D (C3D: 8 conv3d, 5 pool3d, fc6/fc7 4096, 487 classes, 3 x
+   16 x 112 x 112 clips) at batch 8, Momentum: 3 steps eagerly and
+   captured, bitwise equal, one graph; the forward's counted FLOPs
+   against the paper's; step ms, clips/s, idle share, eager peak, MFU
+   on the model's operations (no data grad of conv1);
+   a batch-2 step op by op against the CPU (IMAGE_OP_TOL); the
+   ``for_test`` clone served at batch 1 and 8 against the CPU
+   (SERVE_TOL), its latency.
+40. kernels — one JSON object listing every ported kernel, with its
    design: all three run their products on the tensor cores (mma.sync
    bf16, 3xTF32 for float32) from a cp.async tile ring, and read their
    dropout seed from device memory; each kernel's launches on every path,
    the ResNet-50, training-loop, CTR, NMT, LSTM, image, unfused-attention,
-   book, dense-op and sequence paths included, and its
+   book, dense-op, sequence and misc paths included, and its
    times at the Transformer's shapes (``nmt_t256``).
 
 Served requests and dispatches run as captured CUDA graphs too: the first
@@ -339,6 +366,7 @@ CUDA is unavailable or the port's package is not beside it.
 """
 
 import contextlib
+import functools
 import gc
 import json
 import os
@@ -634,6 +662,50 @@ SRL = dict(word_dict=44068, pred_dict=3162, mark_dict=2, label_dict=59,
            word_dim=32, mark_dim=5, hidden_dim=512, depth=8, lr=0.01)
 SRL_BATCH, SRL_LEN, SRL_MIN_LEN = 10, 64, 8
 SRL_STEPS = 3
+# misc_ops: each lowering of the misc family alone at its users' shapes
+# (misc_cases), on the card against the CPU at DENSE_TOL; the gathers
+# whose grads add rows back, and the float64 transposed 3-D convolution,
+# run twice, bitwise equal; beside the port's, cuDNN's float32 one and
+# one F.conv_transpose3d on float64 operands
+MISC_TWICE = ("nce", "hierarchical_sigmoid", "multiplex", "psroi_pool",
+              "grid_sampler", "bpr_loss", "conv3d_transpose")
+# ... and a program of the four random ops (random_ops) run RANDOM_RUNS
+# times eagerly and captured: a random crop of [RANDOM_BATCH, 3, 240,
+# 320] frames to 224 x 224, one id a row of 1000-way probabilities, and
+# noise of the batch's size
+RANDOM_OPS = dict(image=[3, 240, 320], crop=[224, 224], classes=1000,
+                  width=64)
+RANDOM_BATCH, RANDOM_RUNS = 32, 3
+# skipgram_nce: skip-gram with negative sampling at the settings of
+# Mikolov et al. 2013, "Distributed Representations of Words and Phrases
+# and their Compositionality" (arXiv 1310.4546, sections 2.2 and 4):
+# 300-dim vectors, k = 5 negatives, a 692K-word vocabulary, SGD at
+# word2vec's starting rate 0.025; 4096 (centre, context) pairs a batch,
+# ids drawn Zipf-like. Cuts: uniform noise for the unigram^(3/4) one, the
+# complete binary tree for the Huffman one (the hsigmoid head)
+SKIPGRAM = dict(vocab=692000, dim=300, neg=5, lr=0.025)
+SKIPGRAM_BATCH, SKIPGRAM_STEPS = 4096, 5
+SKIPGRAM_CPU_BATCH, SKIPGRAM_CPU_STEPS = 256, 3
+# c3d: C3D of Tran et al. 2015, "Learning Spatiotemporal Features with 3D
+# Convolutional Networks" (section 3.3): 8 conv3d 3x3x3 stride 1 pad 1
+# with 64, 128, 256, 256, 512, 512, 512, 512 filters and ReLU; 5 max
+# pools (pool1 1x2x2, the others 2x2x2, pool5 padded [0, 1, 1] to 512 x
+# 1 x 4 x 4); fc6 and fc7 of 4096 with dropout 0.5; 487 classes
+# (Sports-1M); 3 x 16 x 112 x 112 clips; Momentum 0.9 at the paper's lr
+# 0.003. Cut: batch 8 for the paper's 30
+C3D = dict(stages=[((64,), [1, 2, 2], 0), ((128,), 2, 0),
+                   ((256, 256), 2, 0), ((512, 512), 2, 0),
+                   ((512, 512), 2, [0, 1, 1])],
+           fc=4096, classes=487, clip=[16, 112, 112], dropout=0.5,
+           lr=0.003, momentum=0.9)
+C3D_BATCH, C3D_STEPS = 8, 3
+C3D_SERVE_BATCHES = (1, 8)
+# the paper's forward count of a clip, in multiply-adds (38.5 G; the
+# engine's FlopCounterMode counts two operations a multiply-add)
+C3D_CLIP_GMACS = 38.5
+# ops whose grad is an op of its own that the engine runs, never the vjp
+# of the forward (py_func's runs Python on host arrays)
+OWN_GRAD_OP = ("py_func",)
 
 
 # profiler windows that dropped device activity and were run again: per
@@ -805,6 +877,75 @@ def device_ms(fn, name=None, n=20, warmup=3):
     check(total > 0, "no device time of kernel %r, by the profiler (saw "
           "%s) or by CUDA events" % (name, sorted(kernels)))
     return total
+
+
+def window_ms(calls, n=5, warmup=1):
+    """Device ms per call of each ``(key, fn)`` of ``calls``, all in one
+    profiler window: ``fn``'s ``n`` calls run under a ``record_function``
+    label of their own, and each kernel counts for the label whose host
+    span holds the host event that launched it, on any thread (a vjp's
+    backward launches from autograd's device thread, outside the label's
+    own events, while the calling thread waits inside the span). A
+    kernel a label launched within one launch of a multiple of ``n``
+    times counts, as in ``profile_kernels``, its mean launch time times
+    its launches per call, so a launch the window dropped costs its
+    label nothing (one such drop of a 60 ms kernel once read a vjp below
+    its own forward); any other kernel counts its window time over
+    ``n``. A window with no device activity is profiled again
+    (``profiled``); a call whose label holds no device time is timed by
+    CUDA events instead, recorded in EVENT_TIMED. Returns {key: ms}."""
+    import bisect
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import record_function
+
+    for _, fn in calls:
+        for _ in range(warmup):
+            fn()
+    labels = ["chip_smoke_call_%d" % i for i in range(len(calls))]
+
+    def run():
+        for label, (_, fn) in zip(labels, calls):
+            with record_function(label):
+                for _ in range(n):
+                    fn()
+
+    prof = profiled(run, n * len(calls))
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    # {label: {kernel name: [launches, us]}}
+    launched = {label: {} for label in labels}
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in events if e.name in launched)
+    starts = [sp[0] for sp in spans]
+    for e in events:
+        if e.name in launched or not e.kernels:
+            continue
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i >= 0 and e.time_range.start <= spans[i][1]:
+            for k in e.kernels:
+                c = launched[spans[i][2]].setdefault(k.name, [0, 0.0])
+                c[0] += 1
+                c[1] += k.duration
+
+    def per_call_us(count, us):
+        per_call = round(count / n)
+        if per_call and abs(count - per_call * n) <= 1:
+            return us / count * per_call
+        return us / n
+
+    out = {}
+    for label, (key, fn) in zip(labels, calls):
+        ms = sum(per_call_us(c, us)
+                 for c, us in launched[label].values()) / 1e3
+        if ms <= 0:
+            ms = event_ms(fn, n)
+            EVENT_TIMED.append([str(key), ms, []])
+        check(ms > 0, "no device time of %r, by the profiler or by CUDA "
+              "events" % (key,))
+        out[key] = ms
+    torch.cuda.synchronize()
+    return out
 
 
 def attention_inputs(B, H, Tq, Tk, D, dtype, seed):
@@ -4802,7 +4943,8 @@ def _conv2d_transpose_cudnn(ctx, ins, attrs):
 
 # lowerings run on the card beside the port's in dense_ops, printed and
 # held to no limit
-DENSE_WITNESS = {"conv2d_transpose": _conv2d_transpose_cudnn}
+DENSE_WITNESS = {"conv2d_transpose": {"cudnn_float32":
+                                      _conv2d_transpose_cudnn}}
 
 
 def dense_cases():
@@ -5003,11 +5145,12 @@ def lower_op(op_type, ins, attrs, device):
 
 def grad_primals(op_type, ins):
     """(slot, index) of each input the op's grad flows to: floats outside
-    its ``no_grad_inputs``; none for an op without a grad."""
+    its ``no_grad_inputs``; none for an op without a grad, or whose grad
+    is an op of its own (OWN_GRAD_OP)."""
     from paddle_tpu_torch.core.registry import OpRegistry
 
     info = OpRegistry.get(op_type)
-    if info.grad_maker is None:
+    if info.grad_maker is None or op_type in OWN_GRAD_OP:
         return []
     return [(s, i) for s in sorted(ins) if s not in info.no_grad_inputs
             for i, v in enumerate(ins[s])
@@ -5065,9 +5208,12 @@ def phase_op_cases(fa, smi, phase, cases, twice, witness=None):
     tensor arrays of them, attrs)) on the card against the same lowering
     on the CPU from the same operands, forward and, for an op with a
     grad, the vjp grads on seeded cotangents (DENSE_TOL); the ops in
-    ``twice`` run twice on the card, bitwise equal; ``witness`` lowerings
-    run beside the port's, printed; device ms of the forward and of the
-    vjp. Emits ``phase``'s row and returns its flash launches (none)."""
+    ``twice`` run twice on the card, bitwise equal; the ``witness``
+    lowerings ({op type: {label: lowering}}) run beside the port's,
+    their errors and ms printed; device ms of the forward and of the
+    vjp, every case's in one profiler window (``window_ms``), the card
+    operands kept until it. Emits ``phase``'s row and returns its flash
+    launches (none)."""
     import torch
 
     import paddle_tpu_torch.fluid as fluid
@@ -5080,7 +5226,7 @@ def phase_op_cases(fa, smi, phase, cases, twice, witness=None):
 
     fluid.Executor(fluid.CUDAPlace(0))  # cuDNN's deterministic algorithms
     fa.launches = fa.launches_dq = fa.launches_dkv = 0  # the path starts
-    rows, failed = [], []
+    rows, failed, timed, witnessed = [], [], [], []
     for k, (name, op_type, make, attrs) in enumerate(cases):
         host = make(np.random.RandomState(500 + k))
         runs = {}
@@ -5122,28 +5268,37 @@ def phase_op_cases(fa, smi, phase, cases, twice, witness=None):
             row["twice_bitwise_equal"] = same
             if not same:
                 failed.append([name, "run twice on the card differs"])
-        row["ms"] = device_ms(lambda: lower_op(op_type, card_ins, attrs,
-                                               "cuda"), n=5, warmup=1)
+        fwd = functools.partial(lower_op, op_type, card_ins, attrs, "cuda")
+        vjp = functools.partial(op_vjp, op_type, card_ins, attrs, "cuda",
+                                card_cots)
+        timed.append(((k, "ms"), fwd))
         if primals:
-            row["vjp_ms"] = device_ms(lambda: op_vjp(
-                op_type, card_ins, attrs, "cuda", card_cots), n=5, warmup=1)
-        if op_type in (witness or {}):
-            with lowered_by(op_type, witness[op_type]):
+            timed.append(((k, "vjp_ms"), vjp))
+        for label, lowering in (witness or {}).get(op_type, {}).items():
+            with lowered_by(op_type, lowering):
                 out = lower_op(op_type, card_ins, attrs, "cuda")
                 grads = op_vjp(op_type, card_ins, attrs, "cuda", card_cots)
-                row["witness"] = {
-                    "max_abs_err_and_max": dense_errors(
-                        runs["cpu"], primals,
-                        {s: [v.cpu() for v in vs] for s, vs in out.items()},
-                        [g.cpu() for g in grads])[0],
-                    "ms": device_ms(lambda: lower_op(
-                        op_type, card_ins, attrs, "cuda"), n=5, warmup=1),
-                    "vjp_ms": device_ms(lambda: op_vjp(
-                        op_type, card_ins, attrs, "cuda", card_cots), n=5,
-                        warmup=1)}
+            row.setdefault("witness", {})[label] = {
+                "max_abs_err_and_max": dense_errors(
+                    runs["cpu"], primals,
+                    {s: [v.cpu() for v in vs] for s, vs in out.items()},
+                    [g.cpu() for g in grads])[0]}
+            witnessed.append((k, op_type, label, fwd, vjp))
+            del out, grads
         rows.append(row)
-        del runs, card_ins, host
+        del runs, host
         release_memory()
+    # the timings: one profiler window for every case's forward and vjp,
+    # then one for the witnesses (each under its own lowering)
+    for (k, key), ms in window_ms(timed).items():
+        rows[k][key] = ms
+    for k, op_type, label, fwd, vjp in witnessed:
+        with lowered_by(op_type, witness[op_type][label]):
+            rows[k]["witness"][label].update(
+                {key[1]: ms for key, ms in window_ms(
+                    [((k, "ms"), fwd), ((k, "vjp_ms"), vjp)]).items()})
+    del timed, witnessed
+    release_memory()
     launches = flash_launches(fa)  # ... and ends here
     emit({"phase": phase, "card": smi, "tol": DENSE_TOL,
           "ops": sorted({r["op"] for r in rows}), "cases": rows,
@@ -6240,6 +6395,835 @@ def phase_srl_crf(fa, smi):
     return launches
 
 
+# -- the misc op family (ROADMAP Queue 1, step 5e) ------------------------
+
+
+def _conv3d_transpose_cudnn(ctx, ins, attrs):
+    """cuDNN's float32 transposed 3-D convolution
+    (``F.conv_transpose3d``): the witness run beside the port's lowering,
+    which sums in float64."""
+    import torch.nn.functional as F
+
+    return {"Output": [F.conv_transpose3d(
+        ins["Input"][0], ins["Filter"][0],
+        stride=tuple(attrs.get("strides", [1, 1, 1])),
+        padding=tuple(attrs.get("paddings", [0, 0, 0])),
+        dilation=tuple(attrs.get("dilations", [1, 1, 1])),
+        groups=attrs.get("groups", 1))]}
+
+
+def _conv3d_transpose_float64(ctx, ins, attrs):
+    """``F.conv_transpose3d`` on float64 operands, rounded once: the one
+    call that sums as the port's lowering does (its GEMM and strided slab
+    adds), run beside it."""
+    import torch.nn.functional as F
+
+    x, w = ins["Input"][0], ins["Filter"][0]
+    return {"Output": [F.conv_transpose3d(
+        x.double(), w.double(),
+        stride=tuple(attrs.get("strides", [1, 1, 1])),
+        padding=tuple(attrs.get("paddings", [0, 0, 0])),
+        dilation=tuple(attrs.get("dilations", [1, 1, 1])),
+        groups=attrs.get("groups", 1)).to(x.dtype)]}
+
+
+MISC_WITNESS = {"conv3d_transpose": {
+    "cudnn_float32": _conv3d_transpose_cudnn,
+    "float64_call": _conv3d_transpose_float64}}
+
+
+def _np_tanh(x):
+    return np.tanh(x)
+
+
+def _np_tanh_grad(x, dout):
+    return (1.0 - np.tanh(x) ** 2) * dout
+
+
+def random_trees(rng, batch, nodes):
+    """[batch, nodes - 1, 2] 1-based parent->child edges of random trees
+    (each node's parent an earlier node), each sample cut to a random
+    node count and zero-terminated, as ``tree_conv`` reads them."""
+    edges = np.zeros((batch, nodes - 1, 2), np.int32)
+    for b in range(batch):
+        n = rng.randint(nodes // 2, nodes + 1)
+        child = np.arange(2, n + 1)
+        edges[b, :n - 1, 0] = [rng.randint(1, c) for c in child]
+        edges[b, :n - 1, 1] = child
+    return edges
+
+
+def misc_cases(tmpdir):
+    """(name, op type, a function of a RandomState giving the inputs as
+    numpy arrays, attrs) of the misc_ops phase: every lowering of the
+    misc family at the shapes its users give it: the skip-gram trainer's
+    heads at 692K words, C3D's convolutions and pools, a 3-D U-Net's
+    up-convolution, R-FCN's position-sensitive pooling, a spatial
+    transformer on 224 x 224 images, a CTC head over 5000 classes, and
+    the rest at their models' widths. ``py_func`` calls a numpy tanh
+    registered in the port, ``load_value`` reads a ``.npy`` file written
+    under ``tmpdir``."""
+    from paddle_tpu_torch.ops import misc_ops
+
+    def f(*shape, scale=1.0):
+        return lambda rng: (np.random.default_rng(rng.randint(2 ** 31))
+                            .standard_normal(shape, dtype=np.float32)
+                            * np.float32(scale))
+
+    def relu(*shape):
+        return lambda rng: np.maximum(f(*shape)(rng), 0.0)
+
+    def ins(**makers):
+        return lambda rng: {slot: [m(rng) for m in ms]
+                            for slot, ms in makers.items()}
+
+    def ints(low, high, *shape, dtype=np.int64):
+        return lambda rng: rng.randint(low, high, shape).astype(dtype)
+
+    def probs(*shape):
+        def make(rng):
+            p = np.abs(rng.randn(*shape)) + 0.05
+            return (p / p.sum(-1, keepdims=True)).astype(np.float32)
+        return make
+
+    def binary(*shape):
+        return lambda rng: rng.randint(0, 2, shape).astype(np.float32)
+
+    def signs(*shape):
+        return lambda rng: (2 * rng.randint(0, 2, shape) - 1).astype(
+            np.float32)
+
+    def const(value):
+        return lambda rng: value
+
+    vocab, dim, batch = SKIPGRAM["vocab"], SKIPGRAM["dim"], SKIPGRAM_BATCH
+
+    def rfcn_rois(rng):
+        # 300 proposals in a 600 x 800 image
+        xy = rng.uniform(0, [700, 500], (300, 2))
+        wh = rng.uniform(16, 300, (300, 2))
+        return np.concatenate([xy, np.minimum(xy + wh, [799, 599])],
+                              1).astype(np.float32)
+
+    def stn_theta(rng):
+        eye = np.tile(np.array([[1, 0, 0], [0, 1, 0]], np.float32),
+                      (8, 1, 1))
+        return (eye + 0.1 * rng.randn(8, 2, 3)).astype(np.float32)
+
+    def stn_grid(rng):
+        ys, xs = np.meshgrid(np.linspace(-1, 1, 224), np.linspace(-1, 1, 224),
+                             indexing="ij")
+        base = np.stack([xs, ys, np.ones_like(xs)], -1)
+        return np.einsum("hwk,njk->nhwj", base, stn_theta(rng)).astype(
+            np.float32)
+
+    def teacher_labels(rng):
+        # clicks (0, 1) and teachers' scores outside [0, 1]
+        lab = rng.randint(0, 2, (2048, 1)).astype(np.float32)
+        soft = rng.uniform(-2, 3, (2048, 1)).astype(np.float32)
+        return np.where(rng.rand(2048, 1) < 0.3, soft, lab)
+
+    def with_inf(rng):
+        x = f(30522, 768)(rng)
+        x[1234, 56] = np.inf
+        return x
+
+    tanh_id = misc_ops.register_py_func(_np_tanh)
+    tanh_grad_id = misc_ops.register_py_func(_np_tanh_grad)
+    py_attrs = {"func_id": tanh_id, "backward_func_id": tanh_grad_id,
+                "out_shapes": [[batch, dim]], "out_dtypes": ["float32"]}
+    load_path = os.path.join(tmpdir, "emb.npy")
+    np.save(load_path, np.random.RandomState(7).randn(5000, 512).astype(
+        np.float32))
+    c3d_pool = {"pooling_type": "max", "global_pooling": False,
+                "exclusive": True}
+    cases = [
+        # the skip-gram trainer's heads (SKIPGRAM)
+        ("nce_skipgram", "nce",
+         ins(Input=[f(batch, dim)], Label=[ints(0, vocab, batch, 1)],
+             Weight=[f(vocab, dim, scale=0.05)],
+             Bias=[f(vocab, 1, scale=0.05)]),
+         {"num_total_classes": vocab, "num_neg_samples": SKIPGRAM["neg"],
+          "seed": 0}),
+        ("hsigmoid_skipgram", "hierarchical_sigmoid",
+         ins(X=[f(batch, dim)], W=[f(vocab - 1, dim, scale=0.05)],
+             Label=[ints(0, vocab, batch, 1)],
+             Bias=[f(vocab - 1, 1, scale=0.05)]),
+         {"num_classes": vocab}),
+        # C3D's first and widest convolutions and its pools, batch 8
+        ("conv3d_c3d_conv1", "conv3d",
+         ins(Input=[f(8, 3, 16, 112, 112)],
+             Filter=[f(64, 3, 3, 3, 3, scale=0.1)]),
+         {"strides": [1, 1, 1], "paddings": [1, 1, 1],
+          "dilations": [1, 1, 1], "groups": 1}),
+        ("conv3d_c3d_conv4b", "conv3d",
+         ins(Input=[relu(8, 512, 4, 14, 14)],
+             Filter=[f(512, 512, 3, 3, 3, scale=0.02)]),
+         {"strides": [1, 1, 1], "paddings": [1, 1, 1],
+          "dilations": [1, 1, 1], "groups": 1}),
+        ("pool3d_c3d_pool1", "pool3d", ins(X=[relu(8, 64, 16, 112, 112)]),
+         dict(c3d_pool, ksize=[1, 2, 2], strides=[1, 2, 2],
+              paddings=[0, 0, 0])),
+        ("pool3d_c3d_pool5", "pool3d", ins(X=[relu(8, 512, 2, 7, 7)]),
+         dict(c3d_pool, ksize=[2, 2, 2], strides=[2, 2, 2],
+              paddings=[0, 1, 1])),
+        ("pool3d_avg_overlapping", "pool3d", ins(X=[f(8, 64, 16, 56, 56)]),
+         {"ksize": [3, 3, 3], "strides": [2, 2, 2], "paddings": [1, 1, 1],
+          "pooling_type": "avg", "exclusive": True}),
+        # a 3-D U-Net decoder stage: 256 -> 128 channels, x2 up
+        ("conv3d_transpose_unet", "conv3d_transpose",
+         ins(Input=[f(2, 256, 8, 32, 32)],
+             Filter=[f(256, 128, 2, 2, 2, scale=0.05)]),
+         {"strides": [2, 2, 2], "paddings": [0, 0, 0], "groups": 1}),
+        # R-FCN's head: 7 x 7 bins of 21 classes, 300 RoIs, stride 16
+        ("psroi_pool_rfcn", "psroi_pool",
+         ins(X=[f(1, 21 * 49, 38, 50)], ROIs=[rfcn_rois],
+             RoisBatchIdx=[ints(0, 1, 300)]),
+         {"output_channels": 21, "pooled_height": 7, "pooled_width": 7,
+          "spatial_scale": 1.0 / 16}),
+        # a spatial transformer on 224 x 224 images, batch 8
+        ("affine_grid_stn", "affine_grid", ins(Theta=[stn_theta]),
+         {"output_shape": [8, 3, 224, 224]}),
+        ("grid_sampler_stn", "grid_sampler",
+         ins(X=[f(8, 3, 224, 224)], Grid=[stn_grid]), {}),
+        # a CTC head: 32 utterances of 200 frames over 5000 classes
+        ("ctc_greedy_decoder_head", "ctc_greedy_decoder",
+         ins(Input=[f(32, 200, 5000)]), {"blank": 0}),
+        # TBCNN over programs' syntax trees: 32 trees of up to 128 nodes
+        ("tree_conv_tbcnn", "tree_conv",
+         ins(NodesVector=[f(32, 128, 64)],
+             EdgeSet=[lambda rng: random_trees(rng, 32, 128)],
+             Filter=[f(64, 3, 256, 1, scale=0.1)]), {"max_depth": 2}),
+        ("cos_sim_word_vectors", "cos_sim",
+         ins(X=[f(batch, dim)], Y=[f(batch, dim)]), {}),
+        ("affine_channel_frozen_bn", "affine_channel",
+         ins(X=[f(32, 256, 56, 56)], Scale=[f(256)], Bias=[f(256)]),
+         {"data_layout": "NCHW"}),
+        ("shuffle_channel_shufflenet_v2", "shuffle_channel",
+         ins(X=[f(32, 232, 28, 28)]), {"group": 2}),
+        ("space_to_depth_yolo_reorg", "space_to_depth",
+         ins(X=[f(32, 64, 26, 26)]), {"blocksize": 2}),
+        ("crop_fcn", "crop", ins(X=[f(32, 21, 250, 250)]),
+         {"shape": [32, 21, 224, 224], "offsets": [0, 0, 13, 13]}),
+        ("crop_fcn_offsets_tensor", "crop",
+         ins(X=[f(32, 21, 250, 250)],
+             Offsets=[const(np.array([0, 0, 13, 19], np.int32))]),
+         {"shape": [32, 21, 224, 224]}),
+        ("pad_constant_like_fcn", "pad_constant_like",
+         ins(X=[f(32, 21, 224, 224)], Y=[f(32, 21, 200, 200)]),
+         {"pad_value": 0.0}),
+        ("multiplex_4x512", "multiplex",
+         ins(X=[f(batch, 512)] * 4, Ids=[ints(0, 4, batch, 1)]), {}),
+        ("bilinear_tensor_product", "bilinear_tensor_product",
+         ins(X=[f(batch, 128)], Y=[f(batch, 128)],
+             Weight=[f(64, 128, 128, scale=0.1)], Bias=[f(1, 64)]), {}),
+        ("rank_loss_ranknet", "rank_loss",
+         ins(Label=[binary(batch, 1)], Left=[f(batch, 1)],
+             Right=[f(batch, 1)]), {}),
+        ("margin_rank_loss", "margin_rank_loss",
+         ins(Label=[signs(batch, 1)], X1=[f(batch, 1)], X2=[f(batch, 1)]),
+         {"margin": 0.1}),
+        ("bpr_loss_1000_items", "bpr_loss",
+         ins(X=[f(2048, 1000)], Label=[ints(0, 1000, 2048, 1)]), {}),
+        ("teacher_student_sigmoid_loss", "teacher_student_sigmoid_loss",
+         ins(X=[f(2048, 1, scale=10.0)], Label=[teacher_labels]),
+         {"soft_max_up_bound": 15.0, "soft_max_lower_bound": -15.0}),
+        ("dice_loss_vnet", "dice_loss_op",
+         ins(X=[lambda rng: 1.0 / (1.0 + np.exp(-f(4, 1, 64, 128, 128)(
+             rng)))], Label=[binary(4, 1, 64, 128, 128)]),
+         {"epsilon": 1e-5}),
+        ("selu_snn", "selu", ins(X=[f(batch, 1024)]),
+         {"scale": 1.0507009873554805, "alpha": 1.6732632423543772}),
+        ("add_position_encoding", "add_position_encoding",
+         ins(X=[f(32, 256, 512)]), {"alpha": 1.0, "beta": 1.0}),
+        ("data_norm_ctr", "data_norm",
+         ins(X=[f(2048, 512)],
+             BatchSize=[lambda rng: (1e4 + 100 * rng.rand(512)).astype(
+                 np.float32)],
+             BatchSum=[f(512, scale=50.0)],
+             BatchSquareSum=[lambda rng: (1e4 + 100 * rng.rand(512))
+                             .astype(np.float32)]), {}),
+        ("mean_iou_voc", "mean_iou",
+         ins(Predictions=[ints(0, 21, 8, 512 * 512, dtype=np.int32)],
+             Labels=[ints(0, 21, 8, 512 * 512, dtype=np.int32)]),
+         {"num_classes": 21}),
+        ("hash_ctr_features", "hash",
+         ins(X=[ints(0, 10 ** 9, batch, 39)]),
+         {"num_hash": 2, "mod_by": 1000000}),
+        ("isinf_bert_embedding", "isinf", ins(X=[with_inf]), {}),
+        ("isnan_bert_embedding", "isnan", ins(X=[with_inf]), {}),
+        ("isfinite_bert_embedding", "isfinite_reduce",
+         ins(X=[f(30522, 768)]), {}),
+        ("is_empty", "is_empty", ins(X=[f(30522, 768)]), {}),
+        ("sampling_id_1000", "sampling_id", ins(X=[probs(batch, 1000)]),
+         {"seed": 0}),
+        ("random_crop_224", "random_crop", ins(X=[f(32, 3, 256, 256)]),
+         {"shape": [224, 224]}),
+        ("uniform_random_batch_size_like", "uniform_random_batch_size_like",
+         ins(Input=[f(batch, 8)]),
+         {"shape": [-1, 512], "input_dim_idx": 0, "output_dim_idx": 0,
+          "min": -0.5, "max": 0.5, "seed": 0}),
+        ("gaussian_random_batch_size_like",
+         "gaussian_random_batch_size_like", ins(Input=[f(batch, 8)]),
+         {"shape": [-1, 512], "input_dim_idx": 0, "output_dim_idx": 0,
+          "mean": 0.0, "std": 0.02, "seed": 0}),
+        ("print_op", "print_op", ins(X=[f(2, 3)]),
+         {"message": "misc_ops print_op"}),
+        ("py_func_tanh", "py_func", ins(X=[f(batch, dim)]), py_attrs),
+        ("py_func_grad_tanh", "py_func_grad",
+         ins(X=[f(batch, dim)], **{"Out@GRAD": [f(batch, dim)]}), py_attrs),
+        ("load_value", "load_value", ins(), {"file_path": load_path,
+                                             "load_as_fp16": False}),
+    ]
+    return cases
+
+
+def random_op_contracts():
+    """The random ops on the card by their contract: shape, dtype and
+    range; the same (seed, run, op) draws the same values, another run
+    other ones; ``sampling_id``'s frequencies within 0.01 of the
+    probabilities over 100,000 rows; ``random_crop`` a slice of its input
+    at an in-range offset. Returns {op: row}."""
+    import torch
+
+    from paddle_tpu_torch.core.desc import OpDesc
+    from paddle_tpu_torch.core.registry import LowerContext, OpRegistry
+
+    def draw(op_type, x, attrs, run):
+        ctx = LowerContext(OpDesc(op_type, {"X": ["x"]}, {}, attrs), None,
+                           "cuda", rng_seed=(11, run))
+        slot = "X" if op_type in ("sampling_id", "random_crop") else "Input"
+        return OpRegistry.get(op_type).lower(ctx, {slot: [x]}, attrs)[
+            "Out"][0]
+
+    rows = {}
+    p = torch.tensor([0.05, 0.0, 0.5, 0.15, 0.3], device="cuda")
+    ids = draw("sampling_id", p.expand(100000, 5).contiguous(), {}, 1)
+    freq = torch.bincount(ids, minlength=5).double() / ids.numel()
+    rows["sampling_id"] = {
+        "freq": freq.tolist(), "probs": p.tolist(),
+        "ok": bool((freq - p.double()).abs().max() < 0.01
+                   and ids.dtype == torch.int64
+                   and torch.equal(ids, draw("sampling_id", p.expand(
+                       100000, 5).contiguous(), {}, 1)))}
+    x = torch.arange(2 * 3 * 40 * 50, dtype=torch.float32,
+                     device="cuda").reshape(2, 3, 40, 50)
+    ok = True
+    for run in (1, 2, 3):
+        out = draw("random_crop", x, {"shape": [32, 24]}, run)
+        i, j = divmod(int(out[0, 0, 0, 0]), 50)
+        ok = ok and 0 <= i <= 8 and 0 <= j <= 26 and torch.equal(
+            out, x[:, :, i:i + 32, j:j + 24])
+    rows["random_crop"] = {"ok": ok}
+    ref = torch.zeros(200000, 1, device="cuda")
+    for op_type, attrs, law in (
+            ("uniform_random_batch_size_like",
+             {"shape": [-1, 4], "min": -0.5, "max": 0.25},
+             lambda v: v.min() >= -0.5 and v.max() < 0.25
+             and abs(float(v.mean()) + 0.125) < 0.005),
+            ("gaussian_random_batch_size_like",
+             {"shape": [-1, 4], "mean": 1.0, "std": 2.0},
+             lambda v: abs(float(v.mean()) - 1.0) < 0.02
+             and abs(float(v.std()) - 2.0) < 0.02)):
+        a, b = draw(op_type, ref, attrs, 1), draw(op_type, ref, attrs, 2)
+        rows[op_type] = {
+            "mean": float(a.mean()), "std": float(a.std()),
+            "ok": bool(tuple(a.shape) == (200000, 4)
+                       and a.dtype == torch.float32 and law(a)
+                       and torch.equal(a, draw(op_type, ref, attrs, 1))
+                       and not torch.equal(a, b))}
+    return rows
+
+
+def host_ops(fluid, batch, width):
+    """A program through the host ops: an fc, a numpy tanh by
+    ``layers.py_func`` with its numpy grad, ``layers.Print`` of the
+    result, the mean as the loss, SGD."""
+    layers = fluid.layers
+    x = layers.data(name="x", shape=[width], dtype="float32")
+    h = layers.fc(input=x, size=width, param_attr=fluid.ParamAttr(
+        name="host_w"), bias_attr=False)
+    y = fluid.default_main_program().global_block().create_var(
+        name="host_tanh", shape=[batch, width], dtype="float32")
+    layers.py_func(_np_tanh, h, y, backward_func=_np_tanh_grad)
+    y = layers.Print(y, message="host_ops")
+    loss = layers.mean(y)
+    fluid.optimizer.SGD(learning_rate=0.5).minimize(loss)
+    return {"loss": loss, "out": y}
+
+
+def random_ops(fluid, image, crop, classes, width):
+    """A program of the four random ops: ``layers.random_crop`` of the
+    frames ``img`` to ``crop``, ``layers.sampling_id`` of the
+    probabilities ``probs``, and uniform (in [-0.5, 0.25)) and normal
+    (mean 1, std 2) noise [B, width] of ``img``'s batch size."""
+    layers = fluid.layers
+    img = layers.data(name="img", shape=image, dtype="float32")
+    probs = layers.data(name="probs", shape=[classes], dtype="float32")
+    return {"crop": layers.random_crop(img, shape=crop),
+            "ids": layers.sampling_id(probs),
+            "uniform": layers.uniform_random_batch_size_like(
+                img, shape=[-1, width], min=-0.5, max=0.25),
+            "normal": layers.gaussian_random_batch_size_like(
+                img, shape=[-1, width], mean=1.0, std=2.0)}
+
+
+def random_feed(batch, image, classes, seed, **_):
+    """Frames whose values are their flat positions in a frame (so a
+    crop's offset reads off its first value), and probability rows."""
+    rng = np.random.RandomState(seed)
+    img = np.broadcast_to(np.arange(int(np.prod(image)), dtype=np.float32)
+                          .reshape(image), [batch] + image)
+    p = rng.rand(batch, classes).astype(np.float32)
+    return {"img": np.ascontiguousarray(img),
+            "probs": p / p.sum(1, keepdims=True)}
+
+
+def random_draws_ok(out, feed, image, crop, classes, **_):
+    """The contract of one run of ``random_ops``: the crop is the frames'
+    slice at an in-range offset, the ids integers in [0, classes), the
+    noise in its range and finite; returns the reasons it fails."""
+    bad = []
+    c, h, w = image
+    i, j = divmod(int(out["crop"].reshape(-1)[0]), w)
+    if not (0 <= i <= h - crop[0] and 0 <= j <= w - crop[1]
+            and np.array_equal(out["crop"], feed["img"][
+                :, :, i:i + crop[0], j:j + crop[1]])):
+        bad.append("crop at (%d, %d)" % (i, j))
+    if not np.issubdtype(out["ids"].dtype, np.integer) or not (
+            0 <= out["ids"].min() and out["ids"].max() < classes):
+        bad.append("ids")
+    if not (out["uniform"].min() >= -0.5 and out["uniform"].max() < 0.25):
+        bad.append("uniform range")
+    if not np.all(np.isfinite(out["normal"])):
+        bad.append("normal not finite")
+    return bad
+
+
+def random_program_runs(fa, smi):
+    """``random_ops`` run RANDOM_RUNS times on an eager executor and on
+    a captured one from the same program: each run's draws equal on the
+    two; one graph, captured once at the second run and replayed at it
+    and every later one, no eager block; fresh draws at each replay;
+    every run within the contract (``random_draws_ok``)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch import unique_name
+
+    with unique_name.guard():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            h = random_ops(fluid, **RANDOM_OPS)
+    main.random_seed = startup.random_seed = 2024
+    feed = random_feed(RANDOM_BATCH, seed=61, **RANDOM_OPS)
+    names = sorted(h)
+    fetch = [h[n] for n in names]
+    eager, eager_scope = fresh(startup, graphs=False)
+    graph, graph_scope = fresh(startup)
+    obs.set_enabled(True)
+    obs.reset()
+    runs = {"eager": [], "captured": []}
+    eager_runs = 0
+    for _ in range(RANDOM_RUNS):
+        for key, exe, scope in (("captured", graph, graph_scope),
+                                ("eager", eager, eager_scope)):
+            before = obs.counter_value("engine.eager_runs")
+            with fluid.scope_guard(scope):
+                runs[key].append(dict(zip(names, exe.run(
+                    main, feed=feed, fetch_list=fetch))))
+            if key == "captured":
+                eager_runs += obs.counter_value("engine.eager_runs") - before
+    obs.set_enabled(None)
+    # the empty startup program's entry may capture too, but ran once
+    entries = [c for c in captured(graph.engine) if c.captures]
+    cap = runs["captured"]
+    row = {
+        "equal_eager": [all(np.array_equal(a[n], b[n]) for n in names)
+                        for a, b in zip(cap, runs["eager"])],
+        "fresh_draws": [[n for n in ("ids", "uniform", "normal")
+                         if not np.array_equal(a[n], b[n])]
+                        for a, b in zip(cap, cap[1:])],
+        "contract": [random_draws_ok(o, feed, **RANDOM_OPS) for o in cap],
+        "graphs": len(entries), "captures": [c.captures for c in entries],
+        "replays": [c.replays for c in entries], "eager_runs": eager_runs}
+    emit({"phase": "misc_ops", "card": smi, "random_program": row})
+    check(all(row["equal_eager"]) and not any(row["contract"])
+          and all(len(f) == 3 for f in row["fresh_draws"]),
+          "misc_ops: the random-op program %s" % row)
+    check(len(entries) == 1 and entries[0].captures == 1
+          and entries[0].replays == RANDOM_RUNS - 1 and eager_runs == 0,
+          "misc_ops: the random-op program not captured once: %s" % row)
+
+
+def phase_misc_ops(fa, smi):
+    """Every lowering of the misc family (``misc_cases``) through
+    ``phase_op_cases``, the MISC_TWICE ops twice, cuDNN's float32
+    transposed 3-D convolution and a float64 ``F.conv_transpose3d``
+    beside the port's; the random ops by their contract on the card, and
+    in a captured program (``random_program_runs``); then a
+    ``host_ops`` program (``py_func`` with its grad and ``Print``)
+    trained 3 steps on the card: its block reported uncapturable and run
+    eagerly at every step, the losses and the weight the CPU's
+    (TRAIN_TOL). Returns the flash launches (none)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import convert, unique_name
+    from paddle_tpu_torch import observability as obs
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_misc_") as tmpdir:
+        launches = phase_op_cases(fa, smi, "misc_ops", misc_cases(tmpdir),
+                                  MISC_TWICE, MISC_WITNESS)
+    contracts = random_op_contracts()
+    emit({"phase": "misc_ops", "card": smi, "random_contracts": contracts})
+    check(all(r["ok"] for r in contracts.values()),
+          "misc_ops: random ops off their contract: %s" % contracts)
+    random_program_runs(fa, smi)
+
+    with unique_name.guard():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            h = host_ops(fluid, 64, 32)
+    main.random_seed = startup.random_seed = 2024
+    feed = {"x": np.random.RandomState(5).randn(64, 32).astype(np.float32)}
+    state0 = start_state(main, startup)
+    runs = {}
+    for device, place in (("cuda", fluid.CUDAPlace(0)),
+                          ("cpu", fluid.CPUPlace())):
+        scope = fluid.Scope()
+        convert.load_numpy_state(scope, state0, device, program=main)
+        exe = fluid.Executor(place)
+        obs.set_enabled(True)
+        obs.reset()
+        with fluid.scope_guard(scope):
+            losses = [float(exe.run(main, feed=feed, fetch_list=[
+                h["loss"]])[0].reshape(-1)[0]) for _ in range(3)]
+        runs[device] = {"losses": losses, "w": scope.get("host_w").cpu(),
+                        "eager_runs": obs.counter_value("engine.eager_runs"),
+                        "uncapturable": sorted({
+                            t for c in exe.engine._cache.values()
+                            for t in c.block_program.uncapturable_ops})
+                        if device == "cuda" else None}
+        obs.set_enabled(None)
+    card, cpu = runs["cuda"], runs["cpu"]
+    w_err = float((card["w"] - cpu["w"]).abs().max()
+                  / (cpu["w"].abs().max() or 1.0))
+    row = {"phase": "misc_ops", "card": smi, "host_ops": {
+        "losses_card": card["losses"], "losses_cpu": cpu["losses"],
+        "weight_rel_to_max": w_err, "eager_runs": card["eager_runs"],
+        "uncapturable_ops": card["uncapturable"], "tol": TRAIN_TOL}}
+    emit(row)
+    check(card["eager_runs"] == 3 and {"py_func", "py_func_grad",
+                                       "print_op"} <= set(
+        card["uncapturable"]), "misc_ops: the host-op block %s" % row)
+    check(np.allclose(card["losses"], cpu["losses"],
+                      rtol=TRAIN_TOL["loss_rtol"], atol=0)
+          and w_err <= TRAIN_TOL["grad_rel_to_max"],
+          "misc_ops: the host-op program off the CPU's: %s" % row)
+    release_memory()
+    return launches
+
+
+def skipgram(fluid, vocab, dim, neg, lr, head="nce"):
+    """Skip-gram (SKIPGRAM) from ``fluid.layers``: the centre word's
+    vector from a sparse embedding, scored against the context word by
+    ``layers.nce`` (``num_neg_samples`` uniform negatives) or by
+    ``layers.hsigmoid`` over the complete binary tree, the batch mean,
+    SGD."""
+    layers = fluid.layers
+    centre = layers.data(name="centre", shape=[1], dtype="int64")
+    context = layers.data(name="context", shape=[1], dtype="int64")
+    vec = layers.embedding(centre, size=[vocab, dim], is_sparse=True,
+                           param_attr=fluid.ParamAttr(name="emb_in"))
+    out_w = fluid.ParamAttr(name="emb_out")
+    out_b = fluid.ParamAttr(name="emb_out_b")
+    if head == "nce":
+        cost = layers.nce(vec, context, num_total_classes=vocab,
+                          num_neg_samples=neg, param_attr=out_w,
+                          bias_attr=out_b)
+    else:
+        cost = layers.hsigmoid(vec, context, num_classes=vocab,
+                               param_attr=out_w, bias_attr=out_b)
+    loss = layers.mean(cost)
+    fluid.optimizer.SGD(learning_rate=lr).minimize(loss)
+    return {"loss": loss, "cost": cost}
+
+
+def skipgram_feed(batch, vocab, seed, **_):
+    """(centre, context) id pairs drawn Zipf-like (rank r with weight
+    about 1/r) over the vocabulary."""
+    rng = np.random.RandomState(seed)
+
+    def zipf():
+        return np.minimum(np.floor(vocab ** rng.rand(batch, 1)), vocab) \
+            .astype(np.int64) - 1
+
+    return {"centre": zipf(), "context": zipf()}
+
+
+def nce_op_outputs(main):
+    """The ``SampleLabels`` var of the program's ``nce`` op."""
+    (op,) = [o for o in main.desc.global_block().ops if o.type == "nce"]
+    return op.outputs["SampleLabels"][0]
+
+
+def phase_skipgram_nce(fa, smi):
+    """The skip-gram trainer (SKIPGRAM) at full width with each head:
+    SKIPGRAM_STEPS steps at batch 4096 eagerly and captured from the same
+    state, bitwise equal, one graph (``nce`` draws from the seed table,
+    so the step is captured); step ms, pairs/s, idle share, an eager
+    step's peak memory and the top kernels; then SKIPGRAM_CPU_STEPS steps
+    at batch 256 on the card and on the CPU from the same state: the
+    losses within TRAIN_TOL, every parameter within OPT_TOL of the CPU's
+    largest, the NCE negatives equal at every step. Returns the flash
+    launches (none)."""
+    import torch
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import convert, unique_name
+
+    paths = {}
+    for head in ("nce", "hsigmoid"):
+        with unique_name.guard():
+            main, startup = fluid.Program(), fluid.Program()
+            with fluid.program_guard(main, startup):
+                h = skipgram(fluid, head=head, **SKIPGRAM)
+        main.random_seed = startup.random_seed = 2024
+        loss = h["loss"]
+        feed = skipgram_feed(SKIPGRAM_BATCH, seed=2024, **SKIPGRAM)
+        (eager, graph, losses, unequal, eager_runs, launches,
+         walls) = lockstep_steps(fa, main, startup, loss, feed,
+                                 SKIPGRAM_STEPS)
+        entries = captured(graph[0].engine)
+        emit({"phase": "skipgram_nce", "card": smi, "head": head,
+              "config": SKIPGRAM, "batch": SKIPGRAM_BATCH,
+              "losses": losses, "unequal_state": unequal[:10],
+              "graphs": len(entries), "eager_runs": eager_runs,
+              "launches": launches, "captured_run_walls_ms": walls})
+        lockstep_checks("skipgram_nce " + head, losses, unequal, entries,
+                        eager_runs, launches)
+        paths[head] = launches
+        peak = eager_step_peak(eager[0], eager[1], main, loss, feed)
+        cap = profiled_step(graph[0], graph[1], main, loss, feed,
+                            profiled_steps=2)
+        emit(dict({"phase": "times", "card": smi,
+                   "profile": "skipgram_nce %s training step" % head,
+                   "run": "captured", "batch": SKIPGRAM_BATCH,
+                   "pairs_per_s": SKIPGRAM_BATCH / (cap["median_ms"] / 1e3),
+                   "eager_step_peak_bytes": peak}, **cap))
+        del eager, graph, entries
+        release_memory()
+
+        # the same steps on the card and on the CPU from one state
+        state0 = start_state(main, startup)
+        feeds = [skipgram_feed(SKIPGRAM_CPU_BATCH, seed=7 + i, **SKIPGRAM)
+                 for i in range(SKIPGRAM_CPU_STEPS)]
+        fetch = [loss.name] + ([nce_op_outputs(main)] if head == "nce"
+                               else [])
+        runs = {}
+        for device, place in (("cuda", fluid.CUDAPlace(0)),
+                              ("cpu", fluid.CPUPlace())):
+            scope = fluid.Scope()
+            convert.load_numpy_state(scope, state0, device, program=main)
+            exe = fluid.Executor(place)
+            with fluid.scope_guard(scope):
+                outs = [exe.run(main, feed=f, fetch_list=fetch)
+                        for f in feeds]
+            runs[device] = {
+                "losses": [float(o[0].reshape(-1)[0]) for o in outs],
+                "negatives": [o[1] for o in outs] if head == "nce" else [],
+                "params": {p.name: scope.get(p.name).cpu()
+                           for p in main.all_parameters()}}
+            del scope, exe
+        card, cpu = runs["cuda"], runs["cpu"]
+        rel = {n: float((card["params"][n] - w).abs().max()
+                        / (w.abs().max() or 1.0))
+               for n, w in cpu["params"].items()}
+        same_negatives = all(np.array_equal(a, b) for a, b in zip(
+            card["negatives"], cpu["negatives"]))
+        row = {"head": head, "batch": SKIPGRAM_CPU_BATCH,
+               "losses_card": card["losses"], "losses_cpu": cpu["losses"],
+               "params_rel_to_max": rel, "negatives_equal": same_negatives,
+               "tol": {"loss_rtol": TRAIN_TOL["loss_rtol"],
+                       "param_rel_to_max": OPT_TOL}}
+        emit({"phase": "skipgram_nce", "cpu_steps": row})
+        check(np.allclose(card["losses"], cpu["losses"],
+                          rtol=TRAIN_TOL["loss_rtol"], atol=0)
+              and max(rel.values()) <= OPT_TOL and same_negatives,
+              "skipgram_nce %s: card vs CPU steps %s" % (head, row))
+        del runs, card, cpu
+        release_memory()
+    torch.cuda.synchronize()
+    return {k: sum(p[k] for p in paths.values())
+            for k in paths["nce"]}
+
+
+def c3d(fluid, stages, fc, classes, clip, dropout, lr, momentum,
+        is_train=True):
+    """C3D (C3D) from ``fluid.layers``: per stage its 3x3x3 conv3d
+    layers (stride 1, pad 1, ReLU) and a max pool3d of the stage's
+    window (stride the window, the stage's padding); two fc layers with
+    ReLU and dropout, the class fc, softmax cross entropy, Momentum."""
+    layers = fluid.layers
+    h = layers.data(name="clip", shape=[3] + list(clip), dtype="float32")
+    label = layers.data(name="label", shape=[1], dtype="int64")
+    for filters, window, pad in stages:
+        for n in filters:
+            h = layers.conv3d(h, num_filters=n, filter_size=3, padding=1,
+                              act="relu")
+        h = layers.pool3d(h, pool_size=window, pool_stride=window,
+                          pool_padding=pad)
+    for _ in range(2):
+        h = layers.dropout(layers.fc(input=h, size=fc, act="relu"),
+                           dropout_prob=dropout, is_test=not is_train)
+    logits = layers.fc(input=h, size=classes)
+    loss = layers.mean(layers.softmax_with_cross_entropy(logits, label))
+    if is_train:
+        fluid.optimizer.Momentum(learning_rate=lr,
+                                 momentum=momentum).minimize(loss)
+    return {"logits": logits, "loss": loss}
+
+
+def c3d_feed(batch, clip, classes, seed, **_):
+    rng = np.random.RandomState(seed)
+    return {"clip": rng.randn(batch, 3, *clip).astype(np.float32),
+            "label": rng.randint(0, classes, (batch, 1)).astype(np.int64)}
+
+
+def counted_flops(exe, scope, program, feed, fetch):
+    """The operations of one run of ``program`` as the engine counts them
+    (``FlopCounterMode`` over the lowerings, on the first run of a cache
+    entry with the goodput flag up: a new entry, or one that has run
+    only with the flag down)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.observability import goodput
+
+    counted = {id(c) for c in exe.engine._cache.values()
+               if c.flops is not None}
+    flags.set_flags({"goodput": True})
+    try:
+        with fluid.scope_guard(scope):
+            exe.run(program, feed=feed, fetch_list=fetch)
+    finally:
+        flags.reset_flag("goodput")
+        goodput.reset()
+    (flops,) = [c.flops for c in exe.engine._cache.values()
+                if id(c) not in counted and c.flops is not None]
+    return flops
+
+
+def phase_c3d(fa, smi):
+    """C3D (C3D) trained and served at full width: C3D_STEPS Momentum
+    steps at batch 8 eagerly and captured from the same state, bitwise
+    equal, one graph; step ms, clips/s, idle share, an eager step's peak
+    and MFU against 67 TFLOP/s FFMA on the model's operations: the
+    forward, its data grads and its filter grads, but no data grad of
+    conv1, whose input is the clip (the forward's FlopCounterMode count
+    on the ``for_test`` clone at batch 1, within MFU_TOL of the paper's
+    38.5 G multiply-adds a clip; conv1's from its shape); beside it the
+    count of one eager training step as it runs (each grad op reruns its
+    forward in ``torch.func.vjp``); one step at batch 2 op by op against
+    the CPU (IMAGE_OP_TOL); the ``for_test`` clone saved by
+    ``io.save_inference_model`` and served by ``create_paddle_predictor``
+    at batch 1 and 8 against the CPU predictor (SERVE_TOL), its latency.
+    Returns the flash launches (none)."""
+    import torch
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import convert, inference, unique_name
+
+    with unique_name.guard():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            h = c3d(fluid, **C3D)
+    main.random_seed = startup.random_seed = 2024
+    loss = h["loss"]
+    feed = c3d_feed(C3D_BATCH, seed=2024, **C3D)
+    (eager, graph, losses, unequal, eager_runs, launches,
+     walls) = lockstep_steps(fa, main, startup, loss, feed, C3D_STEPS)
+    entries = captured(graph[0].engine)
+    test_prog = main.clone(for_test=True)
+    macs = counted_flops(eager[0], eager[1], test_prog, {
+        "clip": feed["clip"][:1]}, [h["logits"]]) / 2
+    emit({"phase": "c3d", "card": smi, "config": C3D, "batch": C3D_BATCH,
+          "params": sum(int(np.prod(p.shape)) for p in main.all_parameters()),
+          "losses": losses, "unequal_state": unequal[:10],
+          "graphs": len(entries), "eager_runs": eager_runs,
+          "launches": launches, "captured_run_walls_ms": walls,
+          "clip_forward_gmacs": macs / 1e9,
+          "paper_clip_gmacs": C3D_CLIP_GMACS})
+    lockstep_checks("c3d", losses, unequal, entries, eager_runs, launches)
+    check(abs(macs / 1e9 - C3D_CLIP_GMACS) <= MFU_TOL * C3D_CLIP_GMACS,
+          "c3d: %.2f G multiply-adds a clip, the paper's %.1f"
+          % (macs / 1e9, C3D_CLIP_GMACS))
+    (conv1,), _, _ = C3D["stages"][0]
+    conv1_macs = conv1 * 3 * 27 * int(np.prod(C3D["clip"]))
+    step_flops = 2 * C3D_BATCH * (3 * macs - conv1_macs)
+    run_flops = counted_flops(eager[0], eager[1], main, feed, [loss])
+    peak = eager_step_peak(eager[0], eager[1], main, loss, feed)
+    cap = profiled_step(graph[0], graph[1], main, loss, feed, n=5,
+                        profiled_steps=2)
+    emit(dict({"phase": "times", "card": smi,
+               "profile": "c3d training step", "run": "captured",
+               "batch": C3D_BATCH,
+               "clips_per_s": C3D_BATCH / (cap["median_ms"] / 1e3),
+               "step_flops": step_flops,
+               "conv1_data_grad_flops_not_needed": 2 * C3D_BATCH
+               * conv1_macs, "step_flops_as_run": run_flops,
+               "mfu_ffma": step_flops / (cap["median_ms"] / 1e3)
+               / PEAK_FFMA_FLOPS_PER_S,
+               "eager_step_peak_bytes": peak, "tf32": False}, **cap))
+    del eager, graph, entries
+    release_memory()
+
+    # one step at batch 2 on the card against the CPU, op by op
+    state0 = start_state(main, startup)
+    worst, _, _ = replay_ops_on_card(
+        main, state0, c3d_feed(2, seed=2025, **C3D), IMAGE_OP_TOL)
+    emit({"phase": "c3d", "cpu_ops_rel_to_max": worst, "tol": IMAGE_OP_TOL})
+    release_memory()
+
+    # served: the for_test clone, saved and loaded by the predictor
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_c3d_") as d:
+        scope = fluid.Scope()
+        convert.load_numpy_state(scope, state0, "cuda", program=main)
+        with fluid.scope_guard(scope):
+            fluid.io.save_inference_model(d, ["clip"], [h["logits"]],
+                                          fluid.Executor(fluid.CUDAPlace(0)),
+                                          main_program=test_prog)
+        del scope
+        predictor = inference.create_paddle_predictor(
+            inference.AnalysisConfig(d))
+        cpu_cfg = inference.AnalysisConfig(d)
+        cpu_cfg.disable_gpu()
+        cpu_pred = inference.create_paddle_predictor(cpu_cfg)
+        torch.cuda.synchronize()
+        fa.launches = fa.launches_dq = fa.launches_dkv = 0  # path starts
+        served = {}
+        for b in C3D_SERVE_BATCHES:
+            req = {"clip": c3d_feed(b, seed=300 + b, **C3D)["clip"]}
+            (card,) = predictor.run(req)
+            (cpu,) = cpu_pred.run(req)
+            served[b] = {
+                "max_abs_err": float(np.abs(card.data - cpu.data).max()),
+                "max_abs_logit": float(np.abs(cpu.data).max()),
+                "close": bool(np.allclose(card.data, cpu.data,
+                                          **SERVE_TOL)),
+                "shape": list(card.data.shape),
+                "request_ms": timed_runs(lambda r=req: predictor.run(r),
+                                         n=5)}
+        serve_launches = flash_launches(fa)  # ... and ends here
+    emit({"phase": "c3d", "card": smi, "serve": served, "tol": SERVE_TOL,
+          "launches": serve_launches})
+    check(all(r["close"] and r["shape"] == [b, C3D["classes"]]
+              for b, r in served.items()),
+          "c3d served off the CPU's: %s" % served)
+    check(not any(serve_launches.values()), "flash launches serving c3d: "
+          "%s" % serve_launches)
+    del predictor, cpu_pred
+    release_memory()
+    return {k: launches[k] + serve_launches[k] for k in launches}
+
+
 def release_memory():
     """Free what no live object holds, CUDA graphs and their pools too,
     and return the cached blocks to the card."""
@@ -6376,6 +7360,12 @@ def main():
     seq_launches["sentiment_conv"] = phase_sentiment_conv(fa, smi)
     seq_launches["srl_crf"] = phase_srl_crf(fa, smi)
     release_memory()
+
+    # the misc op family, the skip-gram trainer and C3D
+    misc_launches = {"misc_ops": phase_misc_ops(fa, smi)}
+    misc_launches["skipgram_nce"] = phase_skipgram_nce(fa, smi)
+    misc_launches["c3d"] = phase_c3d(fa, smi)
+    release_memory()
     emit({"phase": "times", "partial_profiler_windows_rerun":
           len(PARTIAL_PROFILES), "partial_windows": PARTIAL_PROFILES,
           "event_timed": EVENT_TIMED})
@@ -6393,6 +7383,7 @@ def main():
     other_paths.update(fuse_launches)
     other_paths.update(dense_launches)
     other_paths.update(seq_launches)
+    other_paths.update(misc_launches)
 
     def t256_rows(name):
         # the kernel at the Transformer's shapes (B=32 H=8 T=256 D=64)

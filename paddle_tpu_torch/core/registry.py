@@ -68,7 +68,9 @@ class OpInfo:
         self.inplace_map = {}
         # Whether a CUDA graph may hold the lowering: false for one that
         # reads a device value back to the host or draws from a device
-        # generator (a captured graph would freeze the draw).
+        # generator (a captured graph would freeze the draw); or a
+        # function of the op desc, for an op that reads the host only
+        # under some of its inputs
         self.capturable = True
         # A needs_rng op that draws one dropout seed a run, its slot in the
         # block's seed table: seed_range(attrs) is the seed's range [0, n)

@@ -223,7 +223,9 @@ def _uncapturable(op, block):
     info = _op_info(op)
     if info is None:
         return []
-    out = [] if info.capturable else [op.type]
+    capturable = (info.capturable(op) if callable(info.capturable)
+                  else info.capturable)
+    out = [] if capturable else [op.type]
     sub = _sub_block(op, block)
     if sub is not None:
         for o in sub.ops:

@@ -207,11 +207,13 @@ class Operator:
             try:
                 infer_shapes_for_op(self.desc, block.desc)
             except (RuntimeError, TypeError, ValueError, IndexError,
-                    KeyError):
+                    KeyError, OverflowError):
                 # best effort, as in the JAX package (framework.py:249):
                 # an op whose inputs do not meet at the -1 batch sentinel
-                # (a step input [B, D] beside a memory [-1, H]) keeps the
-                # shapes it has, and the run establishes them
+                # (a step input [B, D] beside a memory [-1, H]), or one
+                # that raises as its reference lowering does (``hash``
+                # from three hashes on), keeps the shapes it has, and the
+                # run establishes them or raises
                 pass
 
     @property

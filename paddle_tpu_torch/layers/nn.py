@@ -10,11 +10,16 @@ image layers (``conv2d_transpose``, ``group_norm``, ``lrn``, ``prelu``,
 ``maxout``, the resizes, ``adaptive_pool2d``), the tensor layers
 (``squeeze``, ``stack``, ``gather``, ``scatter``, ``pad``, ``cumsum``,
 ``shape``, ``flatten``...), ``dot_product_attention`` and
-``chunk_eval``; and the sequence and beam-search slice's: the
+``chunk_eval``; the sequence and beam-search slice's: the
 ``sequence_*`` layers, ``im2sequence``, ``beam_search``,
 ``beam_search_decode``, the CRF (``linear_chain_crf``, ``crf_decoding``),
 the step cells (``lstm_unit``, ``gru_unit``), ``row_conv`` and
-``tensor_array_to_tensor``.
+``tensor_array_to_tensor``; and the misc family's (nn.py:1497-2524):
+the losses (``rank_loss``, ``bpr_loss``, ``dice_loss``...), the 3-D
+layers (``conv3d``, ``conv3d_transpose``, ``pool3d``,
+``adaptive_pool3d``), the sampled heads (``nce``, ``hsigmoid``), the
+samplers (``grid_sampler``, ``affine_grid``, ``psroi_pool``,
+``tree_conv``), the random layers, ``Print``, ``py_func`` and ``load``.
 Each function appends the same op, slots and attrs as its JAX-package
 counterpart (cited beside it), so the two front ends build identical
 descs."""
@@ -139,6 +144,48 @@ __all__ = [
     "sequence_scatter",
     "im2sequence",
     "tensor_array_to_tensor",
+    "Print",
+    "adaptive_pool3d",
+    "add_position_encoding",
+    "affine_channel",
+    "affine_grid",
+    "bilinear_tensor_product",
+    "bpr_loss",
+    "conv3d",
+    "conv3d_transpose",
+    "cos_sim",
+    "crop",
+    "ctc_greedy_decoder",
+    "data_norm",
+    "dice_loss",
+    "gaussian_random_batch_size_like",
+    "grid_sampler",
+    "has_inf",
+    "has_nan",
+    "hash",
+    "hsigmoid",
+    "is_empty",
+    "isfinite",
+    "load",
+    "lod_reset",
+    "margin_rank_loss",
+    "mean_iou",
+    "multiplex",
+    "nce",
+    "pad_constant_like",
+    "pool3d",
+    "psroi_pool",
+    "py_func",
+    "random_crop",
+    "rank_loss",
+    "reorder_lod_tensor_by_rank",
+    "sampling_id",
+    "selu",
+    "shuffle_channel",
+    "space_to_depth",
+    "teacher_student_sigmoid_loss",
+    "tree_conv",
+    "uniform_random_batch_size_like",
 ]
 
 
@@ -1854,3 +1901,613 @@ def tensor_array_to_tensor(input, axis=1, name=None):
                      outputs={"Out": [out], "OutIndex": [out_idx]},
                      attrs={"axis": axis})
     return out, out_idx
+
+
+# -- the misc family (nn.py:1497-2524) ----------------------------------------
+
+
+def cos_sim(X, Y):
+    """(nn.py:1497)"""
+    helper = LayerHelper("cos_sim")
+    out = helper.create_variable_for_type_inference(X.dtype)
+    xn = helper.create_variable_for_type_inference(X.dtype)
+    yn = helper.create_variable_for_type_inference(X.dtype)
+    helper.append_op(type="cos_sim", inputs={"X": [X], "Y": [Y]},
+                     outputs={"Out": [out], "XNorm": [xn], "YNorm": [yn]})
+    return out
+
+
+def affine_channel(x, scale=None, bias=None, data_layout="NCHW", name=None):
+    """(nn.py:1508)"""
+    helper = LayerHelper("affine_channel", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="affine_channel",
+                     inputs={"X": [x], "Scale": [scale], "Bias": [bias]},
+                     outputs={"Out": [out]},
+                     attrs={"data_layout": data_layout})
+    return out
+
+
+def shuffle_channel(x, group, name=None):
+    """(nn.py:1519)"""
+    helper = LayerHelper("shuffle_channel", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="shuffle_channel", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"group": group})
+    return out
+
+
+def space_to_depth(x, blocksize, name=None):
+    """(nn.py:1528)"""
+    helper = LayerHelper("space_to_depth", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="space_to_depth", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"blocksize": blocksize})
+    return out
+
+
+def crop(x, shape=None, offsets=None, name=None):
+    """(nn.py:1538): ``shape`` a list or a var whose shape is taken,
+    ``offsets`` a list or a var read at run time."""
+    helper = LayerHelper("crop", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    inputs = {"X": [x]}
+    attrs = {}
+    if hasattr(shape, "name"):
+        inputs["Y"] = [shape]
+    else:
+        attrs["shape"] = list(shape)
+    if offsets is not None:
+        if hasattr(offsets, "name"):
+            inputs["Offsets"] = [offsets]
+        else:
+            attrs["offsets"] = list(offsets)
+    helper.append_op(type="crop", inputs=inputs, outputs={"Out": [out]},
+                     attrs=attrs)
+    return out
+
+
+def pad_constant_like(x, y, pad_value=0.0, name=None):
+    """(nn.py:1558)"""
+    helper = LayerHelper("pad_constant_like", name=name)
+    out = helper.create_variable_for_type_inference(y.dtype)
+    helper.append_op(type="pad_constant_like",
+                     inputs={"X": [x], "Y": [y]}, outputs={"Out": [out]},
+                     attrs={"pad_value": float(pad_value)})
+    return out
+
+
+def multiplex(inputs, index):
+    """(nn.py:1568)"""
+    helper = LayerHelper("multiplex")
+    out = helper.create_variable_for_type_inference(inputs[0].dtype)
+    helper.append_op(type="multiplex",
+                     inputs={"X": list(inputs), "Ids": [index]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def bilinear_tensor_product(x, y, size, act=None, name=None,
+                            param_attr=None, bias_attr=None):
+    """(nn.py:1578)"""
+    helper = LayerHelper("bilinear_tensor_product", name=name, act=act,
+                         bias_attr=bias_attr)
+    w = helper.create_parameter(
+        attr=param_attr, shape=[size, x.shape[1], y.shape[1]],
+        dtype=x.dtype)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    inputs = {"X": [x], "Y": [y], "Weight": [w]}
+    if bias_attr is not False:
+        bias = helper.create_parameter(
+            attr=bias_attr if bias_attr not in (None, True) else ParamAttr(),
+            shape=[1, size], dtype=x.dtype, is_bias=True)
+        inputs["Bias"] = [bias]
+    helper.append_op(type="bilinear_tensor_product", inputs=inputs,
+                     outputs={"Out": [out]})
+    return helper.append_activation(out)
+
+
+def rank_loss(label, left, right, name=None):
+    """(nn.py:1600)"""
+    helper = LayerHelper("rank_loss", name=name)
+    out = helper.create_variable_for_type_inference("float32")
+    helper.append_op(type="rank_loss",
+                     inputs={"Label": [label], "Left": [left],
+                             "Right": [right]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def margin_rank_loss(label, left, right, margin=0.1, name=None):
+    """(nn.py:1611)"""
+    helper = LayerHelper("margin_rank_loss", name=name)
+    out = helper.create_variable_for_type_inference("float32")
+    act = helper.create_variable_for_type_inference("float32")
+    helper.append_op(type="margin_rank_loss",
+                     inputs={"Label": [label], "X1": [left], "X2": [right]},
+                     outputs={"Out": [out], "Activated": [act]},
+                     attrs={"margin": margin})
+    return out
+
+
+def bpr_loss(input, label, name=None):
+    """(nn.py:1623)"""
+    helper = LayerHelper("bpr_loss", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="bpr_loss",
+                     inputs={"X": [input], "Label": [label]},
+                     outputs={"Y": [out]})
+    return out
+
+
+def teacher_student_sigmoid_loss(input, label, soft_max_up_bound=15.0,
+                                 soft_max_lower_bound=-15.0):
+    """(nn.py:1633)"""
+    helper = LayerHelper("teacher_student_sigmoid_loss")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="teacher_student_sigmoid_loss",
+        inputs={"X": [input], "Label": [label]},
+        outputs={"Y": [out]},
+        attrs={"soft_max_up_bound": soft_max_up_bound,
+               "soft_max_lower_bound": soft_max_lower_bound})
+    return out
+
+
+def dice_loss(input, label, epsilon=1e-5):
+    """(nn.py:1647)"""
+    helper = LayerHelper("dice_loss")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="dice_loss_op",
+                     inputs={"X": [input], "Label": [label]},
+                     outputs={"Out": [out]},
+                     attrs={"epsilon": epsilon})
+    return out
+
+
+def mean_iou(input, label, num_classes):
+    """(nn.py:1658): (mean IoU, wrong counts, correct counts)."""
+    helper = LayerHelper("mean_iou")
+    miou = helper.create_variable_for_type_inference("float32")
+    wrong = helper.create_variable_for_type_inference("int64")
+    correct = helper.create_variable_for_type_inference("int64")
+    helper.append_op(type="mean_iou",
+                     inputs={"Predictions": [input], "Labels": [label]},
+                     outputs={"OutMeanIou": [miou], "OutWrong": [wrong],
+                              "OutCorrect": [correct]},
+                     attrs={"num_classes": num_classes})
+    return miou, wrong, correct
+
+
+def sampling_id(x, min=0.0, max=1.0, seed=0, dtype="int64"):
+    """(nn.py:1672)"""
+    helper = LayerHelper("sampling_id")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="sampling_id", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"seed": seed})
+    return out
+
+
+def random_crop(x, shape, seed=None):
+    """(nn.py:1681)"""
+    helper = LayerHelper("random_crop")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="random_crop", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"shape": list(shape)})
+    return out
+
+
+def add_position_encoding(input, alpha=1.0, beta=1.0, name=None):
+    """(nn.py:1690)"""
+    helper = LayerHelper("add_position_encoding", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="add_position_encoding",
+                     inputs={"X": [input]}, outputs={"Out": [out]},
+                     attrs={"alpha": alpha, "beta": beta})
+    return out
+
+
+def hash(input, hash_size, num_hash=1, name=None):
+    """(nn.py:1700; the hash is the JAX package's mix, not the
+    reference's xxhash: ``ops/misc_ops.py``)"""
+    helper = LayerHelper("hash", name=name)
+    out = helper.create_variable_for_type_inference("int64")
+    helper.append_op(type="hash", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"num_hash": num_hash, "mod_by": hash_size})
+    return out
+
+
+def grid_sampler(x, grid, name=None):
+    """(nn.py:1725)"""
+    helper = LayerHelper("grid_sampler", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="grid_sampler",
+                     inputs={"X": [x], "Grid": [grid]},
+                     outputs={"Output": [out]})
+    return out
+
+
+def affine_grid(theta, out_shape, name=None):
+    """(nn.py:1735): ``out_shape`` a list (an attr) or a var, read on the
+    host at run time."""
+    helper = LayerHelper("affine_grid", name=name)
+    out = helper.create_variable_for_type_inference(theta.dtype)
+    inputs = {"Theta": [theta]}
+    attrs = {}
+    if hasattr(out_shape, "name"):
+        inputs["OutputShape"] = [out_shape]
+    else:
+        attrs["output_shape"] = list(out_shape)
+    helper.append_op(type="affine_grid", inputs=inputs,
+                     outputs={"Output": [out]}, attrs=attrs)
+    return out
+
+
+def ctc_greedy_decoder(input, blank, name=None):
+    """(nn.py:1750): (decoded [B, T] padded with -1, lengths [B])."""
+    helper = LayerHelper("ctc_greedy_decoder", name=name)
+    out = helper.create_variable_for_type_inference("int64")
+    out_len = helper.create_variable_for_type_inference("int64")
+    helper.append_op(type="ctc_greedy_decoder",
+                     inputs={"Input": [input]},
+                     outputs={"Out": [out], "OutLength": [out_len]},
+                     attrs={"blank": blank})
+    return out, out_len
+
+
+def selu(x, scale=None, alpha=None, name=None):
+    """(nn.py:1820)"""
+    helper = LayerHelper("selu", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="selu", inputs={"X": [x]}, outputs={"Out": [out]},
+        attrs={"scale": scale if scale is not None
+               else 1.0507009873554805,
+               "alpha": alpha if alpha is not None
+               else 1.6732632423543772})
+    return out
+
+
+def _reduce_flag(layer, op_type, x):
+    helper = LayerHelper(layer)
+    out = helper.create_variable_for_type_inference("bool")
+    helper.append_op(type=op_type, inputs={"X": [x]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def has_inf(x):
+    """(nn.py:1833)"""
+    return _reduce_flag("has_inf", "isinf", x)
+
+
+def has_nan(x):
+    """(nn.py:1842)"""
+    return _reduce_flag("has_nan", "isnan", x)
+
+
+def isfinite(x):
+    """(nn.py:1851)"""
+    return _reduce_flag("isfinite", "isfinite_reduce", x)
+
+
+def is_empty(x, cond=None):
+    """(nn.py:1860)"""
+    helper = LayerHelper("is_empty")
+    out = cond or helper.create_variable_for_type_inference("bool")
+    helper.append_op(type="is_empty", inputs={"X": [x]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def _to3(v):
+    return [v, v, v] if isinstance(v, int) else list(v)
+
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0,
+           dilation=1, groups=1, param_attr=None, bias_attr=None,
+           use_cudnn=True, act=None, name=None):
+    """(nn.py:1869), NCDHW."""
+    helper = LayerHelper("conv3d", name=name, act=act, bias_attr=bias_attr)
+    dtype = input.dtype
+    w = helper.create_parameter(
+        attr=param_attr,
+        shape=[num_filters, input.shape[1] // groups] + _to3(filter_size),
+        dtype=dtype)
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="conv3d", inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [pre_bias]},
+        attrs={"strides": _to3(stride), "paddings": _to3(padding),
+               "dilations": _to3(dilation), "groups": groups})
+    return helper.append_activation(_conv_bias(helper, pre_bias))
+
+
+def conv3d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     stride=1, padding=0, dilation=1, groups=1,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None):
+    """(nn.py:1892): like the JAX package, no ``dilations`` attr and
+    ``output_size`` not read."""
+    helper = LayerHelper("conv3d_transpose", name=name, act=act,
+                         bias_attr=bias_attr)
+    dtype = input.dtype
+    w = helper.create_parameter(
+        attr=param_attr,
+        shape=[input.shape[1], num_filters // groups] + _to3(filter_size),
+        dtype=dtype)
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="conv3d_transpose",
+        inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [pre_bias]},
+        attrs={"strides": _to3(stride), "paddings": _to3(padding),
+               "groups": groups})
+    return helper.append_activation(_conv_bias(helper, pre_bias))
+
+
+def pool3d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, name=None, exclusive=True):
+    """(nn.py:1917): ``ceil_mode`` not read, as in the JAX package."""
+    helper = LayerHelper("pool3d", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="pool3d", inputs={"X": [input]}, outputs={"Out": [out]},
+        attrs={"ksize": _to3(pool_size), "strides": _to3(pool_stride),
+               "paddings": _to3(pool_padding), "pooling_type": pool_type,
+               "global_pooling": global_pooling,
+               "exclusive": exclusive})
+    return out
+
+
+def nce(input, label, num_total_classes, sample_weight=None,
+        param_attr=None, bias_attr=None, num_neg_samples=10, name=None,
+        sampler="uniform", custom_dist=None, seed=0, is_sparse=False):
+    """(nn.py:1995) with uniform noise, whatever ``sampler`` says (the
+    JAX package's cut); ``is_sparse`` is not read: the weight grad is
+    dense."""
+    helper = LayerHelper("nce", name=name, bias_attr=bias_attr)
+    w = helper.create_parameter(
+        attr=param_attr, shape=[num_total_classes, input.shape[1]],
+        dtype=input.dtype)
+    inputs = {"Input": [input], "Label": [label], "Weight": [w]}
+    if bias_attr is not False:
+        b = helper.create_parameter(
+            attr=bias_attr if bias_attr not in (None, True) else ParamAttr(),
+            shape=[num_total_classes, 1], dtype=input.dtype, is_bias=True)
+        inputs["Bias"] = [b]
+    cost = helper.create_variable_for_type_inference(input.dtype)
+    logits = helper.create_variable_for_type_inference(input.dtype)
+    labels = helper.create_variable_for_type_inference("int64")
+    helper.append_op(
+        type="nce", inputs=inputs,
+        outputs={"Cost": [cost], "SampleLogits": [logits],
+                 "SampleLabels": [labels]},
+        attrs={"num_total_classes": num_total_classes,
+               "num_neg_samples": num_neg_samples, "seed": seed})
+    return cost
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None, path_table=None, path_code=None,
+             is_custom=False, is_sparse=False):
+    """(nn.py:2022) over the complete binary tree; a custom tree raises,
+    as in the JAX package."""
+    if is_custom or path_table is not None:
+        raise NotImplementedError(
+            "hsigmoid custom trees are not supported; the default "
+            "complete binary tree matches the reference default")
+    helper = LayerHelper("hsigmoid", name=name, bias_attr=bias_attr)
+    w = helper.create_parameter(
+        attr=param_attr, shape=[num_classes - 1, input.shape[1]],
+        dtype=input.dtype)
+    inputs = {"X": [input], "Label": [label], "W": [w]}
+    if bias_attr is not False:
+        b = helper.create_parameter(
+            attr=bias_attr if bias_attr not in (None, True) else ParamAttr(),
+            shape=[num_classes - 1, 1], dtype=input.dtype, is_bias=True)
+        inputs["Bias"] = [b]
+    out = helper.create_variable_for_type_inference(input.dtype)
+    pre = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="hierarchical_sigmoid", inputs=inputs,
+        outputs={"Out": [out], "PreOut": [pre]},
+        attrs={"num_classes": num_classes})
+    return out
+
+
+def lod_reset(x, y=None, target_lod=None):
+    """(nn.py:2070): the identity. A padded batch carries its lengths as
+    a separate tensor, which the caller passes on."""
+    return x
+
+
+def data_norm(input, act=None, epsilon=1e-05, param_attr=None,
+              data_layout="NCHW", in_place=False, name=None,
+              moving_mean_name=None, moving_variance_name=None,
+              do_model_average_for_mean_and_var=False, use_mkldnn=False):
+    """(nn.py:2078): normalization by accumulated batch statistics, held
+    as parameters."""
+    helper = LayerHelper("data_norm", name=name, act=act)
+    d = input.shape[-1]
+
+    def stat(suffix, value):
+        return helper.create_parameter(
+            attr=ParamAttr(name=name and name + suffix,
+                           initializer=ConstantInitializer(value)),
+            shape=[d], dtype=input.dtype)
+
+    bsize = stat(".batch_size", 1e4)
+    bsum = stat(".batch_sum", 0.0)
+    bsq = stat(".batch_square_sum", 1e4)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    means = helper.create_variable_for_type_inference(input.dtype)
+    scales = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="data_norm",
+        inputs={"X": [input], "BatchSize": [bsize], "BatchSum": [bsum],
+                "BatchSquareSum": [bsq]},
+        outputs={"Y": [out], "Means": [means], "Scales": [scales]})
+    return helper.append_activation(out)
+
+
+def _random_batch_size_like(op_type, input, shape, dtype, attrs):
+    from paddle_tpu_torch.core.types import convert_np_dtype_to_dtype_
+
+    helper = LayerHelper(op_type)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type=op_type, inputs={"Input": [input]}, outputs={"Out": [out]},
+        attrs=dict({"shape": list(shape)}, **attrs,
+                   dtype=int(convert_np_dtype_to_dtype_(dtype))))
+    out.stop_gradient = True
+    return out
+
+
+def uniform_random_batch_size_like(input, shape, dtype="float32",
+                                   input_dim_idx=0, output_dim_idx=0,
+                                   min=-1.0, max=1.0, seed=0):
+    """(nn.py:2120)"""
+    return _random_batch_size_like(
+        "uniform_random_batch_size_like", input, shape, dtype,
+        {"input_dim_idx": input_dim_idx, "output_dim_idx": output_dim_idx,
+         "min": min, "max": max, "seed": seed})
+
+
+def gaussian_random_batch_size_like(input, shape, input_dim_idx=0,
+                                    output_dim_idx=0, mean=0.0, std=1.0,
+                                    seed=0, dtype="float32"):
+    """(nn.py:2139)"""
+    return _random_batch_size_like(
+        "gaussian_random_batch_size_like", input, shape, dtype,
+        {"input_dim_idx": input_dim_idx, "output_dim_idx": output_dim_idx,
+         "mean": mean, "std": std, "seed": seed})
+
+
+def Print(input, first_n=-1, message=None, summarize=-1, print_tensor_name=True,
+          print_tensor_type=True, print_tensor_shape=True,
+          print_tensor_lod=True, print_phase="both"):
+    """(nn.py:2199): prints ``message`` (default the var's name) and the
+    values on the host when the op runs; the value passes through."""
+    helper = LayerHelper("print")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="print_op", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"message": message or input.name})
+    return out
+
+
+def adaptive_pool3d(input, pool_size, pool_type="max", require_index=False,
+                    name=None):
+    """(nn.py:2225): a ``pool3d`` whose windows tile the volume; raises
+    where a dim does not divide, as the JAX package does."""
+    d, h, w = input.shape[2], input.shape[3], input.shape[4]
+    od, oh, ow = ((pool_size,) * 3 if isinstance(pool_size, int)
+                  else pool_size)
+    if d % od or h % oh or w % ow:
+        raise ValueError("adaptive_pool3d needs divisible spatial dims")
+    k = [d // od, h // oh, w // ow]
+    return pool3d(input, pool_size=k, pool_type=pool_type, pool_stride=k,
+                  name=name)
+
+
+def psroi_pool(input, rois, output_channels, spatial_scale, pooled_height,
+               pooled_width, rois_batch_idx=None, name=None):
+    """(nn.py:2311)"""
+    helper = LayerHelper("psroi_pool", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    inputs = {"X": [input], "ROIs": [rois]}
+    if rois_batch_idx is not None:
+        inputs["RoisBatchIdx"] = [rois_batch_idx]
+    helper.append_op(
+        type="psroi_pool", inputs=inputs, outputs={"Out": [out]},
+        attrs={"output_channels": output_channels,
+               "spatial_scale": spatial_scale,
+               "pooled_height": pooled_height,
+               "pooled_width": pooled_width})
+    return out
+
+
+def py_func(func, x, out, backward_func=None,
+            skip_vars_in_backward_input=None):
+    """(nn.py:2354): runs ``func`` on the inputs' values as numpy arrays
+    on the host; ``out`` vars need static shapes. With
+    ``backward_func(x..., dout...) -> dx...`` the op has a grad: as in
+    the JAX package, it gets the forward inputs and then the output
+    grads (not the forward outputs), and ``skip_vars_in_backward_input``
+    raises."""
+    from paddle_tpu_torch.core.types import convert_dtype_to_np
+    from paddle_tpu_torch.ops.misc_ops import register_py_func
+
+    if skip_vars_in_backward_input is not None:
+        raise NotImplementedError(
+            "py_func: skip_vars_in_backward_input is not supported — "
+            "backward_func receives (inputs..., out_grads...) here")
+    helper = LayerHelper("py_func")
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    outs = out if isinstance(out, (list, tuple)) else [out]
+    attrs = {
+        "func_id": register_py_func(func),
+        "out_shapes": [list(o.shape) for o in outs],
+        "out_dtypes": [str(convert_dtype_to_np(o.dtype)) for o in outs],
+    }
+    if backward_func is not None:
+        attrs["backward_func_id"] = register_py_func(backward_func)
+    helper.append_op(type="py_func", inputs={"X": list(xs)},
+                     outputs={"Out": list(outs)}, attrs=attrs)
+    if backward_func is None:
+        for o in outs:
+            o.stop_gradient = True
+    return out
+
+
+def load(out, file_path, load_as_fp16=None):
+    """(nn.py:2391): the file (``.npy`` or the reference's tensor stream)
+    is read once when the layer is built, so errors surface then, and
+    not kept; the ``load_value`` op reads it by path at its first run on
+    a device."""
+    from paddle_tpu_torch.ops.misc_ops import load_from_file
+
+    load_from_file(file_path, bool(load_as_fp16))
+    helper = LayerHelper("load")
+    helper.append_op(
+        type="load_value", inputs={},
+        outputs={"Out": [out]},
+        attrs={"file_path": file_path,
+               "load_as_fp16": bool(load_as_fp16)})
+    return out
+
+
+def reorder_lod_tensor_by_rank(x, rank_table):
+    """(nn.py:2412): the identity. A padded batch is never reordered by
+    length (masked loops make it unnecessary)."""
+    return x
+
+
+def tree_conv(nodes_vector, edge_set, output_size, num_filters=1,
+              max_depth=2, act="tanh", param_attr=None, bias_attr=None,
+              name=None):
+    """(nn.py:2497): nodes_vector [B, N, F], edge_set [B, E, 2] 1-based
+    parent->child edges; [B, N, output_size, num_filters]."""
+    helper = LayerHelper("tree_conv", **locals())
+    dtype = nodes_vector.dtype
+    w = helper.create_parameter(
+        attr=param_attr,
+        shape=[nodes_vector.shape[2], 3, output_size, num_filters],
+        dtype=dtype, is_bias=False)
+    if name is None:
+        out = helper.create_variable_for_type_inference(dtype=dtype)
+    else:
+        out = helper.create_variable(name=name, dtype=dtype)
+    helper.append_op(
+        type="tree_conv",
+        inputs={"NodesVector": [nodes_vector], "EdgeSet": [edge_set],
+                "Filter": [w]},
+        outputs={"Out": [out]},
+        attrs={"max_depth": max_depth})
+    if bias_attr:
+        out = helper.append_bias_op(out, dim_start=2)
+    return helper.append_activation(out)

@@ -193,16 +193,67 @@ def keep_threshold(rate):
     return int(float(rate) * (1 << 24))
 
 
+def _numel(shape):
+    n = 1
+    for d in shape:
+        n *= int(d)
+    return n
+
+
+def hash_bits(seed, n, device, start=0):
+    """The counter-based hash of the coordinates ``start`` ..
+    ``start + n - 1`` under ``seed``: ``hash_mix_bits(i ^ seed *
+    0x9E3779B9)``, int64 in [0, 2**32)."""
+    idx = torch.arange(start, start + n, dtype=torch.int64,
+                       device=device) & M32
+    return hash_mix_bits(idx ^ _mul32(seed32(seed), 0x9E3779B9))
+
+
 def hash_keep_mask(seed, shape, rate, device):
     """Counter-based dropout keep-mask (common.py:110): the hash of the
     row-major element coordinate, xor-ed with ``seed * 0x9E3779B9``.
     ``seed`` is a uint32, as a Python int or a 0-d int64 tensor on
     ``device`` (the reference draws it with one threefry call, the port
     from the op's torch RNG stream)."""
-    n = 1
-    for d in shape:
-        n *= int(d)
-    idx = torch.arange(n, dtype=torch.int64, device=device) & M32
-    seed_term = _mul32(seed32(seed), 0x9E3779B9)
-    h = hash_mix_bits(idx ^ seed_term)
+    h = hash_bits(seed, _numel(shape), device)
     return ((h >> 8) >= keep_threshold(rate)).reshape(shape)
+
+
+def uniform_ints(seed, shape, high, device):
+    """Counter-based uniform integers in [0, ``high``) of ``shape``
+    (int64): the hash of each row-major coordinate under ``seed`` (a
+    dropout seed, ``hash_bits``) mapped to the range by multiply-shift,
+    ``(h * high) >> 32``. The same seed gives the same ids on every
+    device, and an op that takes its seed from the run's seed table
+    draws fresh ids at each replay of a captured graph."""
+    if not 0 < int(high) <= 2 ** 31:
+        raise ValueError("uniform_ints: high %d outside (0, 2**31]" % high)
+    h = hash_bits(seed, _numel(shape), device)
+    return ((h * int(high)) >> 32).reshape(tuple(shape))
+
+
+def uniform_floats(seed, shape, device, stream=0):
+    """Counter-based float32 uniforms in [0, 1) of ``shape``, 24 bits
+    each, from coordinates ``stream * n + i`` of ``hash_bits`` (``n`` the
+    number of elements), so an op can draw several independent
+    tensors from one seed."""
+    n = _numel(shape)
+    h = hash_bits(seed, n, device, start=stream * n)
+    return ((h >> 8).float() * (1.0 / (1 << 24))).reshape(tuple(shape))
+
+
+def hash_op_bits(x, k):
+    """The ``hash`` op's mix (misc_ops.py:236-251): a splitmix-style mix
+    of the uint32 ids ``x`` (int64 tensors, read as ``x & 0xFFFFFFFF``)
+    for hash number ``k``, in int64 held to 32 bits. The JAX package
+    builds ``k * 0x85EBCA6B`` as a uint32 constant, which overflows from
+    ``k = 2`` on: so does this."""
+    salt = k * 0x85EBCA6B
+    if salt > M32:
+        raise OverflowError(
+            "Python integer %d out of bounds for uint32 (hash number %d)"
+            % (salt, k))
+    h = (_mul32(x & M32, 0x9E3779B1) + salt) & M32
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 13)

@@ -213,6 +213,24 @@ l4, p4 = exe.run(tag, feed={"words": np.ones((2, 5, 3), np.float32),
                             "lens": np.array([[5], [2]])},
                  fetch_list=[crf_loss, path])
 assert np.isfinite(l4).all() and p4.shape == (2, 5) and not p4[1, 2:].any()
+# the misc family: a skip-gram step through the nce head, and a program
+# through py_func (with its grad) and Print
+import chip_smoke
+from paddle_tpu_torch.layers import nn as nn_layers
+sg, sg_startup = fluid.Program(), fluid.Program()
+with fluid.program_guard(sg, sg_startup):
+    sgh = chip_smoke.skipgram(fluid, vocab=30, dim=4, neg=3, lr=0.1)
+exe.run(sg_startup)
+(l5,) = exe.run(sg, feed=chip_smoke.skipgram_feed(8, vocab=30, seed=1),
+                fetch_list=[sgh["loss"]])
+assert np.isfinite(l5).all()
+hp, hp_startup = fluid.Program(), fluid.Program()
+with fluid.program_guard(hp, hp_startup):
+    hph = chip_smoke.host_ops(fluid, 4, 3)
+exe.run(hp_startup)
+(l6,) = exe.run(hp, feed={"x": np.ones((4, 3), np.float32)},
+                fetch_list=[hph["loss"]])
+assert np.isfinite(l6).all()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "paddle_tpu" or m.startswith("paddle_tpu."))
