@@ -16,7 +16,8 @@ kernels at ``opt_level`` 1, the book programs, the dense op families, an
 FCN decoder head and DeepFM with its streaming AUC, the sequence ops, a
 beam-search decoder, a text-convolution classifier and a CRF tagger, the
 misc ops, skip-gram with NCE and hsigmoid heads and the C3D video model,
-and its kernels on the card and prints one JSON line per phase:
+SSD-MobileNet-v1 and the detection and CTC ops, and its kernels on the
+card and prints one JSON line per phase:
 
 1. device  — the card's name and power limit (nvidia-smi), torch and CUDA
    versions; TF32 is turned off for matmul and cuDNN.
@@ -49,7 +50,7 @@ and its kernels on the card and prints one JSON line per phase:
 6. serve_batched — the continuous-batching server over the same model
    directory: ``predictor.serve()`` with the default buckets (1, 2, 4, 8,
    16, 32) and max-wait 5 ms, ``warmup`` first, then closed-loop clients
-   at 1, 8 and 32 threads, each sending batch-1 requests (200 at each
+   at 1, 8 and 32 threads, each sending batch-1 requests (100 at each
    level). Checks every answer against the same request answered alone by
    ``predictor.run`` (rtol 1e-4 / atol 1e-4), exactly 12 forward launches
    per dispatch (``fa.launches`` against ``serving.batches``), fewer
@@ -151,7 +152,7 @@ and its kernels on the card and prints one JSON line per phase:
    first run, ``memory_reserved`` after the capture, 24 forward and 12
    dQ and dK/dV launches a remat step against 12 each, the remat step
    run twice bitwise equal, remat against plain within TRAIN_TOL); (a)
-   ``accumulate_steps=4`` over a batch of 32; (c) 8 steps at
+   ``accumulate_steps=4`` over a batch of 32; (c) 4 steps at
    ``dispatch_steps=4`` captured and eager and at depth 1, read only at
    the end. Every captured run bitwise equal to its eager run, the
    learning rate fetched each step on its closed form (under
@@ -185,7 +186,7 @@ and its kernels on the card and prints one JSON line per phase:
 22. nmt    — Transformer-base as the JAX package's NMT bench builds it
    (6+6 layers, d_model 512, 8 heads, d_inner 2048, vocab 32768, seq
    256, batch 32, ragged lengths, dropout 0.1, label smoothing 0.1,
-   Adam), float32 and under ``enable_bf16``: 4 captured steps, 18 launches
+   Adam), float32 and under ``enable_bf16``: 3 captured steps, 18 launches
    of each flash kernel a step (6 encoder, 6 causal decoder and 6 cross
    attentions; the profiler's count of a replay agrees), one graph, the
    eager first run's peak allocation, step ms, target tokens/s, idle
@@ -205,7 +206,7 @@ and its kernels on the card and prints one JSON line per phase:
    time steps) at the width of the reference benchmark the JAX builder
    names (benchmark/fluid/models/stacked_dynamic_lstm.py: embedding and
    LSTM 512 wide, 5000 words), batch 32, seq 256 (cut from the
-   benchmark's 1500-token crop), float32, Adam: 5 steps eagerly and
+   benchmark's 1500-token crop), float32, Adam: 3 steps eagerly and
    captured from the same state, the losses and every state tensor
    bitwise equal at every step; the loss finite and lower after the first
    step; one graph, captured once, no eager block; no flash launch;
@@ -346,12 +347,36 @@ and its kernels on the card and prints one JSON line per phase:
    a batch-2 step op by op against the CPU (IMAGE_OP_TOL); the
    ``for_test`` clone served at batch 1 and 8 against the CPU
    (SERVE_TOL), its latency.
-40. kernels — one JSON object listing every ported kernel, with its
+40. ssd    — SSD-MobileNet-v1 (SSD: MobileNet-v1 at scale 1.0, four
+   extra conv pairs, ``multi_box_head`` over six maps, 1917 priors, 21
+   classes, 300 x 300 images) at batch 32, Momentum with L2 decay,
+   ``ssd_loss`` per image summed: 3 steps eagerly and captured, bitwise
+   equal, one graph; step ms, images/s, idle share, eager peak,
+   launches; a batch-4 step against the CPU, the loss (TRAIN_TOL) and
+   every op on the CPU's operands (IMAGE_OP_TOL), the grads end to end
+   printed; the inference build (softmax, ``detection_output`` at nms
+   0.45, top 400, keep 200, score 0.01) saved and served at batch 1 and
+   8 against the CPU predictor: the head within SERVE_TOL, the
+   detections' counts equal and rows within SERVE_TOL
+   (``detections_match``), the card's NMS equal to the CPU's NMS of the
+   card's head; ms a request; ``detection_map`` of the served
+   detections on the card (its ``py_func`` block eager) equal to the
+   CPU's.
+41. detection_ops — every lowering of the detection and CTC families on
+   the card against the CPU at its users' shapes (``detection_cases``:
+   SSD's priors, matching and NMS; Faster R-CNN's RPN on a ResNet-50-C4
+   map of an 800 x 1333 image, its samplers, RoI align and pool; Mask
+   R-CNN's mask targets; YOLOv3 at 608; an EAST-style text detector; a
+   line recogniser's CTC), as ``dense_ops`` holds its ops, each case's
+   launches a call; the NMS, RoI, CTC and YOLO ops twice, bitwise equal;
+   ``F.ctc_loss`` beside ``warpctc``; the greedy NMS scan alone at its
+   two users' shapes, its ms, launches and share of the op.
+42. kernels — one JSON object listing every ported kernel, with its
    design: all three run their products on the tensor cores (mma.sync
    bf16, 3xTF32 for float32) from a cp.async tile ring, and read their
    dropout seed from device memory; each kernel's launches on every path,
    the ResNet-50, training-loop, CTR, NMT, LSTM, image, unfused-attention,
-   book, dense-op, sequence and misc paths included, and its
+   book, dense-op, sequence, misc and detection paths included, and its
    times at the Transformer's shapes (``nmt_t256``).
 
 Served requests and dispatches run as captured CUDA graphs too: the first
@@ -466,7 +491,7 @@ SERVE_CLIENTS = (1, 8, 32)
 SERVE_EAGER = {1: {"qps": 35.37, "p50_ms": 27.68, "p99_ms": 42.14},
              8: {"qps": 155.9, "p50_ms": 50.33, "p99_ms": 60.54},
              32: {"qps": 470.0, "p50_ms": 56.01, "p99_ms": 77.71}}
-SERVE_REQUESTS = 200   # batch-1 requests at each client count
+SERVE_REQUESTS = 100   # batch-1 requests at each client count
 SERVE_POOL = 64        # distinct requests the clients cycle through
 
 # ResNet-50 (models/resnet.py, ImageNet: 224x224, 1000 classes), trained
@@ -534,10 +559,10 @@ BERT = dict(vocab_size=30522, d_model=768, n_layers=12, n_heads=12,
 # closed form (float32 ops against float64)
 RECIPE = dict(seq_len=512, lr=1e-4, end_lr=1e-5, warmup=3, decay_steps=12,
               power=1.0, clip_norm=1.0, l2=0.01, remat_segments=12)
-RECIPE_STEPS = 4      # eager warm-up, capture, two replays
-WINDOW_STEPS = 8
+RECIPE_STEPS = 3      # eager warm-up, capture, one replay
+WINDOW_STEPS = 4
 RECIPE_TOL = {"lr_rtol": 1e-5}
-PIPELINE_STEPS = 12   # resnet50_pipelined: steps of each loop
+PIPELINE_STEPS = 6    # resnet50_pipelined: steps of each loop
 # optimizers: the update ops this slice ports, each held on the card
 # against the CPU within OPT_TOL * max|want| of every output
 OPTIMIZER_OPS = ("lars_momentum", "adamax", "adagrad", "decayed_adagrad",
@@ -568,7 +593,7 @@ WORD2VEC_STEPS = 3
 NMT = dict(batch_size=32, seq_len=256, d_model=512, n_heads=8,
            d_inner=2048, n_layers=6, vocab_size=32768, dropout=0.1,
            lr=1e-4)
-NMT_STEPS = 4
+NMT_STEPS = 3
 NMT_FEED_SEED = 71
 NMT_CPU_BATCH = 2
 # the grads the card-vs-CPU step prints first: both embeddings (the
@@ -582,7 +607,7 @@ NMT_GRADS = ("src_word_emb", "trg_word_emb", "fc_0.w_0_0", "fc_96.w_0_0")
 # phase short
 LSTM = dict(batch_size=32, seq_len=256, dict_dim=5000, emb_dim=512,
             hidden_dim=512, stacked_num=2)
-LSTM_STEPS = 5
+LSTM_STEPS = 3
 LSTM_CPU_BATCH = 2
 LSTM_SERVE_BATCHES = (1, 32)
 # dynamic_lstm and dynamic_gru at the classifier's width on the card
@@ -703,6 +728,36 @@ C3D_SERVE_BATCHES = (1, 8)
 # the paper's forward count of a clip, in multiply-adds (38.5 G; the
 # engine's FlopCounterMode counts two operations a multiply-add)
 C3D_CLIP_GMACS = 38.5
+# ssd: SSD-MobileNet-v1 as PaddlePaddle/models builds it
+# (fluid/object_detection/mobilenet_ssd.py): MobileNet-v1 at scale 1.0
+# up to its 19 x 19 (512) and 10 x 10 (1024) maps, four extra 1x1/3x3
+# conv pairs down to 5, 3, 2 and 1; multi_box_head at base size 300, min
+# sizes 60-285, aspect ratios [2] and [2, 3] x 5, flip and clip: 1917
+# priors; PASCAL VOC's 21 classes; 300 x 300 images. Trained as Liu et
+# al. 2016, "SSD: Single Shot MultiBox Detector" (arXiv 1512.02325,
+# section 3): Momentum 0.9 at 1e-3, L2 5e-4, batch 32, the loss
+# ``ssd_loss`` (one image a layer, as the reference's) over slices of
+# the batch, summed. Served by ``detection_output`` at nms 0.45,
+# nms_top_k 400, keep_top_k 200, score threshold 0.01. Cut: the ground
+# truth padded to 16 boxes an image with zero boxes of label 0, which
+# never match
+SSD = dict(classes=21, image=300, scale=1.0, gt_boxes=16,
+           min_sizes=[60.0, 105.0, 150.0, 195.0, 240.0, 285.0],
+           max_sizes=[[], 150.0, 195.0, 240.0, 285.0, 300.0],
+           lr=1e-3, momentum=0.9, l2=5e-4)
+SSD_NMS = dict(nms_threshold=0.45, nms_top_k=400, keep_top_k=200,
+               score_threshold=0.01)
+SSD_PRIORS = 1917
+SSD_BATCH, SSD_STEPS = 32, 3
+SSD_CPU_BATCH = 4
+SSD_SERVE_BATCHES = (1, 8)
+# detection_ops: each lowering of the detection and CTC families alone at
+# its users' shapes (detection_cases), on the card against the CPU at
+# DENSE_TOL; the NMS and RoI ops and the grads that add rows back run
+# twice, bitwise equal; F.ctc_loss beside warpctc
+DETECTION_TWICE = ("multiclass_nms", "generate_proposals", "roi_align",
+                   "roi_pool", "roi_perspective_transform",
+                   "gather_encoded", "yolov3_loss", "warpctc")
 # ops whose grad is an op of its own that the engine runs, never the vjp
 # of the forward (py_func's runs Python on host arrays)
 OWN_GRAD_OP = ("py_func",)
@@ -860,6 +915,27 @@ def event_ms(fn, n):
     return start.elapsed_time(stop) / n
 
 
+def kernel_launches(fn):
+    """(kernels launched, their device ms) of one call of ``fn``, by a
+    profiler of the card's activity alone (no host events to process); a
+    window that recorded none is profiled again."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(EMPTY_WINDOW_RETRIES + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if spans:
+            return len(spans), sum(t.end - t.start for t in spans) / 1e3
+        PARTIAL_PROFILES.append({"calls": 1, "odd_counts": []})
+    return 0, 0.0
+
+
 def device_ms(fn, name=None, n=20, warmup=3):
     """Device time per call (ms) of the kernels whose name contains
     ``name`` (all kernels when None), from the profiler. When no window
@@ -879,7 +955,7 @@ def device_ms(fn, name=None, n=20, warmup=3):
     return total
 
 
-def window_ms(calls, n=5, warmup=1):
+def window_ms(calls, n=5, warmup=1, launches=None):
     """Device ms per call of each ``(key, fn)`` of ``calls``, all in one
     profiler window: ``fn``'s ``n`` calls run under a ``record_function``
     label of their own, and each kernel counts for the label whose host
@@ -893,7 +969,9 @@ def window_ms(calls, n=5, warmup=1):
     its own forward); any other kernel counts its window time over
     ``n``. A window with no device activity is profiled again
     (``profiled``); a call whose label holds no device time is timed by
-    CUDA events instead, recorded in EVENT_TIMED. Returns {key: ms}."""
+    CUDA events instead, recorded in EVENT_TIMED. Returns {key: ms};
+    fills ``launches``, where given, with {key: kernel launches a call}
+    (a label's launches over ``n``, rounded)."""
     import bisect
 
     import torch
@@ -944,6 +1022,9 @@ def window_ms(calls, n=5, warmup=1):
         check(ms > 0, "no device time of %r, by the profiler or by CUDA "
               "events" % (key,))
         out[key] = ms
+        if launches is not None:
+            launches[key] = round(sum(
+                c for c, _ in launched[label].values()) / n)
     torch.cuda.synchronize()
     return out
 
@@ -4686,7 +4767,7 @@ def phase_control_flow(smi):
 
 
 def phase_lstm(fa, smi):
-    """The stacked-LSTM classifier on the card: 5 Adam steps eagerly and
+    """The stacked-LSTM classifier on the card: 3 Adam steps eagerly and
     captured, bitwise equal; one step at batch 2 against the CPU; the
     ``for_test`` clone served at batch 1 and 32 (eager, then replayed,
     bitwise equal) and at batch 2 against the CPU; times; the recurrent
@@ -4731,7 +4812,8 @@ def phase_lstm(fa, smi):
     cap = profiled_step(graph[0], graph[1], main, loss, feed)
     with fluid.scope_guard(eager[1]):
         eag = timed_runs(lambda: eager[0].run(main, feed=feed,
-                                              fetch_list=[loss]))
+                                              fetch_list=[loss]),
+                         n=3, warmup=1)
     rec = recurrent_op_ms(eager[0], eager[1], main, loss, feed)
     tokens = LSTM["batch_size"] * LSTM["seq_len"]
     for label, r in (("captured", cap), ("eager", eag)):
@@ -5202,7 +5284,8 @@ def dense_errors(cpu, primals, out, grads):
     return errs, off
 
 
-def phase_op_cases(fa, smi, phase, cases, twice, witness=None):
+def phase_op_cases(fa, smi, phase, cases, twice, witness=None, rows=None,
+                   window_n=2):
     """Each case of ``cases`` ((name, op type, a function of a
     RandomState giving the inputs: numpy arrays, torch tensors, or
     tensor arrays of them, attrs)) on the card against the same lowering
@@ -5211,9 +5294,10 @@ def phase_op_cases(fa, smi, phase, cases, twice, witness=None):
     ``twice`` run twice on the card, bitwise equal; the ``witness``
     lowerings ({op type: {label: lowering}}) run beside the port's,
     their errors and ms printed; device ms of the forward and of the
-    vjp, every case's in one profiler window (``window_ms``), the card
-    operands kept until it. Emits ``phase``'s row and returns its flash
-    launches (none)."""
+    vjp, every case's in one profiler window (``window_ms``, ``window_n``
+    calls each), with their kernel launches a call, the card operands kept until it. Emits
+    ``phase``'s row (its case rows also appended to ``rows``) and
+    returns its flash launches (none)."""
     import torch
 
     import paddle_tpu_torch.fluid as fluid
@@ -5226,7 +5310,8 @@ def phase_op_cases(fa, smi, phase, cases, twice, witness=None):
 
     fluid.Executor(fluid.CUDAPlace(0))  # cuDNN's deterministic algorithms
     fa.launches = fa.launches_dq = fa.launches_dkv = 0  # the path starts
-    rows, failed, timed, witnessed = [], [], [], []
+    rows = [] if rows is None else rows
+    failed, timed, witnessed = [], [], []
     for k, (name, op_type, make, attrs) in enumerate(cases):
         host = make(np.random.RandomState(500 + k))
         runs = {}
@@ -5290,8 +5375,11 @@ def phase_op_cases(fa, smi, phase, cases, twice, witness=None):
         release_memory()
     # the timings: one profiler window for every case's forward and vjp,
     # then one for the witnesses (each under its own lowering)
-    for (k, key), ms in window_ms(timed).items():
+    counts = {}
+    for (k, key), ms in window_ms(timed, n=window_n,
+                                  launches=counts).items():
         rows[k][key] = ms
+        rows[k][key.replace("ms", "launches")] = counts[(k, key)]
     for k, op_type, label, fwd, vjp in witnessed:
         with lowered_by(op_type, witness[op_type][label]):
             rows[k]["witness"][label].update(
@@ -7224,6 +7312,685 @@ def phase_c3d(fa, smi):
     return {k: launches[k] + serve_launches[k] for k in launches}
 
 
+def ssd_mobilenet(fluid, mobilenet, batch, classes, image, scale, gt_boxes,
+                  min_sizes, max_sizes, lr, momentum, l2, is_train=True,
+                  nms=None):
+    """SSD-MobileNet-v1 (SSD) from ``fluid.layers`` and the package's
+    ``models.mobilenet`` (``mobilenet``: its ``conv_bn`` and
+    ``depthwise_separable``): the backbone up to its 19 x 19 and 10 x 10
+    maps, four extra 1x1/3x3 pairs, ``multi_box_head`` over the six maps.
+    ``is_train``: ``ssd_loss`` per image of the ``batch`` (slices of the
+    batch), summed, Momentum with L2 decay; else the softmax scores and
+    ``detection_output`` at ``nms``, batch norm on its running
+    statistics. Both builds name the parameters alike."""
+    layers = fluid.layers
+    img = layers.data(name="image", shape=[3, image, image],
+                      dtype="float32")
+
+    def conv_bn(x, filters, size, stride=1, padding=0):
+        return mobilenet.conv_bn(x, int(filters * scale), size,
+                                 stride=stride, padding=padding,
+                                 is_train=is_train)
+
+    def separable(x, ch_in, ch_out, stride):
+        return mobilenet.depthwise_separable(x, ch_in, ch_out, stride,
+                                             scale, is_train=is_train)
+
+    h = conv_bn(img, 32, 3, stride=2, padding=1)
+    for ch_in, ch_out, stride in ((32, 64, 1), (64, 128, 2), (128, 128, 1),
+                                  (128, 256, 2), (256, 256, 1),
+                                  (256, 512, 2)) + ((512, 512, 1),) * 5:
+        h = separable(h, ch_in, ch_out, stride)
+    maps = [h]
+    h = separable(separable(h, 512, 1024, 2), 1024, 1024, 1)
+    maps.append(h)
+    for c1, c2 in ((256, 512), (128, 256), (128, 256), (64, 128)):
+        h = conv_bn(conv_bn(h, c1, 1), c2, 3, stride=2, padding=1)
+        maps.append(h)
+    locs, confs, box, var = layers.multi_box_head(
+        inputs=maps, image=img, base_size=image, num_classes=classes,
+        aspect_ratios=[[2.0]] + [[2.0, 3.0]] * 5, min_ratio=20,
+        max_ratio=90, min_sizes=min_sizes, max_sizes=max_sizes, offset=0.5,
+        flip=True, clip=True)
+    handles = {"locs": locs, "confs": confs, "box": box, "var": var}
+    if not is_train:
+        handles["scores"] = layers.softmax(confs)
+        handles["dets"] = layers.detection_output(
+            locs, handles["scores"], box, var, **nms)
+        return handles
+    gt_box = layers.data(name="gt_box", shape=[gt_boxes, 4],
+                         dtype="float32")
+    gt_label = layers.data(name="gt_label", shape=[gt_boxes, 1],
+                           dtype="int64")
+
+    def image_rows(v, i, width):
+        return layers.reshape(layers.slice(v, axes=[0], starts=[i],
+                                           ends=[i + 1]), shape=[-1, width])
+
+    loss = layers.sums([layers.ssd_loss(
+        image_rows(locs, i, 4), image_rows(confs, i, classes),
+        image_rows(gt_box, i, 4), image_rows(gt_label, i, 1), box, var)
+        for i in range(batch)])
+    fluid.optimizer.Momentum(
+        learning_rate=lr, momentum=momentum,
+        regularization=fluid.regularizer.L2Decay(l2)).minimize(loss)
+    handles["loss"] = loss
+    return handles
+
+
+def ssd_feed(batch, image, classes, gt_boxes, seed, **_):
+    """Images, and 1-8 ground-truth boxes an image (normalized corners,
+    sides 0.1-0.4 of the image, labels 1 .. classes-1), the rest of the
+    ``gt_boxes`` rows zero boxes of label 0."""
+    rng = np.random.RandomState(seed)
+    box = np.zeros((batch, gt_boxes, 4), np.float32)
+    label = np.zeros((batch, gt_boxes, 1), np.int64)
+    for b in range(batch):
+        n = rng.randint(1, min(8, gt_boxes) + 1)
+        xy = rng.uniform(0.0, 0.6, (n, 2))
+        wh = rng.uniform(0.1, 0.4, (n, 2))
+        box[b, :n] = np.concatenate([xy, xy + wh], 1)
+        label[b, :n, 0] = rng.randint(1, classes, n)
+    return {"image": rng.randn(batch, 3, image, image).astype(np.float32),
+            "gt_box": box, "gt_label": label}
+
+
+def detection_map_program(fluid, keep_top_k, gt_boxes, classes):
+    """``layers.detection_map`` (11-point mAP at IoU 0.5, on the host
+    through ``py_func``) of [B, keep_top_k, 6] detections against [B,
+    gt_boxes, 5] ground truths (label, box)."""
+    layers = fluid.layers
+    dets = layers.data(name="dets", shape=[keep_top_k, 6], dtype="float32")
+    gts = layers.data(name="gts", shape=[gt_boxes, 5], dtype="float32")
+    return layers.detection_map(dets, gts, class_num=classes,
+                                overlap_threshold=0.5, ap_version="11point")
+
+
+def map_ground_truth(feed):
+    """[B, G, 5] (label, x1, y1, x2, y2) rows of an ``ssd_feed``."""
+    return np.concatenate([feed["gt_label"].astype(np.float32),
+                           feed["gt_box"]], -1)
+
+
+def detections_match(got, want, rtol, atol):
+    """[B, K, 6] detection rows against the reference's, image by image:
+    the counts (rows of label >= 0) equal, and each row within tolerance
+    of the row at its place or, inside a run of rows whose scores lie
+    within the tolerance of each other (a near tie float rounding may
+    order either way), of another row of that run, each used once. In
+    the run at the cut of the K rows, a row may be another candidate of
+    the same score within the tolerance (the near tie at the cut kept the
+    other one). Returns (whether it holds, {counts, max_abs_err,
+    reordered_rows, rows_across_the_cut, unmatched})."""
+    got, want = np.asarray(got), np.asarray(want)
+    counts = [(got[..., 0] >= 0).sum(-1).tolist(),
+              (want[..., 0] >= 0).sum(-1).tolist()]
+    worst, moved, cut, unmatched = 0.0, 0, [], []
+
+    def near(a, b):
+        return abs(a - b) <= atol + rtol * abs(b)
+
+    for b, (g, w) in enumerate(zip(got, want)):
+        start = 0
+        while start < len(w):
+            end = start + 1
+            while end < len(w) and near(w[end, 1], w[end - 1, 1]):
+                end += 1
+            free = list(range(start, end))
+            for k in range(start, end):
+                close = [j for j in free
+                         if np.allclose(g[k], w[j], rtol=rtol, atol=atol)]
+                if not close:
+                    if end == len(w) and any(near(g[k, 1], w[j, 1])
+                                             for j in free):
+                        cut.append([b, k])
+                    else:
+                        unmatched.append([b, k])
+                    continue
+                j = k if k in close else close[0]
+                free.remove(j)
+                moved += j != k
+                with np.errstate(invalid="ignore"):  # inf - inf
+                    d = np.where(g[k] == w[j], 0.0, np.abs(g[k] - w[j]))
+                worst = max(worst, float(d.max()))
+            start = end
+    ok = counts[0] == counts[1] and not unmatched
+    return ok, {"counts": counts[0], "counts_want": counts[1],
+                "max_abs_err": worst, "reordered_rows": moved,
+                "rows_across_the_cut": cut[:10], "unmatched": unmatched[:10]}
+
+
+def nms_on_host(head, nms):
+    """The served detections recomputed by the port's ``box_coder``
+    (decode) and ``multiclass_nms`` lowerings on the CPU from the card's
+    head outputs ``head`` ({locs, scores, box, var}, host arrays)."""
+    import torch
+
+    dec = lower_op("box_coder", {
+        "PriorBox": [torch.from_numpy(head["box"])],
+        "PriorBoxVar": [torch.from_numpy(head["var"])],
+        "TargetBox": [torch.from_numpy(head["locs"])]},
+        {"code_type": "decode_center_size", "box_normalized": True,
+         "axis": 0}, "cpu")["OutputBox"][0]
+    scores = torch.from_numpy(head["scores"]).transpose(1, 2).contiguous()
+    return lower_op("multiclass_nms", {"BBoxes": [dec], "Scores": [scores]},
+                    dict(nms, background_label=0, normalized=True,
+                         nms_eta=1.0), "cpu")["Out"][0].numpy()
+
+
+def phase_ssd(fa, smi):
+    """SSD-MobileNet-v1 (SSD) trained and served at full width:
+    SSD_STEPS Momentum steps at batch 32 eagerly and captured from the
+    same state, bitwise equal, one graph (``ssd_loss`` 32 times a step:
+    the bipartite match's scan and the matching ops captured); step ms,
+    images/s, idle share, eager peak, launches; one step at batch
+    SSD_CPU_BATCH against the CPU from the same state: the loss
+    (TRAIN_TOL) and every op on the CPU's operands (IMAGE_OP_TOL), the
+    grads end to end printed; then the inference build (softmax,
+    ``detection_output``) saved by ``io.save_inference_model`` with the
+    initial weights (its batch norms on one training batch's statistics)
+    and served by the predictor at batch 1 and 8 against
+    the CPU predictor: the head's scores and boxes within SERVE_TOL, the
+    detections' counts equal and rows within SERVE_TOL
+    (``detections_match``), the card's detections and the CPU's NMS of
+    the card's head equal; ms a request; ``detection_map`` of the batch
+    8 detections on the card (its ``py_func`` block eager) and on the CPU,
+    equal. Returns the flash launches (none)."""
+    import torch
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import convert, inference, unique_name
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.models import mobilenet
+
+    def build(batch, is_train):
+        with unique_name.guard():
+            main, startup = fluid.Program(), fluid.Program()
+            with fluid.program_guard(main, startup):
+                h = ssd_mobilenet(fluid, mobilenet, batch, is_train=is_train,
+                                  nms=SSD_NMS, **SSD)
+        main.random_seed = startup.random_seed = 2024
+        return main, startup, h
+
+    main, startup, h = build(SSD_BATCH, True)
+    loss = h["loss"]
+    check(h["box"].shape[0] == SSD_PRIORS, "ssd: %s priors, not %d"
+          % (h["box"].shape, SSD_PRIORS))
+    feed = ssd_feed(SSD_BATCH, seed=2024, **SSD)
+    (eager, graph, losses, unequal, eager_runs, launches,
+     walls) = lockstep_steps(fa, main, startup, loss, feed, SSD_STEPS)
+    entries = captured(graph[0].engine)
+    emit({"phase": "ssd", "card": smi, "config": SSD, "batch": SSD_BATCH,
+          "priors": SSD_PRIORS,
+          "params": sum(int(np.prod(p.shape)) for p in main.all_parameters()),
+          "losses": losses, "unequal_state": unequal[:10],
+          "graphs": len(entries), "eager_runs": eager_runs,
+          "launches": launches, "captured_run_walls_ms": walls})
+    lockstep_checks("ssd", losses, unequal, entries, eager_runs, launches)
+    peak = eager_step_peak(eager[0], eager[1], main, loss, feed)
+    cap = profiled_step(graph[0], graph[1], main, loss, feed, n=5,
+                        profiled_steps=2)
+    emit(dict({"phase": "times", "card": smi,
+               "profile": "ssd training step", "run": "captured",
+               "batch": SSD_BATCH,
+               "images_per_s": SSD_BATCH / (cap["median_ms"] / 1e3),
+               "eager_step_peak_bytes": peak, "tf32": False}, **cap))
+    del eager, graph, entries
+    release_memory()
+
+    # one step on the card and on the CPU from the same state: the loss
+    # end to end, every op on the CPU's operands (the grads end to end
+    # printed: at random init the batch norms over the 2 x 2 and 1 x 1
+    # maps magnify float32 rounding by orders of magnitude on the way
+    # down and back, as in ResNet-50 and the image models)
+    cpu_main, cpu_startup, cpu_h = build(SSD_CPU_BATCH, True)
+    cpu_state = start_state(cpu_main, cpu_startup)
+    cpu_feed = ssd_feed(SSD_CPU_BATCH, seed=2025, **SSD)
+    row, _ = card_cpu_step(cpu_main, cpu_state, cpu_h["loss"], cpu_feed)
+    worst, _, _ = replay_ops_on_card(cpu_main, cpu_state, cpu_feed,
+                                     IMAGE_OP_TOL)
+    grads = row.pop("grad_rel_to_max")
+    emit({"phase": "ssd", "card": smi, "cpu_step": dict(
+        row, batch=SSD_CPU_BATCH, ops_rel_to_max=worst,
+        ops_tol=IMAGE_OP_TOL,
+        grads_end_to_end_rel_to_max_worst=max(grads.items(),
+                                              key=lambda kv: kv[1]),
+        grads_end_to_end_rel_to_max_median=float(np.median(
+            list(grads.values()))))})
+    check(row["loss_abs_err"] <= TRAIN_TOL["loss_rtol"]
+          * abs(row["loss_cpu"]), "ssd: the card's loss off the CPU's: "
+          "%s / %s" % (row["loss_card"], row["loss_cpu"]))
+    release_memory()
+
+    # served: the inference build with the initial weights, its batch
+    # norms on the statistics of one training batch (3 steps leave the
+    # running ones 27 % of the way from (0, 1) to the data's, and the
+    # summed per-image loss, every negative weighted, at the paper's lr
+    # blows the head's logits up: its scores saturate and its boxes
+    # overflow)
+    served = start_state(main, startup)
+    bns = [(op.input("Mean")[0], op.output("SavedMean")[0],
+            op.input("Variance")[0], op.output("SavedVariance")[0])
+           for op in main.desc.global_block().ops if op.type == "batch_norm"]
+    exe0, scope0 = fresh(startup, graphs=False)
+    with fluid.scope_guard(scope0):
+        stats = exe0.run(main, feed=feed, fetch_list=[
+            n for _, saved_mean, _, saved_var in bns
+            for n in (saved_mean, saved_var)])
+    for k, (mean, _, var, _) in enumerate(bns):
+        served[mean] = np.asarray(stats[2 * k]).reshape(served[mean].shape)
+        served[var] = np.asarray(stats[2 * k + 1]).reshape(
+            served[var].shape)
+    del exe0, scope0, stats
+    test_main, _, th = build(1, False)
+    fetch = [th[k] for k in ("dets", "scores", "locs", "box", "var")]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ssd_") as d:
+        scope = fluid.Scope()
+        convert.load_numpy_state(scope, {
+            k: v for k, v in served.items()
+            if test_main.global_block().has_var(k)}, "cuda",
+            program=test_main)
+        with fluid.scope_guard(scope):
+            fluid.io.save_inference_model(d, ["image"], fetch,
+                                          fluid.Executor(fluid.CUDAPlace(0)),
+                                          main_program=test_main)
+        del scope
+        predictor = inference.create_paddle_predictor(
+            inference.AnalysisConfig(d))
+        cpu_cfg = inference.AnalysisConfig(d)
+        cpu_cfg.disable_gpu()
+        cpu_pred = inference.create_paddle_predictor(cpu_cfg)
+        torch.cuda.synchronize()
+        fa.launches = fa.launches_dq = fa.launches_dkv = 0  # path starts
+        served, dets8 = {}, None
+        for b in SSD_SERVE_BATCHES:
+            req_feed = ssd_feed(b, seed=300 + b, **SSD)
+            req = {"image": req_feed["image"]}
+            card = [t.data for t in predictor.run(req)]
+            cpu = [t.data for t in cpu_pred.run(req)]
+            head = dict(zip(("scores", "locs", "box", "var"), card[1:]))
+            same, match = detections_match(card[0], cpu[0], **SERVE_TOL)
+            # the same inputs: only the decode's rounding (a fused
+            # multiply-add on the card) may move a box
+            own, own_match = detections_match(
+                card[0], nms_on_host(head, SSD_NMS), rtol=1e-5, atol=1e-6)
+            served[b] = {
+                "shape": list(card[0].shape), "detections": match,
+                "head_max_abs_err": [float(np.abs(a - c).max())
+                                     for a, c in zip(card[1:3], cpu[1:3])],
+                "head_close": all(np.allclose(a, c, **SERVE_TOL)
+                                  for a, c in zip(card[1:], cpu[1:])),
+                "detections_close": same,
+                "nms_of_card_head_on_cpu_equal": own,
+                "nms_of_card_head_on_cpu": own_match,
+                "request_ms": timed_runs(lambda r=req: predictor.run(r),
+                                         n=5)}
+            if b == 8:
+                dets8 = (card[0], map_ground_truth(req_feed))
+        serve_launches = flash_launches(fa)  # ... and ends here
+    emit({"phase": "ssd", "card": smi, "serve": served, "tol": SERVE_TOL,
+          "nms": SSD_NMS, "launches": serve_launches})
+    check(all(r["head_close"] and r["detections_close"]
+              and r["nms_of_card_head_on_cpu_equal"]
+              and r["shape"] == [b, SSD_NMS["keep_top_k"], 6]
+              for b, r in served.items()),
+          "ssd served off the CPU's: %s" % served)
+    check(not any(serve_launches.values()), "flash launches serving ssd: "
+          "%s" % serve_launches)
+    del predictor, cpu_pred
+
+    # mAP of the batch-8 detections, on the host through py_func
+    with unique_name.guard():
+        map_main, map_startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(map_main, map_startup):
+            m_ap = detection_map_program(fluid, SSD_NMS["keep_top_k"],
+                                         SSD["gt_boxes"], SSD["classes"])
+    values = {}
+    for device, place in (("cuda", fluid.CUDAPlace(0)),
+                          ("cpu", fluid.CPUPlace())):
+        obs.set_enabled(True)
+        obs.reset()
+        with fluid.scope_guard(fluid.Scope()):
+            (v,) = fluid.Executor(place).run(
+                map_main, feed={"dets": dets8[0], "gts": dets8[1]},
+                fetch_list=[m_ap])
+        values[device] = (float(np.asarray(v).reshape(-1)[0]),
+                          obs.counter_value("engine.eager_runs"))
+        obs.set_enabled(None)
+    emit({"phase": "ssd", "card": smi, "detection_map": {
+        "map_card": values["cuda"][0], "map_cpu": values["cpu"][0],
+        "eager_runs_card": values["cuda"][1]}})
+    check(values["cuda"][0] == values["cpu"][0]
+          and np.isfinite(values["cuda"][0]) and values["cuda"][1] == 1,
+          "ssd: detection_map %s" % values)
+    release_memory()
+    return {k: launches[k] + serve_launches[k] for k in launches}
+
+
+def _ctc_loss_library(ctx, ins, attrs):
+    """``F.ctc_loss`` (cuDNN's or ATen's CTC; its CUDA backward adds with
+    atomics) on the log-softmax of the logits: a witness beside the
+    port's ``warpctc``."""
+    import torch.nn.functional as F
+
+    logits = ins["Logits"][0]
+    loss = F.ctc_loss(F.log_softmax(logits.float(), -1).transpose(0, 1),
+                      ins["Label"][0], ins["LogitsLength"][0].reshape(-1),
+                      ins["LabelLength"][0].reshape(-1),
+                      blank=int(attrs.get("blank", 0)), reduction="none")
+    return {"Loss": [loss.reshape(-1, 1).to(logits.dtype)]}
+
+
+DETECTION_WITNESS = {"warpctc": {"F.ctc_loss": _ctc_loss_library}}
+
+
+def detection_cases():
+    """(name, op type, a function of a RandomState giving the inputs as
+    numpy arrays, attrs) of the detection_ops phase: every lowering of the
+    detection and CTC families at the shapes its users give it: SSD's
+    1917 priors, 21 classes and batch 8 (the matching ops at 16 ground
+    truths an image, one image a layer as ``ssd_loss`` runs them, the
+    match batched over 32); Faster R-CNN's RPN on a ResNet-50-C4 map of
+    an 800 x 1333 image (50 x 84, 15 anchors: 63,000; pre/post NMS
+    6000/1000 at 0.7; 256 anchors an image at 0.5 positive); its
+    second-stage sampler at 512 RoIs and 0.25 foreground over 81 classes;
+    RoI align and pool at 14 x 14 and 1/16 on 1024 channels; Mask R-CNN's
+    mask targets at resolution 14; YOLOv3 at 608 (Redmon and Farhadi
+    2018, arXiv 1804.02767: 19/38/76 maps, 80 classes, 9 anchors, 50
+    ground truths); an EAST-style text detector's geometry and quads at a
+    128 x 128 map; a line recogniser's CTC and edit distance (batch 32,
+    96 steps, 96 classes, labels of 10-30 ids)."""
+    import torch
+
+    import paddle_tpu_torch.ops  # noqa: F401  (registers the lowerings)
+
+    def f(*shape, scale=1.0):
+        return lambda rng: (np.random.default_rng(rng.randint(2 ** 31))
+                            .standard_normal(shape, dtype=np.float32)
+                            * np.float32(scale))
+
+    def ins(**makers):
+        return lambda rng: {slot: [m(rng) for m in ms]
+                            for slot, ms in makers.items()}
+
+    def const(value):
+        return lambda rng: value
+
+    def boxes(rng, n, extent=(1.0, 1.0), lo=0.05, hi=0.4):
+        ext = np.asarray(extent, np.float32)
+        xy = rng.uniform(0, 1 - hi, (n, 2)) * ext
+        wh = rng.uniform(lo, hi, (n, 2)) * ext
+        return np.concatenate([xy, xy + wh], 1).astype(np.float32)
+
+    def iou(a, b):
+        return lower_op("iou_similarity", {
+            "X": [torch.from_numpy(a)], "Y": [torch.from_numpy(b)]},
+            {"box_normalized": True}, "cpu")["Out"][0].numpy()
+
+    priors = boxes(np.random.RandomState(11), SSD_PRIORS, lo=0.02, hi=0.5)
+    pvar = np.tile(np.float32([0.1, 0.1, 0.2, 0.2]), (SSD_PRIORS, 1))
+    ssd_nms = dict(SSD_NMS, background_label=0, normalized=True,
+                   nms_eta=1.0)
+    img_hw = (1333.0, 800.0)     # (x, y) extent of the Faster R-CNN image
+    rpn_anchors = lower_op("anchor_generator", {
+        "Input": [torch.empty((1, 1, 50, 84))]},
+        {"anchor_sizes": [32.0, 64.0, 128.0, 256.0, 512.0],
+         "aspect_ratios": [0.5, 1.0, 2.0], "stride": [16.0, 16.0],
+         "variances": [1.0, 1.0, 1.0, 1.0], "offset": 0.5}, "cpu")
+    anchors = rpn_anchors["Anchors"][0].numpy()
+    im_info = np.float32([[800.0, 1333.0, 1.0]])
+    yolo_anchors = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116,
+                    90, 156, 198, 373, 326]
+
+    def ssd_match(rng):
+        return np.stack([iou(boxes(rng, 16), priors) for _ in range(32)])
+
+    def match_row(rng):
+        m = np.full((1, SSD_PRIORS), -1, np.int32)
+        hit = rng.choice(SSD_PRIORS, 120, replace=False)
+        m[0, hit] = rng.randint(0, 16, 120)
+        return m
+
+    def nms_boxes(rng):
+        return np.stack([boxes(rng, SSD_PRIORS, lo=0.02, hi=0.6)
+                         for _ in range(8)])
+
+    def class_probs(rng):
+        z = rng.randn(8, SSD["classes"], SSD_PRIORS) * 2.0
+        e = np.exp(z - z.max(1, keepdims=True))
+        return (e / e.sum(1, keepdims=True)).astype(np.float32)
+
+    def gts(rng, n=20):
+        return boxes(rng, n, img_hw, 0.03, 0.3)
+
+    def proposals(rng):
+        # 2000 proposals, a third of them jittered ground truths
+        g = gts(np.random.RandomState(5))
+        near = g[rng.randint(0, 20, 700)] + rng.randn(700, 4).astype(
+            np.float32) * 20.0
+        return np.concatenate([near, boxes(rng, 1300, img_hw, 0.02, 0.4)]
+                              ).astype(np.float32)
+
+    def polygons(rng):
+        g = gts(np.random.RandomState(5))
+        segms = np.zeros((20, 2, 30, 2), np.float32)
+        lens = np.zeros((20, 2), np.int32)
+        for i, (x1, y1, x2, y2) in enumerate(g):
+            for k in range(2):
+                n = rng.randint(8, 31)
+                ang = np.sort(rng.uniform(0, 2 * np.pi, n))
+                rad = rng.uniform(0.3, 0.5, (n, 1))
+                c = np.float32([(x1 + x2) / 2, (y1 + y2) / 2])
+                half = np.float32([(x2 - x1) / 2, (y2 - y1) / 2])
+                segms[i, k, :n] = c + rad * half * np.stack(
+                    [np.cos(ang), np.sin(ang)], 1) * (1 + k)
+                lens[i, k] = n
+        return segms, lens
+
+    def mask_rois(rng):
+        g = gts(np.random.RandomState(5))
+        fg = g[rng.randint(0, 20, 128)] + rng.randn(128, 4).astype(
+            np.float32) * 8.0
+        return np.concatenate([fg, boxes(rng, 384, img_hw, 0.02, 0.4)]
+                              ).astype(np.float32)
+
+    def mask_labels(rng):
+        return np.concatenate([rng.randint(1, 81, 128),
+                               np.zeros(384, np.int64)]).astype(np.int32)
+
+    def quads(rng, r=64, size=512.0):
+        out = np.zeros((r, 8), np.float32)
+        for i in range(r):
+            x0, y0 = rng.uniform(8, size * 0.6, 2)
+            w, h = rng.uniform(64, 200), rng.uniform(12, 40)
+            a = rng.uniform(-0.3, 0.3)
+            ca, sa = np.cos(a), np.sin(a)
+            pts = np.float32([[0, 0], [w, 0], [w, h], [0, h]])
+            rot = pts @ np.float32([[ca, sa], [-sa, ca]])
+            out[i] = (rot + [x0, y0]).reshape(-1)
+        return out
+
+    def yolo_gt(rng):
+        box = np.zeros((8, 50, 4), np.float32)
+        for b in range(8):
+            n = rng.randint(5, 31)
+            box[b, :n, :2] = rng.uniform(0.05, 0.95, (n, 2))
+            box[b, :n, 2:] = rng.uniform(0.02, 0.5, (n, 2))
+        return box
+
+    def ctc_lens(rng):
+        return (96 - rng.randint(0, 16, 32)).astype(np.int64)
+
+    def label_lens(rng):
+        return rng.randint(10, 31, 32).astype(np.int64)
+
+    def ids(rng, high=96):
+        return rng.randint(1, high, (32, 30)).astype(np.int64)
+
+    def yolo(name, hw, mask, downsample):
+        return ("yolov3_loss_" + name, "yolov3_loss", ins(
+            X=[f(8, 255, hw, hw, scale=0.5)], GTBox=[yolo_gt],
+            GTLabel=[lambda rng: rng.randint(0, 80, (8, 50)).astype(
+                np.int64)]),
+            {"anchors": yolo_anchors, "anchor_mask": mask, "class_num": 80,
+             "ignore_thresh": 0.7, "downsample_ratio": downsample})
+
+    return [
+        ("prior_box_ssd_19x19", "prior_box", ins(
+            Input=[f(32, 512, 19, 19)], Image=[f(32, 3, 300, 300)]),
+         {"min_sizes": [60.0], "max_sizes": [], "aspect_ratios": [2.0],
+          "variances": [0.1, 0.1, 0.2, 0.2], "flip": True, "clip": True,
+          "step_w": 0.0, "step_h": 0.0, "offset": 0.5,
+          "min_max_aspect_ratios_order": False}),
+        ("density_prior_box_pyramidbox_160", "density_prior_box", ins(
+            Input=[f(1, 256, 160, 160)], Image=[f(1, 3, 640, 640)]),
+         {"densities": [4, 2, 1], "fixed_sizes": [32.0, 64.0, 128.0],
+          "fixed_ratios": [1.0], "variances": [0.1, 0.1, 0.2, 0.2],
+          "clip": True, "step_w": 0.0, "step_h": 0.0, "offset": 0.5}),
+        ("anchor_generator_rpn_c4", "anchor_generator", ins(
+            Input=[f(1, 1024, 50, 84)]),
+         {"anchor_sizes": [32.0, 64.0, 128.0, 256.0, 512.0],
+          "aspect_ratios": [0.5, 1.0, 2.0], "stride": [16.0, 16.0],
+          "variances": [1.0, 1.0, 1.0, 1.0], "offset": 0.5}),
+        ("box_coder_encode_ssd", "box_coder", ins(
+            PriorBox=[const(priors)], PriorBoxVar=[const(pvar)],
+            TargetBox=[lambda rng: boxes(rng, 16)]),
+         {"code_type": "encode_center_size", "box_normalized": True}),
+        ("box_coder_decode_ssd", "box_coder", ins(
+            PriorBox=[const(priors)], PriorBoxVar=[const(pvar)],
+            TargetBox=[f(8, SSD_PRIORS, 4, scale=0.5)]),
+         {"code_type": "decode_center_size", "box_normalized": True,
+          "axis": 0}),
+        ("iou_similarity_ssd", "iou_similarity", ins(
+            X=[lambda rng: boxes(rng, 16)], Y=[const(priors)]),
+         {"box_normalized": True}),
+        ("box_clip_rpn", "box_clip", ins(
+            Input=[f(2, 1000, 4, scale=700.0)],
+            ImInfo=[const(np.float32([[800, 1333, 1], [600, 1000, 0.75]]))]),
+         {}),
+        ("polygon_box_transform_east", "polygon_box_transform", ins(
+            Input=[f(8, 8, 128, 128, scale=20.0)]), {}),
+        ("bipartite_match_ssd_batch32", "bipartite_match", ins(
+            DistMat=[ssd_match]),
+         {"match_type": "per_prediction", "dist_threshold": 0.5}),
+        ("target_assign_ssd_labels", "target_assign", ins(
+            X=[lambda rng: rng.randint(1, 21, (16, 1)).astype(np.int64)],
+            MatchIndices=[match_row]), {"mismatch_value": 0}),
+        ("gather_encoded_ssd", "gather_encoded", ins(
+            Encoded=[f(16, SSD_PRIORS, 4)], MatchIndices=[match_row]), {}),
+        ("multiclass_nms_ssd", "multiclass_nms", ins(
+            BBoxes=[nms_boxes], Scores=[class_probs]), ssd_nms),
+        ("generate_proposals_rpn_c4", "generate_proposals", ins(
+            Scores=[lambda rng: (1.0 / (1.0 + np.exp(-f(2, 15, 50, 84)(
+                rng)))).astype(np.float32)],
+            BboxDeltas=[f(2, 60, 50, 84, scale=0.1)],
+            ImInfo=[const(np.concatenate([im_info, im_info]))],
+            Anchors=[const(anchors)],
+            Variances=[const(np.ones_like(anchors))]),
+         {"pre_nms_topN": 6000, "post_nms_topN": 1000, "nms_thresh": 0.7,
+          "min_size": 0.0, "eta": 1.0}),
+        ("rpn_target_assign_c4", "rpn_target_assign", ins(
+            Anchor=[const(anchors.reshape(-1, 4))], GtBoxes=[gts],
+            IsCrowd=[const(np.zeros((20,), np.int32))],
+            ImInfo=[const(im_info)]),
+         {"rpn_batch_size_per_im": 256, "rpn_fg_fraction": 0.5,
+          "rpn_positive_overlap": 0.7, "rpn_negative_overlap": 0.3,
+          "rpn_straddle_thresh": 0.0, "use_random": True}),
+        ("generate_proposal_labels_512", "generate_proposal_labels", ins(
+            RpnRois=[proposals],
+            GtClasses=[lambda rng: rng.randint(1, 81, (20, 1)).astype(
+                np.int32)],
+            GtBoxes=[lambda rng: gts(np.random.RandomState(5))],
+            IsCrowd=[const(np.zeros((20, 1), np.int32))],
+            ImInfo=[const(im_info)],
+            RpnRoisNum=[const(np.int32([2000]))]),
+         {"batch_size_per_im": 512, "fg_fraction": 0.25, "fg_thresh": 0.5,
+          "bg_thresh_hi": 0.5, "bg_thresh_lo": 0.0,
+          "bbox_reg_weights": [0.1, 0.1, 0.2, 0.2], "class_nums": 81,
+          "use_random": True}),
+        ("roi_align_c4_14x14", "roi_align", ins(
+            X=[f(2, 1024, 50, 84)],
+            ROIs=[lambda rng: boxes(rng, 128, img_hw, 0.02, 0.4)],
+            RoisBatchIdx=[lambda rng: rng.randint(0, 2, 128).astype(
+                np.int32)]),
+         {"pooled_height": 14, "pooled_width": 14, "spatial_scale": 0.0625,
+          "sampling_ratio": 2}),
+        ("roi_pool_c4_14x14", "roi_pool", ins(
+            X=[f(2, 1024, 50, 84)],
+            ROIs=[lambda rng: boxes(rng, 128, img_hw, 0.02, 0.4)],
+            RoisBatchIdx=[lambda rng: rng.randint(0, 2, 128).astype(
+                np.int32)]),
+         {"pooled_height": 14, "pooled_width": 14,
+          "spatial_scale": 0.0625}),
+        ("roi_perspective_transform_east", "roi_perspective_transform", ins(
+            X=[f(2, 128, 128, 128)], ROIs=[quads],
+            RoisBatchIdx=[lambda rng: rng.randint(0, 2, 64).astype(
+                np.int32)]),
+         {"transformed_height": 8, "transformed_width": 64,
+          "spatial_scale": 0.25}),
+        yolo("19x19", 19, [6, 7, 8], 32),
+        yolo("38x38", 38, [3, 4, 5], 16),
+        yolo("76x76", 76, [0, 1, 2], 8),
+        ("generate_mask_labels_maskrcnn_14", "generate_mask_labels", ins(
+            ImInfo=[const(im_info)],
+            GtClasses=[lambda rng: rng.randint(1, 81, (20, 1)).astype(
+                np.int32)],
+            IsCrowd=[const(np.zeros((20, 1), np.int32))],
+            GtSegms=[lambda rng: polygons(np.random.RandomState(6))[0]],
+            GtPolyLens=[lambda rng: polygons(np.random.RandomState(6))[1]],
+            Rois=[mask_rois], LabelsInt32=[mask_labels]),
+         {"num_classes": 81, "resolution": 14}),
+        ("similarity_focus_text_32", "similarity_focus", ins(
+            X=[f(32, 2, 32, 32)]), {"axis": 1, "indexes": [0, 1]}),
+        ("warpctc_line_32x96", "warpctc", ins(
+            Logits=[f(32, 96, 96)], Label=[ids], LogitsLength=[ctc_lens],
+            LabelLength=[label_lens]),
+         {"blank": 0, "norm_by_times": False}),
+        ("edit_distance_line_32", "edit_distance", ins(
+            Hyps=[ids], Refs=[ids], HypsLength=[label_lens],
+            RefsLength=[label_lens]),
+         {"normalized": True, "ignored_tokens": []}),
+    ]
+
+
+def phase_detection_ops(fa, smi):
+    """Every lowering of the detection and CTC families
+    (``detection_cases``) through ``phase_op_cases``, the DETECTION_TWICE
+    ops twice, ``F.ctc_loss`` beside ``warpctc``; each case's launches a
+    call; then the greedy NMS scan (``greedy_keep``) alone at
+    ``generate_proposals``' and ``multiclass_nms``' shapes, its device ms
+    and launches (``kernel_launches``) and its share of the op's ms.
+    Returns the flash launches (none)."""
+    import torch
+
+    from paddle_tpu_torch.ops.detection_ops import greedy_keep
+
+    rows = []
+    # one call a case in the window: the RPN's scan launches 30,000
+    # kernels a call, and the profiler's host events cost seconds a call
+    launches = phase_op_cases(fa, smi, "detection_ops", detection_cases(),
+                              DETECTION_TWICE, DETECTION_WITNESS, rows=rows,
+                              window_n=1)
+    by_case = {r["case"]: r for r in rows}
+    scans = {}
+    for case, shape in (("generate_proposals_rpn_c4", (2, 6000)),
+                        ("multiclass_nms_ssd", (8, SSD["classes"] - 1,
+                                                SSD_NMS["nms_top_k"]))):
+        g = torch.Generator(device="cuda").manual_seed(7)
+        over = torch.rand(shape + shape[-1:], device="cuda",
+                          generator=g) < 0.01
+        valid = torch.rand(shape, device="cuda", generator=g) < 0.9
+        scan = functools.partial(greedy_keep, over, valid)
+        scan()
+        count, ms = kernel_launches(scan)
+        scans[case] = {"shape": list(shape), "ms": ms, "launches": count,
+                       "share_of_op": ms / by_case[case]["ms"]}
+        del over, valid
+    emit({"phase": "detection_ops", "card": smi, "greedy_nms_scan": scans})
+    release_memory()
+    return launches
+
+
 def release_memory():
     """Free what no live object holds, CUDA graphs and their pools too,
     and return the cached blocks to the card."""
@@ -7366,6 +8133,12 @@ def main():
     misc_launches["skipgram_nce"] = phase_skipgram_nce(fa, smi)
     misc_launches["c3d"] = phase_c3d(fa, smi)
     release_memory()
+
+    # SSD-MobileNet-v1 trained and served, and the detection and CTC op
+    # families at their users' shapes
+    det_launches = {"ssd": phase_ssd(fa, smi)}
+    det_launches["detection_ops"] = phase_detection_ops(fa, smi)
+    release_memory()
     emit({"phase": "times", "partial_profiler_windows_rerun":
           len(PARTIAL_PROFILES), "partial_windows": PARTIAL_PROFILES,
           "event_timed": EVENT_TIMED})
@@ -7384,6 +8157,7 @@ def main():
     other_paths.update(dense_launches)
     other_paths.update(seq_launches)
     other_paths.update(misc_launches)
+    other_paths.update(det_launches)
 
     def t256_rows(name):
         # the kernel at the Transformer's shapes (B=32 H=8 T=256 D=64)

@@ -2,14 +2,15 @@
 ``cross_entropy`` (loss.py:21), ``softmax_with_cross_entropy`` (:33),
 ``square_error_cost`` (:54), ``sigmoid_cross_entropy_with_logits``
 (:65), ``log_loss`` (:78), ``huber_loss`` (:90), ``smooth_l1`` (:104),
-``kldiv_loss`` (:118) and ``hinge_loss`` (:130). ``warpctc`` and
-``edit_distance`` come with the CTC ops (ROADMAP Queue 1, step 5f)."""
+``kldiv_loss`` (:118), ``hinge_loss`` (:130), and the CTC layers ``warpctc`` (:141)
+and ``edit_distance`` (:159)."""
 
 from paddle_tpu_torch.layer_helper import LayerHelper
 
 __all__ = ["cross_entropy", "softmax_with_cross_entropy", "square_error_cost",
            "sigmoid_cross_entropy_with_logits", "log_loss", "huber_loss",
-           "smooth_l1", "kldiv_loss", "hinge_loss"]
+           "smooth_l1", "kldiv_loss", "hinge_loss", "warpctc",
+           "edit_distance"]
 
 
 def cross_entropy(input, label, soft_label=False, ignore_index=-100):
@@ -131,3 +132,40 @@ def hinge_loss(input, label, name=None):
         outputs={"Loss": [out]},
     )
     return out
+
+
+def warpctc(input, label, blank=0, norm_by_times=False, use_cudnn=False,
+            input_length=None, label_length=None):
+    """CTC loss of [B, T, C] unnormalized logits (the batch-major padded
+    form of the reference's LoD logits); returns the [B, 1] loss."""
+    helper = LayerHelper("warpctc")
+    loss = helper.create_variable_for_type_inference(dtype=input.dtype)
+    inputs = {"Logits": [input], "Label": [label]}
+    if input_length is not None:
+        inputs["LogitsLength"] = [input_length]
+    if label_length is not None:
+        inputs["LabelLength"] = [label_length]
+    helper.append_op(
+        type="warpctc", inputs=inputs, outputs={"Loss": [loss]},
+        attrs={"blank": blank, "norm_by_times": norm_by_times})
+    return loss
+
+
+def edit_distance(input, label, normalized=True, ignored_tokens=None,
+                  input_length=None, label_length=None, name=None):
+    """Levenshtein distance; returns (distance [B, 1], sequence_num
+    [1])."""
+    helper = LayerHelper("edit_distance", name=name)
+    out = helper.create_variable_for_type_inference(dtype="float32")
+    seq_num = helper.create_variable_for_type_inference(dtype="int64")
+    inputs = {"Hyps": [input], "Refs": [label]}
+    if input_length is not None:
+        inputs["HypsLength"] = [input_length]
+    if label_length is not None:
+        inputs["RefsLength"] = [label_length]
+    helper.append_op(
+        type="edit_distance", inputs=inputs,
+        outputs={"Out": [out], "SequenceNum": [seq_num]},
+        attrs={"normalized": normalized,
+               "ignored_tokens": list(ignored_tokens or [])})
+    return out, seq_num

@@ -186,6 +186,7 @@ __all__ = [
     "teacher_student_sigmoid_loss",
     "tree_conv",
     "uniform_random_batch_size_like",
+    "similarity_focus",
 ]
 
 
@@ -2428,6 +2429,17 @@ def psroi_pool(input, rois, output_channels, spatial_scale, pooled_height,
                "spatial_scale": spatial_scale,
                "pooled_height": pooled_height,
                "pooled_width": pooled_width})
+    return out
+
+
+def similarity_focus(input, axis, indexes, name=None):
+    """(nn.py:2420): the {0, 1} mask of each selected channel's greedy
+    row- and column-distinct maxima, across all channels."""
+    helper = LayerHelper("similarity_focus", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="similarity_focus", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"axis": axis, "indexes": list(indexes)})
     return out
 
 

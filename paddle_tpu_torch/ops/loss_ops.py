@@ -6,15 +6,25 @@ dense or a ``SelectedRows``, and ``sigmoid_cross_entropy_with_logits``
 (:116), and the regression and margin losses ``squared_l2_distance``
 (:105), ``log_loss`` (:129), ``huber_loss`` (:138), ``smooth_l1_loss``
 (:149), ``kldiv_loss`` (:162) and ``hinge_loss`` (:178), whose grads the
-engine derives by vjp. The softmax losses compute in float32 whatever
-the logits' dtype, as in the reference."""
+engine derives by vjp, and the CTC ops ``warpctc`` (:185) and
+``edit_distance`` (:266). The softmax losses compute in float32 whatever
+the logits' dtype, as in the reference.
+
+``warpctc`` is the log-domain alpha recursion as a Python loop over the
+time steps, where the reference scans: its grad in Logits is the
+engine's vjp of the loop, as the reference's is autodiff of the scan.
+Every read of the log-probabilities is one ``take``, so the grad adds
+back by a sorted ``index_put_`` and repeats bit for bit on the card
+(``F.ctc_loss``'s CUDA backward does not). ``edit_distance`` runs the
+Levenshtein DP a hypothesis token a step, each row of the table in one
+go as a running minimum (``cummin``), exact in float32."""
 
 import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch.core.registry import register_no_grad_op, register_op
 from paddle_tpu_torch.core.selected_rows import SelectedRows
-from paddle_tpu_torch.ops.common import single
+from paddle_tpu_torch.ops.common import single, take
 
 
 def _squeeze_label(label):
@@ -208,3 +218,130 @@ def hinge_loss(ctx, ins, attrs):
     labels = single(ins, "Labels")
     return {"Loss": [torch.clamp_min(1.0 - (2.0 * labels - 1.0) * logits,
                                      0.0)]}
+
+
+@register_op("warpctc", no_grad_inputs=("Label", "LogitsLength",
+                                        "LabelLength"))
+def warpctc(ctx, ins, attrs):
+    """CTC loss of [B, T, C] unnormalized logits (softmax inside, as
+    warp-ctc) against [B, L] label ids, ``blank`` the blank id; the
+    optional LogitsLength/LabelLength [B] cut each row (a row's alpha
+    stays frozen past its length); ``norm_by_times`` divides by the
+    length. Loss [B, 1]."""
+    logits = single(ins, "Logits")
+    labels = single(ins, "Label")
+    blank = int(attrs.get("blank", 0))
+    b, t_n, c = logits.shape
+    if labels.ndim == 3 and labels.shape[-1] == 1:
+        labels = labels[..., 0]
+    lab_n = labels.shape[1]
+    dev = logits.device
+    in_len = single(ins, "LogitsLength")
+    in_len = (in_len.reshape(-1).long() if in_len is not None
+              else torch.full((b,), t_n, dtype=torch.int64, device=dev))
+    lab_len = single(ins, "LabelLength")
+    lab_len = (lab_len.reshape(-1).long() if lab_len is not None
+               else torch.full((b,), lab_n, dtype=torch.int64, device=dev))
+
+    log_probs = F.log_softmax(logits.float(), dim=-1)
+    s_n = 2 * lab_n + 1
+    ext = torch.full((b, s_n), blank, dtype=torch.int64, device=dev)
+    ext[:, 1::2] = labels.long()
+    # the skip s-2 -> s where ext[s] is a label unlike ext[s-2]
+    can_skip = torch.cat([
+        torch.zeros((b, min(2, s_n)), dtype=torch.bool, device=dev),
+        (ext[:, 2:] != blank) & (ext[:, 2:] != ext[:, :-2])], dim=1)
+    neg = -1e30
+
+    # every step's emission log-probabilities [B, T, S], one take
+    rows = torch.arange(b, device=dev)[:, None, None] * t_n \
+        + torch.arange(t_n, device=dev)[None, :, None]
+    emit = take(log_probs.reshape(-1), rows * c + ext[:, None, :]) \
+        .reshape(b, t_n, s_n)
+
+    def lse(*xs):
+        stacked = torch.stack(xs)
+        m_safe = torch.clamp(stacked.amax(dim=0), min=neg)
+        return m_safe + torch.log(torch.exp(stacked - m_safe).sum(dim=0))
+
+    head = min(2, s_n)
+    alpha = torch.cat([emit[:, 0, :head], torch.full(
+        (b, s_n - head), neg, device=dev)], dim=1)
+    pad1 = torch.full((b, 1), neg, device=dev)
+    pad2 = torch.full((b, 2), neg, device=dev)
+    for t in range(1, t_n):
+        s1 = torch.cat([pad1, alpha[:, :-1]], dim=1)
+        s2 = torch.cat([pad2, alpha[:, :-2]], dim=1)[:, :s_n]
+        s2 = torch.where(can_skip, s2, neg)
+        new = lse(alpha, s1, s2) + emit[:, t]
+        alpha = torch.where((t < in_len)[:, None], new, alpha)
+
+    # P(label) = alpha[2 * len] + alpha[2 * len - 1]
+    last = 2 * lab_len
+    flat = alpha.reshape(-1)
+    base = torch.arange(b, device=dev) * s_n
+    a_last = take(flat, base + last)
+    a_prev = take(flat, base + torch.clamp(last - 1, min=0))
+    a_prev = torch.where(lab_len > 0, a_prev, neg)
+    loss = -lse(a_last, a_prev)
+    if attrs.get("norm_by_times", False):
+        loss = loss / torch.clamp(in_len.to(loss.dtype), min=1.0)
+    return {"Loss": [loss.reshape(b, 1).to(logits.dtype)]}
+
+
+@register_no_grad_op("edit_distance")
+def edit_distance(ctx, ins, attrs):
+    """Levenshtein distance between hypothesis and reference id rows
+    ([B, L] or [B, L, 1]) over their HypsLength/RefsLength (full rows
+    without them), ``ignored_tokens`` erased first; divided by the
+    reference's length when ``normalized``. Out [B, 1], SequenceNum
+    [1]."""
+    hyp = single(ins, "Hyps")
+    ref = single(ins, "Refs")
+    if hyp.ndim == 3 and hyp.shape[-1] == 1:
+        hyp = hyp[..., 0]
+    if ref.ndim == 3 and ref.shape[-1] == 1:
+        ref = ref[..., 0]
+    b, l1 = hyp.shape
+    l2 = ref.shape[1]
+    dev = hyp.device
+    h_len = single(ins, "HypsLength")
+    h_len = (h_len.reshape(-1).long() if h_len is not None
+             else torch.full((b,), l1, dtype=torch.int64, device=dev))
+    r_len = single(ins, "RefsLength")
+    r_len = (r_len.reshape(-1).long() if r_len is not None
+             else torch.full((b,), l2, dtype=torch.int64, device=dev))
+    ignored = list(attrs.get("ignored_tokens") or [])
+    if ignored:
+        def compact(seq, lens):
+            n = seq.shape[1]
+            pos = torch.arange(n, device=dev)[None, :]
+            ign = pos >= lens[:, None]
+            for tok in ignored:
+                ign = ign | (seq == tok)
+            order = torch.argsort(ign.long() * (2 * n) + pos, dim=1,
+                                  stable=True)
+            return torch.gather(seq, 1, order), (~ign).sum(dim=1)
+
+        hyp, h_len = compact(hyp, h_len)
+        ref, r_len = compact(ref, r_len)
+
+    cols = torch.arange(l2 + 1, dtype=torch.float32, device=dev)
+    row = cols[None, :].expand(b, l2 + 1)             # D[0, j] = j
+    for i in range(l1):
+        match = ref == hyp[:, i:i + 1]
+        diag = row[:, :-1] + torch.where(match, 0.0, 1.0)
+        up = row[:, 1:] + 1.0
+        # new[j] = min over k <= j of (c[k] + j - k), c[0] = i + 1 and
+        # c[j + 1] = min(up[j], diag[j]): the DP's left-to-right minimum
+        c_row = torch.cat([torch.full((b, 1), float(i + 1), device=dev),
+                           torch.minimum(up, diag)], dim=1)
+        new = torch.cummin(c_row - cols, dim=1).values + cols
+        row = torch.where((i < h_len)[:, None], new, row)
+    dist = row.gather(1, r_len[:, None])[:, 0]
+    dist = torch.where(r_len == 0, h_len.to(dist.dtype), dist)
+    if attrs.get("normalized", True):
+        dist = dist / torch.clamp(r_len.to(dist.dtype), min=1.0)
+    return {"Out": [dist.reshape(b, 1)],
+            "SequenceNum": [torch.full((1,), b, dtype=torch.int64,
+                                       device=dev)]}

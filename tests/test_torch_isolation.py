@@ -231,6 +231,51 @@ exe.run(hp_startup)
 (l6,) = exe.run(hp, feed={"x": np.ones((4, 3), np.float32)},
                 fetch_list=[hph["loss"]])
 assert np.isfinite(l6).all()
+# the detection and CTC families: a tiny SSD step (the match scan, the
+# matching ops, ssd_loss), its detections (multiclass_nms), a CTC step,
+# the samplers and detection_map
+from paddle_tpu_torch.layers import detection
+from paddle_tpu_torch.models import mobilenet
+from paddle_tpu_torch.ops import detection_ops, loss_ops
+ssd_cfg = dict(classes=3, image=64, scale=0.125, gt_boxes=2,
+               min_sizes=[12.0, 21.0, 30.0, 39.0, 48.0, 57.0],
+               max_sizes=[[], 30.0, 39.0, 48.0, 57.0, 64.0], lr=0.01,
+               momentum=0.9, l2=5e-4)
+nms = dict(nms_threshold=0.45, nms_top_k=10, keep_top_k=5,
+           score_threshold=0.01)
+for is_train in (True, False):
+    sd, sd_startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(sd, sd_startup):
+        sdh = chip_smoke.ssd_mobilenet(fluid, mobilenet, 2,
+                                       is_train=is_train, nms=nms,
+                                       **ssd_cfg)
+    exe.run(sd_startup)
+    sd_feed = chip_smoke.ssd_feed(2, seed=1, **ssd_cfg)
+    if not is_train:
+        sd_feed = {"image": sd_feed["image"]}
+    (o7,) = exe.run(sd, feed=sd_feed,
+                    fetch_list=[sdh["loss" if is_train else "dets"]])
+    assert np.isfinite(o7).all() if is_train else o7.shape == (2, 5, 6)
+ct, ct_startup = fluid.Program(), fluid.Program()
+with fluid.program_guard(ct, ct_startup):
+    cx = fluid.layers.data(name="cx", shape=[6, 4], dtype="float32")
+    cl = fluid.layers.data(name="cl", shape=[2], dtype="int64")
+    ctc = fluid.layers.mean(fluid.layers.warpctc(
+        fluid.layers.fc(input=cx, size=5, num_flatten_dims=2), cl))
+    dist, _ = fluid.layers.edit_distance(cl, cl)
+    fluid.optimizer.SGD(learning_rate=0.1).minimize(ctc)
+    m_ap = fluid.layers.detection_map(
+        fluid.layers.data(name="dets", shape=[3, 6], dtype="float32"),
+        fluid.layers.data(name="gts", shape=[2, 5], dtype="float32"),
+        class_num=3)
+exe.run(ct_startup)
+l8, d8, m8 = exe.run(ct, feed={
+    "cx": np.ones((2, 6, 4), np.float32),
+    "cl": np.array([[1, 2], [3, 3]]),
+    "dets": np.array([[[1, 0.9, 0.1, 0.1, 0.5, 0.5]] * 3] * 2, np.float32),
+    "gts": np.array([[[1, 0.1, 0.1, 0.5, 0.5]] * 2] * 2, np.float32)},
+    fetch_list=[ctc, dist, m_ap])
+assert np.isfinite(l8).all() and not d8.any() and 0 < float(m8[0]) <= 1
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "paddle_tpu" or m.startswith("paddle_tpu."))

@@ -16,12 +16,12 @@ from paddle_tpu import unique_name as j_unique_name
 from paddle_tpu.framework import Program as JProgram
 from paddle_tpu.framework import program_guard as j_program_guard
 from paddle_tpu.layers import nn as j_nn
-from paddle_tpu.ops import misc_ops as j_misc
 
 import paddle_tpu_torch.fluid as tfluid
 from paddle_tpu_torch import unique_name as t_unique_name
 from paddle_tpu_torch.layers import nn as t_nn
-from paddle_tpu_torch.ops import misc_ops as t_misc
+
+from torch_py_func_ids import _align_py_func_registries
 
 FRONT_ENDS = ((jfluid, JProgram, j_program_guard, j_unique_name),
               (tfluid, tfluid.Program, tfluid.program_guard, t_unique_name))
@@ -218,16 +218,6 @@ def saved(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("load") / "w.npy")
     np.save(path, np.arange(12, dtype=np.float32).reshape(4, 3))
     return path
-
-
-def _align_py_func_registries():
-    """Both packages' ``py_func`` registries as long, so the next
-    callables get the same ids whatever other tests of the process
-    registered."""
-    while len(t_misc._PY_FUNC_REGISTRY) < len(j_misc._PY_FUNC_REGISTRY):
-        t_misc.register_py_func(lambda a: a)
-    while len(j_misc._PY_FUNC_REGISTRY) < len(t_misc._PY_FUNC_REGISTRY):
-        j_misc.register_py_func(lambda a: a)
 
 
 @pytest.mark.parametrize("name", LAYERS)

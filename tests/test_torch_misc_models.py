@@ -35,10 +35,14 @@ import paddle_tpu.fluid as jfluid
 from paddle_tpu import unique_name as j_unique_name
 from paddle_tpu.framework import Program as JProgram
 from paddle_tpu.framework import program_guard as j_program_guard
+from paddle_tpu.ops import misc_ops as j_misc
 
 import paddle_tpu_torch.fluid as tfluid
 from paddle_tpu_torch import convert
 from paddle_tpu_torch import unique_name as t_unique_name
+from paddle_tpu_torch.ops import misc_ops as t_misc
+
+from torch_py_func_ids import _align_py_func_registries
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", os.path.join(os.path.dirname(__file__), os.pardir,
@@ -58,7 +62,10 @@ C3D = dict(stages=[((4,), [1, 2, 2], 0), ((6,), 2, [0, 1, 1])], fc=16,
 
 def _build(build):
     """[(fluid, main, startup, handles)] of ``build(fluid)``, the
-    reference's first; the two packages' descs byte-identical."""
+    reference's first; the two packages' descs byte-identical (the
+    ``py_func`` registries aligned first, so the ids a build registers
+    agree whatever earlier tests of the process registered)."""
+    _align_py_func_registries()
     out = []
     for fluid_mod, prog_cls, guard, unique in FRONT_ENDS:
         main, startup = prog_cls(), prog_cls()
@@ -178,6 +185,17 @@ def test_host_ops_program_runs_end_to_end_in_both(capsys):
     np.testing.assert_allclose(losses[1], losses[0], rtol=REL)
     _params_close(built, runners)
     assert "host_ops" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("side", ["jax", "torch"])
+def test_host_ops_descs_match_after_one_package_registers_more(side):
+    """Callables registered in one package alone (as another test file on
+    the same worker does) leave the two packages' ``host_ops`` descs
+    byte-identical."""
+    register = (j_misc if side == "jax" else t_misc).register_py_func
+    for _ in range(5):
+        register(lambda a: a)
+    _build(lambda fluid: chip_smoke.host_ops(fluid, 4, 3))
 
 
 RANDOM_OPS = dict(image=[3, 12, 10], crop=[8, 6], classes=7, width=4)

@@ -260,12 +260,14 @@ def test_every_ported_lowering_has_a_case():
     among the book programs' and the unfused attention's in
     test_torch_ops_book.py, among the dense op families' in
     test_torch_ops_dense.py, among the sequence and beam-search ops' in
-    test_torch_ops_sequence.py, or among the misc family's in
-    test_torch_ops_misc.py."""
+    test_torch_ops_sequence.py, among the misc family's in
+    test_torch_ops_misc.py, or among the detection and CTC families' in
+    test_torch_ops_detection.py."""
     from test_torch_control_flow import SLICE_OPS as CF_OPS
     from test_torch_ctr_models import SLICE_OPS as CTR_OPS
     from test_torch_ops_book import SLICE_OPS as BOOK_OPS
     from test_torch_ops_dense import SLICE_OPS as DENSE_OPS
+    from test_torch_ops_detection import SLICE_OPS as DETECTION_OPS
     from test_torch_ops_misc import SLICE_OPS as MISC_OPS
     from test_torch_ops_sequence import SLICE_OPS as SEQUENCE_OPS
     from test_torch_ops_conv import SLICE_OPS
@@ -276,7 +278,8 @@ def test_every_ported_lowering_has_a_case():
     registered = set(TOpRegistry.all_types())
     assert {c[1] for c in CASES} | (SLICE_OPS & registered) | TRAIN_OPS \
         | CTR_OPS | NMT_OPS | CF_OPS | RNN_OPS | BOOK_OPS | DENSE_OPS \
-        | SEQUENCE_OPS | MISC_OPS == registered - {"uniform_random"}
+        | SEQUENCE_OPS | MISC_OPS | DETECTION_OPS \
+        == registered - {"uniform_random"}
 
 
 def test_uniform_random_draws_in_range_per_stream():
