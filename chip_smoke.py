@@ -8,6 +8,7 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 It drives the port's main paths, serving and training BERT-base and
 ResNet-50 (with the training loop's accumulation, remat, dispatch
 window, prefetching feeder, schedulers, clipping and optimizers),
+ResNet-50 trained from a RecordIO file through a ``py_reader``,
 training DeepFM with sparse embedding grads, word2vec and the
 Transformer-base NMT model, the stacked-LSTM classifier with the
 control-flow ops, VGG, MobileNet and SE-ResNeXt, BERT-base and the
@@ -165,12 +166,24 @@ card and prints one JSON line per phase:
    ms, images/s, the card's active ms and idle share, and the feed's
    host-to-device copy time a step and the share of it during which a
    kernel ran (profiler intervals).
-20. mfu — the ``mfu.*`` gauges (goodput ledger on, ``peak_flops`` the
+20. reader_pipeline — ResNet-50 (batch 32, 224 x 224, Momentum, captured)
+   trained from a RecordIO file of 8 batches (uint8 images, int64
+   labels, seeded numpy) as a user feeds it: ``layers.open_files``
+   through the native RecordIO reader, ``reader.map_readers`` normalising
+   in numpy, ``layers.shuffle`` and ``layers.batch``; three loops from the
+   same state over the same batches: a ``py_reader`` popped by
+   ``Executor.run`` until ``EOFException``,
+   ``DataFeeder.decorate_reader(prefetch=True)`` with ``dispatch_steps=2``,
+   and the batches pre-staged as numpy feeds: losses bitwise equal; step
+   ms, images/s, idle share, host decode ms a batch, the queue's pop wait
+   a step, records/s read from the file, and the native library's path
+   and whether this process built it (g++, from the checkout's sources).
+21. mfu — the ``mfu.*`` gauges (goodput ledger on, ``peak_flops`` the
    card's: 67 TFLOP/s float32 on the FFMA path, TF32 being off, 989
    bf16) of the captured BERT-base (seq 128, batch 8) and ResNet-50
    (batch 32) steps, float32 and AMP; ResNet-50's counted FLOPs within
    MFU_TOL of the analytic 0.79 TFLOP a step.
-21. ctr    — DeepFM as the JAX package's CTR bench builds it (39 fields
+22. ctr    — DeepFM as the JAX package's CTR bench builds it (39 fields
    over 1M ids, 16-dim ``is_sparse`` tables, batch 2048, Adam 1e-3):
    ``lookup_table_grad`` and lazy Adam at that geometry under
    ``torch.cuda.set_sync_debug_mode("error")`` (no op waits for the
@@ -183,7 +196,7 @@ card and prints one JSON line per phase:
    (``is_sparse`` off) ms, examples/s and top kernels. Then word2vec at
    its defaults: 3 captured steps against the CPU (losses TRAIN_TOL,
    parameters OPT_TOL * max).
-22. nmt    — Transformer-base as the JAX package's NMT bench builds it
+23. nmt    — Transformer-base as the JAX package's NMT bench builds it
    (6+6 layers, d_model 512, 8 heads, d_inner 2048, vocab 32768, seq
    256, batch 32, ragged lengths, dropout 0.1, label smoothing 0.1,
    Adam), float32 and under ``enable_bf16``: 3 captured steps, 18 launches
@@ -201,7 +214,7 @@ card and prints one JSON line per phase:
    both card runs' relu decisions unlike the CPU's printed. The kernels
    at B=32 H=8 T=256 D=64 with the batch's lengths, causal and not,
    float32 and bfloat16: ms, bound, plain and SDPA.
-23. lstm   — the stacked-LSTM classifier (``models.lstm``: two
+24. lstm   — the stacked-LSTM classifier (``models.lstm``: two
    ``StaticRNN`` LSTM layers, each one ``recurrent`` op looping over the
    time steps) at the width of the reference benchmark the JAX builder
    names (benchmark/fluid/models/stacked_dynamic_lstm.py: embedding and
@@ -225,7 +238,7 @@ card and prints one JSON line per phase:
    ``Switch`` are captured and agree with the CPU; dropout inside a
    ``StaticRNN`` cell, captured against eager, bitwise equal, its masks
    differing between time steps.
-24. image_models — VGG-16 (``models.vgg``, 3x32x32, 10 classes, Adam),
+25. image_models — VGG-16 (``models.vgg``, 3x32x32, 10 classes, Adam),
    MobileNet-V1 (224x224, 1000 classes, scale 1.0, Momentum) and
    SE-ResNeXt-50 (224x224, 1000 classes, cardinality 32, Momentum), each
    at batch 32, float32: 3 steps eagerly and captured from the same
@@ -236,7 +249,7 @@ card and prints one JSON line per phase:
    to rounding noise, 1e-4 of the op's incoming grad) and the loss end to
    end (TRAIN_TOL);
    step ms, images/s, idle share and top kernels.
-25. fuse_attention — BERT-base built unfused (``use_fused_attention=
+26. fuse_attention — BERT-base built unfused (``use_fused_attention=
    False``: matmul, the ``attention_bias_from_lens`` mask, softmax,
    dropout, matmul) from the ``train`` phase's initial state, trained at
    the default ``opt_level`` 1: the engine's fuse-attention pass rewrites
@@ -248,23 +261,23 @@ card and prints one JSON line per phase:
    its max) and at level 0 (the composition: no flash launch, losses
    within 1e-4 of level 1's): each one's captured step time and eager
    first-run peak.
-26. verify — one unfused step with ``verify=True``: no ERROR finding;
+27. verify — one unfused step with ``verify=True``: no ERROR finding;
    the findings of the desc that ran, by severity.
-27. fuse_attention_serve — the unfused BERT-base saved for serving and
+28. fuse_attention_serve — the unfused BERT-base saved for serving and
    answered by the predictor at the default level (12 forward launches a
    request) and with ``switch_ir_optim(False)`` (none), batch 1 and 8:
    the answers across levels, batches and the CPU within SERVE_TOL;
    replayed latencies.
-28. nmt_unfused — Transformer-base at its ``nmt`` width built unfused,
+29. nmt_unfused — Transformer-base at its ``nmt`` width built unfused,
    dropout 0: 12 rewrites (6 encoder self, 6 cross; the causal ones are
    fused as built), 18 launches of each kernel a step, 2 captured steps
    against the fused program's (FUSE_TOL's 1e-5), step ms.
-29. book — the four book programs (``models.book``: fit_a_line,
+30. book — the four book programs (``models.book``: fit_a_line,
    recognize_digits, word2vec, machine_translation) with Adam, 5 steps on
    the card (captured) against the CPU's on the same seeded batches
    (TRAIN_TOL), then saved, loaded and served against the training
    program's ``for_test`` clone.
-30. dense_ops — every lowering of the dense op families (the tensor
+31. dense_ops — every lowering of the dense op families (the tensor
    ops, the image ops of nn_ops, the regression losses, auc,
    precision_recall, chunk_eval, elementwise mod and floordiv) on the card
    against the same lowering on the CPU from the same seeded operands, at
@@ -278,26 +291,26 @@ card and prints one JSON line per phase:
    ``top_k`` at BERT's vocab logits, and with ties (rows of zeros,
    repeated maxima, float32 and bfloat16), its indices the CPU's
    exactly; its ms as ``torch.topk`` and as the port's stable sort.
-31. upsample_head — an FCN decoder (UPSAMPLE) built from
+32. upsample_head — an FCN decoder (UPSAMPLE) built from
    ``fluid.layers`` on ResNet-50's last stage at 224x224, batch 8:
    ``conv2d_transpose``, ``group_norm``, ``prelu``, a 1x1 conv to 21
    classes, ``resize_bilinear`` to 224x224, per-pixel softmax cross
    entropy, Momentum: 5 steps eagerly and captured, bitwise equal; one
    graph; no flash launch; one step against the CPU (UPSAMPLE_TOL); step
    ms, idle share and top kernels.
-32. ctr_auc — the ctr phase's DeepFM with ``layers.auc`` on its
+33. ctr_auc — the ctr phase's DeepFM with ``layers.auc`` on its
    predictions: 20 steps captured and eagerly, the int64 histograms
    bitwise equal step by step and equal to ``metrics.Auc`` fed the
    fetched predictions on the host, the AUC within CTR_AUC_TOL of the
    ``auc`` lowering on the CPU; one graph, captured once; the step's ms
    against the program without the auc op.
-33. sequence_ops — every lowering of the sequence and beam-search slice
+34. sequence_ops — every lowering of the sequence and beam-search slice
    (the 11 remaining sequence ops, beam_search, beam_search_decode, the
    CRF, gru_unit, lstm_unit, row_conv, sequence_reshape,
    sequence_scatter, tensor_array_to_tensor) on the card against the
    CPU at its users' shapes (``sequence_cases``), as ``dense_ops`` holds
    its ops; sequence_scatter twice, bitwise equal.
-34. nmt_beam — the PaddlePaddle book's chapter-8 encoder-decoder
+35. nmt_beam — the PaddlePaddle book's chapter-8 encoder-decoder
    (NMT_BEAM: dictionaries of 30,000, 512 wide, a bidirectional
    dynamic_gru encoder, a gru_unit decoder cell, no attention) decoded by
    ``contrib.BeamSearchDecoder`` through ``Executor.run`` on the
@@ -309,20 +322,20 @@ card and prints one JSON line per phase:
    to the decode's; at batch 2 the steps equal to a CPU decode
    (printed); the decode's ms, ms and launches a step, target tokens/s,
    host ms a step and idle share.
-35. sentiment_conv — chapter 6's convolution_net (SENTIMENT: two
+36. sentiment_conv — chapter 6's convolution_net (SENTIMENT: two
    ``nets.sequence_conv_pool`` branches over 128-wide embeddings, hid
    512, Adagrad) at batch 128 over reviews of 32-400 words: 5 steps
    eagerly and captured, bitwise equal, one graph; a batch-2 step
    against the CPU (TRAIN_TOL); step ms, examples/s, idle share, an
    eager step's peak.
-36. srl_crf — chapter 7's db_lstm (SRL: 8 stacked LSTMs of alternating
+37. srl_crf — chapter 7's db_lstm (SRL: 8 stacked LSTMs of alternating
    direction, 59 labels) under ``linear_chain_crf`` at batch 10 over
    sentences of 8-64 words, SGD: 3 steps eagerly and captured, bitwise
    equal; a batch-2 step op by op against the CPU (RNN_OP_TOL); on the
    ``for_test`` clone crf_decoding's paths and chunk_eval's counts equal
    to the CPU's on the card's emissions; step ms, tokens/s, launches a
    step, idle share.
-37. misc_ops — every lowering of the misc family (the 40 remaining
+38. misc_ops — every lowering of the misc family (the 40 remaining
    misc_ops) on the card against the CPU at its users' shapes
    (``misc_cases``: the skip-gram heads at 692K words, C3D's
    convolutions and pools, a 3-D U-Net up-convolution beside cuDNN's
@@ -333,13 +346,13 @@ card and prints one JSON line per phase:
    program of the four captured once, each replay equal to the eager
    run and drawing anew; a ``py_func``/``Print`` program trained on the
    card (its block eager) against the CPU.
-38. skipgram_nce — skip-gram at word2vec's published widths (SKIPGRAM:
+39. skipgram_nce — skip-gram at word2vec's published widths (SKIPGRAM:
    692K words, 300 dims, 5 negatives, batch 4096, SGD) with the NCE and
    the hsigmoid head: 5 steps eagerly and captured, bitwise equal, one
    graph; step ms, pairs/s, idle share, eager peak; 3 steps at batch
    256 against the CPU (losses TRAIN_TOL, parameters OPT_TOL), the NCE
    negatives equal.
-39. c3d — C3D (C3D: 8 conv3d, 5 pool3d, fc6/fc7 4096, 487 classes, 3 x
+40. c3d — C3D (C3D: 8 conv3d, 5 pool3d, fc6/fc7 4096, 487 classes, 3 x
    16 x 112 x 112 clips) at batch 8, Momentum: 3 steps eagerly and
    captured, bitwise equal, one graph; the forward's counted FLOPs
    against the paper's; step ms, clips/s, idle share, eager peak, MFU
@@ -347,7 +360,7 @@ card and prints one JSON line per phase:
    a batch-2 step op by op against the CPU (IMAGE_OP_TOL); the
    ``for_test`` clone served at batch 1 and 8 against the CPU
    (SERVE_TOL), its latency.
-40. ssd    — SSD-MobileNet-v1 (SSD: MobileNet-v1 at scale 1.0, four
+41. ssd    — SSD-MobileNet-v1 (SSD: MobileNet-v1 at scale 1.0, four
    extra conv pairs, ``multi_box_head`` over six maps, 1917 priors, 21
    classes, 300 x 300 images) at batch 32, Momentum with L2 decay,
    ``ssd_loss`` per image summed: 3 steps eagerly and captured, bitwise
@@ -362,7 +375,7 @@ card and prints one JSON line per phase:
    card's head; ms a request; ``detection_map`` of the served
    detections on the card (its ``py_func`` block eager) equal to the
    CPU's.
-41. detection_ops — every lowering of the detection and CTC families on
+42. detection_ops — every lowering of the detection and CTC families on
    the card against the CPU at its users' shapes (``detection_cases``:
    SSD's priors, matching and NMS; Faster R-CNN's RPN on a ResNet-50-C4
    map of an 800 x 1333 image, its samplers, RoI align and pool; Mask
@@ -371,7 +384,7 @@ card and prints one JSON line per phase:
    launches a call; the NMS, RoI, CTC and YOLO ops twice, bitwise equal;
    ``F.ctc_loss`` beside ``warpctc``; the greedy NMS scan alone at its
    two users' shapes, its ms, launches and share of the op.
-42. kernels — one JSON object listing every ported kernel, with its
+43. kernels — one JSON object listing every ported kernel, with its
    design: all three run their products on the tensor cores (mma.sync
    bf16, 3xTF32 for float32) from a cp.async tile ring, and read their
    dropout seed from device memory; each kernel's launches on every path,
@@ -563,6 +576,10 @@ RECIPE_STEPS = 3      # eager warm-up, capture, one replay
 WINDOW_STEPS = 4
 RECIPE_TOL = {"lr_rtol": 1e-5}
 PIPELINE_STEPS = 6    # resnet50_pipelined: steps of each loop
+TIMED_RUNS = 5        # timed_runs/profiled_step: timed calls after warm-up
+OP_CASES_RELEASE_BYTES = 20 << 30  # phase_op_cases collects above this
+READER_BATCHES = 8    # reader_pipeline: batches in the RecordIO file
+READER_SEED = 16      # reader_pipeline: the images', labels' and shuffle's
 # optimizers: the update ops this slice ports, each held on the card
 # against the CPU within OPT_TOL * max|want| of every output
 OPTIMIZER_OPS = ("lars_momentum", "adamax", "adagrad", "decayed_adagrad",
@@ -2083,7 +2100,7 @@ def host_ms_by_kind(step, n=3):
             for k in sorted(totals)}
 
 
-def timed_runs(run, n=10, warmup=2):
+def timed_runs(run, n=TIMED_RUNS, warmup=2):
     """Median, min and max wall ms of ``run()`` (host clock, after
     ``warmup`` runs; each run ends in its fetch's copy to the host)."""
     import torch
@@ -2495,7 +2512,8 @@ def phase_fuse_attention_serve(fa, smi):
             torch.cuda.synchronize()
             launches["fuse_attention_serve" + (
                 "" if ir_optim else "_level0")] = flash_launches(fa)  # ends
-            latency = {b: timed_runs(lambda f=feed: pred.run(f), n=20)
+            latency = {b: timed_runs(lambda f=feed: pred.run(f),
+                                     n=2 * TIMED_RUNS)
                        for b, feed in ((1, feed1), (8, feed8))}
             rows[label] = {"launches_per_request": per_request,
                            "latency_ms": latency,
@@ -3572,6 +3590,194 @@ def phase_resnet50_pipelined(fa, main, startup, loss, smi):
     return launches
 
 
+def reader_pipeline_program(capacity):
+    """ResNet-50 as ``resnet_program(is_train=True)`` builds it, fed by a
+    ``layers.py_reader`` (an image and a label slot) in place of the two
+    ``layers.data`` vars; the same parameters and startup. Returns (main,
+    startup, the PyReader, loss)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import resnet
+
+    main, startup = fluid.Program(), fluid.Program()
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        rd = fluid.layers.py_reader(
+            capacity=capacity, shapes=[[-1, 3, 224, 224], [-1, 1]],
+            dtypes=["float32", "int64"], name="train_reader")
+        rd = fluid.layers.double_buffer(rd)
+        img, label = rd.vars
+        feat = resnet.resnet_imagenet(img, depth=RESNET["depth"],
+                                      is_train=True)
+        logits = fluid.layers.fc(input=feat, size=RESNET["class_num"])
+        loss = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(
+            logits=logits, label=label))
+        fluid.optimizer.Momentum(learning_rate=RESNET["lr"],
+                                 momentum=0.9).minimize(loss)
+    main.random_seed = startup.random_seed = 2024
+    return main, startup, rd, loss
+
+
+def phase_reader_pipeline(fa, smi):
+    """ResNet-50 (batch 32, 224 x 224, Momentum, captured) trained from a
+    RecordIO file as a user feeds it: ``recordio_writer`` writes 8
+    batches of uint8 images and int64 labels from seeded numpy;
+    ``layers.open_files`` reads them through the native RecordIO reader,
+    ``reader.map_readers`` normalises each image to float32 in numpy,
+    ``layers.shuffle`` (a fixed seed) and ``layers.batch`` group them,
+    and three loops train from the same initial state over the same
+    batches: a ``py_reader`` that ``Executor.run`` pops with no feed
+    until ``EOFException``; ``DataFeeder.decorate_reader(prefetch=True)``
+    with ``dispatch_steps=2``; and the pre-staged control, the same
+    batches as numpy feeds already in memory. Losses bitwise equal; step
+    ms, images/s, the card's idle share; the host's decode ms a batch,
+    the queue's pop wait a step and the records/s read from the file; the
+    native library built and loaded. Returns the flash launches (none)."""
+    import random
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import native, reader, recordio_writer
+
+    n = READER_BATCHES
+    rng = np.random.RandomState(READER_SEED)
+    images = rng.randint(0, 256, (n * RESNET_BATCH, 3, 224, 224)).astype(
+        np.uint8)
+    labels = rng.randint(0, RESNET["class_num"], n * RESNET_BATCH).astype(
+        np.int64)
+
+    def normalise(sample):
+        img, label = sample
+        return img.astype(np.float32) / 127.5 - 1.0, label
+
+    def stack(rows):
+        return [np.stack([r[0] for r in rows]), np.stack([r[1] for r in rows])]
+
+    # the native library's first use in this process: g++ builds it from
+    # the checkout's sources unless a build of these sources is on disk
+    built_here = not os.path.exists(native.library_path())
+    t0 = time.perf_counter()
+    native.lib()
+    native_s = time.perf_counter() - t0
+    main, startup, rd, loss = reader_pipeline_program(capacity=4)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_reader_") as d:
+        path = os.path.join(d, "train.recordio")
+        t0 = time.perf_counter()
+        written = recordio_writer.convert_reader_to_recordio_file(
+            path, lambda: zip(images, labels), max_num_records=64)
+        write_s = time.perf_counter() - t0
+        file_bytes = os.path.getsize(path)
+        records = fluid.layers.open_files(
+            path, shapes=[[3, 224, 224], [1]], dtypes=["uint8", "int64"])
+        rows = fluid.layers.batch(fluid.layers.shuffle(
+            reader.map_readers(normalise, records), 2 * RESNET_BATCH),
+            RESNET_BATCH)
+        batches = reader.map_readers(stack, rows)
+
+        def epoch_order():
+            random.seed(READER_SEED)  # the shuffle draws from Python's
+
+        # the host side alone: the file read, and the whole decode chain
+        t0 = time.perf_counter()
+        read = sum(1 for _ in records())
+        read_s = time.perf_counter() - t0
+        epoch_order()
+        t0 = time.perf_counter()
+        staged = list(batches())
+        decode_ms = (time.perf_counter() - t0) * 1e3 / len(staged)
+        check(written == read == n * RESNET_BATCH and len(staged) == n,
+              "records written %d, read %d, batches %d"
+              % (written, read, len(staged)))
+        names = rd.var_names
+        rd.decorate_paddle_reader(batches)
+        pops = []
+        pop = rd.next_feed
+
+        def timed_pop():
+            t = time.perf_counter()
+            try:
+                return pop()
+            finally:
+                pops.append((time.perf_counter() - t) * 1e3)
+
+        rd.next_feed = timed_pop
+        feeder = fluid.DataFeeder(feed_list=rd.vars, place=fluid.CUDAPlace(0),
+                                  program=main)
+
+        def py_reader_loop(exe, scope):
+            epoch_order()
+            rd.start()
+            vals = []
+            with fluid.scope_guard(scope):
+                while True:
+                    try:
+                        vals.append(exe.run(main, fetch_list=[loss])[0])
+                    except fluid.EOFException:
+                        break
+            return [float(v.reshape(-1)[0]) for v in vals]
+
+        def prefetch_loop(exe, scope):
+            epoch_order()
+            with fluid.scope_guard(scope):
+                vals = [exe.run(main, feed=f, fetch_list=[loss],
+                                dispatch_steps=2)[0]
+                        for f in feeder.decorate_reader(
+                            rows, prefetch=True, prefetch_depth=2)()]
+                exe.sync()
+            return [float(np.asarray(v).reshape(-1)[0]) for v in vals]
+
+        feeds = [dict(zip(names, b)) for b in staged]
+
+        def staged_loop(exe, scope):
+            with fluid.scope_guard(scope):
+                return [float(exe.run(main, feed=f, fetch_list=[loss])[0]
+                              .reshape(-1)[0]) for f in feeds]
+
+        fa.launches = fa.launches_dq = fa.launches_dkv = 0
+        loops = (("py_reader", py_reader_loop),
+                 ("prefetch_window2", prefetch_loop),
+                 ("pre_staged", staged_loop))
+        runs, losses = {}, {}
+        for name, loop in loops:
+            release_memory()
+            exe, scope = fresh(startup)
+            losses[name] = loop(exe, scope)
+            del pops[:]
+            walls = timed_runs(lambda: loop(exe, scope), n=1, warmup=0)
+            pop_ms = sum(pops) / max(len(pops), 1)
+            copy_ms, overlap, active_ms, span_ms = profiled_loop(
+                lambda: loop(exe, scope))
+            step_ms = walls["median_ms"] / n
+            runs[name] = {"step_ms": step_ms,
+                          "images_per_s": RESNET_BATCH / (step_ms / 1e3),
+                          "device_active_ms": active_ms / n,
+                          "device_idle_share": 1.0 - active_ms / span_ms,
+                          "h2d_copy_ms_per_step": copy_ms / n,
+                          "h2d_overlapping_kernels_share": overlap,
+                          "graphs": [(c.captures, c.replays)
+                                     for c in captured(exe.engine)]}
+            if name == "py_reader":
+                runs[name]["pop_wait_ms_per_step"] = pop_ms
+            del exe, scope
+        rd.reset()
+    launches = flash_launches(fa)
+    emit({"phase": "reader_pipeline", "card": smi, "batch": RESNET_BATCH,
+          "batches": n, "records": written, "file_bytes": file_bytes,
+          "write_s": write_s, "records_per_s_read": read / read_s,
+          "decode_ms_per_batch": decode_ms,
+          "native_library": native.loaded_path(),
+          "native_built_here": built_here, "native_first_use_s": native_s,
+          "queue_capacity": 4,
+          "prefetch_depth": 2, "losses": losses, "runs": runs,
+          "launches": launches})
+    check(losses["py_reader"] == losses["pre_staged"]
+          == losses["prefetch_window2"],
+          "the reader loops' losses differ: %s" % losses)
+    check(len(losses["py_reader"]) == n
+          and all(np.isfinite(losses["py_reader"])), "ResNet-50 losses")
+    check(not any(launches.values()), "flash launches in ResNet-50")
+    release_memory()
+    return launches
+
+
 def optimizer_operands(op_type, shape, seed):
     """The operands of one optimizer update at ``shape`` (float32 CPU
     tensors from ``seed``), as the op's slots take them: weights of a few
@@ -4459,7 +4665,8 @@ def lockstep_steps(fa, main, startup, loss, feed, steps):
             eager_runs, launches, walls)
 
 
-def profiled_step(exe, scope, main, loss, feed, n=10, profiled_steps=3):
+def profiled_step(exe, scope, main, loss, feed, n=TIMED_RUNS,
+                  profiled_steps=3):
     """``timed_runs`` of a step and its device profile over
     ``profiled_steps`` more: busy ms (the union of the kernels'
     intervals: a captured graph may run independent kernels at once, so
@@ -5285,7 +5492,7 @@ def dense_errors(cpu, primals, out, grads):
 
 
 def phase_op_cases(fa, smi, phase, cases, twice, witness=None, rows=None,
-                   window_n=2):
+                   window_n=1):
     """Each case of ``cases`` ((name, op type, a function of a
     RandomState giving the inputs: numpy arrays, torch tensors, or
     tensor arrays of them, attrs)) on the card against the same lowering
@@ -5372,7 +5579,8 @@ def phase_op_cases(fa, smi, phase, cases, twice, witness=None, rows=None,
             del out, grads
         rows.append(row)
         del runs, host
-        release_memory()
+        if torch.cuda.memory_allocated() > OP_CASES_RELEASE_BYTES:
+            release_memory()  # a collection costs ~0.1 s a case
     # the timings: one profiler window for every case's forward and vjp,
     # then one for the witnesses (each under its own lowering)
     counts = {}
@@ -7966,11 +8174,10 @@ def phase_detection_ops(fa, smi):
     from paddle_tpu_torch.ops.detection_ops import greedy_keep
 
     rows = []
-    # one call a case in the window: the RPN's scan launches 30,000
-    # kernels a call, and the profiler's host events cost seconds a call
+    # one call a case in the window (the default): the RPN's scan launches
+    # 30,000 kernels a call, and the profiler's host events cost seconds
     launches = phase_op_cases(fa, smi, "detection_ops", detection_cases(),
-                              DETECTION_TWICE, DETECTION_WITNESS, rows=rows,
-                              window_n=1)
+                              DETECTION_TWICE, DETECTION_WITNESS, rows=rows)
     by_case = {r["case"]: r for r in rows}
     scans = {}
     for case, shape in (("generate_proposals_rpn_c4", (2, 6000)),
@@ -8091,6 +8298,7 @@ def main():
     recipe_launches = phase_bert_recipe(fa, smi)
     r_pipe_launches = phase_resnet50_pipelined(fa, r_main, r_startup,
                                                r_loss, smi)
+    r_reader_launches = phase_reader_pipeline(fa, smi)
     phase_mfu(smi, torch.cuda.get_device_name(0))
     release_memory()
 
@@ -8145,7 +8353,8 @@ def main():
     other_paths = {"resnet50_serve": r_serve_launches,
                     "resnet50_train": r_launches,
                     "resnet50_train_amp": r_amp_launches,
-                    "resnet50_pipelined": r_pipe_launches}
+                    "resnet50_pipelined": r_pipe_launches,
+                    "reader_pipeline": r_reader_launches}
     other_paths.update(("bert_recipe_" + p, n)
                         for p, n in recipe_launches.items())
     other_paths["ctr"] = dict(zip(("flash_fwd", "flash_bwd_dq",

@@ -532,6 +532,10 @@ class Engine:
             DeferredFetch(self.window, record, i, name=n)
             for i, n in enumerate(record.fetch_names))
         health.note_step_enqueued()
+        # the enqueue half of the step's trace pair, named with its
+        # ORIGINAL step (no-op unless this thread has an active trace)
+        obs.reqtrace.step_event("step_enqueue", run_counter,
+                                depth=len(self.window))
         self.window.push(record, depth=dispatch_steps)
         return list(record.placeholders)
 

@@ -278,6 +278,9 @@ class DispatchWindow:
             obs.goodput.mark("host_sync")
             # the step left the window whether or not its guard tripped
             obs.health.note_step_retired()
+            # the retire half of the step's trace pair, named with the
+            # record's ORIGINAL step
+            obs.reqtrace.step_event("step_retire", rec.step)
             if obs.enabled():
                 now = time.monotonic()
                 obs.inc("pipeline.steps_retired")

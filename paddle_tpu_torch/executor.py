@@ -1,9 +1,9 @@
 """Executor — the user-facing run loop (reference:
 python/paddle/fluid/executor.py — Executor:262, run:451). Port of
 ``paddle_tpu/executor.py``: ``Executor`` (``run``, ``sync``, ``close``),
-``global_scope`` and ``scope_guard``. ``Executor()`` runs on
-``CUDAPlace(0)`` and raises when CUDA is missing; a caller asks for the
-CPU with ``Executor(CPUPlace())``. A program marked for AMP
+``global_scope``, ``scope_guard`` and ``EOFException``. ``Executor()``
+runs on ``CUDAPlace(0)`` and raises when CUDA is missing; a caller asks
+for the CPU with ``Executor(CPUPlace())``. A program marked for AMP
 (``contrib.mixed_precision``) runs in bfloat16; on CUDA each (program,
 feed signature, fetches, lowering) runs once eagerly and is then replayed
 as a captured CUDA graph (``engine/executor.py``).
@@ -22,6 +22,12 @@ from paddle_tpu_torch.observability import goodput
 from paddle_tpu_torch.platform import default_place
 
 _global_scope = Scope()
+
+
+class EOFException(Exception):
+    """Raised by ``Executor.run`` when a program fed by a ``py_reader``
+    has exhausted its epoch (reference: fluid.core.EOFException from the
+    C++ reader ops); ``reader.start()`` begins the next one."""
 
 
 def global_scope():
@@ -117,7 +123,11 @@ class Executor:
         ``PADDLE_GPU_VERIFY`` flag) runs the static verifier on the desc
         that runs, once per cache entry, and raises
         ``analysis.VerificationError`` on ERROR findings. ``mesh`` raises
-        (item 10)."""
+        (item 10).
+
+        With no ``feed`` a program that has ``py_reader``s takes the next
+        batch of each (``layers.py_reader``), and raises
+        ``EOFException`` at the end of the epoch."""
         if mesh is not None:
             raise NotImplementedError(
                 "mesh=: the SPMD path is not ported yet (ROADMAP Queue 1 "
@@ -125,6 +135,15 @@ class Executor:
         scope = scope if scope is not None else global_scope()
         if program is None:
             program = default_main_program()
+        if feed is None and getattr(program, "_py_readers", None):
+            feed = {}
+            for rdr in program._py_readers:
+                nxt = rdr.next_feed()
+                if nxt is None:
+                    raise EOFException(
+                        "py_reader epoch exhausted; call reader.start() "
+                        "for the next epoch")
+                feed.update(nxt)
         fetch_names = [
             f.name if hasattr(f, "name") else str(f)
             for f in (fetch_list or [])

@@ -69,6 +69,11 @@ DEFS = {
         "of the consumer: a background thread copies batch k+1..k+depth "
         "into pinned host buffers and on to the device on a side stream "
         "while step k runs. 2 = double buffering."),
+    "data": (
+        str, "",
+        "Root directory of real dataset files (dataset/ readers, read "
+        "each time a reader starts); empty serves the seeded synthetic "
+        "data."),
     "goodput": (
         bool, False,
         "Goodput ledger (observability/goodput.py): charge every "

@@ -38,10 +38,16 @@ that layer:
   every span to the tracer/sink the moment it happens instead of
   buffering for a tail verdict. The reference tags such spans with the
   process's incarnation (the supervised launcher's restart count); that
-  tag and the training and supervisor seams that propagate such traces
-  across the dispatch window and across processes (``current`` /
-  ``use``, ``step_event``, ``export_env`` / ``adopt_env``) come with the
-  port's engine pipeline and launcher (ROADMAP Queue 1 items 4 and 11).
+  tag and the supervisor's cross-process seams (``export_env`` /
+  ``adopt_env``) come with the port's launcher (ROADMAP Queue 1 item 11).
+
+* **Training seams** — a thread activates a context (``activate`` /
+  ``use``; ``current`` reads it), and the engine's dispatch window emits
+  ``step_event("step_enqueue")`` when it takes a step and
+  ``step_event("step_retire")`` when it retires it, both named with the
+  step's ORIGINAL number, so the two halves of an async step correlate
+  across the window. A thread with no active context (a serving
+  dispatcher) emits nothing.
 
 The head-sample decision is **deterministic in the trace ID** (a hash
 fraction, not an RNG draw), so every process that sees the same ID —
@@ -389,6 +395,42 @@ flags.on_change("trace_slow_ms", _invalidate)
 flags.on_change("trace_buffer", lambda _v: None)
 
 
+# -- thread-local current context (training propagation) --------------------
+_local = threading.local()
+
+
+def current():
+    """The thread's active TraceContext, or None. The training seams (the
+    engine's enqueue, the window's retire) emit through it; a serving
+    dispatcher thread, which never activates one, emits nothing."""
+    return getattr(_local, "ctx", None)
+
+
+def activate(ctx):
+    _local.ctx = ctx
+    return ctx
+
+
+def deactivate():
+    _local.ctx = None
+
+
+class use:
+    """``with reqtrace.use(ctx): ...`` — scoped activation."""
+
+    def __init__(self, ctx):
+        self.ctx = ctx
+
+    def __enter__(self):
+        self._prev = current()
+        _local.ctx = self.ctx
+        return self.ctx
+
+    def __exit__(self, exc_type, exc, tb):
+        _local.ctx = self._prev
+        return False
+
+
 # -- module-level convenience ----------------------------------------------
 
 def begin(trace_id=None, flags_=None, sample_rate=None):
@@ -417,6 +459,19 @@ def add_root_span(ctx, phase, ts_us, dur_us, **args):
 
 def finish(ctx, total_ms, error=False):
     return tracer.finish(ctx, total_ms, error=error)
+
+
+def step_event(name, step, **args):
+    """Instant eager event on the thread's active trace: the dispatch
+    window's enqueue and retire markers, named with the ORIGINAL step so
+    the two halves of an async step correlate across the window. A no-op
+    with no active context."""
+    ctx = current()
+    if ctx is None:
+        return
+    args["step"] = step
+    tracer._emit_one(ctx.trace_id, name, now_us(), 0.0, new_span_id(),
+                     ctx.parent_span_id, args, eager=True)
 
 
 def stats():

@@ -2,7 +2,8 @@
 
 Port of ``paddle_tpu/platform.py``. The port's accelerator is an NVIDIA
 card, so the Place variant is {CPUPlace, CUDAPlace}, each naming one
-``torch.device``. The default place is the card: ``default_place()`` is
+``torch.device`` (``CUDAPinnedPlace`` is a CPUPlace). The default place
+is the card: ``default_place()`` is
 ``CUDAPlace(0)``, and turning a CUDAPlace into a device raises when CUDA
 is missing. Nothing falls back to the CPU; a caller asks for it with
 ``CPUPlace()``.
@@ -45,6 +46,15 @@ class CUDAPlace(Place):
             raise RuntimeError("%r: only %d CUDA device(s) visible"
                                % (self, torch.cuda.device_count()))
         return torch.device("cuda", self.device_id)
+
+
+class CUDAPinnedPlace(CPUPlace):
+    """Page-locked host memory (reference: platform/place.h
+    CUDAPinnedPlace). A place for host-side feed buffers: it runs as the
+    CPU (``PrefetchingFeeder`` pins its own staging buffers)."""
+
+    def __repr__(self):
+        return "CUDAPinnedPlace"
 
 
 def is_compiled_with_cuda():

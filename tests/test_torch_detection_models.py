@@ -16,13 +16,18 @@ builders with each package's ``fluid``, on the CPU:
   the detections within 1e-5 (``detections_match``: counts equal,
   near-tied rows in either order).
 
-  Why the steps are held op by op and not end to end: the network's last
-  maps are 2 x 2 and 1 x 1, so their batch norms normalise over 4-16
-  values and magnify float32 rounding; the first step's losses agree to
-  about 1e-6, but after one Momentum update the two packages' losses are
-  0.5-1 % apart at every width and batch tried here. The op-level
-  tolerance is the ResNet-50 step's (``test_torch_resnet50.py``: batch
-  norm's saved variance rounds a large sum).
+  Why the steps are held op by op and not end to end: the first step's
+  losses agree to about 1e-6, but after one Momentum update the two
+  packages' losses are 0.5-1 % apart at every width and batch tried
+  here. ``test_ssd_drift_is_compounded_rounding`` finds where: each
+  package's forward run on its own values drifts from the other's by
+  about 1.1-1.2x a conv + batch-norm layer, from 1e-6 of max to 1e-4
+  at the first op on the 2 x 2 maps (a conv2d, not a faulty op: held on
+  the reference's operands it is within 1e-5); the batch norms over the
+  1 x 1 maps, 4 values a channel at batch 4, then magnify what they
+  are fed 2-7x. The op-level tolerance is the ResNet-50 step's
+  (``test_torch_resnet50.py``: batch norm's saved variance rounds a
+  large sum).
 - a CTC line recogniser (fc over [4, 12, 8] frames, ``warpctc`` with
   lengths, Adam): 2 steps, losses and parameters within 1e-5.
 - ``detection_map`` on fixed detections and ground truths (a difficult
@@ -212,16 +217,39 @@ def ssd_steps():
     runners = _executors(built)
     state = {v.name: np.array(runners[0][2].get(v.name))
              for v in j_main.list_vars() if v.persistable}
-    (first,) = _run(runners[1], t_main, chip_smoke.ssd_feed(
-        BATCH, seed=0, **SSD), [th["loss"].name])
-    held, losses = set(), []
+    forward = _forward_temps(t_main)
+    first, *port_fwd = _run(runners[1], t_main, chip_smoke.ssd_feed(
+        BATCH, seed=0, **SSD), [th["loss"].name] + forward)
+    held, losses, initial = set(), [], state
     for s in range(3):
         state, want, ops = _step_op_by_op(
             runners[0], j_main, t_main, state,
             chip_smoke.ssd_feed(BATCH, seed=s, **SSD))
         held |= ops
         losses.append(float(want[jh["loss"].name].reshape(-1)[0]))
-    return built, runners, state, held, (losses, float(first.reshape(-1)[0]))
+        if s == 0:
+            # both packages' forward of the first step, each end to end
+            drift = (dict(zip(forward, port_fwd)),
+                     {n: want[n] for n in forward}, initial)
+    return (built, runners, state, held,
+            (losses, float(first.reshape(-1)[0])), drift)
+
+
+def _forward_temps(main):
+    """The float outputs of the forward ops (those before the first grad
+    op) that are not persistable, in op order."""
+    block = main.desc.global_block()
+    out = []
+    for op in block.ops:
+        names = op.output_arg_names()
+        if any(n.endswith("@GRAD") for n in names):
+            break
+        for n in names:
+            vd = block.find_var_recursive(n)
+            if (vd is not None and not vd.persistable and n not in out
+                    and vd.dtype.name in ("FP32", "FP64")):
+                out.append(n)
+    return out
 
 
 def test_ssd_inference_desc_matches_reference():
@@ -232,7 +260,7 @@ def test_ssd_inference_desc_matches_reference():
 
 
 def test_ssd_steps_match_reference_op_by_op(ssd_steps):
-    _, _, _, held, (losses, first) = ssd_steps
+    _, _, _, held, (losses, first), _ = ssd_steps
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
     np.testing.assert_allclose(first, losses[0], rtol=LOSS_RTOL)
     assert {"conv2d", "conv2d_grad", "batch_norm_grad",
@@ -244,7 +272,7 @@ def test_ssd_steps_match_reference_op_by_op(ssd_steps):
 def test_ssd_served_detections_match_reference(ssd_steps, tmp_path):
     """The inference build saved by the JAX package with the state after
     the steps, served by each package's predictor."""
-    built, runners, state, _, _ = ssd_steps
+    built, runners, state, _, _, _ = ssd_steps
     infer = _build(_ssd(False))
     (jf, ij_main, _, ih), _ = infer
     j_exe, j_scope = runners[0][1], runners[0][2]
@@ -271,6 +299,92 @@ def test_ssd_served_detections_match_reference(ssd_steps, tmp_path):
                                           atol=REL)
     assert ok, row
     assert sum(row["counts"]) > 0
+
+
+def test_ssd_drift_is_compounded_rounding(ssd_steps):
+    """Where the two packages' SSD steps part (ROADMAP Queue 3, "To
+    check"). Each package runs the first step's forward on its own
+    values; the drift of each output is its largest difference over its
+    largest entry.
+
+    - Every op on the 8 x 8 and larger maps stays within OP_REL; the
+      drift compounds from about 1e-6 over the first conv + batch-norm
+      layers to about 1e-4.
+    - The first output past OP_REL is a conv2d's on a map of at most
+      2 x 2 (at most 16 values a channel at batch 4), fed an input that
+      already drifts by more than half of OP_REL: it inherits the drift
+      (held on the reference's operands it is within the op tolerance,
+      ``test_ssd_steps_match_reference_op_by_op``).
+    - The batch norms over 4 values a channel (the 1 x 1 maps) magnify
+      their input's drift most: at least 4x for one of them, more than
+      any batch norm over 64 or more values whose input drifts by 1e-5
+      or more.
+    - On the reference's input, the port's batch norm over 4 values is as
+      close to the float64 result as the JAX package's.
+    """
+    import torch
+    from paddle_tpu_torch.engine import lowering as tlowering
+
+    built, _, _, _, _, (got, want, initial) = ssd_steps
+    t_main = built[1][1]
+    block = t_main.desc.global_block()
+    producer = {}
+    for op in block.ops:
+        for n in op.output_arg_names():
+            producer.setdefault(n, op)
+
+    def drift(n):
+        g, w = got[n], want[n]
+        fin = np.isfinite(w)
+        if not fin.any():  # an encoding of padding boxes: all -inf
+            return 0.0
+        return float(np.abs(g[fin] - w[fin]).max()
+                     / max(float(np.abs(w[fin]).max()), 1e-30))
+
+    maps = [(n, drift(n)) for n in got if got[n].ndim == 4]
+    first = next(i for i, (n, d) in enumerate(maps) if d > OP_REL)
+    name, _ = maps[first]
+    op = producer[name]
+    x = op.input("Input")[0]
+    assert op.type == "conv2d" and got[name].shape[2] <= 2, (op.type, name)
+    assert all(d <= OP_REL for _, d in maps[:first])
+    assert all(got[n].shape[2] >= 4 for n, _ in maps[:first])
+    assert drift(x) > 0.5 * OP_REL
+    assert maps[0][1] < 1e-5  # the first layers agree to about 1e-6
+
+    ratios = {}
+    for op in block.ops:
+        if op.type != "batch_norm" or op.output("Y")[0] not in got:
+            continue
+        x, y = op.input("X")[0], op.output("Y")[0]
+        values = got[x].shape[0] * got[x].shape[2] * got[x].shape[3]
+        ratios[y] = (values, drift(x), drift(y) / max(drift(x), 1e-12))
+    small = [r for v, d, r in ratios.values() if v <= 4]
+    large = [r for v, d, r in ratios.values() if v >= 64 and d >= 1e-5]
+    assert small and large
+    assert max(small) >= 4.0 and max(small) > max(large), ratios
+
+    worst = max((y for y in ratios if ratios[y][0] <= 4),
+                key=lambda y: ratios[y][2])
+    op = producer[worst]
+    params = {n: initial[op.input(s)[0]]
+              for s, n in (("Scale", "scale"), ("Bias", "bias"))}
+    xin = want[op.input("X")[0]]
+    xd = xin.astype(np.float64)
+    mean = xd.mean(axis=(0, 2, 3), keepdims=True)
+    var = xd.var(axis=(0, 2, 3), keepdims=True)
+    truth = ((xd - mean) / np.sqrt(var + op.attr("epsilon"))
+             * params["scale"].reshape(1, -1, 1, 1)
+             + params["bias"].reshape(1, -1, 1, 1))
+    ins = {n: torch.from_numpy(np.array(
+        xin if n == op.input("X")[0] else initial[n]))
+        for n in op.input_arg_names()}
+    tlowering.run_op(op, None, ins, "cpu", (0, 1), 0, False)
+    port = ins[worst].numpy()
+    peak = float(np.abs(truth).max())
+    err_port = float(np.abs(port - truth).max()) / peak
+    err_jax = float(np.abs(want[worst] - truth).max()) / peak
+    assert err_port <= 2 * err_jax + 1e-6, (err_port, err_jax)
 
 
 def _ctc(fluid, mobilenet):

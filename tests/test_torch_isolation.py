@@ -276,6 +276,42 @@ l8, d8, m8 = exe.run(ct, feed={
     "gts": np.array([[[1, 0.1, 0.1, 0.5, 0.5]] * 2] * 2, np.float32)},
     fetch_list=[ctc, dist, m_ap])
 assert np.isfinite(l8).all() and not d8.any() and 0 < float(m8[0]) <= 1
+# the input pipeline: the native layer, RecordIO, the readers, the
+# datasets, the DataFeeder and the reader layers, feeding a py_reader
+import os, tempfile
+from paddle_tpu_torch import (core_shim, data_feed_desc, data_feeder,
+                              dataset, native, reader, recordio,
+                              recordio_writer)
+from paddle_tpu_torch.contrib.reader import ctr_reader
+from paddle_tpu_torch.layers import io as io_layers
+with tempfile.TemporaryDirectory() as d:
+    path = os.path.join(d, "mnist.rio")
+    recordio_writer.convert_reader_to_recordio_file(
+        path, reader.firstn(dataset.mnist.train(), 8))
+    rio, rio_startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(rio, rio_startup):
+        rd = fluid.layers.py_reader(capacity=2, shapes=[[-1, 784], [-1]],
+                                    dtypes=["float32", "int64"])
+        pred = fluid.layers.fc(input=rd.vars[0], size=10)
+        lbl = fluid.layers.reshape(rd.vars[1], [-1, 1])
+        rloss = fluid.layers.mean(
+            fluid.layers.softmax_with_cross_entropy(pred, lbl))
+    rows = fluid.layers.open_files(path, shapes=[[784], []],
+                                   dtypes=["float32", "int64"])
+    rd.decorate_paddle_reader(reader.map_readers(
+        lambda b: [np.stack([r[0] for r in b]), np.stack([r[1] for r in b])],
+        fluid.layers.batch(rows, 4)))
+    exe.run(rio_startup)
+    rd.start()
+    seen = []
+    while True:
+        try:
+            seen.append(exe.run(rio, fetch_list=[rloss])[0])
+        except fluid.EOFException:
+            break
+assert len(seen) == 2 and all(np.isfinite(v).all() for v in seen)
+assert native.loaded_path().startswith(os.path.join(
+    os.path.dirname(paddle_tpu_torch.__file__), "native", "_build"))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "paddle_tpu" or m.startswith("paddle_tpu."))
@@ -296,7 +332,7 @@ def _port_sources():
     pkg = os.path.join(ROOT, "paddle_tpu_torch")
     for dirpath, _, files in os.walk(pkg):
         for name in files:
-            if name.endswith((".py", ".cu", ".cuh", ".h")):
+            if name.endswith((".py", ".cu", ".cuh", ".h", ".cc")):
                 yield os.path.join(dirpath, name)
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "tools", "torch_flash_variants.py")
@@ -330,6 +366,69 @@ def test_executor_without_cuda_raises(no_cuda):
         fluid.Executor(fluid.CUDAPlace(0))
     assert platform.default_place() == fluid.CUDAPlace(0)
     fluid.Executor(fluid.CPUPlace())  # the CPU only when asked for
+    # a program fed by a py_reader: its executor, a DataFeeder's staging
+    # onto the card and a Preprocessor on the default place all raise
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        rd = fluid.layers.py_reader(capacity=2, shapes=[[-1, 3]],
+                                    dtypes=["float32"])
+        out = fluid.layers.fc(input=rd.vars[0], size=2)
+    rd.decorate_paddle_reader(lambda: iter([[np.ones((2, 3), np.float32)]]))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fluid.Executor().run(startup)
+    feeder = fluid.DataFeeder(rd.vars, fluid.CUDAPlace(0), program=main)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        feeder.decorate_reader(lambda: iter([]), prefetch=True)
+    pre = fluid.layers.Preprocessor(reader=rd)
+    with pre.block():
+        (x,) = pre.inputs()
+        pre.outputs(fluid.layers.scale(x, scale=2.0))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pre()
+    exe = fluid.Executor(fluid.CPUPlace())
+    exe.run(startup)
+    rd.start()
+    (res,) = exe.run(main, fetch_list=[out])
+    assert res.shape == (2, 2)
+    rd.reset()
+
+
+def test_native_layer_builds_only_from_the_ports_sources(tmp_path,
+                                                         monkeypatch):
+    """The g++ command takes its sources from paddle_tpu_torch/native/
+    alone and writes under native/_build/; the JAX package's copies and
+    its in-place library are never read."""
+    from paddle_tpu_torch import native
+
+    calls = []
+
+    class _Done:
+        returncode = 0
+        stdout = stderr = ""
+
+    def record(cmd, **kw):
+        calls.append(list(cmd))
+        open(cmd[cmd.index("-o") + 1], "wb").close()
+        return _Done()
+
+    monkeypatch.setattr(native.subprocess, "run", record)
+    out = os.path.join(native.BUILD_DIR, "isolation-check.so")
+    try:
+        native._build(out)
+    finally:
+        if os.path.exists(out):
+            os.remove(out)
+    (cmd,) = calls
+    port_dir = os.path.join(ROOT, "paddle_tpu_torch", "native")
+    sources = [a for a in cmd if a.endswith((".cc", ".cpp", ".c", ".h"))]
+    assert sorted(os.path.basename(a) for a in sources) == \
+        sorted(native.SOURCES)
+    assert all(os.path.dirname(a) == port_dir for a in sources), cmd
+    assert cmd[cmd.index("-o") + 1].startswith(
+        os.path.join(port_dir, "_build") + os.sep)
+    assert os.path.dirname(native.library_path()) == \
+        os.path.join(port_dir, "_build")
+    assert not any(os.sep + "paddle_tpu" + os.sep in a for a in cmd)
 
 
 def test_predictor_without_cuda_raises(no_cuda, tmp_path):
