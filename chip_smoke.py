@@ -5,7 +5,9 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 
     python3 chip_smoke.py
 
-It drives the port's main paths, serving and training BERT-base and
+It drives the port's main paths, serving and training BERT-base (and
+checkpointing it, rolling it back after a fault and serving its
+reference-format export) and
 ResNet-50 (with the training loop's accumulation, remat, dispatch
 window, prefetching feeder, schedulers, clipping and optimizers),
 ResNet-50 trained from a RecordIO file through a ``py_reader``,
@@ -103,6 +105,21 @@ card and prints one JSON line per phase:
    and the backward of ``scaled_dot_product_attention``; the training
    step's median wall, device-busy share and top kernels, eager and
    captured, and the AMP step's.
+11a. checkpoint — BERT-base trained at the same width (dropout 0,
+   captured, state written in place, a dispatch window of 2) and
+   checkpointed by ``io.save_checkpoint_async`` under a ``ckpt_write``
+   fault: the write retried once and published, every restored var
+   bitwise equal to a device copy of the saved step while training went
+   on; a ``step_nan`` fault trips the deferred nan guard, and
+   ``io.load_checkpoint`` restores the step in place (no recapture): the
+   steps replayed give the uninterrupted run's losses bitwise. The step
+   ms without saves; a loop with a save after each of its first two
+   steps that trains on until both writes have published: each step's
+   ms, each snapshot's ms on the step thread, each write's wall and GB,
+   the hidden fraction, and the checkpoint root's filesystem; then the
+   trained encoder exported in the
+   native and the reference format (``compat.py``) and served from each:
+   the answers bitwise equal.
 12. resnet50_serve — ResNet-50 (``models.resnet.get_model(dataset=
    "imagenet", depth=50, class_num=1000)``: 224x224, random weights from
    the seed) built, initialised on the card, saved with
@@ -388,8 +405,9 @@ card and prints one JSON line per phase:
    design: all three run their products on the tensor cores (mma.sync
    bf16, 3xTF32 for float32) from a cp.async tile ring, and read their
    dropout seed from device memory; each kernel's launches on every path,
-   the ResNet-50, training-loop, CTR, NMT, LSTM, image, unfused-attention,
-   book, dense-op, sequence, misc and detection paths included, and its
+   the checkpoint, ResNet-50, training-loop, CTR, NMT, LSTM, image,
+   unfused-attention, book, dense-op, sequence, misc and detection paths
+   included, and its
    times at the Transformer's shapes (``nmt_t256``).
 
 Served requests and dispatches run as captured CUDA graphs too: the first
@@ -409,6 +427,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -576,7 +595,13 @@ RECIPE_STEPS = 3      # eager warm-up, capture, one replay
 WINDOW_STEPS = 4
 RECIPE_TOL = {"lr_rtol": 1e-5}
 PIPELINE_STEPS = 6    # resnet50_pipelined: steps of each loop
-TIMED_RUNS = 5        # timed_runs/profiled_step: timed calls after warm-up
+TIMED_RUNS = 3        # timed_runs/profiled_step: timed calls after warm-up
+CKPT_STEPS = 6        # checkpoint: the uninterrupted run's steps
+CKPT_SAVE_AT = 3      # checkpoint: the step saved asynchronously
+CKPT_TIMED_SAVES = 2  # checkpoint: timed steps in a row with a save after each
+CKPT_PLAIN_STEPS = 20  # checkpoint: timed steps without saves, before
+#                        and after the saving loop
+CKPT_LOOP_CAP_S = 20.0  # checkpoint: the saving loop stops here, writes or not
 OP_CASES_RELEASE_BYTES = 20 << 30  # phase_op_cases collects above this
 READER_BATCHES = 8    # reader_pipeline: batches in the RecordIO file
 READER_SEED = 16      # reader_pipeline: the images', labels' and shuffle's
@@ -2100,7 +2125,7 @@ def host_ms_by_kind(step, n=3):
             for k in sorted(totals)}
 
 
-def timed_runs(run, n=TIMED_RUNS, warmup=2):
+def timed_runs(run, n=TIMED_RUNS, warmup=1):
     """Median, min and max wall ms of ``run()`` (host clock, after
     ``warmup`` runs; each run ends in its fetch's copy to the host)."""
     import torch
@@ -4776,7 +4801,7 @@ def rnn_op_case(op_type, attrs, gates, seed):
     def on_card():
         run("cuda")
 
-    ms = timed_runs(on_card, n=3, warmup=1)["median_ms"]
+    ms = timed_runs(on_card, n=1, warmup=0)["median_ms"]  # warm: ran above
     return worst, ms, int(lens.sum())
 
 
@@ -5020,7 +5045,7 @@ def phase_lstm(fa, smi):
     with fluid.scope_guard(eager[1]):
         eag = timed_runs(lambda: eager[0].run(main, feed=feed,
                                               fetch_list=[loss]),
-                         n=3, warmup=1)
+                         n=1, warmup=0)
     rec = recurrent_op_ms(eager[0], eager[1], main, loss, feed)
     tokens = LSTM["batch_size"] * LSTM["seq_len"]
     for label, r in (("captured", cap), ("eager", eag)):
@@ -6456,7 +6481,7 @@ def phase_nmt_beam(fa, smi):
     # times: the decode's wall, its launches and idle share (profiler),
     # the host time of its loop's ops
     gc.collect()
-    wall = timed_runs(decode, n=3, warmup=0)
+    wall = timed_runs(decode, n=1, warmup=0)
     prof = profiled(decode)
     kernels = sorted((e for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA
@@ -8198,6 +8223,274 @@ def phase_detection_ops(fa, smi):
     return launches
 
 
+def filesystem_of(path):
+    """(mount point, type, device) of the filesystem holding ``path``,
+    from /proc/mounts (the longest mount point that contains it)."""
+    path = os.path.realpath(path)
+    best = ("?", "?", "?")
+    with open("/proc/mounts") as f:
+        for ln in f:
+            dev, mnt, fstype = ln.split()[:3]
+            inside = path == mnt or path.startswith(mnt.rstrip("/") + "/")
+            if inside and (best[0] == "?" or len(mnt) > len(best[0])):
+                best = (mnt, fstype, dev)
+    return best
+
+
+def phase_checkpoint(fa, smi):
+    """Checkpoints on the card: BERT-base (``bert_train_program``,
+    dropout 0 for the bitwise checks), Adam, float32, captured with the
+    state donated (written in place at every replay), the steps run in a
+    dispatch window of 2 so a save is enqueued while its step may still
+    run. ``io.save_checkpoint_async`` after step CKPT_SAVE_AT under
+    ``PADDLE_GPU_FAULT_SPEC=ckpt_write@<s>``, training on at once to step
+    CKPT_STEPS: the write fails once and its retry publishes the step
+    (``recovery.ckpt_retry`` 1). Then ``step_nan`` at the next step: the
+    deferred nan guard names that step; ``io.load_checkpoint`` restores
+    step s in place (no recapture), every var bitwise equal to a device
+    copy taken at step s, and steps s+1..CKPT_STEPS replayed with the
+    same feeds give the uninterrupted run's losses bitwise. Times (with
+    the card's name and power limit): CKPT_PLAIN_STEPS steps without
+    saves; then a loop that saves after each of its first
+    CKPT_TIMED_SAVES steps and trains on until every write has published
+    (or CKPT_LOOP_CAP_S, then it waits for them): each step's ms, each
+    snapshot's ms on the step thread, each write's wall (``ckpt.write_ms``,
+    transfer to publish) and bytes, and the hidden fraction, 1 - (the
+    loop's wall - its steps x the plain step) / the writes' walls. The
+    root is a temporary directory of the machine's disk (its filesystem
+    printed). Then the trained encoder
+    saved in the native and the reference format and served from each on
+    the card: the answers bitwise equal. Returns the flash launches."""
+    import torch
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import compat, flags, unique_name
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.resilience import faultinject
+
+    t_phase = time.perf_counter()
+    main, startup, loss = bert_train_program(amp=False, dropout=0.0)
+    feeds = [train_feed(8, np.random.RandomState(300 + i))
+             for i in range(CKPT_STEPS + 1)]
+    exe, scope = fresh(startup)
+    names = [v.name for v in main.list_vars()
+             if v.persistable and scope.get(v.name) is not None]
+    state_bytes = sum(scope.get(n).numel() * scope.get(n).element_size()
+                      for n in names)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    mount, fstype, fsdev = filesystem_of(tmp)
+    st = os.statvfs(tmp)
+    mgr = fluid.io.CheckpointManager(os.path.join(tmp, "ckpt"))
+
+    def step(i, **kw):
+        with fluid.scope_guard(scope):
+            return exe.run(main, feed=feeds[i - 1], fetch_list=[loss], **kw)
+
+    def write_walls():
+        hist = obs.registry.histogram("ckpt.write_ms")
+        return list(hist.samples) if hist is not None else []
+
+    def arm(spec):
+        flags.set_flags({"fault_spec": spec})
+        faultinject.reset()
+
+    obs.set_enabled(True)
+    obs.reset()
+    torch.cuda.synchronize()
+    fa.launches = fa.launches_dq = fa.launches_dkv = 0  # the path starts
+    try:
+        for i in range(1, CKPT_SAVE_AT + 1):
+            step(i, dispatch_steps=2)
+        s = CKPT_SAVE_AT
+        # a device copy of step s's state, ordered like the snapshot
+        ref = {n: scope.get(n).clone() for n in names}
+        arm("ckpt_write@%d" % s)
+        t0 = time.perf_counter()
+        fluid.io.save_checkpoint_async(mgr, s, main_program=main,
+                                       scope=scope)
+        first_snapshot_ms = (time.perf_counter() - t0) * 1000.0
+        outs = [step(i, dispatch_steps=2)
+                for i in range(s + 1, CKPT_STEPS + 1)]
+        exe.sync()
+        uninterrupted = [float(o[0]) for o in outs]
+        moved = sum(not torch.equal(scope.get(n), ref[n]) for n in names)
+        t0 = time.perf_counter()
+        mgr.wait()
+        first_wait_ms = (time.perf_counter() - t0) * 1000.0
+        mgr.check_error()
+        retries = obs.counter_value("recovery.ckpt_retry")
+        flags.reset_flag("fault_spec")
+        faultinject.reset()
+
+        # the rollback: a NaN at the next step, the guard, the restore
+        exe.engine.check_nan_inf = True
+        bad = exe.engine._run_counter + 1
+        arm("step_nan@%d" % bad)
+        nan_error = None
+        try:
+            step(CKPT_STEPS + 1, dispatch_steps=2)
+            exe.sync()
+        except RuntimeError as e:
+            nan_error = str(e)
+        flags.reset_flag("fault_spec")
+        faultinject.reset()
+        exe.engine.discard_window()
+        exe.engine.check_nan_inf = False
+        entries = captured(exe.engine)
+        captures = [c.captures for c in entries]
+        recaptures = obs.counter_value("engine.recapture")
+        held = {n: scope.get(n) for n in names}
+        t0 = time.perf_counter()
+        fluid.io.load_checkpoint(mgr, main_program=main, scope=scope, step=s)
+        restore_ms = (time.perf_counter() - t0) * 1000.0
+        in_place = all(scope.get(n) is t for n, t in held.items())
+        # what the files held (restored in place), byte for byte against
+        # the device copy of step s
+        torn = [n for n in names if not torch.equal(
+            scope.get(n).reshape(-1).view(torch.uint8),
+            ref[n].reshape(-1).view(torch.uint8))]
+        del ref
+        outs = [step(i, dispatch_steps=2)
+                for i in range(s + 1, CKPT_STEPS + 1)]
+        exe.sync()
+        replayed = [float(o[0]) for o in outs]
+        recaptures = obs.counter_value("engine.recapture") - recaptures
+        captures_after = [c.captures for c in captured(exe.engine)]
+
+        # times: steps without saves, then a loop that saves after each
+        # of its first steps and trains on while the writes run
+        def plain_steps():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(CKPT_PLAIN_STEPS):
+                step(CKPT_STEPS)
+            return (time.perf_counter() - t0) * 1000.0 / CKPT_PLAIN_STEPS
+
+        plain_before = plain_steps()
+        walls_before = len(write_walls())
+        step_ms, snapshot_ms = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while True:
+            t1 = time.perf_counter()
+            step(CKPT_STEPS)
+            k = len(step_ms)
+            if k < CKPT_TIMED_SAVES:
+                t2 = time.perf_counter()
+                fluid.io.save_checkpoint_async(mgr, 100 + k,
+                                               main_program=main,
+                                               scope=scope)
+                snapshot_ms.append((time.perf_counter() - t2) * 1000.0)
+            step_ms.append((time.perf_counter() - t1) * 1000.0)
+            if len(step_ms) >= CKPT_TIMED_SAVES and not mgr.in_flight:
+                break
+            if time.perf_counter() - t0 > CKPT_LOOP_CAP_S:
+                break
+        capped = mgr.in_flight
+        mgr.wait()
+        torch.cuda.synchronize()
+        loop_ms = (time.perf_counter() - t0) * 1000.0
+        mgr.check_error()
+        written = [sum(os.path.getsize(os.path.join(d, f))
+                       for f in os.listdir(d))
+                   for d in (os.path.join(mgr.root, "step_%d" % (100 + k))
+                             for k in range(CKPT_TIMED_SAVES))]
+        timed_walls = write_walls()[walls_before:]
+        # the plain step before and after the loop, for drift
+        plain_after = plain_steps()
+        plain_ms = (plain_before + plain_after) / 2.0
+        extra_ms = loop_ms - len(step_ms) * plain_ms
+        hidden = 1.0 - extra_ms / sum(timed_walls)
+        hist = obs.snapshot()["histograms"].get("ckpt.snapshot_ms", {})
+        saving = sorted(step_ms[CKPT_TIMED_SAVES:])
+
+        # the trained encoder served from the native and the reference
+        # format: the eager and the captured answers of each
+        with unique_name.guard():
+            infer, _, handles = bert.get_model(
+                batch_size=8, dropout=0.0, is_train=False, **BERT)
+        feed_names = ["src_ids", "pos_ids", "sent_ids", "seq_lens"]
+        request = bert_feed(8, np.random.RandomState(301))
+        answers = {}
+        export_s = {}
+        for fmt in ("native", "reference"):
+            d = os.path.join(tmp, fmt)
+            t0 = time.perf_counter()
+            with fluid.scope_guard(scope):
+                fluid.io.save_inference_model(
+                    d, feed_names, [handles["enc_out"]], exe,
+                    main_program=infer, export_format=fmt)
+            export_s[fmt] = time.perf_counter() - t0
+            served, served_scope = fluid.Executor(), fluid.Scope()
+            with fluid.scope_guard(served_scope):
+                if fmt == "native":
+                    prog, _, fetch = fluid.io.load_inference_model(d, served)
+                else:
+                    prog, _, fetch = compat.load_reference_inference_model(
+                        d, served, scope=served_scope)
+                answers[fmt] = [served.run(
+                    prog, feed=request, fetch_list=[v.name for v in fetch])[0]
+                    for _ in range(2)]
+        torch.cuda.synchronize()
+        launches = flash_launches(fa)  # ... and ends here
+    finally:
+        flags.reset_flag("fault_spec")
+        faultinject.reset()
+        obs.set_enabled(None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    want = answers["native"][0]
+    served_equal = all(np.array_equal(a, want) for a in
+                       answers["native"] + answers["reference"])
+    emit({"phase": "checkpoint", "nvidia_smi": smi, "model": "bert_base",
+          "batch": 8, "seq_len": BERT["seq_len"], "dropout": 0.0,
+          "state_vars": len(names), "state_gb": state_bytes / 1e9,
+          "root": {"mount": mount, "fstype": fstype, "device": fsdev,
+                   "free_gb": st.f_bavail * st.f_frsize / 1e9},
+          "saved_step": s, "ckpt_write_retries": retries,
+          "torn_vars": torn[:10], "vars_moved_since_save": moved,
+          "losses_uninterrupted": uninterrupted,
+          "losses_after_rollback": replayed,
+          "nan_error": nan_error, "nan_step": bad,
+          "restored_in_place": in_place, "recaptures": recaptures,
+          "captures": [captures, captures_after],
+          "served_shape": list(np.shape(want)),
+          "served_bitwise_equal": served_equal,
+          "export_s": export_s, "launches": launches})
+    emit({"phase": "checkpoint", "times": {
+        "nvidia_smi": smi,
+        "step_ms": plain_ms, "plain_steps": CKPT_PLAIN_STEPS,
+        "step_ms_before_after": [plain_before, plain_after],
+        "saves": CKPT_TIMED_SAVES, "loop_steps": len(step_ms),
+        "loop_ms": loop_ms, "loop_capped": capped,
+        "saving_step_ms": step_ms[:CKPT_TIMED_SAVES],
+        "later_step_ms": {"median": saving[len(saving) // 2],
+                          "max": saving[-1], "min": saving[0]}
+        if saving else None,
+        "first_snapshot_ms": first_snapshot_ms,
+        "first_save_wait_ms": first_wait_ms, "restore_ms": restore_ms,
+        "snapshot_ms": snapshot_ms, "snapshot_hist_ms": hist,
+        "write_wall_ms": write_walls(),
+        "written_gb": [b / 1e9 for b in written],
+        "loop_extra_ms": extra_ms, "hidden_fraction": hidden,
+        "phase_s": time.perf_counter() - t_phase}})
+    check(retries == 1, "ckpt_write: %d retries, want 1" % retries)
+    check(not torn, "restored vars differ from step %d: %s" % (s, torn[:5]))
+    check(moved > 0, "no var changed after the save: the check is void")
+    check(nan_error is not None and ("after step %d" % bad) in nan_error,
+          "the nan guard at step %d: %s" % (bad, nan_error))
+    check(in_place and recaptures == 0 and captures == captures_after,
+          "the restore: in place %s, recaptures %d, captures %s -> %s"
+          % (in_place, recaptures, captures, captures_after))
+    check(replayed == uninterrupted and all(np.isfinite(replayed)),
+          "losses after the rollback %s, uninterrupted %s"
+          % (replayed, uninterrupted))
+    check(served_equal and np.shape(want) == (8, BERT["seq_len"],
+                                              BERT["d_model"]),
+          "the reference format's answers differ from the native one's")
+    return launches
+
+
 def release_memory():
     """Free what no live object holds, CUDA graphs and their pools too,
     and return the cached blocks to the card."""
@@ -8273,6 +8566,8 @@ def main():
     # engine and its cache entries refer to each other: a collection frees
     # them)
     del eager, graph, amp_exe, amp_scope
+    release_memory()
+    ckpt_launches = phase_checkpoint(fa, smi)
     release_memory()
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_resnet_") as d:
@@ -8350,7 +8645,8 @@ def main():
     emit({"phase": "times", "partial_profiler_windows_rerun":
           len(PARTIAL_PROFILES), "partial_windows": PARTIAL_PROFILES,
           "event_timed": EVENT_TIMED})
-    other_paths = {"resnet50_serve": r_serve_launches,
+    other_paths = {"checkpoint": ckpt_launches,
+                   "resnet50_serve": r_serve_launches,
                     "resnet50_train": r_launches,
                     "resnet50_train_amp": r_amp_launches,
                     "resnet50_pipelined": r_pipe_launches,

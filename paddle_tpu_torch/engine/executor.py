@@ -15,8 +15,9 @@ static feed buffers and its seed table and, on CUDA, one captured
 restricted to what the port has: the program's fingerprint, the block,
 the feeds' names, shapes and dtypes, the fetches, ``is_test``,
 ``donate_state``, ``amp``, ``cache_key_extra`` and ``opt_level``; the
-port adds ``state_writeback`` and whether the block is captured, which
-change what the entry runs.
+port adds ``state_writeback`` and whether the engine may capture the
+block, which change what the entry runs. A hit reads the key alone; the
+transforms and the analysis of the block run at a miss.
 
 The desc that runs is the one the transform pipeline returns
 (``analysis.optimize_program``, the reference's cache-miss seam,
@@ -56,6 +57,17 @@ graph.
 ``check_nan_inf`` checks every state and fetch tensor after the step and
 raises with the reference's message (``_check_finite``, :1183).
 
+Fault injection (``resilience/faultinject.py``, ``PADDLE_GPU_FAULT_SPEC``)
+has the reference's three engine seams, each one flag read when no spec
+is set: ``compile`` at the cache miss, before the transforms (:664-669),
+and ``step_fail`` and ``step_nan`` after the step, before the nan/inf
+guard (:342-351). A captured step with ``donate_state`` has already
+written its state into the scope's tensors, so ``step_nan`` fills those
+with NaN in place (and the fetches), before the guard or, in a dispatch
+window, before the deferred probes are enqueued: the guard trips at the
+step the spec names. ``bitflip`` needs the SDC sentinel (ROADMAP Queue 1
+item 11) and raises ``NotImplementedError`` when an entry fires.
+
 ``run_block`` also takes the reference's training-loop levers, each part
 of the cache key: ``accumulate_steps=k`` (``lower_block_accumulated``: k
 micro-batches, one update on the averaged grads), ``remat_segments=s``
@@ -87,6 +99,7 @@ copy-out.
 """
 
 import collections
+import gc
 import threading
 
 import numpy as np
@@ -104,9 +117,9 @@ from paddle_tpu_torch.engine.pipeline import (
 )
 from paddle_tpu_torch.kernels import flash_attention as _fa
 from paddle_tpu_torch.observability import goodput, health
+from paddle_tpu_torch.resilience import faultinject
 
 _BLOCK_CACHE_SIZE = 64
-
 
 class CompiledBlock:
     """One cache entry: a block lowered for one key, with its static feed
@@ -290,6 +303,9 @@ class CompiledBlock:
             else:
                 fetches, state_out = self._body(state, dsts, rng_seed)
         self._out_specs = [(tuple(v.shape), v.dtype) for v in state_out]
+        if faultinject.active():
+            fetches, state_out = _step_faults(rng_seed[1], fetches,
+                                              state_out, dsts)
         self._finish_state(scope, state_out, rng_seed, check=not defer)
         if first:
             goodput.mark("compile")
@@ -374,13 +390,22 @@ class CompiledBlock:
         # thread_local: other threads (the serving worker, a direct
         # caller) may run eagerly on the card while this one captures;
         # the launches are recorded by the capture stream, which a
-        # captured backward (remat) launches on from autograd's thread
-        with torch.no_grad():
-            with torch.cuda.graph(graph, pool=self.engine._graph_pool(),
-                                  capture_error_mode="thread_local"):
-                with _fa.record_launches(
-                        torch.cuda.current_stream(self.device)) as launches:
-                    outs = self._body(state, dsts, rng_seed)
+        # captured backward (remat) launches on from autograd's thread.
+        # No garbage collection runs during the capture: one could free a
+        # dead engine's graph, which CUDA refuses on a capturing thread,
+        # and the capture would fail (torch no longer collects before it)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.no_grad():
+                with torch.cuda.graph(graph, pool=self.engine._graph_pool(),
+                                      capture_error_mode="thread_local"):
+                    with _fa.record_launches(torch.cuda.current_stream(
+                            self.device)) as launches:
+                        outs = self._body(state, dsts, rng_seed)
+        finally:
+            if collecting:
+                gc.enable()
         self.graph, self.outs, self.launches = graph, outs, dict(launches)
         self.bound = list(state) + list(dsts)
         self.captures += 1
@@ -393,6 +418,10 @@ class CompiledBlock:
         self.replays += 1
         obs.inc("engine.replays")
         fetches, state_out = self.outs
+        if faultinject.active():
+            fetches, state_out = _step_faults(
+                rng_seed[1], fetches, state_out,
+                self.bound[len(self.block_program.state_in_names):])
         if defer:
             # a numpy fetch is copied to the host on this stream before
             # the next replay; a tensor fetch needs its own device copy
@@ -550,17 +579,13 @@ class Engine:
                         else opt_level)
         specs = tuple((n, tuple(v.shape), _torch_dtype(v))
                       for n, v in zip(feed_names, feed_values))
-        extra_live = (remat_live_vars(program_desc.block(block_idx))
-                      if remat_segments else ())
-        bp = self._block_program(program_desc, block_idx, feed_names,
-                                 fetch_list, extra_live, opt_level)
-        capture = (self.device.type == "cuda"
-                   and self.cuda_graphs
-                   and bp.capturable
-                   and (donate_state or not state_writeback))
+        # whether the entry may be captured; it is when its block can be
+        # too, which the rest of the key decides
+        graphs = (self.device.type == "cuda" and self.cuda_graphs
+                  and (donate_state or not state_writeback))
         key = (program_desc.cached_fingerprint(), block_idx, specs,
                tuple(fetch_list), is_test, donate_state, amp,
-               cache_key_extra, state_writeback, capture, accumulate_steps,
+               cache_key_extra, state_writeback, graphs, accumulate_steps,
                remat_segments, opt_level)
         with self._lock:
             compiled = self._cache.get(key)
@@ -568,6 +593,16 @@ class Engine:
                 self._cache.move_to_end(key)
                 obs.inc("engine.cache_hit")
                 return compiled
+        if faultinject.active():
+            # a transient compile failure at the cache miss, before the
+            # transforms (reference: executor.py:664-669); nothing is
+            # cached, so the caller's retry re-enters this path
+            faultinject.fault_point("compile")
+        extra_live = (remat_live_vars(program_desc.block(block_idx))
+                      if remat_segments else ())
+        bp = self._block_program(program_desc, block_idx, feed_names,
+                                 fetch_list, extra_live, opt_level)
+        capture = graphs and bp.capturable
         if flags.get_flag("verify") if verify is None else verify:
             # once per cache entry, before lowering, on the desc that
             # runs: every rewrite the transforms made is verified too
@@ -682,6 +717,34 @@ def _torch_dtype(value):
     if isinstance(value, torch.Tensor):
         return value.dtype
     return torch.from_numpy(np.empty(0, value.dtype)).dtype
+
+
+def _step_faults(step, fetches, state_out, written):
+    """The step seam's fault points (reference: executor.py:342-361), after
+    the step and before the nan/inf guard: ``step_fail`` raises
+    ``InjectedFault``; ``step_nan`` fills the float outputs with NaN, in
+    place for ``written`` (the scope's own tensors, which the step has
+    already updated) and in new tensors for the rest; ``bitflip`` raises
+    ``NotImplementedError``. Returns (fetches, state outputs)."""
+    faultinject.fault_point("step_fail", step=step)
+    if faultinject.fault_point("step_nan", step=step):
+        held = {id(t) for t in written}
+        fetches = [_poison_nan(v, id(v) in held) for v in fetches]
+        state_out = [_poison_nan(v, id(v) in held) for v in state_out]
+    if faultinject.fault_point("bitflip", step=step):
+        raise NotImplementedError(
+            "fault point 'bitflip' fired at step %s: flipping a stored "
+            "parameter's bit needs the SDC sentinel, which the port does "
+            "not have yet (ROADMAP Queue 1 item 11)" % step)
+    return fetches, state_out
+
+
+def _poison_nan(val, in_place):
+    """NaN-fill a float tensor (fault injection's step_nan; reference:
+    ``_poison_nan``, executor.py:1172); other values pass through."""
+    if not isinstance(val, torch.Tensor) or not val.is_floating_point():
+        return val
+    return val.mul_(float("nan")) if in_place else val * float("nan")
 
 
 def _check_finite(named_values, step=None, kind="tensor"):

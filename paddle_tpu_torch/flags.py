@@ -173,6 +173,27 @@ DEFS = {
         "degraded_program passed at construction, a fast-window SLO burn "
         "switches dispatch to it and a confirmed slow-window recovery "
         "switches back."),
+    "ckpt_replicas": (
+        int, 0,
+        "Cross-root checkpoint replication factor (checkpoint.py): "
+        "after each local atomic publish the writer mirrors the step "
+        "dir to up to this many peer roots (CheckpointManager "
+        "replica_roots), latest_step() becomes a majority vote across "
+        "the local root + replicas (a torn local-only save loses), and "
+        "restore() falls back to a peer's byte-identical replica when "
+        "the local root is gone or poisoned (disk_fail). 0 = off "
+        "(single-root behavior, exactly as before)."),
+    "fault_spec": (
+        str, "",
+        "Deterministic fault-injection schedule "
+        "(paddle_tpu_torch.resilience.faultinject): ';'-separated "
+        "point@cond:cond entries, e.g. "
+        "'step_nan@7;worker_kill@rank1:step12'. Points: step_nan, "
+        "step_fail, compile, ckpt_write, worker_kill, worker_hang, "
+        "worker_loss (permanent — the supervisor shrinks instead of "
+        "restarting), disk_fail (poisons the local checkpoint root). "
+        "Empty = no faults (the production default; the check is one "
+        "env read)."),
 }
 
 _overrides = {}

@@ -433,9 +433,24 @@ class Program:
 
     @staticmethod
     def parse_from_string(binary_str):
-        """Rebuild a Program from serialized desc bytes (the native format;
-        the reference's framework.proto importer is a later slice)."""
-        return program_from_desc(ProgramDescData.parse_from_string(binary_str))
+        """Rebuild a Program from serialized desc bytes (reference:
+        framework.py Program.parse_from_string; framework.py:485-500).
+        Accepts both the native serialization and the reference's binary
+        framework.proto wire format (``compat``'s importer)."""
+        try:
+            desc = ProgramDescData.parse_from_string(binary_str)
+        except Exception as native_err:
+            from paddle_tpu_torch import compat
+
+            try:
+                return compat.load_reference_program(binary_str)
+            except Exception as proto_err:
+                raise ValueError(
+                    "parse_from_string: neither the native format (%s) "
+                    "nor the reference framework.proto format (%s) "
+                    "accepted the bytes" % (native_err, proto_err)
+                ) from native_err
+        return program_from_desc(desc)
 
     def current_block(self):
         return self.blocks[self.current_block_idx]

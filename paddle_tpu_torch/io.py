@@ -1,12 +1,19 @@
 """Save/load + inference export (reference: python/paddle/fluid/io.py —
 save_persistables:441, load_persistables:657, save_inference_model:862,
-load_inference_model:1014). Port of ``paddle_tpu/io.py`` for the native
-on-disk format, which it shares with the JAX package byte for byte:
-``__model__`` (the desc's JSON), ``__meta__.json`` (feed and fetch names)
-and ``__combined__.npz`` (the persistables as numpy arrays). A directory
-either package writes loads in the other. The reference-proto and AOT
-formats, checkpoints and frozen models are later slices (ROADMAP Queue 1:
-I/O and data, inference).
+load_inference_model:1014). Port of ``paddle_tpu/io.py``:
+
+* the native on-disk format, which it shares with the JAX package byte
+  for byte: ``__model__`` (the desc's JSON), ``__meta__.json`` (feed and
+  fetch names) and ``__combined__.npz`` (the persistables as numpy
+  arrays). A directory either package writes loads in the other;
+* ``save_inference_model(export_format="reference")``: the reference's
+  own format (binary framework.proto ``__model__`` + one tensor stream a
+  persistable) through ``compat.py``;
+* async checkpoints: ``CheckpointManager`` (``checkpoint.py``),
+  ``save_checkpoint_async`` and ``load_checkpoint``, which restores in
+  place into the scope's tensors, so a captured step stays valid.
+
+The AOT artifact and frozen models are ROADMAP Queue 1 item 9.
 """
 
 import copy
@@ -26,10 +33,105 @@ __all__ = [
     "save_vars", "save_params", "save_persistables",
     "load_vars", "load_params", "load_persistables",
     "save_inference_model", "load_inference_model",
+    "CheckpointManager", "save_checkpoint_async", "load_checkpoint",
 ]
+
+from paddle_tpu_torch.checkpoint import CheckpointManager  # noqa: E402
 
 # written by the JAX package's AOT export; stale after a native re-save
 _AOT_FILES = ("__aot__.stablehlo", "__aot_meta__.json")
+
+
+def save_checkpoint_async(manager, step, main_program=None, scope=None,
+                          blocking=False):
+    """Async save of a program's persistables through a CheckpointManager
+    (io.py:28; the same var selection as save_persistables). Returns the
+    saved names at once: the step loop keeps training while the
+    device-to-host transfer and the writes run on the manager's writer
+    thread."""
+    from paddle_tpu_torch import observability as obs
+
+    main_program = main_program or default_main_program()
+    scope = scope if scope is not None else _scope()
+    arrays = {}
+    for v in main_program.list_vars():
+        if not v.persistable:
+            continue
+        val = scope.get(v.name)
+        if val is not None:
+            arrays[v.name] = val
+    # the span covers exactly the step-thread cost of the save — the
+    # on-device snapshot copies + queue handoff (checkpoint.py); the
+    # transfer to the host and the file writes run on the writer thread
+    with obs.span("ckpt.snapshot", step=int(step), n_vars=len(arrays)), \
+            obs.time_block("ckpt.enqueue_ms"):
+        manager.save(step, arrays, blocking=blocking)
+    return sorted(arrays)
+
+
+def load_checkpoint(manager, main_program=None, scope=None, step=None,
+                    allow_partial=False, place=None):
+    """Restore a CheckpointManager checkpoint into the scope; returns the
+    restored step (io.py:60). A program persistable that is initialized
+    in the scope but absent from the checkpoint raises (a silently
+    half-restored model would train from an inconsistent state); pass
+    ``allow_partial=True`` for deliberate surgery like warm-starting a
+    grown model.
+
+    Each value lands on the device of the scope's current tensor, copied
+    IN PLACE where shape and dtype match, so a captured step keeps its
+    graph (no recapture); elsewhere the scope gets a new tensor. A var the
+    scope holds no tensor for lands on ``place`` (default ``CUDAPlace(0)``,
+    which raises without CUDA). Integer values take the integer type the
+    port holds, int64 where the scope has no tensor (the JAX package
+    holds int64 vars as int32 with 64-bit types off). The copies run on
+    the current stream, the one the engine replays on, so every step
+    already dispatched, in a dispatch window too, runs before them; the
+    window's records stay unread (a rollback discards them)."""
+    main_program = main_program or default_main_program()
+    scope = scope if scope is not None else _scope()
+    step = manager.latest_step() if step is None else step
+    data = manager.restore(step)
+    wanted = {v.name for v in main_program.list_vars() if v.persistable}
+    missing = sorted(n for n in wanted
+                     if n not in data and scope.get(n) is not None)
+    if missing and not allow_partial:
+        raise KeyError(
+            "checkpoint step %s lacks persistable var(s) %s; pass "
+            "allow_partial=True to keep their current values"
+            % (step, missing))
+    for name, arr in data.items():
+        if name in wanted:
+            _restore_var(scope, name, arr, place)
+    return step
+
+
+def _restore_var(scope, name, arr, place):
+    value = (arr if isinstance(arr, torch.Tensor)
+             else torch.from_numpy(np.ascontiguousarray(arr)))
+    cur = scope.get(name)
+    if isinstance(cur, torch.Tensor):
+        device, dtype = cur.device, cur.dtype
+    else:
+        cur = None
+        from paddle_tpu_torch.platform import CUDAPlace
+
+        device = (place or CUDAPlace(0)).torch_device()
+        # the port's integer state is int64 at run time (its descs, like
+        # the JAX package's, record it as INT32)
+        dtype = torch.int64
+    if value.dtype != dtype and _is_int(value.dtype) and _is_int(dtype):
+        value = value.to(dtype)
+    if (cur is not None and cur.shape == value.shape
+            and cur.dtype == value.dtype):
+        cur.copy_(value)
+    else:
+        scope.set(name, value.to(device))
+
+
+def _is_int(dtype):
+    return not (dtype.is_floating_point or dtype.is_complex
+                or dtype == torch.bool)
 
 
 def _is_persistable(var):
@@ -139,12 +241,22 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
                          main_program=None, model_filename=None,
                          params_filename=None, export_for_deployment=True,
                          export_format="native", example_feeds=None):
-    """(io.py:201) The native format only."""
+    """(io.py:201) ``export_format="reference"`` writes the reference's
+    on-disk format instead — binary framework.proto ``__model__`` +
+    per-var tensor streams — through ``compat.py``, so reference tooling
+    (and ``compat.load_reference_inference_model``) loads the model.
+    ``"aot"`` raises: the AOT artifact is ROADMAP Queue 1 item 9."""
+    if export_format == "reference":
+        from paddle_tpu_torch import compat
+
+        return compat.save_reference_inference_model(
+            dirname, feeded_var_names, target_vars, executor,
+            main_program=main_program,
+            model_filename=model_filename or "__model__")
     if export_format != "native":
         raise NotImplementedError(
-            "save_inference_model(export_format=%r): the port writes the "
-            "native format only; the reference-proto export and the AOT "
-            "artifact are ROADMAP Queue 1, inference" % (export_format,))
+            "save_inference_model(export_format=%r): the AOT artifact is "
+            "ROADMAP Queue 1 item 9, inference" % (export_format,))
     main_program = main_program or default_main_program()
     fetch_names = [v.name for v in target_vars]
     pruned = _prune_for_inference(main_program, feeded_var_names, fetch_names)

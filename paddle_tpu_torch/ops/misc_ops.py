@@ -37,7 +37,6 @@ when no ``output_shape`` attr is given, and only then.
 
 import itertools
 import math
-import struct
 
 import numpy as np
 import torch
@@ -45,7 +44,6 @@ import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch.core.registry import register_no_grad_op, register_op
-from paddle_tpu_torch.core.types import VarType, convert_dtype_to_np
 from paddle_tpu_torch.ops.common import (
     hash_bits, hash_op_bits, single, take, uniform_floats, uniform_ints,
 )
@@ -1011,83 +1009,20 @@ def py_func_grad(ctx, ins, attrs):
 _LOAD_ON_DEVICE = {}
 
 
-def _read_varint(buf, off):
-    out, shift = 0, 0
-    while True:
-        byte = buf[off]
-        off += 1
-        out |= (byte & 0x7F) << shift
-        if not byte & 0x80:
-            return out, off
-        shift += 7
-
-
-def _tensor_desc(buf):
-    """(VarType, dims) of a serialized TensorDesc: field 1 the data type,
-    field 2 the dims, packed or not (framework.proto)."""
-    dtype, dims, off = None, [], 0
-    while off < len(buf):
-        key, off = _read_varint(buf, off)
-        field, wire = key >> 3, key & 7
-        if wire == 0:
-            val, off = _read_varint(buf, off)
-            if field == 1:
-                dtype = val
-            elif field == 2:
-                dims.append(val)
-        elif wire == 2:
-            size, off = _read_varint(buf, off)
-            end = off + size
-            while field == 2 and off < end:
-                val, off = _read_varint(buf, off)
-                dims.append(val)
-            off = end
-        else:
-            raise ValueError("unsupported wire type %d in a TensorDesc"
-                             % wire)
-    return VarType(dtype), [d - (1 << 64) if d >= 1 << 63 else d
-                            for d in dims]
-
-
-def _load_reference_var(path):
-    """One variable as the reference's save op wrote it (lod_tensor.cc
-    SerializeToStream: uint32 version, uint64 lod levels and their
-    buffers; then tensor_util.cc TensorToStream: uint32 version, int32
-    TensorDesc size, the TensorDesc, the raw data). The port's private
-    copy of the JAX package's ``compat.load_reference_var``
-    (compat.py:261), until the port has its own ``compat.py`` (ROADMAP
-    item 7)."""
-    with open(path, "rb") as f:
-        data = f.read()
-    (version,) = struct.unpack_from("<I", data, 0)
-    if version != 0:
-        raise ValueError("unsupported tensor stream version %d" % version)
-    (lod_level,) = struct.unpack_from("<Q", data, 4)
-    off = 12
-    for _ in range(lod_level):
-        (nbytes,) = struct.unpack_from("<Q", data, off)
-        off += 8 + nbytes
-    (tversion, psize) = struct.unpack_from("<Ii", data, off)
-    if tversion != 0:
-        raise ValueError("unsupported tensor version %d" % tversion)
-    off += 8
-    dtype, dims = _tensor_desc(data[off:off + psize])
-    off += psize
-    np_dtype = convert_dtype_to_np(dtype)
-    count = int(np.prod(dims)) if dims else 1
-    return np.frombuffer(data, dtype=np_dtype, count=count,
-                         offset=off).reshape(dims).copy()
-
-
 def load_from_file(file_path, fp16):
-    """A saved array: ``.npy``, else the reference's tensor stream; as
+    """A saved array: ``.npy``, else the reference's tensor stream
+    (``compat.load_reference_var``; a BF16 stream is a torch tensor); as
     float16 with ``fp16``."""
     with open(file_path, "rb") as f:
         magic = f.read(6)
     if magic.startswith(b"\x93NUMPY"):
         arr = np.load(file_path)
     else:
-        arr = _load_reference_var(file_path)
+        from paddle_tpu_torch import compat
+
+        arr = compat.load_reference_var(file_path)
+        if isinstance(arr, torch.Tensor):
+            return arr.half() if fp16 else arr
     return arr.astype(np.float16) if fp16 else arr
 
 

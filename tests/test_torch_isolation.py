@@ -43,6 +43,7 @@ exe.run(startup)
                              "lens": np.array([[8], [3], [1]])},
                  fetch_list=[out])
 assert res.shape == (3, 2, 8, 4) and np.isfinite(res).all()
+att_out = out
 
 # one training step: append_backward, Adam and the grad lowerings
 # (fused_attention_grad, mul_grad, gelu_grad and the generic vjp)
@@ -312,6 +313,35 @@ with tempfile.TemporaryDirectory() as d:
 assert len(seen) == 2 and all(np.isfinite(v).all() for v in seen)
 assert native.loaded_path().startswith(os.path.join(
     os.path.dirname(paddle_tpu_torch.__file__), "native", "_build"))
+# checkpoints, the reference format and the fault seams: the training
+# program's state saved and restored in place, the attention program
+# exported in the reference format and served, a compile fault retried
+from paddle_tpu_torch import checkpoint, compat, resilience
+from paddle_tpu_torch.resilience import faultinject, retrying
+with tempfile.TemporaryDirectory() as d:
+    mgr = fluid.io.CheckpointManager(os.path.join(d, "ckpt"))
+    fluid.io.save_checkpoint_async(mgr, 1, main_program=train,
+                                   blocking=True)
+    assert fluid.io.load_checkpoint(mgr, main_program=train) == 1
+    ref = os.path.join(d, "ref")
+    fluid.io.save_inference_model(ref, ["x", "lens"], [att_out], exe,
+                                  main_program=main,
+                                  export_format="reference")
+    prog, _, fetches = compat.load_reference_inference_model(ref, exe)
+    (r2,) = exe.run(prog, feed={"x": np.ones((3, 2, 8, 4), np.float32),
+                                "lens": np.array([[8], [3], [1]])},
+                    fetch_list=[v.name for v in fetches])
+    assert np.array_equal(r2, res)
+    with open(os.path.join(ref, "__model__"), "rb") as f:
+        fluid.Program.parse_from_string(f.read())
+flags.set_flags({"fault_spec": "compile@1"})
+try:
+    fluid.Executor(fluid.CPUPlace()).run(loop, feed={}, fetch_list=[i])
+except faultinject.InjectedFault:
+    pass
+else:
+    raise AssertionError("the compile fault did not fire")
+flags.reset_flag("fault_spec")
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "paddle_tpu" or m.startswith("paddle_tpu."))
