@@ -221,8 +221,8 @@ card and prints one JSON line per phase:
    attentions; the profiler's count of a replay agrees), one graph, the
    eager first run's peak allocation, step ms, target tokens/s, idle
    share and top kernels, the ``mfu.*`` gauges; AMP's first loss within
-   TRAIN_AMP_TOL of float32's. One step at batch 2 and dropout 0 against
-   the CPU: the loss end to end (TRAIN_TOL), every op on the CPU's
+   TRAIN_AMP_TOL of float32's. One step at batch NMT_CPU_BATCH and
+   dropout 0 against the CPU: the loss end to end (TRAIN_TOL), every op on the CPU's
    operands (RESNET_OP_TOL), and every grad end to end against the CPU
    step that takes the card's relu decisions (TRAIN_TOL; a relu input
    within rounding of 0 may decide otherwise on the CPU, and moves its
@@ -249,8 +249,9 @@ card and prints one JSON line per phase:
    top kernels, the capture run's ms, and the ``recurrent`` and
    ``recurrent_grad`` ops' ms in an eager step. ``dynamic_lstm`` and
    ``dynamic_gru`` at [32, 256, 4x512 / 3x512] with ragged lengths,
-   reversed, with peepholes, ``origin_mode``: forward and grads against
-   the CPU (RNN_OP_TOL). A ``While`` loop writing a tensor array runs
+   reversed, with peepholes, ``origin_mode``: forward and grads of the
+   first RNN_OP_CPU_ROWS sequences against the CPU (RNN_OP_TOL), the
+   card's ms on all 32. A ``While`` loop writing a tensor array runs
    eagerly and counts in ``engine.eager_runs``; an ``IfElse`` and a
    ``Switch`` are captured and agree with the CPU; dropout inside a
    ``StaticRNN`` cell, captured against eager, bitwise equal, its masks
@@ -401,13 +402,39 @@ card and prints one JSON line per phase:
    launches a call; the NMS, RoI, CTC and YOLO ops twice, bitwise equal;
    ``F.ctc_loss`` beside ``warpctc``; the greedy NMS scan alone at its
    two users' shapes, its ms, launches and share of the op.
-43. kernels — one JSON object listing every ported kernel, with its
+43. opt_levels — BERT-base (float32, dropout 0, batch 8) captured
+   OPT_STEPS steps at levels 1 and 2 from one state: each level's
+   transform report from the metrics registry (rewrites by pass,
+   crashes, the pipeline's ms), losses bitwise equal where no level-2
+   pass fires (FUSE_TOL otherwise), 12 launches of each kernel a step;
+   its encoder served at levels 1 and 2 (the add + gelu fuse fires 12
+   times; FUSE_TOL); the seq-512 recipe at level 3 under a budget of
+   OPT3_BUDGET_FRAC of its plain step's measured peak: the plan's
+   segments, predicted against measured peak, the re-plan, no planner
+   crash, the measured peak under the budget, losses within TRAIN_TOL of
+   the plain step's, step ms.
+44. layout_nhwc — ResNet-50 at batch 32 at NCHW and at layout=nhwc from
+   one state: every NHWC conv, pool and batch-norm op of the first step
+   (and its grad op) against its NCHW lowering on the same operands
+   (IMAGE_OP_TOL), the first loss, later losses and served logits
+   (LAYOUT_TOL), one graph each; the seams and weights baked; captured
+   step and served ms in each layout, float32 and AMP bf16; cuDNN's
+   layout-reorder kernels of one profiled NHWC step.
+45. int8_serve — LeNet trained on the repo's MNIST reader, frozen,
+   calibrated and quantized: INT8 top-1 within INT8_TOP1_POINTS of FP32;
+   ResNet-50 served through ``enable_mkldnn`` at batch 1, 8 and 32 (the
+   first INT8_SERVE_CALIB requests calibrate): request ms float32
+   (frozen) and INT8, the quantized ops' share of the INT8 request's
+   device time, INT8-vs-float32 top-1 agreement, every quantized op of
+   one batch bitwise equal to its float64 emulation; the frozen model
+   exported AOT and served through the predictor's AOT branch (AOT_TOL).
+46. kernels — one JSON object listing every ported kernel, with its
    design: all three run their products on the tensor cores (mma.sync
    bf16, 3xTF32 for float32) from a cp.async tile ring, and read their
    dropout seed from device memory; each kernel's launches on every path,
    the checkpoint, ResNet-50, training-loop, CTR, NMT, LSTM, image,
-   unfused-attention, book, dense-op, sequence, misc and detection paths
-   included, and its
+   unfused-attention, book, dense-op, sequence, misc, detection and
+   opt-level paths included, and its
    times at the Transformer's shapes (``nmt_t256``).
 
 Served requests and dispatches run as captured CUDA graphs too: the first
@@ -637,7 +664,7 @@ NMT = dict(batch_size=32, seq_len=256, d_model=512, n_heads=8,
            lr=1e-4)
 NMT_STEPS = 3
 NMT_FEED_SEED = 71
-NMT_CPU_BATCH = 2
+NMT_CPU_BATCH = 1      # the CPU step is the phase's long pole
 # the grads the card-vs-CPU step prints first: both embeddings (the
 # deepest), the first encoder weight and the output projection
 NMT_GRADS = ("src_word_emb", "trg_word_emb", "fc_0.w_0_0", "fc_96.w_0_0")
@@ -665,6 +692,9 @@ RNN_OP_CASES = [
 # off) GEMMs summed in cuBLAS's order and the CPU's through 256 steps of
 # recurrence, each output held to its own largest element
 RNN_OP_TOL = {"rel_to_max": 1e-3}
+# the recurrent ops' card-vs-CPU comparison runs on this many of the
+# batch's sequences (the longest first), the card's time on all of them
+RNN_OP_CPU_ROWS = 8
 # image_models: the three image builders with all their ops ported, at
 # their own input sizes, batch 32, float32
 IMAGE_MODELS = {
@@ -803,6 +833,52 @@ DETECTION_TWICE = ("multiclass_nms", "generate_proposals", "roi_align",
 # ops whose grad is an op of its own that the engine runs, never the vjp
 # of the forward (py_func's runs Python on host arrays)
 OWN_GRAD_OP = ("py_func",)
+# opt_levels: BERT-base (float32, dropout 0) trained OPT_STEPS captured
+# steps at levels 1 and 2 and served at both (the level-2 passes run the
+# registered lowerings: FUSE_TOL's loss bound, bitwise where no pass
+# fires); the seq-512 recipe at level 3 under a budget of OPT3_BUDGET_FRAC
+# of its plain step's measured peak, re-planned from the measured peak
+# beyond OPT3_REPLAN_TOL, its losses within TRAIN_TOL of the plain step's
+OPT_STEPS = 3
+OPT3_BUDGET_FRAC = 0.6
+OPT3_REPLAN_TOL = 0.25
+# layout_nhwc: ResNet-50 at batch 32 trained LAYOUT_STEPS captured steps
+# at NCHW and at NHWC from one state, and served both ways. cuDNN picks
+# other algorithms (and sums otherwise) per layout, so nothing is
+# bitwise: each NHWC conv, pool and batch-norm op of the first step (and
+# its grad op) is held against its NCHW lowering on the same operands,
+# permuted (IMAGE_OP_TOL), the first loss to 1e-5 and the served logits
+# to 1e-3 of their largest; end to end the step's grads are printed, not
+# held (the 50 layers magnify rounding: percents apart, as the card's
+# step against the CPU's in resnet50_train), and at lr 0.1 from random
+# weights the loss doubles by the third step, the rounding growing about
+# tenfold a step (0.3 % after one update, 2.0 % after two on an H100),
+# so the later losses hold to 5e-2
+LAYOUT_STEPS = 3
+LAYOUT_TOL = {"first_loss_rtol": 1e-5, "loss_rtol": 5e-2,
+              "logits_rel_to_max": 1e-3}
+LAYOUT_OPS = ("conv2d", "depthwise_conv2d", "conv2d_grad",
+              "depthwise_conv2d_grad", "pool2d", "batch_norm",
+              "batch_norm_grad")
+# cuDNN's (and torch's) kernels that reorder a tensor's layout: a filter
+# copy shows among these in an NHWC step
+LAYOUT_COPY_KERNEL = r"(nchw|nhwc|transpose|reorder|convert|permute|copy)"
+# int8_serve: LeNet (tests/test_int8_accuracy.py, 8 and 16 filters) on
+# the repo's MNIST reader, INT8_LENET's Adam epochs at its batch, then
+# frozen, calibrated on INT8_CALIB_BATCHES train batches and quantized:
+# the INT8 top-1 within INT8_TOP1_POINTS points of FP32 on the test split.
+# ResNet-50 served INT8 through enable_mkldnn (INT8_SERVE_CALIB requests
+# calibrate), its quantized ops bitwise equal to a float64 emulation of
+# their int8 operands; the AOT artifact of the frozen float32 model
+# within AOT_TOL of the predictor
+INT8_LENET = dict(batch=64, epochs=3, lr=2e-3)
+INT8_CALIB_BATCHES = 8
+INT8_TOP1_POINTS = 0.5
+INT8_SERVE_CALIB = 4
+INT8_SERVE_BATCHES = (1, 8, 32)
+INT8_AGREE_IMAGES = 256
+AOT_BATCH = 8
+AOT_TOL = {"rtol": 1e-4, "atol": 1e-4}
 
 
 # profiler windows that dropped device activity and were run again: per
@@ -4777,21 +4853,29 @@ def rnn_op_case(op_type, attrs, gates, seed):
     info = OpRegistry.get(op_type)
     slots = sorted(ins)
 
-    def run(device):
+    def run(device, rows=B):
+        # the first ``rows`` sequences (H0 and the per-sequence operands
+        # cut alike; Weight and Bias whole)
         ctx = LowerContext(op, None, device)
-        extra = {"SeqLen": [torch.from_numpy(lens).to(device)]}
+        extra = {"SeqLen": [torch.from_numpy(lens[:rows]).to(device)]}
 
         def fwd(*prims):
             fin = dict(extra, **{s: [p] for s, p in zip(slots, prims)})
             out = info.lower(ctx, fin, attrs)
             return tuple(out[s][0] for s in outs)
 
-        prims = [torch.from_numpy(ins[s]).to(device) for s in slots]
+        prims = [torch.from_numpy(ins[s][:rows] if s in ("Input", "H0")
+                                  else ins[s]).to(device) for s in slots]
         got, vjp = torch.func.vjp(fwd, *prims)
-        grads = vjp(tuple(torch.from_numpy(c).to(device) for c in cots))
+        grads = vjp(tuple(torch.from_numpy(c[:rows]).to(device)
+                          for c in cots))
         return [t.cpu() for t in got + grads]
 
-    card, cpu = run("cuda"), run("cpu")
+    # the card against the CPU on RNN_OP_CPU_ROWS of the batch's
+    # sequences (the CPU's recurrence is the phase's long pole); the card
+    # is timed on the whole batch below
+    card = run("cuda", RNN_OP_CPU_ROWS)
+    cpu = run("cpu", RNN_OP_CPU_ROWS)
     names = list(outs) + [s + "@GRAD" for s in slots]
     worst = {}
     for n, a, b in zip(names, card, cpu):
@@ -4801,8 +4885,8 @@ def rnn_op_case(op_type, attrs, gates, seed):
     def on_card():
         run("cuda")
 
-    ms = timed_runs(on_card, n=1, warmup=0)["median_ms"]  # warm: ran above
-    return worst, ms, int(lens.sum())
+    ms = timed_runs(on_card, n=1, warmup=1)["median_ms"]
+    return worst, ms, int(lens[:RNN_OP_CPU_ROWS].sum())
 
 
 def while_array_program():
@@ -5120,6 +5204,7 @@ def phase_lstm(fa, smi):
         cases.append({"op": op_type, "attrs": attrs,
                       "shape": [LSTM["batch_size"], LSTM["seq_len"],
                                 gates * LSTM["hidden_dim"]],
+                      "compared_rows": RNN_OP_CPU_ROWS,
                       "valid_steps": valid, "rel_to_max": worst,
                       "fwd_bwd_ms": ms})
     emit({"phase": "lstm", "rnn_ops": cases, "tol": RNN_OP_TOL})
@@ -8491,6 +8576,807 @@ def phase_checkpoint(fa, smi):
     return launches
 
 
+# -- the opt-level ladder and the INT8 serving path --------------------------
+
+
+def transform_counters():
+    """The metrics registry's transform counters and its
+    ``transform.pipeline_ms`` histogram's count and total, for
+    ``transform_report``."""
+    from paddle_tpu_torch import observability as obs
+
+    snap = obs.snapshot()
+    hist = snap["histograms"].get("transform.pipeline_ms", {})
+    return (dict(snap["counters"]), hist.get("count", 0),
+            hist.get("total", 0.0))
+
+
+def transform_report(before, level):
+    """What the engine's transforms did since ``transform_counters()``
+    gave ``before`` (the metrics gate up): rewrites and crashes by pass,
+    ops pruned, pipeline runs and their ms (the ``transform.pipeline_ms``
+    histogram, the pipeline's host wall)."""
+    (c0, n0, ms0), (c1, n1, ms1) = before, transform_counters()
+
+    def by_pass(suffix):
+        out = {}
+        for k, v in c1.items():
+            name = k[len("transform."):-len(suffix)]
+            if (k.startswith("transform.") and k.endswith(suffix)
+                    and name and v - c0.get(k, 0)):
+                out[name] = v - c0.get(k, 0)
+        return out
+
+    return {"level": level, "rewrites": by_pass(".rewrites"),
+            "crashed": by_pass(".crashes"),
+            "pruned": c1.get("transform.pruned_ops", 0)
+            - c0.get("transform.pruned_ops", 0),
+            "pipeline_runs": n1 - n0, "transform_pipeline_ms": ms1 - ms0}
+
+
+def serving_bert_program():
+    """BERT-base's encoder built for serving (``is_train=False``, the
+    train program's parameter names): (program, encoder output)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import bert
+
+    main, startup = fluid.Program(), fluid.Program()
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        T = BERT["seq_len"]
+        data = {n: fluid.layers.data(name=n, shape=[T], dtype="int64")
+                for n in ("src_ids", "pos_ids", "sent_ids")}
+        seq_lens = fluid.layers.data(name="seq_lens", shape=[1],
+                                     dtype="int64")
+        enc = bert.bert_encoder(
+            data["src_ids"], data["pos_ids"], data["sent_ids"], seq_lens,
+            BERT["vocab_size"], max_position=BERT["max_position"],
+            d_model=BERT["d_model"], n_layers=BERT["n_layers"],
+            n_heads=BERT["n_heads"], d_inner=BERT["d_inner"], dropout=0.0,
+            is_train=False, use_fused_attention=True)
+    return main, enc
+
+
+def rel_worst(a, b):
+    """Worst |a - b| / |b| over two lists of losses."""
+    return max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
+
+
+def phase_opt_levels(fa, smi):
+    """BERT-base (float32, dropout 0) captured OPT_STEPS steps at levels 1
+    and 2 from one state: each level's transform report (rewrites by
+    pass, the pipeline's ms) and losses, FUSE_TOL apart (bitwise where no
+    level-2 pass fires: the fuse of an add into its activation blocks
+    itself on a training program); the encoder served at levels 1 and 2,
+    where the fuse fires; then the seq-512 recipe at level 3 under a
+    budget of OPT3_BUDGET_FRAC of its plain step's measured peak: the
+    plan's segments, its predicted peak against the measured one, whether
+    the engine re-planned, the step's ms, the losses within TRAIN_TOL of
+    the plain step's and the measured peak under the budget. Returns the
+    flash launches of the three paths."""
+    import torch
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch import observability as obs
+
+    t_phase = time.perf_counter()
+    n_layers = BERT["n_layers"]
+    main, startup, loss = bert_train_program(False, dropout=0.0)
+    state0 = start_state(main, startup)
+    feed8 = train_feed(8, np.random.RandomState(81))
+    launches, rows = {}, {}
+    flags.set_flags({"metrics": True})  # the transform counters
+    for level in (1, 2):
+        exe, scope = state_executor(main, state0)
+        fa.launches = fa.launches_dq = fa.launches_dkv = 0
+        before = transform_counters()
+        with fluid.scope_guard(scope):
+            losses = [float(exe.run(main, feed=feed8, fetch_list=[loss],
+                                    opt_level=level)[0].reshape(-1)[0])
+                      for _ in range(OPT_STEPS)]
+        report = transform_report(before, level)
+        counted = flash_launches(fa)
+        with fluid.scope_guard(scope):
+            ms = timed_runs(lambda: exe.run(main, feed=feed8,
+                                            fetch_list=[loss],
+                                            opt_level=level))
+        rows[level] = {"report": report, "losses": losses,
+                       "launches": counted, "step_ms": ms,
+                       "graphs": [(c.captures, c.replays)
+                                  for c in captured(exe.engine)]}
+        if level == 2:
+            launches["opt_levels"] = counted
+        del exe, scope
+    release_memory()
+    level2 = {k: v for k, v in rows[2]["report"]["rewrites"].items()
+              if k != "fuse-attention"}
+    fired = bool(level2)
+    worst = rel_worst(rows[2]["losses"], rows[1]["losses"])
+    emit({"phase": "opt_levels", "card": smi, "model": "bert_base",
+          "batch": 8, "path": "train", "levels": rows,
+          "level2_passes_fired": fired,
+          "losses_bitwise_equal": rows[2]["losses"] == rows[1]["losses"],
+          "loss_worst_rel": worst, "tol": FUSE_TOL["loss_rtol"]})
+    for level, row in rows.items():
+        check(not row["report"]["crashed"], "level %d: crashed passes %s"
+              % (level, row["report"]["crashed"]))
+        check(row["launches"] == dict(
+            (k, OPT_STEPS * n_layers) for k in row["launches"]),
+            "level %d: flash launches %s" % (level, row["launches"]))
+        check(len(row["graphs"]) == 1 and row["graphs"][0][0] == 1,
+              "level %d: graphs %s" % (level, row["graphs"]))
+    if fired:
+        check(worst <= FUSE_TOL["loss_rtol"], "level 2 losses %s against "
+              "level 1's %s" % (rows[2]["losses"], rows[1]["losses"]))
+    else:
+        check(rows[2]["losses"] == rows[1]["losses"], "no level-2 pass "
+              "fired, yet the losses differ: %s against %s"
+              % (rows[2]["losses"], rows[1]["losses"]))
+
+    # the encoder served at levels 1 and 2: eager, capture, replay
+    serve, enc = serving_bert_program()
+    names = {v.name for v in serve.list_vars() if v.persistable}
+    s_state = {n: v for n, v in state0.items() if n in names}
+    s_feed = {k: feed8[k] for k in ("pos_ids", "sent_ids", "seq_lens",
+                                    "src_ids")}
+    served = {}
+    for level in (1, 2):
+        exe, scope = state_executor(serve, s_state)
+        fa.launches = fa.launches_dq = fa.launches_dkv = 0
+        before = transform_counters()
+        with fluid.scope_guard(scope):
+            outs = [exe.run(serve, feed=s_feed, fetch_list=[enc],
+                            opt_level=level)[0] for _ in range(3)]
+            report = transform_report(before, level)
+            ms = timed_runs(lambda: exe.run(serve, feed=s_feed,
+                                            fetch_list=[enc],
+                                            opt_level=level))
+        served[level] = {"report": report, "out": outs[-1],
+                         "replays_equal_eager": all(
+                             np.array_equal(o, outs[0]) for o in outs),
+                         "launches": flash_launches(fa), "request_ms": ms}
+        if level == 2:
+            launches["opt_levels_serve"] = served[level]["launches"]
+        del exe, scope
+    release_memory()
+    a, b = served[2]["out"], served[1]["out"]
+    s_err = float(np.abs(a - b).max()) / max(float(np.abs(b).max()), 1e-30)
+    fused = served[2]["report"]["rewrites"].get("fuse-elemwise-act", 0)
+    emit({"phase": "opt_levels", "card": smi, "path": "serve", "batch": 8,
+          "levels": {k: {kk: vv for kk, vv in v.items() if kk != "out"}
+                     for k, v in served.items()},
+          "fuse_elemwise_act_rewrites": fused,
+          "bitwise_equal": bool(np.array_equal(a, b)),
+          "rel_to_max": s_err, "tol": FUSE_TOL["loss_rtol"]})
+    check(fused > 0, "level 2 fused no add + activation on the served "
+          "encoder")
+    check(all(v["replays_equal_eager"] for v in served.values()),
+          "served replays differ from eager")
+    check(s_err <= FUSE_TOL["loss_rtol"], "served level 2 vs level 1: %g"
+          % s_err)
+
+    # level 3: the seq-512 recipe under a budget below its plain peak
+    r_main, r_startup, r_loss, _ = recipe_program()
+    r_feed = recipe_feed(8, np.random.RandomState(53))
+
+    def steps(exe, scope, level):
+        with fluid.scope_guard(scope):
+            return [float(exe.run(r_main, feed=r_feed, fetch_list=[r_loss],
+                                  opt_level=level)[0].reshape(-1)[0])
+                    for _ in range(OPT_STEPS)]
+
+    release_memory()
+    exe, scope = fresh(r_startup)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with fluid.scope_guard(scope):
+        first = float(exe.run(r_main, feed=r_feed, fetch_list=[r_loss],
+                              opt_level=2)[0].reshape(-1)[0])
+    torch.cuda.synchronize()
+    plain_peak = int(torch.cuda.max_memory_allocated())
+    with fluid.scope_guard(scope):
+        plain = [first] + [
+            float(exe.run(r_main, feed=r_feed, fetch_list=[r_loss],
+                          opt_level=2)[0].reshape(-1)[0])
+            for _ in range(OPT_STEPS - 1)]
+    del exe, scope
+    release_memory()
+    total = torch.cuda.get_device_properties(0).total_memory
+    budget = int(OPT3_BUDGET_FRAC * plain_peak)
+    flags.set_flags({"device_memory_bytes": total,
+                     "hbm_budget_frac": budget / total,
+                     "replan_tolerance": OPT3_REPLAN_TOL})
+    crashes0 = obs.counter_value("memory.plan_crashes")
+    replans0 = obs.counter_value("memory.replan")
+    try:
+        exe, scope = fresh(r_startup)
+        fa.launches = fa.launches_dq = fa.launches_dkv = 0
+        before = transform_counters()
+        losses = steps(exe, scope, 3)
+        report = transform_report(before, 3)
+        launches["opt_levels_l3"] = flash_launches(fa)
+        entries = [c for c in exe.engine._cache.values()
+                   if c.memory_plan is not None
+                   and "src_ids" in c.block_program.feed_names]
+        with fluid.scope_guard(scope):
+            ms = timed_runs(lambda: exe.run(r_main, feed=r_feed,
+                                            fetch_list=[r_loss],
+                                            opt_level=3))
+        engine = exe.engine
+        crashes = obs.counter_value("memory.plan_crashes") - crashes0
+        replans = obs.counter_value("memory.replan") - replans0
+    finally:
+        for name in ("device_memory_bytes", "hbm_budget_frac",
+                     "replan_tolerance", "metrics"):
+            flags.reset_flag(name)
+    (entry,) = entries
+    plan = entry.memory_plan
+    row = {"seq_len": RECIPE["seq_len"], "batch": 8,
+           "plain_peak_bytes": plain_peak, "budget_bytes": budget,
+           "budget_frac_of_plain_peak": OPT3_BUDGET_FRAC,
+           "device_memory_bytes": total,
+           "plan_segments": int(plan.remat.n_segments),
+           "plan_reason": plan.remat.reason,
+           "lowered_segments": int(entry.remat_segments),
+           "predicted_peak_bytes": int(plan.predicted_peak_bytes),
+           "measured_peak_bytes": entry.peak_bytes,
+           "replanned": bool(replans), "replans": replans,
+           "plan_crashes": crashes, "transforms": report,
+           "losses": losses, "plain_losses": plain,
+           "loss_worst_rel": rel_worst(losses, plain),
+           "tol": TRAIN_TOL["loss_rtol"], "step_ms": ms,
+           "graphs": [(c.captures, c.replays) for c in captured(engine)],
+           "launches": launches["opt_levels_l3"],
+           "phase_s": time.perf_counter() - t_phase}
+    emit(dict({"phase": "opt_levels", "card": smi, "path": "level3"}, **row))
+    del exe, scope, engine, entries, entry
+    release_memory()
+    check(not report["crashed"] and not crashes, "level 3: crashed passes "
+          "%s, planner crashes %s" % (report["crashed"], crashes))
+    check(row["lowered_segments"] > 0, "level 3 lowered no remat segment "
+          "under a budget of %.2f of the plain peak" % OPT3_BUDGET_FRAC)
+    check(row["measured_peak_bytes"] is not None
+          and row["measured_peak_bytes"] <= budget,
+          "level 3: measured peak %s over the budget %d"
+          % (row["measured_peak_bytes"], budget))
+    check(row["loss_worst_rel"] <= TRAIN_TOL["loss_rtol"],
+          "level 3 losses %s against the plain %s" % (losses, plain))
+    return launches
+
+
+@contextlib.contextmanager
+def nhwc_against_nchw(errors):
+    """While held, each NHWC op of LAYOUT_OPS that runs also runs its NCHW
+    lowering on the same operands, permuted (activations NHWC -> NCHW,
+    filters HWIO -> OIHW), and appends to ``errors`` (op type, output
+    slot, max|NHWC - NCHW|, max|NCHW|, the largest incoming grad's max)
+    for each float output."""
+    import torch
+
+    from paddle_tpu_torch.core.registry import OpRegistry
+
+    acts, filters = ((0, 3, 1, 2), (0, 2, 3, 1)), ((3, 2, 0, 1), (2, 3, 1, 0))
+
+    def perm(slot, t, back=False):
+        if not hasattr(t, "dim") or t.dim() != 4:
+            return t
+        p = (filters if slot.startswith("Filter") else acts)[int(back)]
+        return t.permute(*p)
+
+    def wrap(op_type, lower):
+        def fn(ctx, ins, attrs):
+            out = lower(ctx, ins, attrs)
+            key = "data_layout" if "batch_norm" in op_type else "data_format"
+            if attrs.get(key, "NCHW") != "NHWC":
+                return out
+            # the NCHW operands as plain contiguous tensors, outside
+            # any autograd a vjp of the op (pool2d's grad) records
+            with torch.no_grad():
+                nchw = lower(ctx, {k: [perm(k, t).detach().contiguous()
+                                       if hasattr(t, "dim") else t
+                                       for t in v]
+                                   for k, v in ins.items()},
+                             dict(attrs, **{key: "NCHW"}))
+            cot = max([float(t.detach().abs().max()) for k, v in ins.items()
+                       if k.endswith("@GRAD") for t in v if t.numel()]
+                      or [0.0])
+            for slot, vals in out.items():
+                for a, b in zip(vals, nchw.get(slot, [])):
+                    if a is None or not a.is_floating_point():
+                        continue
+                    a, b = a.detach(), perm(slot, b, back=True)
+                    errors.append((op_type, slot, float(
+                        (a.float() - b.float()).abs().max()),
+                        float(b.float().abs().max()), cot))
+            return out
+        return fn
+
+    saved = {t: OpRegistry.get(t).lower for t in LAYOUT_OPS}
+    for t in LAYOUT_OPS:
+        OpRegistry.get(t).lower = wrap(t, saved[t])
+    try:
+        yield errors
+    finally:
+        for t in LAYOUT_OPS:
+            OpRegistry.get(t).lower = saved[t]
+
+
+def phase_layout_nhwc(fa, smi):
+    """ResNet-50 at batch 32 at layout=nhwc against NCHW, from one state:
+    LAYOUT_STEPS captured Momentum steps each (losses within LAYOUT_TOL),
+    the batch-32 logits served each way (LAYOUT_TOL of their largest);
+    the transpose2 seams and the weights baked; the captured step's and
+    the served request's ms in each layout, float32 and AMP bf16; from
+    one profiled NHWC step, the device ms of the layout-reordering
+    kernels (the filter copies among them). Returns the flash launches
+    (none)."""
+    import torch
+    from torch.autograd import DeviceType
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.analysis import plan_layout
+
+    t_phase = time.perf_counter()
+    main, startup, handles = resnet_program(is_train=True)
+    loss = handles["loss"]
+    state0 = start_state(main, startup)
+    feed = resnet_feed(RESNET_BATCH, np.random.RandomState(91))
+    plan = plan_layout(main.desc, feed_names=sorted(feed),
+                       fetch_names=[loss.name])
+    serve, _, s_handles = resnet_program(is_train=False)
+    s_names = {v.name for v in serve.list_vars() if v.persistable}
+    s_state = {n: v for n, v in state0.items() if n in s_names}
+    logits = s_handles["logits"]
+    s_feed = {"img": feed["img"]}
+    grads = [n + "@GRAD" for n in RESNET_GRADS]
+    grad_shapes = [tuple(state0[n].shape) for n in RESNET_GRADS]
+    fa.launches = fa.launches_dq = fa.launches_dkv = 0
+    rows, copies, op_errs = {}, {}, []
+    try:
+        for layout in ("off", "nhwc"):
+            flags.set_flags({"layout": layout})
+            exe, scope = state_executor(main, state0)
+            with fluid.scope_guard(scope), nhwc_against_nchw(op_errs):
+                # the first step (an eager entry of its own: it fetches
+                # grads too) runs each NHWC op beside its NCHW lowering
+                first = exe.run(main, feed=feed, fetch_list=[loss] + grads)
+            with fluid.scope_guard(scope):
+                losses = [float(first[0].reshape(-1)[0])] + [
+                    float(exe.run(main, feed=feed,
+                                  fetch_list=[loss])[0].reshape(-1)[0])
+                    for _ in range(LAYOUT_STEPS - 1)]
+                # an NHWC filter's grad is HWIO: viewed OIHW to compare
+                first_grads = [g.transpose(3, 2, 0, 1) if g.shape != shape
+                               else g for g, shape in zip(first[1:],
+                                                          grad_shapes)]
+
+                def step():
+                    return exe.run(main, feed=feed, fetch_list=[loss])
+
+                step_ms = timed_runs(step)
+                if layout == "nhwc":
+                    prof = profiled(step)
+                    for e in prof.key_averages():
+                        if (e.device_type == DeviceType.CUDA
+                                and re.search(LAYOUT_COPY_KERNEL, e.key,
+                                              re.I)):
+                            copies[e.key[:100]] = {
+                                "ms": e.self_device_time_total / 1e3,
+                                "launches": e.count}
+            baked = len(getattr(scope, "_layout_hwio", ()))
+            graphs = [(c.captures, c.replays) for c in captured(exe.engine)]
+            del exe, scope
+            s_exe, s_scope = state_executor(serve, s_state)
+            with fluid.scope_guard(s_scope):
+                outs = [s_exe.run(serve, feed=s_feed,
+                                  fetch_list=[logits])[0] for _ in range(3)]
+                serve_ms = timed_runs(lambda: s_exe.run(
+                    serve, feed=s_feed, fetch_list=[logits]))
+            del s_exe, s_scope
+            # AMP bf16: the same programs marked for bfloat16
+            amp_ms = {}
+            for label, fetch, st, fd in (
+                    ("train_step", loss, state0, feed),
+                    ("serve", logits, s_state, s_feed)):
+                prog = resnet_program(is_train=label == "train_step",
+                                      amp=True)[0]
+                a_exe, a_scope = state_executor(prog, st)
+                with fluid.scope_guard(a_scope):
+                    amp_ms[label] = timed_runs(lambda: a_exe.run(
+                        prog, feed=fd, fetch_list=[fetch.name]))
+                del a_exe, a_scope
+            release_memory()
+            rows[layout] = {"losses": losses, "step_ms": step_ms,
+                            "first_grads": first_grads,
+                            "serve_ms": serve_ms, "amp_bf16_ms": amp_ms,
+                            "weights_baked_in_scope": baked,
+                            "graphs": graphs, "logits": outs[-1],
+                            "served_replays_equal_eager": all(
+                                np.array_equal(o, outs[0]) for o in outs)}
+    finally:
+        flags.reset_flag("layout")
+    launches = flash_launches(fa)
+    a, b = rows["nhwc"]["logits"], rows["off"]["logits"]
+    l_err = float(np.abs(a - b).max()) / max(float(np.abs(b).max()), 1e-30)
+    worst = rel_worst(rows["nhwc"]["losses"][1:], rows["off"]["losses"][1:])
+    first_err = rel_worst(rows["nhwc"]["losses"][:1],
+                          rows["off"]["losses"][:1])
+    grad_err = {n: float(np.abs(x - y).max()) / max(float(np.abs(y).max()),
+                                                     1e-30)
+                for n, x, y in zip(RESNET_GRADS, rows["nhwc"]["first_grads"],
+                                   rows["off"]["first_grads"])}
+    # each output within IMAGE_OP_TOL: rel_to_max of its own largest
+    # element, plus cot_rel of the largest grad flowing into its op (a
+    # batch norm's scale grad is a sum cancelling to rounding noise)
+    op_worst, op_bad = {}, []
+    for op_type, slot, d, peak, cot in op_errs:
+        key = "%s %s" % (op_type, slot)
+        op_worst[key] = max(op_worst.get(key, 0.0), d / (peak or 1.0))
+        limit = (IMAGE_OP_TOL["rel_to_max"] * peak
+                 + IMAGE_OP_TOL["cot_rel"] * cot)
+        if d > limit:
+            op_bad.append([key, d, peak, cot])
+    emit({"phase": "layout_nhwc", "card": smi, "model": "resnet50",
+          "batch": RESNET_BATCH,
+          "transpose2_seams": plan.transpose_count,
+          "seams": [list(s)[:2] for s in plan.seams],
+          "nhwc_ops": plan.n_nhwc_ops, "filters_to_bake": len(plan.weights),
+          "layouts": {k: {kk: vv for kk, vv in v.items()
+                          if kk not in ("logits", "first_grads")}
+                      for k, v in rows.items()},
+          "ops_compared": len(op_errs), "ops_worst_rel_to_max": op_worst,
+          "op_tol": IMAGE_OP_TOL, "ops_beyond_tol": op_bad[:5],
+          "first_loss_rel": first_err,
+          "end_to_end_first_grads_rel_to_max": grad_err,
+          "later_loss_worst_rel": worst, "logits_rel_to_max": l_err,
+          "tol": LAYOUT_TOL, "nhwc_step_layout_kernels": copies,
+          "nhwc_step_layout_kernels_ms": sum(c["ms"] for c in
+                                             copies.values()),
+          "launches": launches,
+          "phase_s": time.perf_counter() - t_phase})
+    check(plan.n_nhwc_ops > 0 and plan.transpose_count > 0,
+          "the layout plan rewrote nothing")
+    check(rows["nhwc"]["weights_baked_in_scope"] >= len(plan.weights),
+          "NHWC baked %d weights of %d" % (
+              rows["nhwc"]["weights_baked_in_scope"], len(plan.weights)))
+    for layout, row in rows.items():
+        check([g[0] for g in row["graphs"] if g[0]] == [1],
+              "%s: graphs %s" % (layout, row["graphs"]))
+        check(row["served_replays_equal_eager"], "%s: served replays differ"
+              % layout)
+        check(all(np.isfinite(row["losses"])), "%s losses" % layout)
+    convs = sum(op.type in ("conv2d", "depthwise_conv2d")
+                for op in main.desc.block(0).ops)
+    compared = sum(e[0] in ("conv2d", "depthwise_conv2d") for e in op_errs)
+    check(compared == convs, "%d NHWC convolutions compared of %d"
+          % (compared, convs))
+    check(not op_bad, "NHWC ops off their NCHW lowerings beyond %s: %s"
+          % (IMAGE_OP_TOL, op_bad[:5]))
+    check(first_err <= LAYOUT_TOL["first_loss_rtol"],
+          "NHWC first loss off NCHW's by %g" % first_err)
+    check(worst <= LAYOUT_TOL["loss_rtol"], "NHWC losses %s against NCHW "
+          "%s" % (rows["nhwc"]["losses"], rows["off"]["losses"]))
+    check(l_err <= LAYOUT_TOL["logits_rel_to_max"], "NHWC served logits "
+          "%g of their largest off NCHW's" % l_err)
+    check(not any(launches.values()), "flash launches in layout_nhwc: %s"
+          % launches)
+    return launches
+
+
+def lenet_int8_program():
+    """tests/test_int8_accuracy.py's LeNet (two conv-pool blocks of 8 and
+    16 filters, a softmax fc, Adam): (main, startup, its for_test clone,
+    prediction, loss, accuracy)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import nets, unique_name
+
+    main, startup = fluid.Program(), fluid.Program()
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        img = fluid.layers.data(name="img", shape=[1, 28, 28],
+                                dtype="float32")
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        c1 = nets.simple_img_conv_pool(
+            input=img, filter_size=5, num_filters=8, pool_size=2,
+            pool_stride=2, act="relu")
+        c2 = nets.simple_img_conv_pool(
+            input=c1, filter_size=5, num_filters=16, pool_size=2,
+            pool_stride=2, act="relu")
+        pred = fluid.layers.fc(input=c2, size=10, act="softmax")
+        loss = fluid.layers.mean(
+            fluid.layers.cross_entropy(input=pred, label=label))
+        acc = fluid.layers.accuracy(input=pred, label=label)
+        test = main.clone(for_test=True)
+        fluid.optimizer.Adam(learning_rate=INT8_LENET["lr"]).minimize(loss)
+    main.random_seed = startup.random_seed = 2024
+    return main, startup, test, pred, loss, acc
+
+
+def mnist_feed(batch):
+    imgs = np.stack([x.reshape(1, 28, 28) for x, _ in batch])
+    return {"img": imgs.astype(np.float32),
+            "label": np.array([[y] for _, y in batch], np.int64)}
+
+
+def top1(exe, program, pred, batches):
+    right = total = 0
+    for b in batches:
+        (p,) = exe.run(program, feed={"img": b["img"]}, fetch_list=[pred])
+        right += int((p.argmax(-1) == b["label"].reshape(-1)).sum())
+        total += len(p)
+    return right / total
+
+
+def float64_emulation(op_type, ins, attrs):
+    """A quantized op's output from its int8 operands in float64 on the
+    card (every partial sum an integer below 2**53, so exact), rounded to
+    float32 and rescaled as the lowering rescales its int32 sums."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import quant_ops
+    from paddle_tpu_torch.ops.common import flatten_to_2d
+
+    if op_type == "quantized_matmul":
+        x, y = ins["X"][0], ins["Y"][0]
+        cols = int(attrs.get("x_num_col_dims", 1))
+        acc = flatten_to_2d(x, cols).double() @ y.double() + 0.0
+        s = quant_ops._scale_param(attrs, "scale_y", x.device)
+        out = quant_ops._rescale(acc.float(), float(attrs.get("scale_x",
+                                                              1.0)), s)
+        return out.reshape(tuple(x.shape[:cols]) + (y.shape[-1],))
+    x, w = ins["Input"][0], ins["Filter"][0]
+    nhwc = attrs.get("data_format", "NCHW") == "NHWC"
+    xd, wd = x.double(), w.double()
+    if nhwc:
+        xd, wd = xd.permute(0, 3, 1, 2), wd.permute(3, 2, 0, 1)
+    acc = F.conv2d(xd, wd, stride=tuple(attrs.get("strides", [1, 1])),
+                   padding=tuple(attrs.get("paddings", [0, 0])),
+                   dilation=tuple(attrs.get("dilations", [1, 1])),
+                   groups=int(attrs.get("groups", 1)))
+    # the int32 sums as the lowering rescales them: [N*OH*OW, O]; an
+    # integer sum has no negative zero (a float sum of -0.0 products has)
+    acc = acc.permute(0, 2, 3, 1) + 0.0
+    n, oh, ow, o = acc.shape
+    s = quant_ops._scale_param(attrs, "scale_w", x.device)
+    out = quant_ops._rescale(acc.reshape(-1, o).float(),
+                             float(attrs.get("scale_x", 1.0)), s)
+    out = out.reshape(n, oh, ow, o)
+    return out if nhwc else out.permute(0, 3, 1, 2).contiguous()
+
+
+def phase_int8_serve(fa, smi):
+    """LeNet trained on the card on the repo's MNIST reader, frozen,
+    calibrated and quantized: INT8 top-1 within INT8_TOP1_POINTS of FP32
+    on the test split. ResNet-50 saved and served through
+    ``AnalysisConfig`` + ``enable_mkldnn()`` at batch 1, 8 and 32 (the
+    first INT8_SERVE_CALIB requests calibrate): request ms float32
+    (frozen) and INT8; the quantized ops' share of the INT8 request's
+    device time; INT8-vs-float32 top-1 agreement on INT8_AGREE_IMAGES
+    images; every quantized_conv2d / quantized_matmul of one batch
+    bitwise equal to its float64 emulation. Then the frozen float32 model
+    exported AOT and served by the predictor's AOT branch (AOT_TOL).
+    Returns the flash launches (none)."""
+    import torch
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import dataset, flags, inference
+    from paddle_tpu_torch import reader as ptreader
+    from paddle_tpu_torch.core.registry import OpRegistry
+    from paddle_tpu_torch.inference import (
+        calibrate_program, freeze_program, quantize_program,
+    )
+
+    t_phase = time.perf_counter()
+    fa.launches = fa.launches_dq = fa.launches_dkv = 0
+    # -- LeNet: the INT8 accuracy discipline
+    main, startup, test, pred, loss, _ = lenet_int8_program()
+    real = os.path.exists(dataset.mnist._idx_paths("train")[0] or "")
+    train_reader = ptreader.batch(
+        ptreader.shuffle(dataset.mnist.train(), buf_size=512),
+        batch_size=INT8_LENET["batch"], drop_last=True)
+    test_batches = [mnist_feed(b) for b in
+                    ptreader.batch(dataset.mnist.test(), batch_size=128)()]
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    t0 = time.perf_counter()
+    steps = 0
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        for _ in range(INT8_LENET["epochs"]):
+            for b in train_reader():
+                exe.run(main, feed=mnist_feed(b), fetch_list=[loss])
+                steps += 1
+        train_s = time.perf_counter() - t0
+        calib = [{"img": mnist_feed(b)["img"]}
+                 for b in list(train_reader())[:INT8_CALIB_BATCHES]]
+        frozen, f_rep = freeze_program(test, ["img"], [pred.name],
+                                       scope=scope)
+        stats = calibrate_program(frozen, calib, scope=scope, executor=exe,
+                                  max_batches=INT8_CALIB_BATCHES)
+        int8, q_rep = quantize_program(frozen, stats, scope=scope)
+        fp32_top1 = top1(exe, frozen, pred.name, test_batches)
+        int8_top1 = top1(exe, int8, pred.name, test_batches)
+    del exe, scope
+    lenet = {"data": ("MNIST from %s" % flags.get_flag("data")) if real
+             else "the reader's deterministic synthetic pseudo-MNIST "
+             "(no MNIST files under PADDLE_GPU_DATA)",
+             "train_steps": steps, "batch": INT8_LENET["batch"],
+             "train_s": train_s, "test_images": sum(
+                 len(b["label"]) for b in test_batches),
+             "fp32_top1": fp32_top1, "int8_top1": int8_top1,
+             "delta_points": 100.0 * (fp32_top1 - int8_top1),
+             "quantized_ops": len(q_rep.quantized),
+             "skipped_ops": len(q_rep.skipped),
+             "tol_points": INT8_TOP1_POINTS}
+    emit({"phase": "int8_serve", "card": smi, "part": "lenet", **lenet})
+    check(q_rep.quantized and not q_rep.skipped,
+          "LeNet quantized %d ops, skipped %s" % (len(q_rep.quantized),
+                                                  q_rep.skipped))
+    check(fp32_top1 > 0.9, "LeNet FP32 top-1 %.4f" % fp32_top1)
+    check(abs(100.0 * (fp32_top1 - int8_top1)) <= INT8_TOP1_POINTS,
+          "INT8 top-1 %.4f vs FP32 %.4f" % (int8_top1, fp32_top1))
+
+    # -- ResNet-50 served INT8 through enable_mkldnn
+    r_main, r_startup, r_handles = resnet_program(is_train=False)
+    logits = r_handles["logits"]
+    rng = np.random.RandomState(101)
+    requests = {b: {"img": resnet_feed(b, rng)["img"]}
+                for b in INT8_SERVE_BATCHES}
+    calib_feeds = [{"img": resnet_feed(32, rng)["img"]}
+                   for _ in range(INT8_SERVE_CALIB)]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_int8_") as d:
+        model_dir = os.path.join(d, "model")
+        aot_dir = os.path.join(d, "aot")
+        exe, scope = fluid.Executor(), fluid.Scope()
+        with fluid.scope_guard(scope):
+            exe.run(r_startup)
+            fluid.io.save_inference_model(model_dir, ["img"], [logits], exe,
+                                          main_program=r_main)
+        del exe, scope
+        # float32: the frozen program (BN folded), no INT8
+        f_scope = fluid.Scope()
+        f_exe = fluid.Executor(fluid.CUDAPlace(0))
+        with fluid.scope_guard(f_scope):
+            prog, feeds, fetches = fluid.io.load_inference_model(model_dir,
+                                                                 f_exe)
+            f_frozen, _ = freeze_program(prog, feeds, [logits.name],
+                                         scope=f_scope)
+        fp32 = inference.AnalysisPredictor.from_frozen(
+            program=f_frozen, feed_names=feeds, fetch_names=[logits.name],
+            scope=f_scope)
+        config = inference.AnalysisConfig(model_dir)
+        config.enable_mkldnn()
+        flags.set_flags({"serving_calibration_batches": INT8_SERVE_CALIB})
+        try:
+            predictor = inference.create_paddle_predictor(config)
+            for f in calib_feeds:
+                predictor.run(f)
+        finally:
+            flags.reset_flag("serving_calibration_batches")
+        q_report = predictor.quant_report
+        int8_prog = predictor._program
+        check(q_report.quantized, "enable_mkldnn quantized nothing")
+        ms = {"float32": {}, "int8": {}}
+        for b, feed in requests.items():
+            for label, p in (("float32", fp32), ("int8", predictor)):
+                for _ in range(3):  # eager, capture, replay
+                    p.run(feed)
+                ms[label][b] = timed_runs(lambda p=p, f=feed: p.run(f))
+        graphs = [(c.captures, c.replays)
+                  for c in captured(predictor._exe.engine)]
+        # agreement of the INT8 and float32 top-1 on synthetic images
+        agree = total = 0
+        for i in range(INT8_AGREE_IMAGES // 32):
+            f = {"img": resnet_feed(32, rng)["img"]}
+            (a,) = fp32.run(f)
+            (q,) = predictor.run(f)
+            agree += int((a.data.argmax(-1) == q.data.argmax(-1)).sum())
+            total += 32
+        # every quantized op of one batch-32 request, recorded on an eager
+        # executor, against its float64 emulation
+        recorded = []
+
+        def recorder(op_type, lower):
+            def fn(ctx, ins, attrs):
+                out = lower(ctx, ins, attrs)
+                if ins[next(iter(ins))][0].is_cuda:
+                    recorded.append((op_type, {k: [t.clone() for t in v]
+                                               for k, v in ins.items()},
+                                     dict(attrs),
+                                     next(iter(out.values()))[0].clone()))
+                return out
+            return fn
+
+        q_ops = ("quantized_conv2d", "quantized_matmul")
+        saved = {t: OpRegistry.get(t).lower for t in q_ops}
+        e_exe = fluid.Executor(fluid.CUDAPlace(0))
+        e_exe.engine.cuda_graphs = False
+        for t in q_ops:
+            OpRegistry.get(t).lower = recorder(t, saved[t])
+        try:
+            with fluid.scope_guard(predictor._scope):
+                e_exe.run(int8_prog, feed=requests[32],
+                          fetch_list=[logits.name])
+        finally:
+            for t in q_ops:
+                OpRegistry.get(t).lower = saved[t]
+        torch.cuda.synchronize()
+        unequal = []
+        for i, (t, ins, attrs, out) in enumerate(recorded):
+            want = float64_emulation(t, ins, attrs)
+            if not torch.equal(out, want):
+                unequal.append([i, t, float((out - want).abs().max())])
+        # the quantized ops' device ms in one window, against the
+        # request's device time
+        calls = [((i, t), functools.partial(saved[t], None, ins, attrs))
+                 for i, (t, ins, attrs, _) in enumerate(recorded)]
+        op_ms = window_ms(calls, n=3)
+        busy = profile_request(lambda: predictor.run(requests[32]),
+                               ms["int8"][32]["median_ms"])
+        by_type = {}
+        for (i, t), v in op_ms.items():
+            by_type[t] = by_type.get(t, 0.0) + v
+        int8_row = {
+            "model": "resnet50", "calibration_requests": INT8_SERVE_CALIB,
+            "quantized_ops": len(q_report.quantized),
+            "skipped_ops": len(q_report.skipped),
+            "request_ms": ms, "graphs_captures_replays": graphs,
+            "top1_agreement": agree / total, "agreement_images": total,
+            "bitwise_checked_ops": len(recorded),
+            "bitwise_unequal": unequal[:5],
+            "quantized_ops_device_ms": by_type,
+            "request_device_busy_ms": busy["device_busy_ms"],
+            "quantized_share_of_device_time": sum(by_type.values())
+            / busy["device_busy_ms"],
+            "int8_request_profile": busy}
+        emit({"phase": "int8_serve", "card": smi, "part": "resnet50",
+              **int8_row})
+        del e_exe, recorded, calls
+        check(int8_row["bitwise_checked_ops"] >= len(q_report.quantized),
+              "%d quantized ops recorded of %d" % (
+                  int8_row["bitwise_checked_ops"], len(q_report.quantized)))
+        check(not unequal, "quantized ops off their float64 emulation: %s"
+              % unequal[:5])
+
+        # -- AOT: the frozen float32 model exported and served
+        x = {"img": requests[32]["img"][:AOT_BATCH]}
+        t0 = time.perf_counter()
+        with fluid.scope_guard(f_scope):
+            fluid.io.save_inference_model(
+                aot_dir, ["img"], [f_frozen.global_block().var(logits.name)],
+                f_exe, main_program=f_frozen, export_format="aot",
+                example_feeds=x)
+        export_s = time.perf_counter() - t0
+        aot = inference.create_paddle_predictor(
+            inference.AnalysisConfig(aot_dir))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (got,) = aot.run(x)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        (want,) = fp32.run(x)
+        aot_ms = timed_runs(lambda: aot.run(x))
+        a_err = float(np.abs(got.data - want.data).max())
+        emit({"phase": "int8_serve", "card": smi, "part": "aot",
+              "batch": AOT_BATCH, "aot_branch": aot._aot is not None,
+              "export_s": export_s, "first_call_ms": first_ms,
+              "request_ms": aot_ms, "max_abs_err": a_err,
+              "max_abs_logit": float(np.abs(want.data).max()),
+              "tol": AOT_TOL, "launches": flash_launches(fa),
+              "phase_s": time.perf_counter() - t_phase})
+        check(aot._aot is not None, "the predictor did not take the AOT "
+              "branch")
+        check(np.allclose(got.data, want.data, **AOT_TOL),
+              "AOT answers off the predictor's by %g" % a_err)
+        del predictor, fp32, aot, f_exe, f_scope
+    release_memory()
+    launches = flash_launches(fa)
+    check(not any(launches.values()), "flash launches in int8_serve: %s"
+          % launches)
+    return launches
+
+
 def release_memory():
     """Free what no live object holds, CUDA graphs and their pools too,
     and return the cached blocks to the card."""
@@ -8642,6 +9528,15 @@ def main():
     det_launches = {"ssd": phase_ssd(fa, smi)}
     det_launches["detection_ops"] = phase_detection_ops(fa, smi)
     release_memory()
+
+    # the opt-level ladder (levels 2 and 3 on BERT-base), the NHWC layout
+    # pass on ResNet-50, and the INT8 serving path with the AOT artifact
+    opt_launches = phase_opt_levels(fa, smi)
+    release_memory()
+    opt_launches["layout_nhwc"] = phase_layout_nhwc(fa, smi)
+    release_memory()
+    opt_launches["int8_serve"] = phase_int8_serve(fa, smi)
+    release_memory()
     emit({"phase": "times", "partial_profiler_windows_rerun":
           len(PARTIAL_PROFILES), "partial_windows": PARTIAL_PROFILES,
           "event_timed": EVENT_TIMED})
@@ -8663,6 +9558,7 @@ def main():
     other_paths.update(seq_launches)
     other_paths.update(misc_launches)
     other_paths.update(det_launches)
+    other_paths.update(opt_launches)
 
     def t256_rows(name):
         # the kernel at the Transformer's shapes (B=32 H=8 T=256 D=64)

@@ -16,11 +16,15 @@ default 1, the reference's):
             attention emits into the single ``fused_attention`` op (and
             its backward chain into ``fused_attention_grad``), which
             launch the hand-written CUDA flash kernels on the card
-  level 2+  the reference's fuse-elemwise-act, fold-constants, cse,
-            memory planning and layout passes: not ported yet (ROADMAP
-            Queue 1 item 8); asking for them raises, since running a
-            program without passes the reference would run is not the
-            reference's program
+  level 2   + fuse-elemwise-act, fold-constants, cse: op-count
+            shrinkers (an activation fused into the add before it, a
+            uniform constant computed once, a duplicate op dropped)
+  level 3   + memory planning (analysis/memory.py, run by the engine
+            after this pipeline: donation and auto-remat against the
+            card's memory budget)
+  level 4   + layout-assign (analysis/layout.py): the whole-program
+            NHWC rewrite, on at level 4 or wherever the ``layout`` flag
+            says ``nhwc``
 
 Every pass clones its input and applies to the clone; a crashing pass is
 recorded in the report and its half-mutated clone discarded, so the
@@ -44,7 +48,6 @@ _NONSEMANTIC_ATTRS = frozenset({
 # Execution order of the reference's transform pipeline. Substitution
 # first (the attention rewrite wants the raw composition, before fusion
 # renames intermediates), then local fusion, then the global cleanups.
-# The port registers fuse-attention only; the others are ROADMAP item 8.
 TRANSFORM_PIPELINE = (
     "fuse-attention",
     "fuse-elemwise-act",
@@ -118,20 +121,9 @@ class TransformReport:
             self.level, self.rewrites, sorted(self.crashed))
 
 
-# The lowest level at which the reference runs a pass the port lacks.
-_UNPORTED_LEVEL = 2
-
-
 def transform_passes(level):
     """Instances of the registered transform passes active at ``level``,
-    in TRANSFORM_PIPELINE order. Level 2 and above raise: the reference
-    runs passes there that are not ported yet."""
-    if int(level) >= _UNPORTED_LEVEL:
-        raise NotImplementedError(
-            "opt_level=%d: the level-2 passes (fuse-elemwise-act, "
-            "fold-constants, cse), memory planning and layout are not "
-            "ported yet (ROADMAP Queue 1 item 8, analysis and transforms); "
-            "use opt_level 0 or 1" % int(level))
+    in TRANSFORM_PIPELINE order."""
     out = []
     for name in TRANSFORM_PIPELINE:
         cls = PASS_REGISTRY.get(name)
@@ -660,3 +652,303 @@ class AttentionFusePass(TransformPass):
                 continue
             new_ops.append(op)
         block.ops = new_ops
+
+
+# -- pass 2: elementwise_add + activation fusion -------------------------
+
+
+_FUSABLE_ACTS = frozenset({"relu", "gelu", "tanh", "sigmoid"})
+
+
+@register_pass("fuse-elemwise-act")
+class ElemwiseActFusePass(TransformPass):
+    """``elementwise_add`` whose sole consumer is an activation becomes
+    one ``fused_elemwise_activation`` op (reference:
+    operators/fused/fused_elemwise_activation_op.cc; the ir-pass analog
+    is fuse_elewise_add_act_pass.cc). Halves the bias+act op count: one
+    lowering call (and on the card one fewer elementwise launch) where
+    there were two.
+
+    Training programs self-block: the activation's grad op reads the
+    intermediate sum (or the act output), so the single-reader rule
+    leaves those sites alone. This pass therefore fires on inference /
+    forward-only programs."""
+
+    min_level = 2
+
+    def apply(self, desc, ctx):
+        block = desc.block(0)
+        readers = _reader_map(desc)
+        writers = _writer_map(desc)
+        protected = _protected_names(desc, ctx)
+        replace = {}  # id(act op) -> fused OpDesc
+        drop = set()  # id(add op)
+        for op in block.ops:
+            if op.type != "elementwise_add" or _is_grad_op(op):
+                continue
+            x, y = _single(op.input("X")), _single(op.input("Y"))
+            s = _single(op.output("Out"))
+            if None in (x, y, s) or s in protected:
+                continue
+            if len(writers.get(s, [])) != 1:
+                continue
+            rs = readers.get(s, [])
+            if len(rs) != 1 or rs[0][0] != 0:
+                continue
+            act = rs[0][1]
+            if act.type not in _FUSABLE_ACTS or act.input("X") != [s] \
+                    or id(act) in replace:
+                continue
+            out = _single(act.output("Out"))
+            if out is None:
+                continue
+            attrs = {
+                "functor_list": ["elementwise_add", act.type],
+                "axis": op.attrs.get("axis", -1),
+                "op_role": int(act.attrs.get("op_role", 0)),
+                # opprof provenance: fused ops keep their source-op list
+                "__src_ops__": ["elementwise_add", act.type],
+            }
+            # activation attrs ride along (e.g. gelu's `approximate`)
+            for name, val in act.attrs.items():
+                if name not in attrs and not name.startswith("__") \
+                        and name not in _NONSEMANTIC_ATTRS:
+                    attrs[name] = val
+            replace[id(act)] = OpDesc(
+                "fused_elemwise_activation",
+                {"X": [x], "Y": [y]}, {"Out": [out]}, attrs)
+            drop.add(id(op))
+        if not replace:
+            return 0
+        block.ops = [
+            replace.get(id(op), op) for op in block.ops
+            if id(op) not in drop
+        ]
+        return len(replace)
+
+
+# -- pass 3: constant folding --------------------------------------------
+
+
+@register_pass("fold-constants")
+class ConstantFoldPass(TransformPass):
+    """Evaluate ops whose inputs are all ``fill_constant`` outputs and
+    replace them with a single ``fill_constant`` when the result is
+    uniform (reference: framework/ir/constant_folding_pass.cc). The op is
+    executed through its REGISTERED lowering — the fold can not disagree
+    with what the engine would have computed (here: on the CPU, the
+    port's lowering of the op). Results above ``MAX_ELEMENTS`` or
+    non-uniform stay unfolded: the desc only carries scalar attr values,
+    and burning big dense literals into the program trades op count for
+    program size. A result keeps the dtype the port's lowering gives it
+    (an int64 fold stays int64, where the reference's 32-bit JAX writes
+    int32); float folds write the same fill as the reference's."""
+
+    min_level = 2
+    MAX_ELEMENTS = 1 << 16
+
+    def apply(self, desc, ctx):
+        import numpy as np
+
+        from paddle_tpu_torch.core.registry import LowerContext, OpRegistry
+        from paddle_tpu_torch.core.types import convert_np_dtype_to_dtype_
+        from paddle_tpu_torch.engine.lowering import clean_attrs
+
+        block = desc.block(0)
+        readers = _reader_map(desc)
+        writers = _writer_map(desc)
+        protected = _protected_names(desc, ctx)
+        consts = {}  # var name -> producing fill_constant OpDesc
+        folded = 0
+        for i, op in enumerate(list(block.ops)):
+            if op.type == "fill_constant" and not op.inputs:
+                out = _single(op.output("Out"))
+                if out is not None and len(writers.get(out, [])) == 1:
+                    consts[out] = op
+                continue
+            out = self._foldable_output(op, readers, writers, block)
+            if out is None:
+                continue
+            in_names = op.input_arg_names()
+            if not in_names or any(n not in consts for n in in_names):
+                continue
+            try:
+                val = self._evaluate(op, block, consts, np, OpRegistry,
+                                     LowerContext, clean_attrs)
+            except Exception:
+                continue  # data-dependent / lowering rejected: skip
+            if val is None or val.size == 0 or val.size > self.MAX_ELEMENTS:
+                continue
+            flat = val.reshape(-1)
+            if not bool(np.all(flat == flat[0])):
+                continue
+            fill = OpDesc(
+                "fill_constant", {}, {"Out": [out]},
+                {"shape": [int(d) for d in val.shape],
+                 "dtype": int(convert_np_dtype_to_dtype_(val.dtype)),
+                 "value": flat[0].item(),
+                 "op_role": int(op.attrs.get("op_role", 0))})
+            block.ops[i] = fill
+            consts[out] = fill
+            folded += 1
+        return folded
+
+    def _foldable_output(self, op, readers, writers, block):
+        """The op's single output name if the op is safely replaceable by
+        a constant, else None."""
+        from paddle_tpu_torch.core.registry import OpRegistry
+        if _is_grad_op(op) or op.type in ("feed", "fetch"):
+            return None
+        if not OpRegistry.has(op.type):
+            return None
+        if OpRegistry.get(op.type).needs_rng or "sub_block" in op.attrs:
+            return None
+        if len(op.outputs) != 1:
+            return None
+        out = _single(op.output(list(op.outputs)[0]))
+        if out is None or out.endswith("@GRAD"):
+            return None
+        # a fetched output may fold (the fill writes the same name);
+        # persistable state must keep its real writer
+        vd = block.find_var_recursive(out)
+        if vd is not None and (vd.persistable or vd.is_parameter):
+            return None
+        if len(writers.get(out, [])) != 1:
+            return None
+        # never fold what the backward pass observes
+        if block.has_var(out + "@GRAD"):
+            return None
+        if any(_is_grad_op(r) for _, r in readers.get(out, [])):
+            return None
+        return out
+
+    def _evaluate(self, op, block, consts, np, OpRegistry, LowerContext,
+                  clean_attrs):
+        from paddle_tpu_torch.core.types import VarType, convert_dtype_to_np
+
+        def materialize(fill):
+            attrs = fill.attrs
+            np_dtype = convert_dtype_to_np(VarType(int(attrs["dtype"])))
+            return np.full([int(d) for d in attrs.get("shape", [])],
+                           attrs.get("value", 0.0), dtype=np_dtype)
+
+        import torch
+
+        ins = {slot: [torch.from_numpy(materialize(consts[n]))
+                      for n in names]
+               for slot, names in op.inputs.items()}
+        lctx = LowerContext(op, block, "cpu", rng_seed=None, op_index=0,
+                            is_test=True)
+        with torch.no_grad():
+            outs = OpRegistry.get(op.type).lower(lctx, ins,
+                                                 clean_attrs(op.attrs))
+        slot = list(op.outputs)[0]
+        vals = outs.get(slot, [])
+        if (len(vals) != 1 or not isinstance(vals[0], torch.Tensor)
+                or vals[0].dtype == torch.bfloat16):
+            return None
+        return vals[0].detach().cpu().numpy()
+
+
+# -- pass 4: common-subexpression elimination ----------------------------
+
+
+@register_pass("cse")
+class CSEPass(TransformPass):
+    """Value-number block-0 ops over the def-use graph
+    (analysis/graph.py): two ops with the same type, same (canonicalized)
+    inputs, and same semantic attrs compute the same value — the second
+    is dropped and its outputs renamed to the first's program-wide.
+
+    Gradient safety is the sharp edge: renaming a var that a grad op
+    reads does NOT rename that grad op's OUTPUT names, so gradient
+    contributions would land in the wrong accumulators. An op is
+    therefore eligible only when nothing on the backward side can see the
+    rename: no grad op reads its outputs, no ``<out>@GRAD`` var exists,
+    and its inputs are single-writer (pure SSA values, not mutated
+    state)."""
+
+    min_level = 2
+
+    def apply(self, desc, ctx):
+        from paddle_tpu_torch.analysis.graph import build_graph
+
+        graph = build_graph(desc)
+        n_writers = {}
+        grad_read = set()
+        for v in graph.all_vars():
+            n_writers[v.name] = max(n_writers.get(v.name, 0),
+                                    len(v.writers))
+            if any(_is_grad_op(r.desc) for r in v.readers):
+                grad_read.add(v.name)
+
+        block = desc.block(0)
+        protected = _protected_names(desc, ctx)
+        rename = {}  # dup output name -> canonical output name
+        seen = {}    # value-number key -> canonical OpDesc
+        drop = set()
+        for node in graph.block_ops(0):
+            op = node.desc
+            if not self._eligible(op, block, protected, n_writers,
+                                  grad_read):
+                continue
+            key = self._value_key(op, rename)
+            canon = seen.get(key)
+            if canon is None:
+                seen[key] = op
+                continue
+            for slot in op.outputs:
+                for a, b in zip(canon.output(slot), op.output(slot)):
+                    if a != b:
+                        rename[b] = a
+            drop.add(id(op))
+        if not drop:
+            return 0
+        for b in desc.blocks:
+            for op in b.ops:
+                if id(op) in drop:
+                    continue
+                op.inputs = {
+                    slot: [rename.get(n, n) for n in names]
+                    for slot, names in op.inputs.items()
+                }
+        block.ops = [op for op in block.ops if id(op) not in drop]
+        return len(drop)
+
+    def _eligible(self, op, block, protected, n_writers, grad_read):
+        from paddle_tpu_torch.core.registry import OpRegistry
+        if op.type in ("feed", "fetch") or _is_grad_op(op):
+            return False
+        if not OpRegistry.has(op.type):
+            return False
+        if OpRegistry.get(op.type).needs_rng or "sub_block" in op.attrs:
+            return False
+        if not op.outputs:
+            return False  # side-effect op: nothing to merge on
+        for n in op.output_arg_names():
+            if (n in protected or n.endswith("@GRAD")
+                    or n_writers.get(n, 0) != 1 or n in grad_read
+                    or block.has_var(n + "@GRAD")):
+                return False
+        for n in op.input_arg_names():
+            if n_writers.get(n, 0) > 1:
+                return False  # reads mutated state, not an SSA value
+        return True
+
+    def _value_key(self, op, rename):
+        return (
+            op.type,
+            tuple(sorted(
+                (slot, tuple(rename.get(n, n) for n in names))
+                for slot, names in op.inputs.items())),
+            tuple(sorted(
+                (slot, len(names)) for slot, names in op.outputs.items())),
+            tuple(sorted(
+                (k, repr(v)) for k, v in op.attrs.items()
+                if k not in _NONSEMANTIC_ATTRS and not k.startswith("__"))),
+        )
+
+
+# Imported last so the layout pass can subclass TransformPass; the import
+# itself is what registers "layout-assign" in PASS_REGISTRY.
+from paddle_tpu_torch.analysis import layout as _layout  # noqa: E402,F401

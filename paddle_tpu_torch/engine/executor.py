@@ -14,8 +14,8 @@ static feed buffers and its seed table and, on CUDA, one captured
 ``torch.cuda.CUDAGraph`` of the whole block. The key is the reference's,
 restricted to what the port has: the program's fingerprint, the block,
 the feeds' names, shapes and dtypes, the fetches, ``is_test``,
-``donate_state``, ``amp``, ``cache_key_extra`` and ``opt_level``; the
-port adds ``state_writeback`` and whether the engine may capture the
+``donate_state``, ``amp``, ``cache_key_extra``, ``opt_level``, the
+memory budget (level 3) and the layout key; the port adds ``state_writeback`` and whether the engine may capture the
 block, which change what the entry runs. A hit reads the key alone; the
 transforms and the analysis of the block run at a miss.
 
@@ -29,9 +29,24 @@ the block is first analyzed; the key stays the ORIGINAL desc's
 fingerprint, and the block's seed table is sized from the desc that
 runs. With ``verify`` (or the flag) the static verifier checks that desc
 on every cache miss, before the block is lowered, and raises on ERROR
-findings. The ``trace`` span and ``engine.trace_ms`` time the transforms
+findings. The ``trace`` spans and ``engine.trace_ms`` time the transforms
 and the analysis of the block; ``verify`` and ``engine.verify_ms`` the
 verifier.
+
+At ``opt_level`` 3 and up the memory budget (``analysis/memory.py``
+``hbm_budget_bytes``) is part of the key, and at the miss the memory
+planner runs on the transformed desc (crash-isolated, counted in
+``memory.plan_crashes``); a training step
+with no accumulation and no manual ``remat_segments`` lowers the plan's
+remat segment count (auto-remat). On CUDA the entry's first run
+measures its peak, ``torch.cuda.max_memory_allocated`` after
+``reset_peak_memory_stats``, where the reference reads XLA's compiled
+memory stats; a miss beyond ``replan_tolerance`` re-plans and rebuilds
+the entry once (``_maybe_replan``), and the rebuilt entry captures anew.
+Under the layout pass (``layout`` flag, or level 4) the key holds
+(mode, ``id(scope)``) and the entry pins the scope, whose filters the
+pass bakes OIHW -> HWIO as new tensors: a graph captured against the
+old tensors never replays (reference: executor.py:622-641).
 
 On CUDA the first run of a key runs eagerly, op by op, on a side stream
 (the warm-up: it loads the kernel libraries, creates the cuBLAS handles
@@ -176,6 +191,25 @@ class CompiledBlock:
         # (shape, dtype) of each state output, from the first (eager) run;
         # on CUDA the second run captures
         self._out_specs = None
+        # opt level 3 (reference: CompiledBlock, executor.py:67-98): the
+        # analysis.memory plan this entry was built under and the remat
+        # segment count it lowered; peak_bytes is the measured peak of
+        # its first run on CUDA (torch.cuda.max_memory_allocated), which
+        # the engine holds against plan.predicted_peak_bytes. replanned
+        # bounds the measured-feedback loop to one rebuild an entry;
+        # auto_remat_eligible mirrors the auto-remat guard; _rebuild
+        # makes the entry again at another segment count; mem_budget is
+        # the budget the plan was made against; _layout_scope pins the
+        # scope whose id() is in the cache key under the layout pass
+        self.remat_segments = remat_segments
+        self.memory_plan = None
+        self.peak_bytes = None
+        self.replanned = False
+        self.auto_remat_eligible = False
+        self.mem_budget = None
+        self._cache_key = None
+        self._rebuild = None
+        self._layout_scope = None
 
     # -- one run -----------------------------------------------------------
     def run(self, scope, feed_values, rng_seed, return_numpy, defer=False):
@@ -441,6 +475,7 @@ class Engine:
         self.device = place.torch_device()
         self._run_counter = 0
         self._blocks = collections.OrderedDict()
+        self._descs = collections.OrderedDict()
         self._cache = collections.OrderedDict()
         self._lock = threading.Lock()
         self._graph_lock = threading.RLock()
@@ -468,6 +503,7 @@ class Engine:
         with self._graph_lock, self._lock:
             self._cache.clear()
             self._blocks.clear()
+            self._descs.clear()
 
     def sync(self):
         """Barrier: retire every in-flight windowed step (its deferred
@@ -542,13 +578,26 @@ class Engine:
             program_desc, block_idx, feed_names, feed_values, fetch_list,
             bool(is_test), bool(donate_state), bool(amp), cache_key_extra,
             bool(state_writeback), accumulate_steps, remat_segments,
-            opt_level, verify)
+            opt_level, verify, scope=scope)
         with self._lock:
             self._run_counter += 1
             run_counter = self._run_counter
         defer = dispatch_steps > 1
+        # a planned entry's first run on the card measures its peak (the
+        # eager warm-up, which holds the allocator's caching), in place of
+        # the reference's compiled memory stats (executor.py:376-406)
+        measure = (compiled.memory_plan is not None
+                   and compiled.peak_bytes is None
+                   and self.device.type == "cuda")
+        if measure:
+            torch.cuda.synchronize(self.device)
+            torch.cuda.reset_peak_memory_stats(self.device)
         out = compiled.run(scope, feed_values, (int(seed), run_counter),
                            return_numpy, defer)
+        if measure:
+            torch.cuda.synchronize(self.device)
+            self._note_peak(compiled, int(
+                torch.cuda.max_memory_allocated(self.device)))
         if compiled.flops:
             goodput.note_flops(compiled.flops)
         if not defer:
@@ -572,9 +621,18 @@ class Engine:
                      fetch_list, is_test, donate_state, amp,
                      cache_key_extra=None, state_writeback=True,
                      accumulate_steps=1, remat_segments=0, opt_level=None,
-                     verify=None):
+                     verify=None, scope=None):
         """The cached ``CompiledBlock`` of one key, made on a miss; the
-        least recently used entry goes past ``executable_cache_size``."""
+        least recently used entry goes past ``executable_cache_size``.
+
+        At ``opt_level`` 3 and up the memory budget is part of the key,
+        and the memory plan runs on the desc the transforms return
+        (reference: executor.py:622-720): crash-isolated (a planner that
+        raises is counted in ``memory.plan_crashes`` and the entry runs
+        as at level 2), its remat segment count lowered where the manual
+        knob would be legal (a training step, no accumulation). Under the
+        layout pass the key holds (mode, ``id(scope)``) and the entry
+        pins ``scope``: the pass bakes filters into that scope."""
         opt_level = int(flags.get_flag("opt_level") if opt_level is None
                         else opt_level)
         specs = tuple((n, tuple(v.shape), _torch_dtype(v))
@@ -583,10 +641,23 @@ class Engine:
         # too, which the rest of the key decides
         graphs = (self.device.type == "cuda" and self.cuda_graphs
                   and (donate_state or not state_writeback))
+        mem_budget = None
+        if opt_level >= 3:
+            from paddle_tpu_torch.analysis import memory as memplan
+
+            mem_budget = memplan.hbm_budget_bytes()
+        layout_key = None
+        if opt_level > 0:
+            from paddle_tpu_torch.analysis.layout import (
+                resolved_layout_mode)
+
+            mode = resolved_layout_mode(opt_level)
+            if mode is not None:
+                layout_key = (mode, id(scope) if scope is not None else None)
         key = (program_desc.cached_fingerprint(), block_idx, specs,
                tuple(fetch_list), is_test, donate_state, amp,
                cache_key_extra, state_writeback, graphs, accumulate_steps,
-               remat_segments, opt_level)
+               remat_segments, opt_level, mem_budget, layout_key)
         with self._lock:
             compiled = self._cache.get(key)
             if compiled is not None:
@@ -598,22 +669,61 @@ class Engine:
             # transforms (reference: executor.py:664-669); nothing is
             # cached, so the caller's retry re-enters this path
             faultinject.fault_point("compile")
-        extra_live = (remat_live_vars(program_desc.block(block_idx))
-                      if remat_segments else ())
-        bp = self._block_program(program_desc, block_idx, feed_names,
-                                 fetch_list, extra_live, opt_level)
-        capture = graphs and bp.capturable
+        run_desc = self._run_desc(program_desc, block_idx, feed_names,
+                                  fetch_list, opt_level, scope, layout_key)
+        memory_plan = None
+        if opt_level >= 3:
+            memory_plan = self._plan_memory(run_desc, feed_names,
+                                            feed_values, fetch_list,
+                                            mem_budget)
+        eligible = bool(memory_plan is not None and not remat_segments
+                        and accumulate_steps <= 1 and not is_test)
+        auto_remat = int(memory_plan.remat.n_segments) if eligible else 0
+        if memory_plan is not None and obs.enabled():
+            obs.event("memory_plan",
+                      predicted_peak_bytes=int(
+                          memory_plan.predicted_peak_bytes),
+                      budget_bytes=mem_budget, remat_segments=auto_remat,
+                      donated=len(memory_plan.donation.donate),
+                      held=len(memory_plan.donation.held))
         if flags.get_flag("verify") if verify is None else verify:
             # once per cache entry, before lowering, on the desc that
             # runs: every rewrite the transforms made is verified too
             from paddle_tpu_torch.analysis import verify_program
 
             with obs.span("verify"), obs.time_block("engine.verify_ms"):
-                verify_program(bp.block.program, feed_names=feed_names,
+                verify_program(run_desc, feed_names=feed_names,
                                fetch_names=fetch_list, raise_on_error=True)
-        compiled = CompiledBlock(self, bp, specs, is_test, amp,
-                                 donate_state, state_writeback, capture,
-                                 accumulate_steps, remat_segments)
+
+        def build(segments):
+            # the entry at a segment count, over the same transformed desc
+            extra_live = (remat_live_vars(run_desc.block(block_idx))
+                          if segments else ())
+            bp = self._block_program(program_desc, block_idx, feed_names,
+                                     fetch_list, extra_live, opt_level,
+                                     run_desc, layout_key)
+            return CompiledBlock(self, bp, specs, is_test, amp,
+                                 donate_state, state_writeback,
+                                 graphs and bp.capturable,
+                                 accumulate_steps, segments)
+
+        try:
+            compiled = build(remat_segments or auto_remat)
+        except NotImplementedError:
+            # the remat lowering refuses some programs (intermediate-grad
+            # fetches, non-@GRAD optimizer inputs...): an auto-chosen plan
+            # falls back to donation only; a knob the user set raises
+            if not auto_remat:
+                raise
+            obs.inc("memory.autoremat_fallback")
+            compiled = build(remat_segments)
+        compiled.memory_plan = memory_plan
+        compiled.auto_remat_eligible = eligible
+        compiled.mem_budget = mem_budget
+        compiled._cache_key = key
+        compiled._rebuild = build
+        if layout_key is not None:
+            compiled._layout_scope = scope
         with self._lock:
             if key in self._cache:
                 obs.inc("engine.cache_hit")
@@ -626,15 +736,149 @@ class Engine:
                 obs.inc("engine.cache_evict")
         return compiled
 
+    def _run_desc(self, program_desc, block_idx, feed_names, fetch_list,
+                  opt_level, scope, layout_key):
+        """The desc that runs: what ``optimize_program`` returns (the
+        original when nothing rewrote), shared by every key with these
+        feeds, fetches, opt level and layout key. The layout pass bakes
+        filters into ``scope``, which the cached desc pins."""
+        key = (program_desc.cached_fingerprint(), block_idx,
+               tuple(feed_names), tuple(fetch_list), opt_level, layout_key)
+        with self._lock:
+            hit = self._descs.get(key)
+            if hit is not None:
+                self._descs.move_to_end(key)
+                return hit[0]
+        run_desc = program_desc
+        if opt_level > 0:
+            from paddle_tpu_torch.analysis.transforms import (
+                optimize_program)
+
+            with obs.span("trace", block=block_idx, opt_level=opt_level), \
+                    obs.time_block("engine.trace_ms"):
+                run_desc, _ = optimize_program(
+                    program_desc, level=opt_level, feed_names=feed_names,
+                    fetch_names=fetch_list,
+                    scope=scope if layout_key is not None else None)
+        with self._lock:
+            run_desc = self._descs.setdefault(
+                key, (run_desc, scope if layout_key else None))[0]
+            if len(self._descs) > _BLOCK_CACHE_SIZE:
+                self._descs.popitem(last=False)
+        return run_desc
+
+    def _plan_memory(self, run_desc, feed_names, feed_values, fetch_list,
+                     budget):
+        """The level-3 memory plan of ``run_desc``, or None when the
+        planner raised (counted in ``memory.plan_crashes``: a planner bug
+        degrades to the level-2 behaviour, as in the reference,
+        executor.py:690-705)."""
+        from paddle_tpu_torch.analysis import memory as memplan
+
+        try:
+            with obs.span("memory-plan"), \
+                    obs.time_block("engine.memory_plan_ms"):
+                return memplan.plan_memory(
+                    run_desc,
+                    feed_shapes={n: tuple(v.shape) for n, v in
+                                 zip(feed_names, feed_values)},
+                    fetch_names=fetch_list, budget_bytes=budget)
+        except Exception:
+            obs.inc("memory.plan_crashes")
+            return None
+
+    def _note_peak(self, compiled, measured):
+        """Hold a planned entry's measured first-run peak against its
+        prediction (the ``memory_plan_delta`` event and the
+        ``hbm.plan_predicted_peak_bytes`` gauge), then re-plan if it
+        missed (reference: executor.py:384-406)."""
+        compiled.peak_bytes = measured
+        predicted = int(compiled.memory_plan.predicted_peak_bytes)
+        if obs.enabled():
+            obs.set_gauge("hbm.plan_predicted_peak_bytes", predicted)
+            obs.event("memory_plan_delta", predicted_bytes=predicted,
+                      measured_bytes=measured,
+                      delta_bytes=measured - predicted,
+                      remat_segments=compiled.remat_segments,
+                      donated=len(compiled.memory_plan.donation.donate))
+        self._maybe_replan(compiled, measured)
+
+    def _maybe_replan(self, compiled, measured_bytes):
+        """Close the memory_plan_delta loop (reference: ``_maybe_replan``,
+        executor.py:849-906): when the measured peak misses the plan's
+        prediction beyond ``replan_tolerance``, re-run the segment search
+        with the cost model rescaled by the measurement
+        (analysis/memory.replan_segments) and rebuild the entry ONCE,
+        swapping it into the cache so that the next step runs (and on
+        the card captures) the corrected entry. Bounded: each entry
+        re-plans at most once, and the replacement is itself marked
+        re-planned."""
+        from paddle_tpu_torch.analysis import memory as memplan
+
+        tol = float(flags.get_flag("replan_tolerance"))
+        plan = compiled.memory_plan
+        if (tol <= 0 or compiled.replanned or plan is None
+                or measured_bytes <= 0 or not compiled.mem_budget
+                or not compiled.auto_remat_eligible
+                or compiled._rebuild is None):
+            return
+        compiled.replanned = True  # one attempt per entry, hit or miss
+        predicted = int(plan.predicted_peak_bytes)
+        if predicted > 0 and abs(measured_bytes - predicted) <= \
+                tol * predicted:
+            return
+        new_remat = memplan.replan_segments(
+            plan, measured_bytes, compiled.mem_budget)
+        if int(new_remat.n_segments) == int(compiled.remat_segments):
+            if obs.enabled():
+                obs.event("memory_replan_skipped",
+                          measured_bytes=int(measured_bytes),
+                          predicted_bytes=predicted,
+                          remat_segments=int(compiled.remat_segments),
+                          reason=new_remat.reason)
+            return
+        # never swap under in-flight windowed steps
+        self.window.sync()
+        try:
+            with obs.span("replan"), obs.time_block("engine.replan_ms"):
+                fresh = compiled._rebuild(int(new_remat.n_segments))
+        except NotImplementedError:
+            # the remat lowering's refusals: keep the entry we measured
+            obs.inc("memory.replan_fallback")
+            return
+        # the rebuilt entry's first run measures its own peak; being
+        # re-planned, it never re-plans again
+        fresh.memory_plan = memplan.MemoryPlan(plan.liveness, plan.donation,
+                                               new_remat)
+        fresh.replanned = True
+        fresh.mem_budget = compiled.mem_budget
+        fresh._cache_key = compiled._cache_key
+        fresh._rebuild = compiled._rebuild
+        fresh._layout_scope = compiled._layout_scope
+        key = compiled._cache_key
+        with self._lock:
+            if self._cache.get(key) is compiled:
+                self._cache[key] = fresh
+        obs.inc("memory.replan")
+        if obs.enabled():
+            obs.event("memory_replan",
+                      measured_bytes=int(measured_bytes),
+                      predicted_bytes=predicted,
+                      old_segments=int(compiled.remat_segments),
+                      new_segments=int(new_remat.n_segments),
+                      est_peak_bytes=int(new_remat.est_peak_bytes),
+                      reason=new_remat.reason)
+
     def _block_program(self, program_desc, block_idx, feed_names,
-                       fetch_list, extra_live=(), opt_level=0):
-        """The analyzed block, shared by every key with these feeds,
-        fetches, liveness roots and opt level: the block of the desc that
-        ``optimize_program`` returns (the original when nothing
-        rewrote)."""
+                       fetch_list, extra_live, opt_level, run_desc,
+                       layout_key=None):
+        """The analyzed block of ``run_desc`` (the desc ``_run_desc``
+        returned for the original ``program_desc``), shared by every key
+        with these feeds, fetches, liveness roots, opt level and layout
+        key."""
         key = (program_desc.cached_fingerprint(), block_idx,
                tuple(feed_names), tuple(fetch_list), tuple(extra_live),
-               opt_level)
+               opt_level, layout_key)
         with self._lock:
             bp = self._blocks.get(key)
             if bp is not None:
@@ -642,14 +886,6 @@ class Engine:
                 return bp
         with obs.span("trace", block=block_idx, opt_level=opt_level), \
                 obs.time_block("engine.trace_ms"):
-            run_desc = program_desc
-            if opt_level > 0:
-                from paddle_tpu_torch.analysis.transforms import (
-                    optimize_program)
-
-                run_desc, _ = optimize_program(
-                    program_desc, level=opt_level, feed_names=feed_names,
-                    fetch_names=fetch_list)
             bp = BlockProgram(run_desc.block(block_idx), feed_names,
                               fetch_list, extra_live)
         with self._lock:

@@ -118,10 +118,12 @@ class Executor:
         picks the desc-level transforms applied once per cache entry
         (``analysis.optimize_program``): 0 runs the desc as given, 1
         rewrites an unfused attention composition into the fused op,
-        which runs the flash kernels. Levels 2 and up raise (ROADMAP
-        Queue 1 item 8). ``verify=True`` (default: the
-        ``PADDLE_GPU_VERIFY`` flag) runs the static verifier on the desc
-        that runs, once per cache entry, and raises
+        which runs the flash kernels, 2 adds the elementwise fusion,
+        constant folding and CSE, 3 the memory plan (auto-remat under
+        the ``hbm_budget_frac`` budget), 4 the NHWC layout pass (also
+        on at any level with ``layout=nhwc``). ``verify=True``
+        (default: the ``PADDLE_GPU_VERIFY`` flag) runs the static
+        verifier on the desc that runs, once per cache entry, and raises
         ``analysis.VerificationError`` on ERROR findings. ``mesh`` raises
         (item 10).
 

@@ -40,11 +40,65 @@ DEFS = {
         "Desc-level optimization applied once per cache entry at the "
         "engine's cache-miss seam (analysis/transforms.py "
         "optimize_program): 0 = off, 1 = the attention-pattern rewrite "
-        "to the fused flash-attention op (the reference's default). "
-        "Levels 2 and up (the reference's elementwise fusion, constant "
-        "folding, CSE, memory planning, layout) are not ported yet and "
-        "raise. Rewrites operate on a clone; the program desc is never "
-        "mutated."),
+        "to the fused flash-attention op (the reference's default), "
+        "2 = + elementwise-activation fusion, constant folding and CSE, "
+        "3 = + memory planning (donation, auto-remat against the "
+        "hbm_budget_frac budget), 4 = + the NHWC layout pass (see "
+        "'layout'). Rewrites operate on a clone; the program desc is "
+        "never mutated."),
+    "layout": (
+        str, "auto",
+        "Whole-program layout assignment (analysis/layout.py): rewrite "
+        "every conv/pool/batch_norm (and their grads) to NHWC, bake "
+        "OIHW filters to HWIO in the scope, and insert transpose2 seams "
+        "only at feed/fetch/flatten boundaries. 'auto' = on at opt_level "
+        ">= 4, 'nhwc' = on whenever transforms run, 'off' = never. The "
+        "engine keys its cache on the resolved value."),
+    "replan_tolerance": (
+        float, 0.0,
+        "Measured-feedback memory re-planning: when the realized peak "
+        "(torch.cuda.max_memory_allocated around the eager first run of "
+        "a planned CUDA entry, the memory_plan_delta event) misses the "
+        "prediction by more than this relative tolerance, re-plan the "
+        "remat segment count from the measured peak and rebuild the "
+        "entry once (bounded; counted in memory.replan). <=0 disables."),
+    "hbm_budget_frac": (
+        float, 0.9,
+        "Fraction of device memory (observability.memory."
+        "device_memory_limit: the card's total memory, overridable via "
+        "PADDLE_GPU_DEVICE_MEMORY_BYTES) the opt-level-3 memory planner "
+        "budgets a step against: when the liveness peak estimate "
+        "exceeds budget, automatic rematerialization picks the "
+        "smallest checkpoint segment count that fits. <=0 or an "
+        "unknowable device limit disables auto-remat (donation "
+        "planning still runs)."),
+    "auto_layout": (
+        bool, False,
+        "Let the compiler choose entry/exit buffer layouts for training "
+        "state. The reference applies it on a TPU backend only; on the "
+        "card (and the CPU) it changes nothing, in either package. Kept "
+        "so that a configuration setting it runs unchanged."),
+    "device_memory_bytes": (
+        int, 0,
+        "Device memory capacity override in bytes (observability."
+        "memory.device_memory_limit), for the memory planner's budget "
+        "and for backends that report none (the CPU). 0 = the card's "
+        "total memory, none on the CPU."),
+    "serving_calibration_batches": (
+        int, 8,
+        "Representative batches the post-training-quantization "
+        "calibrator (paddle_tpu_torch.inference.quantize) runs through "
+        "the frozen fp32 program to collect per-tensor abs-max ranges "
+        "before rewriting conv/fc/matmul ops to int8."),
+    "int8_native": (
+        str, "auto",
+        "Lowering mode of quantized_conv2d/quantized_matmul: '1' = "
+        "native int8 GEMMs with int32 accumulation (torch._int_mm, the "
+        "card's int8 tensor cores; raises on the CPU, which has no int8 "
+        "GEMM in the port), '0' = numerically exact fp32 emulation "
+        "(int8 values cast to f32; products <= 127^2 and per-dot "
+        "partial sums stay inside the f32 mantissa). 'auto' = native "
+        "on CUDA tensors, the emulation on the CPU."),
     "executable_cache_size": (
         int, 128,
         "LRU capacity of the engine's compiled-block cache: one entry, "

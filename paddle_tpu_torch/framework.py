@@ -568,6 +568,26 @@ def program_from_desc(desc):
     return program
 
 
+def rebind_program_desc(program, desc):
+    """Point an existing Program at a rewritten desc in place (the
+    contrib Calibrator's save_int8_model contract mutates its program
+    rather than returning a new one; reference: framework.py:618).
+    Wrappers are rebuilt; callers' Variable handles into the OLD desc
+    become stale."""
+    program.desc = desc
+    desc._version_token = getattr(program, "_version", 0)
+    program.blocks = [Block(program, i) for i in range(desc.num_blocks())]
+    for b in program.blocks:
+        for name, vd in b.desc.vars.items():
+            v = Variable.__new__(Variable)
+            v.block = b
+            v.desc = vd
+            b.vars[name] = v
+    program.current_block_idx = 0
+    program._bump_version()
+    return program
+
+
 # -- default program singletons (reference: framework.py:2597-2665) --------
 _main_program_ = Program()
 _startup_program_ = Program()

@@ -2,7 +2,15 @@
 ``paddle_tpu/inference/__init__.py``):
 
 * the classic predictor API (predictor.py: AnalysisConfig /
-  create_paddle_predictor), native model directories;
+  create_paddle_predictor), native model directories, the AOT artifact
+  and the self-calibrating INT8 switch (``enable_mkldnn``);
+* **freeze** (freeze.py): trained ProgramDesc -> verified
+  inference-only desc — training ops stripped by role, pruned to the
+  fetch cone, batch-norm folded into the preceding conv/fc weights;
+* **quantize** (quantize.py): post-training INT8 — calibrate per-tensor
+  ranges over representative batches, then rewrite conv/fc/matmul to
+  ``quantize -> int8 GEMM (int32 accumulate) -> float`` with
+  per-channel weight scales (ops/quant_ops.py);
 * **serve** (serving.py): the continuous-batching ``InferenceServer`` —
   padded shape buckets, one engine cache entry per bucket, a max-wait
   timer bounding p99, SLO histograms in the metrics registry;
@@ -10,8 +18,6 @@
   ``DeadlineExceeded``), the bounded-queue + predictive-wait
   ``AdmissionGate``, and the per-worker ``CircuitBreaker``. All
   default-off.
-
-``freeze`` and ``quantize`` are ROADMAP Queue 1 item 9.
 """
 
 from paddle_tpu_torch.inference.admission import (  # noqa: F401
@@ -21,11 +27,25 @@ from paddle_tpu_torch.inference.admission import (  # noqa: F401
     DeadlineExceeded,
     Rejected,
 )
+from paddle_tpu_torch.inference.freeze import (  # noqa: F401
+    FoldBatchNormPass,
+    FreezeReport,
+    StripTrainingPass,
+    freeze_program,
+)
 from paddle_tpu_torch.inference.predictor import (  # noqa: F401
     AnalysisConfig,
     AnalysisPredictor,
     PaddleTensor,
     create_paddle_predictor,
+)
+from paddle_tpu_torch.inference.quantize import (  # noqa: F401
+    QUANTIZABLE_OPS,
+    CalibrationStats,
+    QuantReport,
+    calibrate_program,
+    post_training_quantize,
+    quantize_program,
 )
 from paddle_tpu_torch.inference.serving import (  # noqa: F401
     InferenceServer,
@@ -34,7 +54,10 @@ from paddle_tpu_torch.inference.serving import (  # noqa: F401
 
 __all__ = [
     "AdmissionError", "AdmissionGate", "AnalysisConfig",
-    "AnalysisPredictor", "CircuitBreaker", "DeadlineExceeded",
-    "InferenceServer", "PaddleTensor", "Rejected",
-    "create_paddle_predictor", "parse_buckets",
+    "AnalysisPredictor", "CalibrationStats", "CircuitBreaker",
+    "DeadlineExceeded", "FoldBatchNormPass", "FreezeReport",
+    "InferenceServer", "PaddleTensor", "QUANTIZABLE_OPS", "QuantReport",
+    "Rejected", "StripTrainingPass", "calibrate_program",
+    "create_paddle_predictor", "freeze_program", "parse_buckets",
+    "post_training_quantize", "quantize_program",
 ]

@@ -11,9 +11,14 @@ load_inference_model:1014). Port of ``paddle_tpu/io.py``:
   persistable) through ``compat.py``;
 * async checkpoints: ``CheckpointManager`` (``checkpoint.py``),
   ``save_checkpoint_async`` and ``load_checkpoint``, which restores in
-  place into the scope's tensors, so a captured step stays valid.
-
-The AOT artifact and frozen models are ROADMAP Queue 1 item 9.
+  place into the scope's tensors, so a captured step stays valid;
+* frozen (and INT8-quantized) models: ``save_frozen_model`` and
+  ``load_frozen_model``, the native layout with ``"frozen": true`` in
+  the meta; int8 weights stay int8 in the ``.npz``, so a frozen INT8
+  model either package saves loads in the other;
+* ``save_inference_model(export_format="aot")``: the native files plus
+  a ``torch.export`` artifact (``aot.py``), which the predictor runs
+  without the front end.
 """
 
 import copy
@@ -34,11 +39,13 @@ __all__ = [
     "load_vars", "load_params", "load_persistables",
     "save_inference_model", "load_inference_model",
     "CheckpointManager", "save_checkpoint_async", "load_checkpoint",
+    "save_frozen_model", "load_frozen_model",
 ]
 
 from paddle_tpu_torch.checkpoint import CheckpointManager  # noqa: E402
 
-# written by the JAX package's AOT export; stale after a native re-save
+# the AOT artifact's files (aot.py, either package's); stale after a
+# native re-save
 _AOT_FILES = ("__aot__.stablehlo", "__aot_meta__.json")
 
 
@@ -245,7 +252,9 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
     on-disk format instead — binary framework.proto ``__model__`` +
     per-var tensor streams — through ``compat.py``, so reference tooling
     (and ``compat.load_reference_inference_model``) loads the model.
-    ``"aot"`` raises: the AOT artifact is ROADMAP Queue 1 item 9."""
+    ``"aot"`` writes the native files and, beside them, the
+    ``torch.export`` artifact of the pruned program over the global
+    scope's values, specialized to ``example_feeds`` (aot.py)."""
     if export_format == "reference":
         from paddle_tpu_torch import compat
 
@@ -253,10 +262,10 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
             dirname, feeded_var_names, target_vars, executor,
             main_program=main_program,
             model_filename=model_filename or "__model__")
-    if export_format != "native":
-        raise NotImplementedError(
-            "save_inference_model(export_format=%r): the AOT artifact is "
-            "ROADMAP Queue 1 item 9, inference" % (export_format,))
+    if export_format not in ("native", "aot"):
+        raise ValueError(
+            "save_inference_model(export_format=%r): use 'native', "
+            "'reference' or 'aot'" % (export_format,))
     main_program = main_program or default_main_program()
     fetch_names = [v.name for v in target_vars]
     pruned = _prune_for_inference(main_program, feeded_var_names, fetch_names)
@@ -269,13 +278,83 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
         json.dump(meta, f)
     save_persistables(executor, dirname, main_program,
                       filename=params_filename)
-    # a native re-save must not leave a stale AOT artifact beside it, or
-    # the JAX package's predictor would serve the old weights baked in it
+    if export_format == "aot":
+        from paddle_tpu_torch.aot import export_aot
+
+        export_aot(dirname, feeded_var_names, fetch_names, pruned, _scope(),
+                   example_feeds or {})
+    else:
+        # a native re-save must not leave a stale AOT artifact beside
+        # it, or a predictor would serve the old weights baked in it
+        _remove_aot(dirname)
+    return fetch_names
+
+
+def _remove_aot(dirname):
     for name in _AOT_FILES:
         path = os.path.join(dirname, name)
         if os.path.exists(path):
             os.remove(path)
-    return fetch_names
+
+
+def save_frozen_model(dirname, program, feed_names, fetch_names,
+                      scope=None, quant_meta=None):
+    """Persist a frozen (and possibly INT8-quantized) program produced by
+    ``inference.freeze_program`` / ``quantize_program`` (io.py:255):
+    ``__model__`` desc bytes + ``__meta__.json`` + every persistable read
+    from the GIVEN scope (freezing runs in a private scope, so the
+    global-scope path of save_persistables would miss the folded/int8
+    weights). ``quant_meta`` (e.g. a QuantReport summary) rides along in
+    the meta JSON so tooling can tell a quantized artifact from an fp32
+    one."""
+    scope = scope if scope is not None else _scope()
+    os.makedirs(dirname, exist_ok=True)
+    with open(os.path.join(dirname, "__model__"), "wb") as f:
+        f.write(program.desc.serialize_to_string())
+    fetch_names = [f.name if hasattr(f, "name") else str(f)
+                   for f in fetch_names]
+    meta = {
+        "feed_names": list(feed_names),
+        "fetch_names": fetch_names,
+        "frozen": True,
+    }
+    if quant_meta is not None:
+        meta["quantization"] = quant_meta
+    with open(os.path.join(dirname, "__meta__.json"), "w") as f:
+        json.dump(meta, f)
+    arrays = {}
+    gb = program.desc.global_block()
+    for name, vd in gb.vars.items():
+        if not vd.persistable or name in ("feed", "fetch"):
+            continue
+        val = scope.get(name)
+        if val is not None:
+            arrays[name] = (val.detach().cpu().numpy()
+                            if isinstance(val, torch.Tensor)
+                            else np.asarray(val))
+    np.savez(os.path.join(dirname, "__combined__.npz"), **arrays)
+    _remove_aot(dirname)
+    return sorted(arrays)
+
+
+def load_frozen_model(dirname, scope=None, place=None):
+    """Inverse of save_frozen_model (io.py:292); loads the params into the
+    GIVEN scope (default global) as host arrays, which an executor moves
+    to its device at their first use, or as tensors on ``place`` when
+    given. Returns (program, feed_names, fetch_names, meta)."""
+    scope = scope if scope is not None else _scope()
+    with open(os.path.join(dirname, "__model__"), "rb") as f:
+        program = program_from_desc(ProgramDescData.parse_from_string(f.read()))
+    program._is_test = True
+    with open(os.path.join(dirname, "__meta__.json")) as f:
+        meta = json.load(f)
+    with np.load(os.path.join(dirname, "__combined__.npz")) as data:
+        for name in data.files:
+            value = data[name]
+            if place is not None:
+                value = torch.from_numpy(value).to(place.torch_device())
+            scope.set(name, value)
+    return program, meta["feed_names"], meta["fetch_names"], meta
 
 
 def load_inference_model(dirname, executor, model_filename=None,

@@ -10,9 +10,10 @@ seams. Port of the facade of ``paddle_tpu/observability/__init__.py``
 * request tracing (reqtrace.py), health and the serving SLO monitor
   (health.py), and the goodput ledger (goodput.py).
 
-The reference's ``memory`` (device-memory accounting) and ``opprof``
-(op-level device profiling) modules are not ported yet: ROADMAP Queue 1
-item 11, on ``torch.cuda.memory_stats`` and ``torch.profiler``.
+Of the reference's ``memory`` module only ``device_memory_limit`` is
+ported (``observability/memory.py``, for the memory planner's budget);
+the rest of it and ``opprof`` (op-level device profiling) are ROADMAP
+Queue 1 item 11, on ``torch.cuda.memory_stats`` and ``torch.profiler``.
 
 Everything is gated by ``PADDLE_GPU_METRICS`` (flags.py): with the flag
 down every helper here is one module-bool check — no locks, no
@@ -31,6 +32,7 @@ from paddle_tpu_torch.observability import (  # noqa: F401
     export,
     goodput,
     health,
+    memory,
     reqtrace,
 )
 from paddle_tpu_torch.observability.export import (  # noqa: F401

@@ -21,3 +21,4 @@ from paddle_tpu_torch.ops import sequence_ops  # noqa: F401
 from paddle_tpu_torch.ops import misc_ops  # noqa: F401
 from paddle_tpu_torch.ops import beam_search_ops  # noqa: F401
 from paddle_tpu_torch.ops import detection_ops  # noqa: F401
+from paddle_tpu_torch.ops import quant_ops  # noqa: F401

@@ -3,7 +3,8 @@
 ``elementwise_add/sub/mul/div/max/min/pow`` (:178-184),
 ``elementwise_mod`` and ``elementwise_floordiv`` (:185-186: the floor
 modulo, ``torch.remainder``, not ``torch.fmod``, and the floor
-quotient, as ``jnp.mod`` and ``jnp.floor_divide``), ``scale``
+quotient, as ``jnp.mod`` and ``jnp.floor_divide``),
+``fused_elemwise_activation`` (:189, the level-2 fuse pass's op), ``scale``
 (:212), ``sum`` (:233), ``pow`` (:255), ``clip`` (:261) and
 ``clip_by_norm`` (:276). The GEMMs are ``torch.matmul`` (cuBLAS on the
 card), as the JAX package leaves them to XLA; float32 GEMMs run in full
@@ -198,6 +199,28 @@ def _floor_divide(x, y):
 
 register_op("elementwise_mod", grad=None)(_elementwise(torch.remainder))
 register_op("elementwise_floordiv", grad=None)(_elementwise(_floor_divide))
+
+
+@register_op("fused_elemwise_activation")
+def fused_elemwise_activation(ctx, ins, attrs):
+    """Binary elementwise op + unary activation in one op (reference:
+    operators/fused/fused_elemwise_activation_op.cc, attr
+    ``functor_list`` = [binary, unary]). Emitted by the fuse-elemwise-act
+    transform pass (analysis/transforms.py); the lowering delegates to
+    the registered component lowerings, so fused and unfused programs
+    compute bit-identical values."""
+    from paddle_tpu_torch.core.registry import OpRegistry
+
+    functors = list(attrs.get("functor_list", ()))
+    if len(functors) != 2:
+        raise ValueError(
+            "fused_elemwise_activation needs functor_list=[binary, "
+            "unary], got %r" % (functors,))
+    binary, unary = functors
+    mid = OpRegistry.get(binary).lower(
+        ctx, {"X": ins.get("X", []), "Y": ins.get("Y", [])},
+        {"axis": attrs.get("axis", -1)})["Out"]
+    return OpRegistry.get(unary).lower(ctx, {"X": mid}, attrs)
 
 
 @register_op("scale")

@@ -19,7 +19,10 @@ interpolations gather rows and columns with ``take``, whose grad adds
 back in a fixed order on the card.
 
 Convolutions run through cuDNN (``torch.nn.functional.conv2d``) in NCHW,
-the reference's layout; their grads are cuDNN's backward-data and
+the reference's layout, or, where the layout pass (analysis/layout.py)
+rewrote them, on NHWC activations and HWIO filters through cuDNN's
+channels_last kernels; so do ``pool2d`` and (channel axis last)
+``batch_norm``. Their grads are cuDNN's backward-data and
 backward-filter (``aten.convolution_backward``), never a second forward.
 The transposed convolution is a float64 GEMM and ``F.fold`` instead
 (``conv2d_transpose``).
@@ -59,23 +62,49 @@ def _dropout_seed_range(attrs):
 
 
 def _nchw(attrs, op_type):
+    """Raise for an NHWC op the reference never runs: its layout pass
+    keeps ``conv2d_transpose`` a barrier (analysis/layout.py), so only a
+    hand-built desc can ask for it."""
     if attrs.get("data_format", "NCHW") != "NCHW":
         raise NotImplementedError(
-            "%s with data_format %r: the NHWC layout pass is not ported yet "
-            "(ROADMAP Queue 1 item 8, analysis and transforms)"
+            "%s with data_format %r: the reference's layout pass never "
+            "rewrites this op to NHWC, and neither package lowers it so"
             % (op_type, attrs.get("data_format")))
+
+
+def _nhwc(attrs):
+    """Whether the layout pass (analysis/layout.py) rewrote this op to
+    NHWC: its activations arrive NHWC and its filter HWIO."""
+    return attrs.get("data_format", "NCHW") == "NHWC"
+
+
+# views of an NHWC activation as NCHW and back, and of an HWIO filter as
+# OIHW and back (analysis/layout.py's permutations)
+_NHWC_AS_NCHW = (0, 3, 1, 2)
+_NCHW_AS_NHWC = (0, 2, 3, 1)
+_HWIO_AS_OIHW = (3, 2, 0, 1)
+_OIHW_AS_HWIO = (2, 3, 1, 0)
 
 
 def _conv2d_apply(x, w, attrs):
     """NCHW x, OIHW w (I = C / groups), symmetric padding (nn_ops.py:45).
     A float32 conv accumulates in float32 (TF32 is the caller's switch,
     ``torch.backends.cudnn.allow_tf32``); a bfloat16 one returns bfloat16,
-    cuDNN accumulating in float32."""
-    _nchw(attrs, "conv2d")
-    return F.conv2d(x, w, stride=tuple(attrs.get("strides", [1, 1])),
-                    padding=tuple(attrs.get("paddings", [0, 0])),
-                    dilation=tuple(attrs.get("dilations", [1, 1])),
-                    groups=attrs.get("groups", 1))
+    cuDNN accumulating in float32. Under NHWC x is NHWC and w HWIO: the
+    NCHW view of a contiguous NHWC tensor is channels_last, so cuDNN
+    takes its NHWC kernels without a copy of x, and its channels_last
+    output viewed NHWC is contiguous again; the HWIO filter viewed OIHW
+    is not channels_last, and cuDNN may copy it."""
+    nhwc = _nhwc(attrs)
+    if nhwc:
+        x, w = x.permute(*_NHWC_AS_NCHW), w.permute(*_HWIO_AS_OIHW)
+    out = F.conv2d(x, w, stride=tuple(attrs.get("strides", [1, 1])),
+                   padding=tuple(attrs.get("paddings", [0, 0])),
+                   dilation=tuple(attrs.get("dilations", [1, 1])),
+                   groups=attrs.get("groups", 1))
+    if nhwc:
+        out = out.permute(*_NCHW_AS_NHWC).contiguous()
+    return out
 
 
 @register_op("conv2d")
@@ -94,21 +123,32 @@ def conv2d_grad(ctx, ins, attrs):
     run again. The output grad takes the forward output's dtype (bfloat16
     under AMP); ``dx`` comes back in x's dtype and ``dw`` in w's, so the
     master weights stay float32."""
-    _nchw(attrs, "conv2d_grad")
     x, w = single(ins, "Input"), single(ins, "Filter")
     xa, wa = amp_cast(x, w)
     g = single(ins, "Output@GRAD").to(xa.dtype)
+    nhwc = _nhwc(attrs)
+    if nhwc:
+        xa, wa = xa.permute(*_NHWC_AS_NCHW), wa.permute(*_HWIO_AS_OIHW)
+        g = g.permute(*_NHWC_AS_NCHW)
+        if not xa.is_cuda:
+            # torch's CPU (oneDNN) convolution backward aborts the process
+            # on a strided channels_last input; the CPU takes an NCHW copy
+            xa = xa.contiguous()
     dx, dw, _ = torch.ops.aten.convolution_backward(
         g, xa, wa, None, list(attrs.get("strides", [1, 1])),
         list(attrs.get("paddings", [0, 0])),
         list(attrs.get("dilations", [1, 1])), False, [0, 0],
         attrs.get("groups", 1), [True, True, False])
+    if nhwc:
+        dx = dx.permute(*_NCHW_AS_NHWC).contiguous()
+        dw = dw.permute(*_OIHW_AS_HWIO).contiguous()
     return {"Input@GRAD": [dx.to(x.dtype)], "Filter@GRAD": [dw.to(w.dtype)]}
 
 
 def _depthwise(ins, attrs):
+    # the channel count lives last under the layout pass's NHWC rewrite
     attrs = dict(attrs)
-    attrs["groups"] = single(ins, "Input").shape[1]
+    attrs["groups"] = single(ins, "Input").shape[3 if _nhwc(attrs) else 1]
     return attrs
 
 
@@ -140,17 +180,25 @@ def pool2d(ctx, ins, attrs):
     window that would start in the padding). Average pooling sums and
     divides by the window's in-input count (``exclusive``) or by its
     size, as the reference does. Global pooling (or adaptive to [1, 1])
-    reduces H and W; its mean runs in float32 and returns x's dtype."""
-    _nchw(attrs, "pool2d")
+    reduces H and W; its mean runs in float32 and returns x's dtype.
+    Under NHWC the same pooling runs on the NCHW (channels_last) view of
+    x, and its output is viewed NHWC again."""
     x = single(ins, "X")
+    if _nhwc(attrs):
+        x = x.permute(*_NHWC_AS_NCHW)
+        out = _pool2d_nchw(x, attrs)
+        return {"Out": [out.permute(*_NCHW_AS_NHWC).contiguous()]}
+    return {"Out": [_pool2d_nchw(x, attrs)]}
+
+
+def _pool2d_nchw(x, attrs):
     ptype = attrs.get("pooling_type", "max")
     ksize = list(attrs.get("ksize", [2, 2]))
     if attrs.get("global_pooling", False) or (
             attrs.get("adaptive", False) and ksize == [1, 1]):
         if ptype == "max":
-            return {"Out": [x.amax(dim=(2, 3), keepdim=True)]}
-        return {"Out": [fp32_accum(x).mean(dim=(2, 3), keepdim=True)
-                        .to(x.dtype)]}
+            return x.amax(dim=(2, 3), keepdim=True)
+        return fp32_accum(x).mean(dim=(2, 3), keepdim=True).to(x.dtype)
     strides = list(attrs.get("strides", [1, 1]))
     ph, pw = attrs.get("paddings", [0, 0])
     if attrs.get("ceil_mode", False):
@@ -162,14 +210,13 @@ def pool2d(ctx, ins, attrs):
     if ptype == "max":
         low = (float("-inf") if x.is_floating_point()
                else torch.iinfo(x.dtype).min)
-        return {"Out": [F.max_pool2d(F.pad(x, pad, value=low), ksize,
-                                     strides)]}
+        return F.max_pool2d(F.pad(x, pad, value=low), ksize, strides)
     summed = F.avg_pool2d(F.pad(x, pad), ksize, strides, divisor_override=1)
     if attrs.get("exclusive", True):
         ones = F.pad(torch.ones_like(x[:1, :1]), pad)
-        return {"Out": [summed / F.avg_pool2d(ones, ksize, strides,
-                                              divisor_override=1)]}
-    return {"Out": [summed / (ksize[0] * ksize[1])]}
+        return summed / F.avg_pool2d(ones, ksize, strides,
+                                     divisor_override=1)
+    return summed / (ksize[0] * ksize[1])
 
 
 def _bn_axes(x, layout):

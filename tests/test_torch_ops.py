@@ -261,10 +261,13 @@ def test_every_ported_lowering_has_a_case():
     test_torch_ops_book.py, among the dense op families' in
     test_torch_ops_dense.py, among the sequence and beam-search ops' in
     test_torch_ops_sequence.py, among the misc family's in
-    test_torch_ops_misc.py, or among the detection and CTC families' in
-    test_torch_ops_detection.py."""
+    test_torch_ops_misc.py, among the detection and CTC families' in
+    test_torch_ops_detection.py, among the quantization ops' in
+    test_torch_int8.py, or among the level-2 fuse's in
+    test_torch_transforms_level2.py."""
     from test_torch_control_flow import SLICE_OPS as CF_OPS
     from test_torch_ctr_models import SLICE_OPS as CTR_OPS
+    from test_torch_int8 import SLICE_OPS as INT8_OPS
     from test_torch_ops_book import SLICE_OPS as BOOK_OPS
     from test_torch_ops_dense import SLICE_OPS as DENSE_OPS
     from test_torch_ops_detection import SLICE_OPS as DETECTION_OPS
@@ -274,11 +277,12 @@ def test_every_ported_lowering_has_a_case():
     from test_torch_ops_train import SLICE_OPS as TRAIN_OPS
     from test_torch_rnn import SLICE_OPS as RNN_OPS
     from test_torch_transformer_nmt import SLICE_OPS as NMT_OPS
+    from test_torch_transforms_level2 import SLICE_OPS as LEVEL2_OPS
 
     registered = set(TOpRegistry.all_types())
     assert {c[1] for c in CASES} | (SLICE_OPS & registered) | TRAIN_OPS \
         | CTR_OPS | NMT_OPS | CF_OPS | RNN_OPS | BOOK_OPS | DENSE_OPS \
-        | SEQUENCE_OPS | MISC_OPS | DETECTION_OPS \
+        | SEQUENCE_OPS | MISC_OPS | DETECTION_OPS | INT8_OPS | LEVEL2_OPS \
         == registered - {"uniform_random"}
 
 
