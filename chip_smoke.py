@@ -428,7 +428,24 @@ card and prints one JSON line per phase:
    device time, INT8-vs-float32 top-1 agreement, every quantized op of
    one batch bitwise equal to its float64 emulation; the frozen model
    exported AOT and served through the predictor's AOT branch (AOT_TOL).
-46. kernels — one JSON object listing every ported kernel, with its
+46. mesh — the mesh path (``parallel/``, the engine's mesh entries):
+   BERT-base at full width and depth (batch 8, dropout 0.1) trained
+   MESH_STEPS steps under the ``mesh`` flag ``dp=1`` on a one-rank NCCL
+   group, captured: losses and every state var bitwise those of the same
+   steps without a mesh, 12 launches of each kernel a step, both step
+   times. Then two spawned ranks sharing the card: which collectives
+   gloo takes on CUDA tensors, and each case whose collectives it takes
+   — ``dp2`` (BERT-base width, MESH_DP2_LAYERS layers, batch 8 split
+   4 + 4) and ``sp2`` (the Transformer's attention with
+   ``sequence_parallel``, T=MESH_SP["seq_len"], split over two ranks'
+   ring) — against the one-rank run at the same global batch (MESH_TOL);
+   a collective that keeps a case off is named. With two or more cards
+   the cases run on NCCL, one card a rank, captured. Last, the ring's
+   step function at every rank's offsets in this process, sp = 2 and 4
+   blocks of a T=MESH_RING_T attention, float32 and bfloat16, causal or
+   not: forward and the three grads through the ring's backward against
+   one full-sequence kernel call (TOL, TOL_BWD).
+47. kernels — one JSON object listing every ported kernel, with its
    design: all three run their products on the tensor cores (mma.sync
    bf16, 3xTF32 for float32) from a cp.async tile ring, and read their
    dropout seed from device memory; each kernel's launches on every path,
@@ -630,6 +647,24 @@ CKPT_PLAIN_STEPS = 20  # checkpoint: timed steps without saves, before
 #                        and after the saving loop
 CKPT_LOOP_CAP_S = 20.0  # checkpoint: the saving loop stops here, writes or not
 OP_CASES_RELEASE_BYTES = 20 << 30  # phase_op_cases collects above this
+# phase_op_cases: the cases whose card-vs-CPU comparison (outputs and vjp
+# grads, the card twice) runs on the first rows of the named inputs, on
+# both devices; the card is timed at the users' full shapes. Each op is
+# independent across those rows (images, sequences, RoIs) and has no
+# parameter whose grad sums over them (a conv's filter grad summed over
+# 2 of 8 clips came out 1.1e-5 of max off the CPU's, past DENSE_TOL);
+# these are the longest CPU references (the mesh phase took the room)
+OP_CPU_ROWS = {
+    "bilinear_align_corners": {"X": 8}, "bilinear_mode1": {"X": 8},
+    "bilinear_mode0": {"X": 8}, "nearest_align_corners": {"X": 8},
+    "nearest_floor": {"X": 8}, "reshape": {"X": 2}, "stack": {"X": 2},
+    "lrn": {"X": 8}, "argsort": {"X": 128}, "top_k": {"X": 128},
+    "top_k_ties": {"X": 128}, "top_k_ties_bf16": {"X": 128},
+    "pool3d_c3d_pool1": {"X": 2}, "grid_sampler_stn": {"X": 2, "Grid": 2},
+    "pad_constant_like_fcn": {"X": 8, "Y": 8},
+    "roi_align_c4_14x14": {"ROIs": 32, "RoisBatchIdx": 32},
+    "roi_pool_c4_14x14": {"ROIs": 32, "RoisBatchIdx": 32},
+}
 READER_BATCHES = 8    # reader_pipeline: batches in the RecordIO file
 READER_SEED = 16      # reader_pipeline: the images', labels' and shuffle's
 # optimizers: the update ops this slice ports, each held on the card
@@ -879,6 +914,25 @@ INT8_SERVE_BATCHES = (1, 8, 32)
 INT8_AGREE_IMAGES = 256
 AOT_BATCH = 8
 AOT_TOL = {"rtol": 1e-4, "atol": 1e-4}
+
+# mesh: BERT-base steps under a 1-rank mesh against no mesh (bitwise);
+# the two-rank cases against one rank at the same global batch, within
+# the step tolerances of PERF.md section 2 (the batch split into two
+# partial sums, the grads all-reduced); the parameters after the steps
+# within 1e-3 of each one's max plus a tenth of Adam's learning rate
+# 1e-4, which sizes each step (a bias that starts at zero is a few steps
+# of it; tests/test_torch_bert_training.py's rule); each case's
+# collectives
+MESH_STEPS = 3
+MESH_DP2_LAYERS = 2
+MESH_DP2_STEPS = 2
+MESH_SP = dict(batch=4, seq_len=256, d_model=512, n_heads=8)
+MESH_RING_T = 512
+MESH_TOL = {"loss_rtol": 1e-4, "grad_rel_to_max": 1e-3,
+            "state_rel_to_max": 1e-3, "state_abs": 1e-5}
+MESH_CASES = {"dp2": ("all_reduce", "all_gather_into_tensor"),
+              "sp2": ("all_reduce", "all_gather_into_tensor",
+                      "batch_isend_irecv")}
 
 
 # profiler windows that dropped device activity and were run again: per
@@ -5612,7 +5666,8 @@ def phase_op_cases(fa, smi, phase, cases, twice, witness=None, rows=None,
     lowerings ({op type: {label: lowering}}) run beside the port's,
     their errors and ms printed; device ms of the forward and of the
     vjp, every case's in one profiler window (``window_ms``, ``window_n``
-    calls each), with their kernel launches a call, the card operands kept until it. Emits
+    calls each), with their kernel launches a call, the card operands kept until it (the
+    OP_CPU_ROWS cases compare on their first rows, timed whole). Emits
     ``phase``'s row (its case rows also appended to ``rows``) and
     returns its flash launches (none)."""
     import torch
@@ -5630,7 +5685,12 @@ def phase_op_cases(fa, smi, phase, cases, twice, witness=None, rows=None,
     rows = [] if rows is None else rows
     failed, timed, witnessed = [], [], []
     for k, (name, op_type, make, attrs) in enumerate(cases):
-        host = make(np.random.RandomState(500 + k))
+        full = make(np.random.RandomState(500 + k))
+        cut = OP_CPU_ROWS.get(name, {})
+        check(not (cut and (witness or {}).get(op_type)),
+              "%s: a witness compares at the compared rows" % name)
+        host = {s: [a[:cut[s]] for a in v] if s in cut else v
+                for s, v in full.items()}
         runs = {}
         for device in ("cuda", "cpu"):
             ins = {s: [on(device, a) for a in v] for s, v in host.items()}
@@ -5670,6 +5730,16 @@ def phase_op_cases(fa, smi, phase, cases, twice, witness=None, rows=None,
             row["twice_bitwise_equal"] = same
             if not same:
                 failed.append([name, "run twice on the card differs"])
+        if cut:
+            # timed at the users' full shapes
+            card_ins = {s: [on("cuda", a) for a in v]
+                        for s, v in full.items()}
+            full_out = lower_op(op_type, card_ins, attrs, "cuda")
+            card_cots = [torch.randn(v.shape, device="cuda").to(v.dtype)
+                         for s in sorted(full_out) for v in full_out[s]
+                         if v.is_floating_point()]
+            row["compared_rows"] = cut
+            del full_out
         fwd = functools.partial(lower_op, op_type, card_ins, attrs, "cuda")
         vjp = functools.partial(op_vjp, op_type, card_ins, attrs, "cuda",
                                 card_cots)
@@ -5688,7 +5758,7 @@ def phase_op_cases(fa, smi, phase, cases, twice, witness=None, rows=None,
             witnessed.append((k, op_type, label, fwd, vjp))
             del out, grads
         rows.append(row)
-        del runs, host
+        del runs, host, full
         if torch.cuda.memory_allocated() > OP_CASES_RELEASE_BYTES:
             release_memory()  # a collection costs ~0.1 s a case
     # the timings: one profiler window for every case's forward and vjp,
@@ -9377,6 +9447,498 @@ def phase_int8_serve(fa, smi):
     return launches
 
 
+def mesh_bert_program(n_layers, dropout):
+    """BERT-base's pre-training program at ``n_layers`` (the width of
+    ``BERT``), as ``bert_train_program`` builds it."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import bert
+
+    cfg = dict(BERT, n_layers=n_layers)
+    main, startup = fluid.Program(), fluid.Program()
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        T = cfg["seq_len"]
+        data = {n: fluid.layers.data(name=n, shape=[T], dtype="int64")
+                for n in ("src_ids", "pos_ids", "sent_ids")}
+        seq_lens = fluid.layers.data(name="seq_lens", shape=[1],
+                                     dtype="int64")
+        mask_label = fluid.layers.data(name="mask_label", shape=[T],
+                                       dtype="int64")
+        mask_weight = fluid.layers.data(name="mask_weight", shape=[T],
+                                        dtype="float32")
+        ns_label = fluid.layers.data(name="ns_label", shape=[1],
+                                     dtype="int64")
+        enc = bert.bert_encoder(
+            data["src_ids"], data["pos_ids"], data["sent_ids"], seq_lens,
+            cfg["vocab_size"], max_position=cfg["max_position"],
+            d_model=cfg["d_model"], n_layers=n_layers,
+            n_heads=cfg["n_heads"], d_inner=cfg["d_inner"],
+            dropout=dropout, is_train=True)
+        loss, _, _ = bert.pretrain_heads(
+            enc, mask_label, mask_weight, ns_label, cfg["vocab_size"],
+            cfg["d_model"], is_train=True)
+        fluid.optimizer.Adam(learning_rate=1e-4).minimize(loss)
+    main.random_seed = startup.random_seed = 2024
+    return main, startup, loss
+
+
+def mesh_sp_program():
+    """The Transformer's attention block (``multi_head_attention``) with
+    ``sequence_parallel``, a squared-mean loss and its grads."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import transformer
+
+    c = MESH_SP
+    main, startup = fluid.Program(), fluid.Program()
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[c["seq_len"], c["d_model"]],
+                              dtype="float32")
+        out = transformer.multi_head_attention(
+            x, x, x, c["d_model"], c["n_heads"], dropout_rate=0.0,
+            causal=True, is_train=True, sequence_parallel=True)
+        loss = fluid.layers.mean(fluid.layers.square(out))
+        fluid.append_backward(loss)
+    main.random_seed = startup.random_seed = 2024
+    return main, startup, loss
+
+
+def mesh_grad_names(main, k=4):
+    """The grads a two-rank case holds against one rank: ``k`` params
+    spread over the program, first to last."""
+    params = [p.name for p in main.all_parameters()]
+    pick = sorted({int(i) for i in np.linspace(0, len(params) - 1, k)})
+    return [params[i] + "@GRAD" for i in pick]
+
+
+def mesh_case_inputs():
+    """Each two-rank case's state, feeds and fetches, host arrays made
+    here from seeds: the startup programs run on the CPU, so every
+    process that calls this gets the same."""
+    import paddle_tpu_torch.fluid as fluid
+
+    cases = {}
+    main, startup, loss = mesh_bert_program(MESH_DP2_LAYERS, 0.0)
+    feed = train_feed(8, np.random.RandomState(93))
+    cases["dp2"] = (main, startup, loss, feed, MESH_DP2_STEPS)
+    main, startup, loss = mesh_sp_program()
+    rng = np.random.RandomState(94)
+    feed = {"x": rng.randn(MESH_SP["batch"], MESH_SP["seq_len"],
+                           MESH_SP["d_model"]).astype(np.float32)}
+    cases["sp2"] = (main, startup, loss, feed, 1)
+    out = {}
+    for name, (main, startup, loss, feed, steps) in cases.items():
+        scope = fluid.Scope()
+        with fluid.scope_guard(scope):
+            fluid.Executor(fluid.CPUPlace()).run(startup)
+        state = {v.name: scope.get(v.name).numpy()
+                 for v in main.list_vars() if v.persistable}
+        out[name] = {"state": state, "feed": feed, "steps": steps,
+                     "fetch": [loss.name] + mesh_grad_names(main)}
+    return out
+
+
+def mesh_run_case(name, inputs, place, mesh=None):
+    """One case's steps from its state: (losses, the first step's grads,
+    the parameters after the steps), all host arrays; over ``mesh`` when
+    given."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.parallel.plan import gather
+
+    main = (mesh_bert_program(MESH_DP2_LAYERS, 0.0)[0] if name == "dp2"
+            else mesh_sp_program()[0])
+    inp = inputs[name]
+    scope = fluid.Scope()
+    convert.load_numpy_state(scope, inp["state"], place.torch_device(),
+                             program=main)
+    exe = fluid.Executor(place)
+    losses, grads = [], None
+    with fluid.scope_guard(scope):
+        for _ in range(inp["steps"]):
+            out = exe.run(main, feed=inp["feed"], fetch_list=inp["fetch"],
+                          mesh=mesh)
+            losses.append(float(np.asarray(out[0]).reshape(-1)[0]))
+            grads = grads if grads is not None else out[1:]
+    final = {p.name: gather(scope.get(p.name)).float().cpu().numpy()
+             for p in main.all_parameters()}
+    return losses, grads, final
+
+
+MESH_PROBE = r"""
+import sys
+import torch
+import torch.distributed as dist
+
+rank, path, name, backend, dev = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
+                                  sys.argv[4], int(sys.argv[5]))
+torch.cuda.set_device(dev)
+dist.init_process_group(backend, init_method="file://" + path, rank=rank,
+                        world_size=2)
+x = torch.full((4,), float(rank + 1), device="cuda")
+if name == "all_reduce":
+    dist.all_reduce(x)
+elif name == "all_gather_into_tensor":
+    dist.all_gather_into_tensor(torch.empty(8, device="cuda"), x)
+elif name == "reduce_scatter_tensor":
+    dist.reduce_scatter_tensor(torch.empty(4, device="cuda"), x.repeat(2))
+elif name == "batch_isend_irecv":
+    for w in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, x, 1 - rank),
+            dist.P2POp(dist.irecv, torch.empty_like(x), 1 - rank)]):
+        w.wait()
+torch.cuda.synchronize()
+dist.destroy_process_group()
+print("ok")
+"""
+
+
+def mesh_probe_start(backend, n_dev, tmpdir):
+    """Start probing which collectives a two-rank ``backend`` group takes
+    on CUDA tensors (rank r on card r, or both on card 0): each
+    collective in a pair of processes of its own, all pairs at once,
+    since gloo aborts its process on a tensor it cannot move. Returns
+    the processes for ``mesh_probe_read``."""
+    names = sorted({c for needs in MESH_CASES.values() for c in needs}
+                   | {"reduce_scatter_tensor"})
+    procs = {}
+    for name in names:
+        path = os.path.join(tmpdir, "probe_" + name)
+        procs[name] = [subprocess.Popen(
+            [sys.executable, "-c", MESH_PROBE, str(r), path, name, backend,
+             str(r if n_dev >= 2 else 0)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(2)]
+    return procs
+
+
+def mesh_probe_read(procs):
+    """{collective: "ok" or the error} of ``mesh_probe_start``'s pairs."""
+    out = {}
+    for name, pair in procs.items():
+        errs = []
+        for p in pair:
+            try:
+                so, se = p.communicate(timeout=120)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                so, se = p.communicate()
+                se = (se or "") + "\ntimed out after 120 s"
+            if p.returncode != 0 or "ok" not in so:
+                lines = [ln for ln in se.splitlines() if ln.strip()]
+                errs.append("exit %s: %s" % (
+                    p.returncode, " | ".join(lines[-2:])[:300]))
+        out[name] = "ok" if not errs else errs[0]
+    return out
+
+
+def _mesh_rank(rank, world, tmpdir, backend, run):
+    """A rank of the two-rank cases (spawned): runs each case of ``run``
+    over its mesh and writes its results."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    from paddle_tpu_torch import flags, parallel
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.platform import CUDAPlace
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = rank if backend == "nccl" else 0
+    torch.cuda.set_device(dev)
+    parallel.init_distributed(
+        num_processes=world, process_id=rank, backend=backend,
+        init_method="file://" + os.path.join(tmpdir, "store"))
+    inputs = mesh_case_inputs()
+    res = {}
+    flags.set_flags({"metrics": True})
+    for name in run:
+        axes = {"dp": 2} if name == "dp2" else {"dp": 1, "sp": 2}
+        mesh = parallel.make_mesh(axes, device_type="cuda")
+        fa.launches = fa.launches_dq = fa.launches_dkv = 0
+        obs.reset()
+        t0 = time.perf_counter()
+        losses, grads, final = mesh_run_case(name, inputs, CUDAPlace(dev),
+                                             mesh)
+        res[name] = {
+            "ran": True, "losses": losses,
+            "grads": grads if rank == 0 else None,
+            "state": final if rank == 0 else None,
+            "seconds": time.perf_counter() - t0,
+            "launches": flash_launches(fa), "counters": mesh_counters()}
+    with open(os.path.join(tmpdir, "rank%d.pkl" % rank), "wb") as f:
+        pickle.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+MESH_COUNTERS = ("engine.captures", "engine.replays", "engine.eager_runs",
+                  "engine.mesh_redistribute", "engine.mesh_op_replicated",
+                  "engine.grad_buckets", "engine.state_resharded")
+
+
+def mesh_counters():
+    """The engine's mesh counters (the metrics flag on), and the ops the
+    mesh path ran replicated for want of a sharding rule."""
+    from paddle_tpu_torch import observability as obs
+
+    out = {n: obs.counter_value(n) for n in MESH_COUNTERS}
+    out["replicated_ops"] = sorted({
+        (r.args or {}).get("op") for r in obs.spans()
+        if r.name == "engine.mesh_op_replicated"})
+    return out
+
+
+def mesh_worst(got, want, names=None):
+    """Worst |got - want| over max|want|, var by var: (worst, its var,
+    its largest |got - want|)."""
+    worst = (0.0, None, 0.0)
+    for i, (g, w) in enumerate(zip(got, want)):
+        w = np.asarray(w, np.float64)
+        g = np.asarray(g, np.float64)
+        d = float(np.abs(g - w).max()) if w.size else 0.0
+        rel = d / max(float(np.abs(w).max()) if w.size else 0.0, 1e-30)
+        if rel > worst[0]:
+            worst = (rel, names[i] if names else i, d)
+    return worst
+
+
+def phase_mesh_ring(fa):
+    """The ring's step function (``ring_attention_blocks``) at every rank's
+    offsets in this process, against one full-sequence kernel call:
+    forward and the ring backward's three grads."""
+    import torch
+
+    from paddle_tpu_torch.parallel.ring_attention import (
+        ring_attention_blocks)
+
+    rows = []
+    B, H, T, D = 2, 12, MESH_RING_T, 64
+    for n in (2, 4):
+        for dt in ("float32", "bfloat16"):
+            for causal in (False, True):
+                gen = torch.Generator(device="cuda").manual_seed(70 + n)
+                q, k, v, g = (torch.randn((B, H, T, D), generator=gen,
+                                          device="cuda").to(getattr(
+                                              torch, dt))
+                              for _ in range(4))
+                out, lse = fa.flash_forward_cuda(q, k, v, None, None, 0,
+                                                 causal)
+                want = fa.flash_backward_cuda(q, k, v, out, lse, g, None,
+                                              None, None, 0, causal)
+                outs, _, grads = ring_attention_blocks(
+                    q.chunk(n, 2), k.chunk(n, 2), v.chunk(n, 2), causal,
+                    use_flash=True, grads=g.chunk(n, 2))
+                got_out = torch.cat(outs, 2).float()
+                tol = TOL[dt]
+                diff = (got_out - out.float()).abs()
+                allowed = (tol["out_rel"] * out.float().abs()
+                           + tol["out_abs_of_max_v"]
+                           * v.float().abs().max() + tol["out_abs"])
+                row = {"sp": n, "dtype": dt, "causal": causal,
+                       "max_abs_err_out": diff.max().item(),
+                       "max_excess_out": (diff - allowed).max().item()}
+                tb = TOL_BWD[dt]
+                for gname, parts, w in zip(("dq", "dk", "dv"), grads, want):
+                    a, b = torch.cat(parts, 2).float(), w.float()
+                    d = (a - b).abs()
+                    allowed = (tb["rel"] * b.abs() + tb["abs_of_max"]
+                               * b.abs().max() + tb["abs"])
+                    row["max_abs_err_" + gname] = d.max().item()
+                    row["max_excess_" + gname] = (d - allowed).max().item()
+                rows.append(row)
+                check(all(np.isfinite(row[k]) and row[k] <= 0
+                          for k in row if k.startswith("max_excess")),
+                      "mesh ring sp=%d %s causal=%s beyond TOL: %s"
+                      % (n, dt, causal, row))
+    return rows
+
+
+def phase_mesh(fa, smi):
+    """The mesh path: BERT-base under a 1-rank NCCL mesh (bitwise against
+    no mesh, captured), the two-rank cases on spawned ranks, the ring's
+    kernels at every rank's offsets. Returns the flash launches of the
+    1-rank mesh path. The two-rank transport's probe runs while the
+    one-rank steps do; no process of it outlives the phase."""
+    import torch
+
+    n_dev = torch.cuda.device_count()
+    # gloo on the one card (NCCL refuses two ranks on one device), NCCL
+    # one card a rank when there are two
+    backend = "nccl" if n_dev >= 2 else "gloo"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as d:
+        probing = mesh_probe_start(backend, n_dev, d)
+        try:
+            return _phase_mesh(fa, smi, probing, d, backend, n_dev)
+        finally:
+            for pair in probing.values():
+                for p in pair:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+
+
+def _phase_mesh(fa, smi, probing, tmpdir, backend, n_dev):
+    import pickle
+
+    import torch
+    import torch.multiprocessing as mp
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import flags, parallel
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.parallel.plan import gather
+
+    t_phase = time.perf_counter()
+    parallel.env.init_single_process("cuda")
+    flags.set_flags({"metrics": True})
+    main, startup, loss = bert_train_program(False)
+    state0 = start_state(main, startup)
+    feed8 = train_feed(8, np.random.RandomState(91))
+    runs, finals = {}, {}
+    for label in ("no_mesh", "mesh_dp1"):
+        exe, scope = state_executor(main, state0)
+        if label == "mesh_dp1":
+            flags.set_flags({"mesh": "dp=1"})
+        try:
+            fa.launches = fa.launches_dq = fa.launches_dkv = 0
+            obs.reset()
+            with fluid.scope_guard(scope):
+                losses = [float(exe.run(main, feed=feed8,
+                                        fetch_list=[loss])[0].reshape(-1)[0])
+                          for _ in range(MESH_STEPS)]
+            counted = flash_launches(fa)
+            counters = mesh_counters()
+            # the state after the steps, on the card, before the timed
+            # runs move it
+            finals[label] = {n: gather(scope.get(n)).clone()
+                             for n in sorted(state0)}
+            graphs = [(c.captures, c.replays) for c in captured(exe.engine)]
+            with fluid.scope_guard(scope):
+                ms = timed_runs(lambda: exe.run(main, feed=feed8,
+                                                fetch_list=[loss]))
+            runs[label] = {"losses": losses, "launches": counted,
+                           "graphs": graphs, "step_ms": ms,
+                           "counters": counters}
+        finally:
+            flags.reset_flag("mesh")
+        del exe, scope
+        release_memory()
+    unequal = [n for n in finals["no_mesh"]
+               if not torch.equal(finals["no_mesh"][n],
+                                  finals["mesh_dp1"][n])]
+    del finals
+    release_memory()
+    one = runs["mesh_dp1"]
+    per_step = {k: MESH_STEPS * BERT["n_layers"] for k in one["launches"]}
+    emit({"phase": "mesh", "case": "dp1_nccl", "card": smi,
+          "model": "bert_base", "batch": 8, "dropout": 0.1,
+          "steps": MESH_STEPS, "runs": runs,
+          "losses_bitwise_equal": one["losses"] == runs["no_mesh"]["losses"],
+          "state_vars_unequal": unequal,
+          "device_count": n_dev, "transport": "nccl (one rank)"})
+    check(one["losses"] == runs["no_mesh"]["losses"],
+          "mesh dp=1 losses must be bitwise the no-mesh losses: %s vs %s"
+          % (one["losses"], runs["no_mesh"]["losses"]))
+    check(not unequal, "mesh dp=1 state differs from no mesh: %s"
+          % unequal[:5])
+    check(one["launches"] == per_step,
+          "mesh dp=1 flash launches %s, want %s" % (one["launches"],
+                                                    per_step))
+    check(one["graphs"] and all(c == 1 and r >= 1 for c, r in one["graphs"]),
+          "mesh dp=1 step not captured: %s" % one["graphs"])
+
+    # the two-rank cases the probe allows start; meanwhile this process
+    # runs each case on one rank at the same global batch (its default
+    # sp mesh of one rank for the ring op)
+    t_spawn = time.perf_counter()
+    probe = mesh_probe_read(probing)
+    probe_wait_s = time.perf_counter() - t_spawn
+    run = [n for n, needs in MESH_CASES.items()
+           if all(probe[c] == "ok" for c in needs)]
+    ranks = [{}, {}]
+    spawned = (mp.start_processes(_mesh_rank, args=(2, tmpdir, backend, run),
+                                  nprocs=2, join=False, start_method="spawn")
+               if run else None)
+    try:
+        inputs = mesh_case_inputs()
+        parallel.set_default_mesh(parallel.make_mesh({"sp": 1}))
+        try:
+            alone = {name: mesh_run_case(name, inputs, fluid.CUDAPlace(0))
+                     for name in MESH_CASES}
+        finally:
+            parallel.set_default_mesh(None)
+        release_memory()
+        if spawned is not None:
+            while not spawned.join():
+                pass
+    except BaseException:
+        for proc in (spawned.processes if spawned is not None else ()):
+            if proc.is_alive():
+                proc.terminate()
+        raise
+    for r in range(2 if spawned is not None else 0):
+        with open(os.path.join(tmpdir, "rank%d.pkl" % r), "rb") as f:
+            ranks[r] = pickle.load(f)
+    spawn_s = time.perf_counter() - t_spawn
+    cases = {}
+    for name, needs in MESH_CASES.items():
+        if name not in run:
+            cases[name] = {"ran": False, "transport": backend,
+                           "kept_off_by": {c: probe[c] for c in needs
+                                           if probe[c] != "ok"}}
+            continue
+        r0 = ranks[0][name]
+        losses, grads, final = alone[name]
+        row = {"ran": True, "transport": backend,
+               "captured": backend == "nccl",
+               "losses": r0["losses"], "losses_one_rank": losses,
+               "loss_worst_rel": rel_worst(r0["losses"], losses),
+               "grad_worst_rel_to_max": mesh_worst(
+                   r0["grads"], grads, inputs[name]["fetch"][1:]),
+               "state_worst_rel_to_max": mesh_worst(
+                   [r0["state"][n] for n in sorted(final)],
+                   [final[n] for n in sorted(final)], sorted(final)),
+               "ranks_agree": all(ranks[r][name]["losses"] == r0["losses"]
+                                  for r in range(2)),
+               "seconds": r0["seconds"], "launches_rank0": r0["launches"],
+               "counters_rank0": r0["counters"]}
+        cases[name] = row
+    emit({"phase": "mesh", "case": "two_ranks", "card": smi,
+          "device_count": n_dev, "transport": backend,
+          "probe": probe, "probe_wait_s": probe_wait_s, "cases": cases,
+          "ran": run, "spawn_s": spawn_s, "tol": MESH_TOL})
+    for name in run:
+        row = cases[name]
+        check(row["ranks_agree"], "mesh %s: ranks disagree" % name)
+        check(row["loss_worst_rel"] <= MESH_TOL["loss_rtol"],
+              "mesh %s loss %g beyond %g" % (name, row["loss_worst_rel"],
+                                             MESH_TOL["loss_rtol"]))
+        rel, var, _ = row["grad_worst_rel_to_max"]
+        check(rel <= MESH_TOL["grad_rel_to_max"],
+              "mesh %s grad %s %g beyond %g" % (name, var, rel,
+                                                MESH_TOL["grad_rel_to_max"]))
+        got, want = ranks[0][name]["state"], alone[name][2]
+        for n, w in want.items():
+            d = np.abs(got[n].astype(np.float64) - w).max()
+            allowed = (MESH_TOL["state_rel_to_max"] * np.abs(w).max()
+                       + MESH_TOL["state_abs"])
+            check(d <= allowed, "mesh %s param %s off by %g > %g"
+                  % (name, n, d, allowed))
+
+    flags.reset_flag("metrics")
+    obs.reset()
+    ring = phase_mesh_ring(fa)
+    emit({"phase": "mesh", "case": "ring_blocks", "T": MESH_RING_T,
+          "rows": ring, "seconds": time.perf_counter() - t_phase})
+    return one["launches"]
+
+
 def release_memory():
     """Free what no live object holds, CUDA graphs and their pools too,
     and return the cached blocks to the card."""
@@ -9536,6 +10098,9 @@ def main():
     opt_launches["layout_nhwc"] = phase_layout_nhwc(fa, smi)
     release_memory()
     opt_launches["int8_serve"] = phase_int8_serve(fa, smi)
+    release_memory()
+    # the mesh path on torch.distributed
+    opt_launches["mesh"] = phase_mesh(fa, smi)
     release_memory()
     emit({"phase": "times", "partial_profiler_windows_rerun":
           len(PARTIAL_PROFILES), "partial_windows": PARTIAL_PROFILES,

@@ -10,7 +10,7 @@ Opt in to the verifier at run time with ``PADDLE_GPU_VERIFY=1`` (or
 block is lowered, on the desc the transforms return, and raises on ERROR
 findings. The transforms run at the same seam at ``opt_level`` 1 (the
 default) and up; the memory planner after them at level 3 and up. The
-SPMD analysis is ROADMAP Queue 1 item 10.
+SPMD analysis is ROADMAP Queue 1 item 10b.
 """
 
 from paddle_tpu_torch.analysis.diagnostics import (  # noqa: F401

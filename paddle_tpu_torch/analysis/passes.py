@@ -102,7 +102,7 @@ DEFAULT_PASSES = (
     "sharding",
     # The reference's pipeline goes on with its three SPMD checkers
     # (analysis/spmd.py), which find nothing without a mesh; they come
-    # with the multi-GPU path (ROADMAP item 10).
+    # with the SPMD analysis (ROADMAP item 10b).
 )
 
 

@@ -102,6 +102,14 @@ first run, with ``FlopCounterMode`` (plus the flash kernels' own count),
 and every run notes them; a run that builds an entry (its first run, a
 capture) is charged to ``compile``.
 
+Over a mesh (``run_block(mesh=...)``, a ``DeviceMesh`` of this process's
+``torch.distributed`` world) an entry carries a ``parallel.plan.MeshPlan``
+and its key the mesh's and the rule table's signatures: each rank keeps
+its shard of the feeds in the static buffers, the block runs on
+``DTensor``s (the scope holds the state at its planned placements), the
+fetches come back whole. An entry over NCCL is captured as any other; one
+over gloo runs eagerly (``engine.eager`` event: gloo cannot be captured).
+
 A CUDA engine turns on cuDNN's deterministic algorithms and turns off its
 autotuner (``_deterministic_cudnn``), so that repeated steps, and a
 captured step against its eager run, agree bit for bit.
@@ -143,12 +151,31 @@ class CompiledBlock:
 
     def __init__(self, engine, block_program, feed_specs, is_test, amp,
                  donate_state, state_writeback, capture, accumulate_steps=1,
-                 remat_segments=0):
+                 remat_segments=0, mesh_plan=None):
         self.engine = engine
         self.block_program = block_program
         self.device = engine.device
         self.accumulate_steps = accumulate_steps
-        if accumulate_steps > 1:
+        # over a mesh (parallel/plan.py): the feeds' placements, and the
+        # local shapes of their buffers
+        self.mesh_plan = mesh_plan
+        self.feed_places = None
+        if mesh_plan is not None:
+            from paddle_tpu_torch.parallel.plan import local_chunk
+
+            self.feed_places = [
+                mesh_plan.feed_placements(torch.empty(shape, device="meta"))
+                for _, shape, _ in feed_specs]
+            self.feed_shapes = [tuple(shape) for _, shape, _ in feed_specs]
+            feed_specs = [
+                (n, tuple(local_chunk(torch.empty(shape, device="meta"),
+                                      mesh_plan.mesh, pl).shape), dtype)
+                for (n, shape, dtype), pl in zip(feed_specs,
+                                                 self.feed_places)]
+            self.fn = lower_block(block_program, engine.device,
+                                  is_test=is_test, executor=engine, amp=amp,
+                                  mesh_plan=mesh_plan)
+        elif accumulate_steps > 1:
             self.fn = lower_block_accumulated(
                 block_program, accumulate_steps, engine.device,
                 is_test=is_test, executor=engine, amp=amp)
@@ -227,6 +254,14 @@ class CompiledBlock:
                                        return_numpy, defer)
         with self.engine._graph_lock:
             state, dsts = self._scope_tensors(scope)
+            if self.graph is not None and len(self.bound) == len(
+                    state) + len(dsts) and all(
+                        a is b for a, b in zip(self.bound, state + dsts)):
+                # the tensors the graph was captured against: replay
+                with obs.span("run", step=step), \
+                        obs.time_block("engine.run_ms"):
+                    return self._replay(feed_values, rng_seed, return_numpy,
+                                        defer)
             if not self._bindable(dsts):
                 with obs.span("run", step=step), \
                         obs.time_block("engine.run_ms"):
@@ -255,9 +290,15 @@ class CompiledBlock:
         and is copied without waiting (torch waits for the card before a
         copy from pageable memory returns)."""
         cuda = self.device.type == "cuda"
-        for buf, value in zip(self.feed_bufs, feed_values):
+        for i, (buf, value) in enumerate(zip(self.feed_bufs, feed_values)):
             if not isinstance(value, torch.Tensor):
                 value = torch.from_numpy(value)
+            if self.mesh_plan is not None:
+                # every rank is fed the global batch and keeps its shard
+                from paddle_tpu_torch.parallel.plan import local_chunk
+
+                value = local_chunk(value, self.mesh_plan.mesh,
+                                    self.feed_places[i]).contiguous()
             if cuda and not value.is_cuda:
                 value = value.pin_memory()
             buf.copy_(value, non_blocking=cuda)
@@ -279,9 +320,14 @@ class CompiledBlock:
     def _scope_tensors(self, scope):
         """(state inputs, write-back targets): the scope's tensors that the
         block reads, and those it writes in place (None where the scope
-        holds none)."""
-        state = [self.engine._state_value(scope, n)
-                 for n in self.block_program.state_in_names]
+        holds none). Over a mesh each state input is the scope's DTensor
+        at its planned placement (placed on first use)."""
+        if self.mesh_plan is not None:
+            state = [self.engine._mesh_state_value(scope, n, self.mesh_plan)
+                     for n in self.block_program.state_in_names]
+        else:
+            state = [self.engine._state_value(scope, n)
+                     for n in self.block_program.state_in_names]
         dsts = []
         if self.state_writeback and self.donate_state:
             dsts = [scope.get(n) for n in self.block_program.state_out_names]
@@ -293,23 +339,29 @@ class CompiledBlock:
         dtype the block writes (the warm-up set them)."""
         if self._out_specs is None:
             return False
-        return all(isinstance(d, torch.Tensor) and d.device == self.device
+        return all(isinstance(d, torch.Tensor)
+                   and _local(d).device == self.device
                    and (tuple(d.shape), d.dtype) == s
                    for d, s in zip(dsts, self._out_specs))
 
     def _body(self, state, dsts, rng_seed):
         """The block, then the fetches made safe from later runs and the
-        state written back in place; returns (fetches, state outputs)."""
-        fetches, state_out = self.fn(self.feed_bufs, state, rng_seed,
-                                     self.seeds)
-        held = {t.untyped_storage().data_ptr()
+        state written back in place; returns (fetches, state outputs).
+        Over a mesh the block runs on DTensors (``_mesh_run``)."""
+        if self.mesh_plan is not None:
+            fetches, state_out = self._mesh_run(state, rng_seed)
+        else:
+            fetches, state_out = self.fn(self.feed_bufs, state, rng_seed,
+                                         self.seeds)
+        held = {_local(t).untyped_storage().data_ptr()
                 for t in list(state) + self.feed_bufs
                 + [d for d in dsts if isinstance(d, torch.Tensor)]}
 
         def unalias(t, dst=None):
             # a value living in a buffer that this or a later run writes
             # (a feed, a state tensor) is copied out first
-            if t is dst or t.untyped_storage().data_ptr() not in held:
+            if t is dst or _local(t).untyped_storage().data_ptr() \
+                    not in held:
                 return t
             return t.clone()
 
@@ -319,10 +371,40 @@ class CompiledBlock:
             for i, (v, d) in enumerate(zip(state_out, dsts)):
                 if v is d:
                     continue
-                if (isinstance(d, torch.Tensor) and d.device == v.device
+                if (isinstance(d, torch.Tensor) and _same_layout(d, v)
                         and d.shape == v.shape and d.dtype == v.dtype):
-                    d.copy_(v)
+                    _local(d).copy_(_local(v))
                     state_out[i] = d
+        return fetches, state_out
+
+    def _mesh_run(self, state, rng_seed):
+        """One run over the mesh: the feed buffers (each rank's shard)
+        become DTensors at their placements, the block runs on DTensors
+        with plain tensors taken as replicated, the fetches are gathered
+        to their global values and each state output is put at its
+        planned placement (a ZeRO-1 parameter's updated shard is
+        all-gathered here)."""
+        from torch.distributed.tensor.experimental import (
+            implicit_replication,
+        )
+
+        from paddle_tpu_torch.parallel.mesh import spmd_lowering
+        from paddle_tpu_torch.parallel.plan import from_shard, gather, place
+
+        plan = self.mesh_plan
+        feeds = [from_shard(buf, plan.mesh, pl, shape)
+                 for buf, pl, shape in zip(self.feed_bufs, self.feed_places,
+                                           self.feed_shapes)]
+        with implicit_replication(), \
+                spmd_lowering(plan.mesh, plan.data_axes):
+            fetches, state_out = self.fn(feeds, state, rng_seed, self.seeds)
+            fetches = [gather(t) for t in fetches]
+            state_out = [
+                place(v, plan.mesh, plan.state_placements(n))[0]
+                for n, v in zip(self.block_program.state_out_names,
+                                state_out)]
+        if plan.unplanned:
+            obs.inc("engine.mesh_redistribute", plan.unplanned)
         return fetches, state_out
 
     def _run_eager(self, scope, feed_values, rng_seed, return_numpy,
@@ -365,7 +447,8 @@ class CompiledBlock:
         bp = self.block_program
         probes = []
         if self.engine.check_nan_inf:
-            probes = (finite_probes(zip(bp.state_out_names, state_out),
+            probes = (finite_probes(zip(bp.state_out_names,
+                                        [_local(v) for v in state_out]),
                                     kind="state")
                       + finite_probes(zip(bp.fetch_names, fetches),
                                       kind="fetch"))
@@ -376,7 +459,8 @@ class CompiledBlock:
     def _finish_state(self, scope, state_out, rng_seed, check=True):
         bp = self.block_program
         if check and self.engine.check_nan_inf:
-            _check_finite(zip(bp.state_out_names, state_out),
+            _check_finite(zip(bp.state_out_names,
+                              [_local(v) for v in state_out]),
                           step=rng_seed[1], kind="state")
         if not self.state_writeback:
             # a served program re-emits state it read unchanged; the
@@ -451,6 +535,9 @@ class CompiledBlock:
         _fa.add_launches(self.launches)
         self.replays += 1
         obs.inc("engine.replays")
+        if self.mesh_plan is not None and self.mesh_plan.unplanned:
+            # the captured step repeats the redistributions it recorded
+            obs.inc("engine.mesh_redistribute", self.mesh_plan.unplanned)
         fetches, state_out = self.outs
         if faultinject.active():
             fetches, state_out = _step_faults(
@@ -462,7 +549,8 @@ class CompiledBlock:
             return self._deferred_out(fetches, state_out,
                                       copy=not return_numpy)
         if self.engine.check_nan_inf:
-            _check_finite(zip(self.block_program.state_out_names, state_out),
+            _check_finite(zip(self.block_program.state_out_names,
+                              [_local(v) for v in state_out]),
                           step=rng_seed[1], kind="state")
         return self._fetch_out(fetches, rng_seed, return_numpy, copy=True)
 
@@ -521,7 +609,8 @@ class Engine:
                   seed=0, opt_level=None, cache_key_extra=None,
                   donate_state=True, state_writeback=None, amp=False,
                   accumulate_steps=1, remat_segments=0, dispatch_steps=1,
-                  verify=None):
+                  verify=None, mesh=None, shard_rules=None,
+                  data_axes=("dp",)):
         """Run block ``block_idx`` once. ``opt_level`` (default: the flag,
         1) picks the transforms the desc goes through before it runs;
         ``verify`` (default: the flag) runs the static verifier on the
@@ -535,7 +624,12 @@ class Engine:
         the accumulated or rematerialized lowering; ``dispatch_steps``
         > 1 enqueues the step into the window and returns
         ``DeferredFetch`` placeholders (a run at depth 1 drains the
-        window first)."""
+        window first). ``mesh`` (a ``DeviceMesh`` of this process's
+        world, ``parallel.make_mesh``) runs the block over the mesh: the
+        feeds split on their batch dim over ``data_axes``, the state laid
+        out by ``shard_rules`` (``parallel.ShardingRules``; replicated
+        without one) and, with the ``zero`` flag, the optimizer state
+        sharded (ZeRO-1); the fetches come back whole on every rank."""
         dispatch_steps = max(1, int(dispatch_steps or 1))
         defer = dispatch_steps > 1
         if not defer and len(self.window):
@@ -547,7 +641,8 @@ class Engine:
                 program_desc, block_idx, scope, feed, fetch_list, is_test,
                 return_numpy, seed, opt_level, cache_key_extra,
                 donate_state, state_writeback, amp, int(accumulate_steps),
-                int(remat_segments or 0), dispatch_steps, verify)
+                int(remat_segments or 0), dispatch_steps, verify, mesh,
+                shard_rules, tuple(data_axes))
         if not defer:
             # liveness: the heartbeat reports this counter; the windowed
             # path notes enqueue here and retire in the window
@@ -558,7 +653,8 @@ class Engine:
                         fetch_list, is_test, return_numpy, seed, opt_level,
                         cache_key_extra, donate_state, state_writeback,
                         amp, accumulate_steps=1, remat_segments=0,
-                        dispatch_steps=1, verify=None):
+                        dispatch_steps=1, verify=None, mesh=None,
+                        shard_rules=None, data_axes=("dp",)):
         if accumulate_steps < 1:
             raise ValueError("accumulate_steps must be >= 1, got %d"
                              % accumulate_steps)
@@ -578,7 +674,8 @@ class Engine:
             program_desc, block_idx, feed_names, feed_values, fetch_list,
             bool(is_test), bool(donate_state), bool(amp), cache_key_extra,
             bool(state_writeback), accumulate_steps, remat_segments,
-            opt_level, verify, scope=scope)
+            opt_level, verify, scope=scope, mesh=mesh,
+            shard_rules=shard_rules, data_axes=data_axes)
         with self._lock:
             self._run_counter += 1
             run_counter = self._run_counter
@@ -621,7 +718,8 @@ class Engine:
                      fetch_list, is_test, donate_state, amp,
                      cache_key_extra=None, state_writeback=True,
                      accumulate_steps=1, remat_segments=0, opt_level=None,
-                     verify=None, scope=None):
+                     verify=None, scope=None, mesh=None, shard_rules=None,
+                     data_axes=("dp",)):
         """The cached ``CompiledBlock`` of one key, made on a miss; the
         least recently used entry goes past ``executable_cache_size``.
 
@@ -632,7 +730,36 @@ class Engine:
         as at level 2), its remat segment count lowered where the manual
         knob would be legal (a training step, no accumulation). Under the
         layout pass the key holds (mode, ``id(scope)``) and the entry
-        pins ``scope``: the pass bakes filters into that scope."""
+        pins ``scope``: the pass bakes filters into that scope.
+
+        Over a mesh the key holds (``mesh_signature``, the rule table's
+        signature, the data axes, ``zero``, ``grad_bucket_mb``), so two
+        meshes, or two rule tables on one scope, never share an entry
+        (reference: executor.py:599-621). Accumulation and remat are
+        refused there, and level 3 plans no auto-remat. On the card an
+        entry over a gloo group runs eagerly: gloo's collectives cannot
+        be captured in a CUDA graph."""
+        mesh_key = None
+        zero, grad_bucket_mb = False, 0.0
+        if mesh is not None:
+            from paddle_tpu_torch.parallel.mesh import mesh_signature
+
+            if str(mesh.device_type) != self.device.type:
+                raise ValueError(
+                    "mesh on %r devices, but this executor runs on %s"
+                    % (mesh.device_type, self.device))
+            if accumulate_steps > 1 or remat_segments:
+                raise NotImplementedError(
+                    "accumulate_steps and remat_segments are not supported "
+                    "over a mesh; shard the state (ShardingRules, the zero "
+                    "flag) for memory headroom instead")
+            zero = bool(flags.get_flag("zero")) and not is_test
+            grad_bucket_mb = (float(flags.get_flag("grad_bucket_mb"))
+                              if zero else 0.0)
+            mesh_key = (mesh_signature(mesh),
+                        shard_rules.signature()
+                        if shard_rules is not None else None,
+                        tuple(data_axes), zero, grad_bucket_mb)
         opt_level = int(flags.get_flag("opt_level") if opt_level is None
                         else opt_level)
         specs = tuple((n, tuple(v.shape), _torch_dtype(v))
@@ -657,7 +784,7 @@ class Engine:
         key = (program_desc.cached_fingerprint(), block_idx, specs,
                tuple(fetch_list), is_test, donate_state, amp,
                cache_key_extra, state_writeback, graphs, accumulate_steps,
-               remat_segments, opt_level, mem_budget, layout_key)
+               remat_segments, opt_level, mesh_key, mem_budget, layout_key)
         with self._lock:
             compiled = self._cache.get(key)
             if compiled is not None:
@@ -677,7 +804,8 @@ class Engine:
                                             feed_values, fetch_list,
                                             mem_budget)
         eligible = bool(memory_plan is not None and not remat_segments
-                        and accumulate_steps <= 1 and not is_test)
+                        and accumulate_steps <= 1 and not is_test
+                        and mesh is None)
         auto_remat = int(memory_plan.remat.n_segments) if eligible else 0
         if memory_plan is not None and obs.enabled():
             obs.event("memory_plan",
@@ -702,10 +830,21 @@ class Engine:
             bp = self._block_program(program_desc, block_idx, feed_names,
                                      fetch_list, extra_live, opt_level,
                                      run_desc, layout_key)
+            plan = None
+            capture = graphs and bp.capturable
+            if mesh is not None:
+                from paddle_tpu_torch.parallel.plan import MeshPlan
+
+                plan = MeshPlan(bp.block, mesh, shard_rules, data_axes,
+                                zero, grad_bucket_mb, is_test)
+                if capture and _mesh_backend(mesh) != "nccl":
+                    capture = False
+                    obs.event("engine.eager", reason=(
+                        "collectives of backend %r cannot be captured in "
+                        "a CUDA graph" % _mesh_backend(mesh)))
             return CompiledBlock(self, bp, specs, is_test, amp,
-                                 donate_state, state_writeback,
-                                 graphs and bp.capturable,
-                                 accumulate_steps, segments)
+                                 donate_state, state_writeback, capture,
+                                 accumulate_steps, segments, plan)
 
         try:
             compiled = build(remat_segments or auto_remat)
@@ -911,7 +1050,30 @@ class Engine:
                 value, dtype=convert_dtype_to_np(declared)))
         return np.ascontiguousarray(np.asarray(value))
 
-    def _state_value(self, scope, name):
+    def _mesh_state_value(self, scope, name, plan):
+        """A state var as the DTensor the entry reads: the scope's value
+        at its planned placement. A plain value (a startup run without a
+        mesh, ``scope.set``) is split locally; a DTensor laid out
+        otherwise (another rule table, another mesh) is redistributed and
+        counted in ``engine.state_resharded`` (reference:
+        executor.py:273-299). The scope keeps what the entry reads."""
+        from paddle_tpu_torch.parallel.plan import place
+
+        val = scope.get(name)
+        if val is not None and plan.placed.get(name) is val:
+            return val  # placed by an earlier run, untouched since
+        val = self._state_value(scope, name, mesh=True)
+        placed, moved = place(val, plan.mesh, plan.state_placements(name))
+        plan.placed[name] = placed
+        if placed is not val:
+            scope.set(name, placed)
+        if moved:
+            obs.inc("engine.state_resharded")
+            obs.event("engine.state_resharded", var=name,
+                      placements=str(tuple(placed.placements)))
+        return placed
+
+    def _state_value(self, scope, name, mesh=False):
         val = scope.get(name)
         if val is None:
             raise RuntimeError(
@@ -923,11 +1085,39 @@ class Engine:
             # a host array set into the scope moves to the device once
             val = torch.from_numpy(np.ascontiguousarray(val)).to(self.device)
             scope.set(name, val)
-        elif val.device != self.device:
+        elif not mesh and getattr(val, "placements", None) is not None:
+            # a run without a mesh after one with: the scope takes the
+            # whole value back (a gather, on every rank alike)
+            val = val.full_tensor()
+            scope.set(name, val)
+            obs.inc("engine.state_resharded")
+        elif _local(val).device != self.device:
             raise RuntimeError(
                 "Variable %r lives on %s but this executor runs on %s"
                 % (name, val.device, self.device))
         return val
+
+
+def _local(t):
+    """The tensor this rank holds: a DTensor's local shard, else ``t``."""
+    to_local = getattr(t, "to_local", None)
+    return to_local() if to_local is not None else t
+
+
+def _same_layout(a, b):
+    """Whether ``b`` may be copied into ``a`` in place: both plain tensors
+    on one device, or DTensors on one mesh at one placement."""
+    pa, pb = getattr(a, "placements", None), getattr(b, "placements", None)
+    if pa is None or pb is None:
+        return pa is pb and a.device == b.device
+    return (a.device_mesh == b.device_mesh and tuple(pa) == tuple(pb)
+            and _local(a).shape == _local(b).shape)
+
+
+def _mesh_backend(mesh):
+    import torch.distributed as dist
+
+    return str(dist.get_backend(mesh.get_group(0))).lower()
 
 
 def _deterministic_cudnn():

@@ -293,21 +293,37 @@ def run_sub_block(ctx, sub_block, env, seeds=None, step=0):
 
 
 def lower_block(block_program, device, is_test=False, executor=None,
-                amp=False):
+                amp=False, mesh_plan=None):
     """Returns fn(feeds: list, state_in: list, rng_seed, seeds=None) ->
     (fetches: list, state_out: list), running the block's live ops
     eagerly on ``device``, under ``amp_scope(amp)``. ``rng_seed`` is the
     (seed, run_counter) pair; ``seeds`` maps each RNG slot's id to its
-    entry of the run's seed table (0-d int64 tensors on ``device``)."""
+    entry of the run's seed table (0-d int64 tensors on ``device``).
+
+    With a ``mesh_plan`` (``parallel/plan.py``, a block run over a mesh)
+    its run hooks see every op: before it (a ZeRO-1 parameter's shard, a
+    bucket flushed before its reader) and after it (each gradient reduced
+    to its placement where the backward writes it, the counterpart of
+    the reference's ``grad_shardings`` constraints, lowering.py:153)."""
     block = block_program.block
 
     def fn(feed_values, state_values, rng_seed, seeds=None):
         env = dict(zip(block_program.feed_names, feed_values))
         env.update(zip(block_program.state_in_names, state_values))
+        hooks = mesh_plan.hooks() if mesh_plan is not None else None
         with amp_scope(amp):
             for op_index, op in enumerate(block_program.ops):
-                run_op(op, block, env, device, rng_seed, op_index, is_test,
-                       executor, seeds)
+                if hooks is None:
+                    run_op(op, block, env, device, rng_seed, op_index,
+                           is_test, executor, seeds)
+                    continue
+                hooks.before(op, env)
+                with hooks.op_scope():
+                    run_op(op, block, env, device, rng_seed, op_index,
+                           is_test, executor, seeds)
+                hooks.after(op, env)
+            if hooks is not None:
+                hooks.finish(env)
         return _block_outputs(block_program, env)
 
     return fn
@@ -358,16 +374,136 @@ def run_op(op, block, env, device, rng_seed, op_index, is_test,
                     "holder)" % (op.type, slot, len(vals), n)
                 )
         ins[slot] = vals
-    if op.type.endswith("_grad") and not OpRegistry.has(op.type):
-        outs = _lower_grad_op(op, block, ins, device, rng_seed, is_test,
-                              seeds)
-    else:
+    def lower(ins):
+        if op.type.endswith("_grad") and not OpRegistry.has(op.type):
+            return _lower_grad_op(op, block, ins, device, rng_seed, is_test,
+                                  seeds)
         info = OpRegistry.get(op.type)
         ctx = LowerContext(op, block, device, rng_seed=rng_seed,
                            op_index=_rng_id(op, op_index), is_test=is_test,
                            executor=executor, seeds=seeds)
-        outs = info.lower(ctx, ins, clean_attrs(op.attrs))
+        return info.lower(ctx, ins, clean_attrs(op.attrs))
+
+    if _current_mesh_run() is None:
+        outs = lower(ins)
+    else:
+        outs = _lower_over_mesh(op, ins, lower)
     _bind_outputs(op, outs, env)
+
+
+# Ops whose rows are independent of each other (they normalize over their
+# trailing dims): over a mesh each rank runs them on its own rows as they
+# are, which is exact, instead of through torch's sharding propagation
+# (which has no rule for some of their torch ops, as ``var_mean``).
+ROW_LOCAL_OPS = frozenset({"layer_norm"})
+
+
+def _current_mesh_run():
+    from paddle_tpu_torch.parallel.mesh import current_spmd
+
+    return current_spmd()
+
+
+def _lower_over_mesh(op, ins, lower):
+    """An op of a block run over a mesh (DTensor values). A row-local op
+    whose inputs split only their rows runs on each rank's rows; any
+    other runs through torch's sharding propagation, and where that has
+    no rule for one of its torch ops, on the whole (gathered) inputs on
+    every rank, as XLA's partitioner replicates an op it cannot
+    partition: exact, at the cost of the gather and the repeated work,
+    counted in ``engine.mesh_op_replicated`` with the op in the event."""
+    from torch.distributed.tensor import DTensor
+
+    from paddle_tpu_torch import observability as obs
+
+    base = op.type[: -len("_grad")] if op.type.endswith("_grad") else op.type
+    if base in ROW_LOCAL_OPS:
+        out = _lower_rows_local(op, ins, lower)
+        if out is not None:
+            return out
+    try:
+        return lower(ins)
+    except NotImplementedError as e:
+        if "sharding strategy" not in str(e):
+            raise
+        mesh = next((v.device_mesh for vs in ins.values() for v in vs
+                     if isinstance(v, DTensor)), None)
+        if mesh is None:
+            raise
+        obs.inc("engine.mesh_op_replicated")
+        obs.event("engine.mesh_op_replicated", op=op.type,
+                  reason=str(e).splitlines()[0][:200])
+        whole = {s: [v.full_tensor() if isinstance(v, DTensor) else v
+                     for v in vs] for s, vs in ins.items()}
+        outs = lower(whole)
+        return {s: [_replicated(v, mesh) for v in vs]
+                for s, vs in outs.items()}
+
+
+def _placed(v, mesh, places):
+    from paddle_tpu_torch.parallel.plan import place
+
+    return place(v, mesh, places)[0]
+
+
+def _replicated(v, mesh):
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(v, torch.Tensor) or isinstance(v, DTensor):
+        return v
+    return DTensor.from_local(v, mesh, (Replicate(),) * mesh.ndim,
+                              run_check=False)
+
+
+def _lower_rows_local(op, ins, lower):
+    """``lower`` on each rank's local rows, when every DTensor input is
+    either laid out as the op's ``X`` (its rows split over some mesh
+    axes, nothing else split) or replicated; None otherwise. Forward
+    outputs take the rows' placements; the grad of a replicated input is
+    a partial sum over the axes that split the rows."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from paddle_tpu_torch.parallel.plan import from_shard
+
+    first = (ins.get("X") or [None])[0]
+    if not isinstance(first, DTensor):
+        return None
+    mesh, rows = first.device_mesh, tuple(first.placements)
+    if any(not isinstance(p, (Shard, Replicate))
+           or (isinstance(p, Shard) and p.dim != 0) for p in rows):
+        return None
+    replicated = (Replicate(),) * mesh.ndim
+    kind, local = {}, {}
+    for s, vs in ins.items():
+        local[s] = []
+        for v in vs:
+            if isinstance(v, DTensor):
+                if v.device_mesh != mesh:
+                    return None
+                # a tensor of the rows' length takes their placements, any
+                # other is replicated (a partial sum is reduced here)
+                is_rows = v.ndim >= 1 and v.shape[:1] == first.shape[:1]
+                kind[id(v)] = "rows" if is_rows else "replicated"
+                v = _placed(v, mesh, rows if is_rows else replicated)
+                v = v.to_local()
+            local[s].append(v)
+    outs = lower(local)
+    grad_of = {}
+    for s, vs in ins.items():
+        for i, v in enumerate(vs):
+            grad_of[(s + "@GRAD", i)] = kind.get(id(v), "replicated")
+    partial = tuple(Partial() if isinstance(p, Shard) else Replicate()
+                    for p in rows)
+
+    def wrap(slot, i, t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        which = grad_of.get((slot, i), "rows")
+        return from_shard(t.contiguous(), mesh,
+                          rows if which == "rows" else partial)
+
+    return {s: [wrap(s, i, t) for i, t in enumerate(ts)]
+            for s, ts in outs.items()}
 
 
 def _rng_id(op, op_index):

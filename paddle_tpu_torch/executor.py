@@ -82,7 +82,8 @@ class Executor:
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True, accumulate_steps=1, remat_segments=0,
-            opt_level=None, dispatch_steps=None, verify=None, mesh=None):
+            opt_level=None, dispatch_steps=None, verify=None, mesh=None,
+            shard_rules=None, data_axes=("dp",)):
         """Run block 0 of ``program`` (default: the default main program)
         with ``feed`` {name: array, or a tensor on the executor's device},
         returning the ``fetch_list`` values (numpy arrays, or device
@@ -124,17 +125,44 @@ class Executor:
         on at any level with ``layout=nhwc``). ``verify=True``
         (default: the ``PADDLE_GPU_VERIFY`` flag) runs the static
         verifier on the desc that runs, once per cache entry, and raises
-        ``analysis.VerificationError`` on ERROR findings. ``mesh`` raises
-        (item 10).
+        ``analysis.VerificationError`` on ERROR findings.
+
+        ``mesh``/``shard_rules``/``data_axes`` run the step over a mesh of
+        this process's world (``parallel.make_mesh``; one process a
+        rank, NCCL on the card, gloo on the CPU): every rank feeds the
+        same global batch and keeps its shard of the batch dim over
+        ``data_axes``, the state is laid out by the
+        ``parallel.ShardingRules`` table (replicated where no rule
+        matches), each op that reduces over the batch computes the
+        global batch's value, and each gradient is reduced to its
+        parameter's placement; the fetches are the global values on
+        every rank. Default: the ``PADDLE_GPU_MESH`` flag's mesh when
+        set, else no mesh. A 1-rank mesh is bit-identical to no mesh.
+        ``program`` may be a ``CompiledProgram`` (``compiler.py``).
 
         With no ``feed`` a program that has ``py_reader``s takes the next
         batch of each (``layers.py_reader``), and raises
         ``EOFException`` at the end of the epoch."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: the SPMD path is not ported yet (ROADMAP Queue 1 "
-                "item 10, multi-GPU)")
+        from paddle_tpu_torch.compiler import CompiledProgram
+
         scope = scope if scope is not None else global_scope()
+        if isinstance(program, CompiledProgram):
+            if remat_segments or accumulate_steps > 1:
+                raise NotImplementedError(
+                    "accumulate_steps and remat_segments are not supported "
+                    "on the CompiledProgram (SPMD) path; pass the plain "
+                    "Program")
+            if dispatch_steps is not None and int(dispatch_steps) > 1:
+                raise NotImplementedError(
+                    "dispatch_steps>1 is not supported on the "
+                    "CompiledProgram path; use the plain Program with "
+                    "mesh= or PADDLE_GPU_MESH")
+            try:
+                return program._run(self, feed, fetch_list, scope,
+                                    return_numpy, verify=verify,
+                                    opt_level=opt_level)
+            finally:
+                goodput.step_boundary()
         if program is None:
             program = default_main_program()
         if feed is None and getattr(program, "_py_readers", None):
@@ -154,6 +182,12 @@ class Executor:
             # the flag turns an existing training loop into a windowed
             # one without a code change
             dispatch_steps = int(flags.get_flag("dispatch_steps"))
+        if mesh is None:
+            # like the dispatch window, the flag puts every plain run
+            # (startup programs included) on the mesh
+            from paddle_tpu_torch.parallel.mesh import mesh_from_flag
+
+            mesh = mesh_from_flag(self.engine.device.type)
         try:
             return self.engine.run_block(
                 program.desc, 0, scope,
@@ -168,6 +202,8 @@ class Executor:
                 accumulate_steps=accumulate_steps,
                 remat_segments=remat_segments,
                 dispatch_steps=max(1, int(dispatch_steps)),
+                mesh=mesh, shard_rules=shard_rules,
+                data_axes=tuple(data_axes),
             )
         finally:
             # goodput step boundary: everything since the last seam mark

@@ -248,6 +248,46 @@ DEFS = {
         "restarting), disk_fail (poisons the local checkpoint root). "
         "Empty = no faults (the production default; the check is one "
         "env read)."),
+    "zero": (
+        bool, False,
+        "ZeRO-1 weight-update sharding over the mesh's data axes "
+        "(engine cache-miss seam, mesh runs only): optimizer-state "
+        "slots (Adam moments, Momentum velocity) are partitioned "
+        "across dp ranks, each parameter gradient is reduce-scattered "
+        "to its owning shard (parallel/sharding.py zero1_plan), the "
+        "update runs on the local shard, and the updated parameter is "
+        "all-gathered back replicated. Parameters whose dims the "
+        "data-axis product does not divide (scalars, beta-pow "
+        "accumulators) keep the replicated all-reduce path. Keyed into "
+        "the engine's cache. No-op without a mesh, under gradient "
+        "accumulation, and under remat."),
+    "grad_bucket_mb": (
+        float, 0.0,
+        "Bucketed gradient reduction under the ZeRO-1 sharded update "
+        "(PADDLE_GPU_ZERO): gradients are packed, in backward "
+        "production order, into flat buckets of roughly this many MB, "
+        "one reduce_scatter_tensor a bucket, launched as soon as the "
+        "bucket fills instead of one collective a gradient. Each rank "
+        "receives the same shards as without buckets. <=0 = one "
+        "reduce-scatter a gradient."),
+    "mesh": (
+        str, "",
+        "Device mesh for the SPMD executor path, as 'axis=size' pairs "
+        "('dp=8', 'dp=4,tp=2'; one axis may be -1 = every rank of the "
+        "world left over). When set, plain Executor.run runs the step "
+        "over this mesh of torch.distributed ranks — batch sharded over "
+        "the data axes, state per the sharding rules (replicated without "
+        "rules) — with the gradient collectives derived from the "
+        "placements. Empty = one process, no mesh (the default; "
+        "bit-identical to a 1-rank mesh)."),
+    "dist_strategy": (
+        str, "",
+        "Distributed-training transport ParallelExecutor selects: '' or "
+        "'dp' = SPMD data parallelism over every rank of the world (the "
+        "default), 'mesh' = SPMD over the PADDLE_GPU_MESH mesh with the "
+        "sharding rules' placements, 'pserver'/'nccl2' = the "
+        "transpiler's transports (not ported: ROADMAP Queue 1 items 10b "
+        "and 12)."),
 }
 
 _overrides = {}

@@ -50,6 +50,12 @@ from paddle_tpu_torch.executor import (  # noqa: F401
     scope_guard,
 )
 from paddle_tpu_torch.core.scope import Scope  # noqa: F401
+from paddle_tpu_torch.compiler import (  # noqa: F401
+    BuildStrategy,
+    CompiledProgram,
+    ExecutionStrategy,
+)
+from paddle_tpu_torch.parallel_executor import ParallelExecutor  # noqa: F401
 from paddle_tpu_torch.platform import (  # noqa: F401
     CPUPlace,
     CUDAPlace,
@@ -77,6 +83,8 @@ __all__ = [
     "default_main_program", "default_startup_program",
     "Executor", "global_scope", "scope_guard", "Scope",
     "CPUPlace", "CUDAPlace", "ParamAttr", "metrics", "DataFeeder",
+    "CompiledProgram", "ParallelExecutor", "BuildStrategy",
+    "ExecutionStrategy",
 ]
 
 

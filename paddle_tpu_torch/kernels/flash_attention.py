@@ -486,12 +486,89 @@ def flash_attention_lse(q, k, v, seq_lens=None, offsets=None, seed=0,
                                     causal, scale, rate)
 
 
+def _shard_layout(q, seq_lens):
+    """Over a mesh (q a DTensor): (mesh, the placements every input is
+    brought to, those of the lengths, the per-shard seed's shard index).
+    The batch stays split where q's is and the heads where q's are; the
+    sequence and head dims are gathered. The shard index is linear over
+    the axes that split the batch, then the one that splits the heads,
+    in mesh order (reference: ``_shard_seed``, :912)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = q.device_mesh
+    sizes = list(mesh.mesh.shape)
+    places, lens_places = [], []
+    batch, head = [], []
+    for mdim, pl in enumerate(q.placements):
+        if isinstance(pl, Shard) and pl.dim in (0, 1):
+            places.append(pl)
+            lens_places.append(pl if pl.dim == 0 else Replicate())
+            if sizes[mdim] > 1:
+                (batch if pl.dim == 0 else head).append(mdim)
+        else:
+            places.append(Replicate())
+            lens_places.append(Replicate())
+    idx = 0
+    for mdim in batch + head:
+        idx = idx * sizes[mdim] + mesh.get_local_rank(mdim)
+    return mesh, tuple(places), tuple(lens_places), idx
+
+
+def _local_inputs(mesh, places, *tensors):
+    """Each DTensor at ``places``, as this rank's local tensor (a plain
+    tensor, the same on every rank, is sliced to the same shard)."""
+    from torch.distributed.tensor import DTensor
+
+    from paddle_tpu_torch.parallel.plan import local_chunk
+
+    out = []
+    for t in tensors:
+        if t is None:
+            out.append(None)
+        elif isinstance(t, DTensor):
+            out.append(t.redistribute(mesh, places).to_local())
+        else:
+            out.append(local_chunk(t, mesh, places))
+    return out
+
+
+def _shard_seed(seed, idx):
+    """Per-shard dropout seed (reference: ``_shard_seed``, :912): seed +
+    shard index * 1000003, so shards draw decorrelated masks (the hash
+    indexes by LOCAL (b, q, k) coordinates, which repeat across shards);
+    the forward and both backward kernels of a shard take the same."""
+    if idx == 0:
+        return seed
+    if isinstance(seed, torch.Tensor):
+        return seed + idx * 1000003
+    return int(seed) + idx * 1000003
+
+
 def dispatch_attention_lse(q, k, v, causal=False, scale=None, seq_lens=None,
                            dropout_rate=0.0, seed=0):
     """The ``fused_attention`` op's entry (``dispatch_attention_lse``,
     :952): ``(out, lse)`` with lse in the op's saved ``[B, H, Tq, 1]``
     layout. Inputs arrive as views from ``transpose2``; they are made
-    contiguous here, where the op hands them to the kernel."""
+    contiguous here, where the op hands them to the kernel.
+
+    Over a mesh (DTensor inputs, the engine's mesh path) each rank runs
+    the kernel on its own batch and head shard, with the lengths sliced
+    alike and the per-shard dropout seed, and the results are DTensors
+    at the same placements: attention is independent across batch and
+    heads, so the split is exact (the reference's shard_map wrap)."""
+    from torch.distributed.tensor import DTensor
+
+    from paddle_tpu_torch.parallel.plan import from_shard
+
+    if isinstance(q, DTensor):
+        mesh, places, lens_places, idx = _shard_layout(q, seq_lens)
+        ql, kl, vl = _local_inputs(mesh, places, q, k, v)
+        (lens,) = _local_inputs(mesh, lens_places, seq_lens)
+        out, lse = dispatch_attention_lse(
+            ql, kl, vl, causal, scale, lens, dropout_rate,
+            _shard_seed(seed, idx) if dropout_rate > 0.0 else seed)
+        return (from_shard(out, mesh, places),
+                from_shard(lse, mesh, places))
     out, lse = flash_attention_lse(
         q.contiguous(), k.contiguous(), v.contiguous(), seq_lens, None,
         seed, causal, scale, dropout_rate)
@@ -502,7 +579,21 @@ def dispatch_attention_bwd(q, k, v, out, lse, g, causal=False, scale=None,
                            seq_lens=None, dropout_rate=0.0, seed=0):
     """The ``fused_attention_grad`` op's entry: ``(dq, dk, dv)`` from the
     forward op's saved ``Out`` and ``Lse`` (``[B, H, Tq, 1]``), as
-    ``fused_attention_grad`` calls ``flash_backward_spmd`` (:1013)."""
+    ``fused_attention_grad`` calls ``flash_backward_spmd`` (:1013): over
+    a mesh, per batch and head shard with the forward's shard seed."""
+    from torch.distributed.tensor import DTensor
+
+    from paddle_tpu_torch.parallel.plan import from_shard
+
+    if isinstance(q, DTensor):
+        mesh, places, lens_places, idx = _shard_layout(q, seq_lens)
+        ql, kl, vl, ol, ll = _local_inputs(mesh, places, q, k, v, out, lse)
+        gl = _local_inputs(mesh, places, g.reshape(q.shape))[0]
+        (lens,) = _local_inputs(mesh, lens_places, seq_lens)
+        grads = dispatch_attention_bwd(
+            ql, kl, vl, ol, ll, gl, causal, scale, lens, dropout_rate,
+            _shard_seed(seed, idx) if dropout_rate > 0.0 else seed)
+        return tuple(from_shard(t, mesh, places) for t in grads)
     B, H, Tq = q.shape[0], q.shape[1], q.shape[2]
     return flash_attention_bwd(
         q.contiguous(), k.contiguous(), v.contiguous(),

@@ -840,11 +840,10 @@ def fused_attention(q, k, v, causal=False, scale=None, seq_lens=None,
     version on the CPU. ``seq_lens`` ([B] or [B, 1] int) masks keys past
     each sequence's length; ``causal`` is a static flag; ``dropout_rate``
     is attention-weight dropout executed inside the kernel. Kept out of
-    ``__all__`` as in the JAX package; models reach it via this module."""
-    if sequence_parallel:
-        raise NotImplementedError(
-            "sequence_parallel attention (ring attention) is not ported "
-            "yet (ROADMAP Queue 1: multi-GPU, the sequence axis)")
+    ``__all__`` as in the JAX package; models reach it via this module.
+    ``sequence_parallel`` runs ring attention over the mesh's ``sp_axis``
+    (parallel/ring_attention.py): T divisible by the axis size, no
+    dropout and no ``seq_lens``."""
     helper = LayerHelper("fused_attention", name=name)
     out = helper.create_variable_for_type_inference(dtype=q.dtype)
     inputs = {"Q": [q], "K": [k], "V": [v]}
@@ -852,9 +851,15 @@ def fused_attention(q, k, v, causal=False, scale=None, seq_lens=None,
     if seq_lens is not None:
         inputs["SeqLens"] = [seq_lens]
     attrs = {"causal": bool(causal), "dropout_rate": float(dropout_rate)}
-    # softmax residual (per-row logsumexp) the backward kernels read
-    outputs["Lse"] = [
-        helper.create_variable_for_type_inference(dtype="float32")]
+    if sequence_parallel:
+        attrs["sequence_parallel"] = True
+        attrs["sp_axis"] = sp_axis
+        if sp_batch_axis:
+            attrs["sp_batch_axis"] = sp_batch_axis
+    else:
+        # softmax residual (per-row logsumexp) the backward kernels read
+        outputs["Lse"] = [
+            helper.create_variable_for_type_inference(dtype="float32")]
     if scale is not None:
         attrs["scale"] = float(scale)
     helper.append_op(type="fused_attention", inputs=inputs,

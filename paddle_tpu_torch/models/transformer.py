@@ -13,9 +13,9 @@ attention dropout inside the kernel. A dense additive ``mask``, or
 composition (matmul -> [+mask] -> softmax -> [dropout] -> matmul), the
 lengths as the additive bias of ``layers.nn.attention_bias_from_lens``;
 at ``opt_level`` 1, the default, the engine's fuse-attention pass
-(``analysis/transforms.py``) rewrites it back to the fused op. The
-sequence-parallel ring path is multi-GPU work (ROADMAP item 10) and
-raises.
+(``analysis/transforms.py``) rewrites it back to the fused op. With
+``sequence_parallel`` the attention runs as ring attention over the
+mesh's sp axis (``parallel/ring_attention.py``).
 """
 
 import numpy as np
@@ -47,11 +47,10 @@ def multi_head_attention(q_in, k_in, v_in, d_model, n_heads, dropout_rate,
     (reference: dist_transformer.py multi_head_attention). With no dense
     ``mask``, and ``use_fused_attention`` or ``causal``, the core is one
     ``fused_attention`` op; otherwise the unfused composition, causal
-    attention having no unfused form (transformer.py:86-103)."""
-    if sequence_parallel:
-        raise NotImplementedError(
-            "sequence_parallel attention (ring attention) is ROADMAP "
-            "item 10, multi-GPU")
+    attention having no unfused form (transformer.py:86-103).
+    ``sequence_parallel=True`` splits the sequence axis over the mesh's
+    ``sp_axis`` and runs exact ring attention (parallel/ring_attention.py);
+    it takes dropout 0 and no seq_lens or mask."""
     d_head = d_model // n_heads
     q = fluid.layers.fc(input=q_in, size=d_model, num_flatten_dims=2,
                         bias_attr=False)
@@ -65,7 +64,22 @@ def multi_head_attention(q_in, k_in, v_in, d_model, n_heads, dropout_rate,
         return fluid.layers.transpose(x, perm=[0, 2, 1, 3])  # [B,H,T,dh]
 
     q, k, v = split_heads(q), split_heads(k), split_heads(v)
-    if mask is None and (use_fused_attention or causal):
+    if sequence_parallel:
+        if mask is not None:
+            raise ValueError(
+                "sequence_parallel attention takes no dense mask")
+        if seq_lens is not None:
+            raise ValueError(
+                "sequence_parallel attention does not support seq_lens; "
+                "pad to full length")
+        if is_train and dropout_rate > 0:
+            raise ValueError(
+                "sequence_parallel attention does not support attention "
+                "dropout; set dropout_rate=0")
+        ctx = _fused_attention_layer(
+            q, k, v, causal=causal, scale=d_head ** -0.5,
+            dropout_rate=0.0, sequence_parallel=True, sp_axis=sp_axis)
+    elif mask is None and (use_fused_attention or causal):
         ctx = _fused_attention_layer(
             q, k, v, causal=causal, scale=d_head ** -0.5,
             seq_lens=seq_lens,

@@ -98,9 +98,52 @@ def scatter_rows(shape, rows, vals):
     first dim, by ``index_put_(accumulate=True)``: on CUDA it sorts the
     ids and adds each row's values in a fixed order, so repeated steps
     agree bit for bit; ``index_add_`` adds with float atomics, in an
-    order that changes from run to run."""
+    order that changes from run to run.
+
+    Over a mesh (DTensor ``vals`` or ``rows``) each rank adds its own
+    rows: where the rows are split over a mesh axis (the batch) the
+    result is a partial sum over it, which the engine reduces with the
+    gradient it belongs to; torch has no sharding rule for the scatter."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(vals, DTensor) or isinstance(rows, DTensor):
+        return _scatter_rows_sharded(shape, rows, vals)
     out = torch.zeros(shape, dtype=vals.dtype, device=vals.device)
     return out.index_put_((rows,), vals, accumulate=True)
+
+
+def _scatter_rows_sharded(shape, rows, vals):
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from paddle_tpu_torch.parallel.plan import from_shard
+
+    mesh = (vals if isinstance(vals, DTensor) else rows).device_mesh
+    n_dims = len(mesh.mesh_dim_names)
+    r_pl = rows.placements if isinstance(rows, DTensor) \
+        else (Replicate(),) * n_dims
+    v_pl = vals.placements if isinstance(vals, DTensor) \
+        else (Replicate(),) * n_dims
+    rows_to, vals_to, out_pl = [], [], []
+    for rp, vp in zip(r_pl, v_pl):
+        if rp == Shard(0) and vp == Shard(0):
+            rows_to.append(rp), vals_to.append(vp), out_pl.append(Partial())
+        elif isinstance(rp, Replicate) and isinstance(vp, Shard) \
+                and vp.dim >= 1:
+            rows_to.append(rp), vals_to.append(vp), out_pl.append(vp)
+        else:
+            rows_to.append(Replicate()), vals_to.append(Replicate())
+            out_pl.append(Replicate())
+
+    def local(t, places):
+        if isinstance(t, DTensor):
+            return t.redistribute(mesh, tuple(places)).to_local()
+        return t
+
+    rl, vl = local(rows, rows_to), local(vals, vals_to)
+    out = torch.zeros((shape[0],) + tuple(vl.shape[1:]), dtype=vl.dtype,
+                      device=vl.device)
+    out.index_put_((rl,), vl, accumulate=True)
+    return from_shard(out, mesh, out_pl, shape)
 
 
 class _Take(torch.autograd.Function):

@@ -311,8 +311,12 @@ def batch_norm_grad(ctx, ins, attrs):
             "Bias@GRAD": [dbias.to(scale.dtype)]}
 
 
-# sync_batch_norm all-reduces the batch statistics across devices
-# (nn_ops.py:324-336); on one device it is batch_norm
+# sync_batch_norm (reference: sync_batch_norm_op.cu, which all-reduces the
+# per-device sums) is batch_norm's natural semantics over a mesh
+# (nn_ops.py:324-336): the mean reductions above run over the
+# batch-sharded DTensor activation, so torch's sharding propagation
+# all-reduces them and the statistics (and their grads) are the global
+# batch's. The distributed op is therefore batch_norm itself.
 register_op("sync_batch_norm", no_grad_inputs=("Mean", "Variance"),
             grad_needs_outputs=("SavedMean", "SavedVariance"))(batch_norm)
 register_no_grad_op("sync_batch_norm_grad")(batch_norm_grad)
@@ -333,6 +337,15 @@ def fused_attention_op(ctx, ins, attrs):
     )
 
     q, k, v, lens, rate, seed = _attention_args(ctx, ins, attrs)
+    if bool(attrs.get("sequence_parallel", False)):
+        # the long-sequence path: exact attention with T split over the
+        # mesh's sp axis, K/V passed around a ring
+        # (parallel/ring_attention.py)
+        _check_ring_supported(rate, lens)
+        if q.device.type == "meta":
+            # build-time shape inference: the ring's output is q's shape
+            return {"Out": [torch.empty_like(q)]}
+        return {"Out": [_ring_attention_from_attrs(q, k, v, attrs)]}
     out, lse = dispatch_attention_lse(
         q, k, v, bool(attrs.get("causal", False)), attrs.get("scale", None),
         lens, rate, seed)
@@ -353,6 +366,15 @@ def fused_attention_grad_op(ctx, ins, attrs):
     )
 
     q, k, v, lens, rate, seed = _attention_args(ctx, ins, attrs)
+    if bool(attrs.get("sequence_parallel", False)):
+        _check_ring_supported(rate, lens)
+        g = single(ins, "Out@GRAD")
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            o = _ring_attention_from_attrs(*leaves, attrs)
+            g = torch.zeros_like(o) if g is None else g.to(o.dtype)
+            dq, dk, dv = torch.autograd.grad(o, leaves, g.reshape(o.shape))
+        return {"Q@GRAD": [dq], "K@GRAD": [dk], "V@GRAD": [dv]}
     out, lse = single(ins, "Out"), single(ins, "Lse")
     if out is None or lse is None:
         raise ValueError(
@@ -370,10 +392,6 @@ def _attention_args(ctx, ins, attrs):
     """Shared forward/backward argument resolution — the grad op must see
     the same dtypes, mask, rate and dropout seed (the same per-op RNG
     stream) as the forward (nn_ops.py:339-354)."""
-    if bool(attrs.get("sequence_parallel", False)):
-        raise NotImplementedError(
-            "fused_attention with sequence_parallel (ring attention) is not "
-            "ported yet (ROADMAP Queue 1: multi-GPU, the sequence axis)")
     q, k, v = amp_cast(single(ins, "Q"), single(ins, "K"), single(ins, "V"))
     lens = single(ins, "SeqLens") if ins.get("SeqLens") else None
     if lens is not None:
@@ -383,6 +401,29 @@ def _attention_args(ctx, ins, attrs):
         rate = 0.0
     seed = ctx.seed(ATTENTION_SEED_HIGH) if rate > 0.0 else 0
     return q, k, v, lens, rate, seed
+
+
+def _ring_attention_from_attrs(q, k, v, attrs):
+    from paddle_tpu_torch.parallel.ring_attention import ring_attention
+
+    return ring_attention(
+        q, k, v, axis_name=str(attrs.get("sp_axis", "sp")),
+        causal=bool(attrs.get("causal", False)),
+        scale=attrs.get("scale", None),
+        batch_axis=attrs.get("sp_batch_axis", None) or None)
+
+
+def _check_ring_supported(rate, lens):
+    """No dropout and no key lengths under the ring (nn_ops.py:367-376)."""
+    if rate > 0.0:
+        raise NotImplementedError(
+            "fused_attention: dropout inside the ring-attention path "
+            "is not supported; set dropout_rate=0 when "
+            "sequence_parallel=True")
+    if lens is not None:
+        raise NotImplementedError(
+            "fused_attention: seq_lens masks are not supported with "
+            "sequence_parallel=True (pad to full length instead)")
 
 
 @register_op("layer_norm")

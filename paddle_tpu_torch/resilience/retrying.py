@@ -6,7 +6,7 @@ the total wait). Port of ``paddle_tpu/resilience/retrying.py``, whole:
 every transient-failure loop routes through ``retry_call`` so backoff
 behaviour is one tested policy, not N hand-rolled sleep loops. In the
 port its user is the checkpoint background writer (checkpoint.py); the
-pserver client and the supervised launcher come with ROADMAP items 10
+pserver client and the supervised launcher come with ROADMAP items 10b
 and 11.
 
 Determinism: jitter comes from a ``random.Random(seed)`` stream owned

@@ -384,6 +384,30 @@ with tempfile.TemporaryDirectory() as d:
                                   example_feeds={"img": cfeed["img"]})
     (ap,) = aot.AotPredictor(d).run({"img": cfeed["img"]})
     assert ap.shape == (2, 3)
+# the mesh path: a 1-rank gloo world, the conv net trained over a dp=1
+# mesh with ZeRO-1 through CompiledProgram and ParallelExecutor, and the
+# ring at sp=1
+from paddle_tpu_torch import compiler, parallel, parallel_executor
+from paddle_tpu_torch.parallel import env, mesh, plan, ring_attention
+from paddle_tpu_torch.parallel import sharding
+env.init_single_process("cpu")
+flags.set_flags({"zero": True, "grad_bucket_mb": 1.0})
+with fluid.scope_guard(fluid.Scope()):
+    exe.run(conv_startup)
+    cp = fluid.CompiledProgram(conv).with_spmd(
+        mesh_axes={"dp": 1}, device_type="cpu",
+        shard_rules=parallel.ShardingRules(
+            [("conv2d", parallel.PartitionSpec())]))
+    (ml,) = exe.run(cp, feed=cfeed, fetch_list=[closs])
+    (pl,) = fluid.ParallelExecutor(use_cuda=False, main_program=conv).run(
+        [closs], feed=cfeed)
+assert np.isfinite(ml).all() and np.isfinite(pl).all()
+flags.reset_flag("zero")
+flags.reset_flag("grad_bucket_mb")
+import torch
+qkv = torch.ones(1, 2, 4, 8)
+assert parallel.ring_attention(qkv, qkv, qkv, mesh=mesh.make_mesh(
+    {"sp": 1}, device_type="cpu"), causal=True).shape == (1, 2, 4, 8)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "paddle_tpu" or m.startswith("paddle_tpu."))
@@ -544,9 +568,11 @@ def test_server_without_cuda_raises(no_cuda):
 
 
 def test_unported_paths_raise():
-    """What the port still lacks raises, naming its ROADMAP item; the
-    INT8 switches, the AOT export and levels 2 and 3, which raised
-    before the opt-level ladder and the INT8 path were ported, do not."""
+    """What the port still lacks raises, naming its ROADMAP item (the
+    parameter-server transport, item 10b); the INT8 switches, the AOT
+    export and levels 2 and 3, which raised before the opt-level ladder
+    and the INT8 path were ported, do not, nor does ``mesh=`` since the
+    mesh path was ported."""
     config = inference.AnalysisConfig("unused")
     config.enable_mkldnn()
     config.enable_tensorrt_engine()
@@ -555,7 +581,7 @@ def test_unported_paths_raise():
         fluid.io.save_inference_model("unused", [], [], None,
                                       export_format="stablehlo")
     exe = fluid.Executor(fluid.CPUPlace())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        exe.run(fluid.Program(), mesh="dp")
+    with pytest.raises(NotImplementedError, match="items 10b and 12"):
+        fluid.ParallelExecutor(use_cuda=False, dist_strategy="pserver")
     for level in (2, 3):
         assert exe.run(fluid.Program(), opt_level=level) == []

@@ -121,19 +121,32 @@ def test_three_steps_follow_jax(varlen):
 def test_unfused_attention_raises_naming_the_roadmap():
     """The unfused composition builds (the reference's desc; the
     fuse-attention pass runs it on the kernels, test_torch_transforms.py);
-    what still raises, naming its ROADMAP item, is the sequence-parallel
-    ring attention."""
+    so does the sequence-parallel ring attention, ported with the mesh
+    path: both packages build the same desc (the JAX package infers the
+    ring op's shapes under an sp mesh)."""
+    from paddle_tpu import parallel as j_parallel
+
     with j_unique_name.guard():
         j = j_transformer.get_model(use_fused_attention=False, **CFG)
     with t_unique_name.guard():
         t = t_transformer.get_model(use_fused_attention=False, **CFG)
     assert t[0].desc.serialize_to_string() == \
         j[0].desc.serialize_to_string()
-    with tfluid.program_guard(tfluid.Program(), tfluid.Program()):
-        q = tfluid.layers.data(name="q", shape=[4, 8], dtype="float32")
-        with pytest.raises(NotImplementedError, match="item 10"):
-            t_transformer.multi_head_attention(q, q, q, 8, 2, 0.0,
-                                               sequence_parallel=True)
+    descs = []
+    for fl, tr, guard in ((jfluid, j_transformer, j_unique_name.guard),
+                          (tfluid, t_transformer, t_unique_name.guard)):
+        main, startup = fl.Program(), fl.Program()
+        with guard(), fl.program_guard(main, startup):
+            q = fl.layers.data(name="q", shape=[4, 8], dtype="float32")
+            j_parallel.set_default_mesh(j_parallel.make_mesh({"sp": 2}))
+            try:
+                tr.multi_head_attention(q, q, q, 8, 2, 0.0, causal=True,
+                                        sequence_parallel=True)
+            finally:
+                j_parallel.set_default_mesh(None)
+        descs.append(main.desc.serialize_to_string())
+    assert b'"sequence_parallel": true' in descs[1]
+    assert descs[1] == descs[0]
 
 
 def _lower_both(op_type, ins, attrs):
