@@ -444,8 +444,26 @@ card and prints one JSON line per phase:
    step function at every rank's offsets in this process, sp = 2 and 4
    blocks of a T=MESH_RING_T attention, float32 and bfloat16, causal or
    not: forward and the three grads through the ring's backward against
-   one full-sequence kernel call (TOL, TOL_BWD).
-47. kernels — one JSON object listing every ported kernel, with its
+   one full-sequence kernel call (TOL, TOL_BWD). The ``dp2`` ranks run
+   under ``spmd_predict`` with ``verify=True``: the static SPMD plan's
+   figures (``spmd_plan``, ``engine.spmd_plan_ms``), its
+   ``spmd.prediction_delta`` against the collectives the first step
+   issued, the parameter-gradient all-reduces equal to the plan's
+   parameter-gradient psums var by var and byte by byte, and no ERROR
+   from the verifier over the mesh (``mesh`` line ``dp2_spmd``).
+47. pserver — the parameter-server path: DeepFM at the ``ctr`` width
+   (CTR) with ``is_distributed`` tables, ``fluid.DistributeTranspiler``
+   for PSERVER_SERVERS pservers and PSERVER_TRAINERS trainers on
+   localhost, all threads of this process, every executor on the card;
+   PSERVER_STEPS steps at a global batch of CTR["batch_size"] (half a
+   trainer) from the state of one startup, against the same model
+   trained in one process on the card: each trainer's loss against the
+   single-process loss of its half of the batch, the mean against the
+   full-batch loss, the final table shards against the single-process
+   tables (PSERVER_TOL); the step split into engine, RPC and host copy
+   ms, the bytes a trainer sends and receives a step, the servers'
+   update ms.
+48. kernels — one JSON object listing every ported kernel, with its
    design: all three run their products on the tensor cores (mma.sync
    bf16, 3xTF32 for float32) from a cp.async tile ring, and read their
    dropout seed from device memory; each kernel's launches on every path,
@@ -472,6 +490,7 @@ import json
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -640,10 +659,13 @@ WINDOW_STEPS = 4
 RECIPE_TOL = {"lr_rtol": 1e-5}
 PIPELINE_STEPS = 6    # resnet50_pipelined: steps of each loop
 TIMED_RUNS = 3        # timed_runs/profiled_step: timed calls after warm-up
+PROFILED_STEPS = 2    # time_train_step/profiled_step: steps a profile
+DEVICE_MS_CALLS = 10  # device_ms: calls a profile (after 3 warm-up calls)
+HOST_MS_STEPS = 2     # host_ms_by_kind: eager steps with run_op on a clock
 CKPT_STEPS = 6        # checkpoint: the uninterrupted run's steps
 CKPT_SAVE_AT = 3      # checkpoint: the step saved asynchronously
-CKPT_TIMED_SAVES = 2  # checkpoint: timed steps in a row with a save after each
-CKPT_PLAIN_STEPS = 20  # checkpoint: timed steps without saves, before
+CKPT_TIMED_SAVES = 1  # checkpoint: timed steps in a row with a save after each
+CKPT_PLAIN_STEPS = 10  # checkpoint: timed steps without saves, before
 #                        and after the saving loop
 CKPT_LOOP_CAP_S = 20.0  # checkpoint: the saving loop stops here, writes or not
 OP_CASES_RELEASE_BYTES = 20 << 30  # phase_op_cases collects above this
@@ -933,6 +955,14 @@ MESH_TOL = {"loss_rtol": 1e-4, "grad_rel_to_max": 1e-3,
 MESH_CASES = {"dp2": ("all_reduce", "all_gather_into_tensor"),
               "sp2": ("all_reduce", "all_gather_into_tensor",
                       "batch_isend_irecv")}
+# pserver: DeepFM at the ctr width on 2 pservers and 2 trainers (threads
+# of this process), held against one process on the card at the
+# reference's cluster tolerances (tests/test_dist_lookup_table.py:166-175)
+PSERVER_SERVERS = 2
+PSERVER_TRAINERS = 2
+PSERVER_STEPS = 3
+PSERVER_TOL = {"loss_rtol": 1e-4, "loss_atol": 1e-5, "table_rtol": 1e-4,
+               "table_atol": 1e-6}
 
 
 # profiler windows that dropped device activity and were run again: per
@@ -1019,7 +1049,7 @@ def profiled(fn, calls=1):
     return prof
 
 
-def profile_kernels(fn, n, attempts=3, expect=None):
+def profile_kernels(fn, n, attempts=3, expect=None, windows=None):
     """Run ``fn`` ``n`` times under torch.profiler; returns {kernel name:
     {"ms": device ms per call, "per_call": launches per call, "count":
     launches in the window}} of the CUDA kernels it launched. ``fn``
@@ -1035,7 +1065,7 @@ def profile_kernels(fn, n, attempts=3, expect=None):
     kernels whose names hold a key of ``expect`` launched, together, more
     than one launch off ``n`` times its value. Such a window is profiled
     again, up to ``attempts`` times, and recorded in PARTIAL_PROFILES.
-    Returns the last window."""
+    ``windows`` (a list) gets each profile taken."""
     from torch.autograd import DeviceType
 
     def calls():
@@ -1044,6 +1074,8 @@ def profile_kernels(fn, n, attempts=3, expect=None):
 
     for _ in range(attempts):
         prof = profiled(calls, n)
+        if windows is not None:
+            windows.append(prof)
         kernels, odd = {}, []
         for e in prof.key_averages():
             if (e.device_type != DeviceType.CUDA
@@ -1108,7 +1140,7 @@ def kernel_launches(fn):
     return 0, 0.0
 
 
-def device_ms(fn, name=None, n=20, warmup=3):
+def device_ms(fn, name=None, n=DEVICE_MS_CALLS, warmup=3):
     """Device time per call (ms) of the kernels whose name contains
     ``name`` (all kernels when None), from the profiler. When no window
     of the profiler recorded such a kernel, the time of the whole call by
@@ -2217,7 +2249,7 @@ def time_bwd_kernels(fa, B, H, T, D, dtype, lens, causal=False):
     return row
 
 
-def host_ms_by_kind(step, n=3):
+def host_ms_by_kind(step, n=HOST_MS_STEPS):
     """Host time per step spent in the engine's ``run_op``, by kind of op:
     forward, optimizer (op_role Optimize), a grad op with a lowering of
     its own, and a grad op derived as ``torch.func.vjp`` of its forward
@@ -2274,8 +2306,8 @@ def timed_runs(run, n=TIMED_RUNS, warmup=1):
 
 def time_train_step(exe, scope, main, loss, feed, host=False, run_kw=None):
     """Median wall of a training step (``timed_runs``), the device time of
-    3 more steps by kernel from the profiler, and with ``host`` the host
-    time of 3 more by kind of op (an eager executor's: a replayed graph
+    PROFILED_STEPS more steps by kernel from the profiler, and with
+    ``host`` the host time of 3 more by kind of op (an eager executor's: a replayed graph
     runs no op from Python). ``run_kw`` goes to ``exe.run``."""
     import paddle_tpu_torch.fluid as fluid
 
@@ -2284,7 +2316,7 @@ def time_train_step(exe, scope, main, loss, feed, host=False, run_kw=None):
 
     with fluid.scope_guard(scope):
         row = timed_runs(step)
-        kernels = device_kernels(step, 3)
+        kernels = device_kernels(step, PROFILED_STEPS)
         by_kind = host_ms_by_kind(step) if host else None
     wall = row["median_ms"]
     busy = sum(kernels.values())
@@ -4616,8 +4648,8 @@ def nmt_cpu_step():
     below it by percents, so the end-to-end grads are also held against
     the CPU run with each card run's relu decisions (``_relu_with_masks``):
     the card's within TRAIN_TOL of it. Both card runs' decisions that
-    differ from the CPU's, and their end-to-end grads against both CPU
-    runs, are printed."""
+    differ from the CPU's and their end-to-end grads against the CPU run
+    are printed, and the kernel run's against the pinned one."""
     import torch
 
     import paddle_tpu_torch.fluid as fluid
@@ -4664,15 +4696,22 @@ def nmt_cpu_step():
     for label, lowers in (("card", {}),
                           ("card_plain_attention", PLAIN_ATTENTION)):
         r = run(fluid.CUDAPlace(0), lowers)
-        masks = {n: torch.from_numpy(v > 0) for n, v in r["relu"].items()}
-        pinned = run(fluid.CPUPlace(), _relu_with_masks(masks))
         ends[label] = {
             "relu_decisions_unlike_cpu": {
                 n: int(((v > 0) != (cpu["relu"][n] > 0)).sum())
                 for n, v in r["relu"].items()},
-            "against_cpu": against(r, cpu),
-            "against_cpu_with_its_relu_decisions": against(r, pinned)}
-        del r, masks, pinned
+            "against_cpu": against(r, cpu)}
+        if label == "card":
+            # the CPU step again with the card's relu decisions: the
+            # plain-attention witness's own is not rerun (a second CPU
+            # step for a run no check reads)
+            masks = {n: torch.from_numpy(v > 0)
+                     for n, v in r["relu"].items()}
+            pinned = run(fluid.CPUPlace(), _relu_with_masks(masks))
+            ends[label]["against_cpu_with_its_relu_decisions"] = against(
+                r, pinned)
+            del masks, pinned
+        del r
     worst, _, witnessed = replay_ops_on_card(
         main, state0, feed2, RESNET_OP_TOL,
         witness={"fused_attention_grad": _fused_attention_grad_plain,
@@ -4821,22 +4860,22 @@ def lockstep_steps(fa, main, startup, loss, feed, steps):
 
 
 def profiled_step(exe, scope, main, loss, feed, n=TIMED_RUNS,
-                  profiled_steps=3):
+                  profiled_steps=PROFILED_STEPS):
     """``timed_runs`` of a step and its device profile over
-    ``profiled_steps`` more: busy ms (the union of the kernels'
-    intervals: a captured graph may run independent kernels at once, so
-    their times can sum past the wall), idle share, kernel launches a
-    step, the top kernels."""
+    ``profiled_steps`` more, one profiler window: busy ms (the union of
+    the kernels' intervals: a captured graph may run independent kernels
+    at once, so their times can sum past the wall), idle share, kernel
+    launches a step, the top kernels."""
     import paddle_tpu_torch.fluid as fluid
 
     def step():
         return exe.run(main, feed=feed, fetch_list=[loss])
 
+    windows = []
     with fluid.scope_guard(scope):
         row = timed_runs(step, n=n)
-        kernels = profile_kernels(step, profiled_steps)
-        _, _, active, _ = profiled_loop(
-            lambda: [step() for _ in range(profiled_steps)])
+        kernels = profile_kernels(step, profiled_steps, windows=windows)
+    _, _, active, _ = device_intervals(windows[-1])
     busy = active / profiled_steps
     top = sorted(kernels.items(), key=lambda kv: -kv[1]["ms"])[:8]
     row.update({"device_busy_ms": busy,
@@ -9538,10 +9577,11 @@ def mesh_case_inputs():
     return out
 
 
-def mesh_run_case(name, inputs, place, mesh=None):
+def mesh_run_case(name, inputs, place, mesh=None, spmd=None):
     """One case's steps from its state: (losses, the first step's grads,
     the parameters after the steps), all host arrays; over ``mesh`` when
-    given."""
+    given. With ``spmd`` (a dict) the steps run with ``verify=True`` and
+    ``spmd`` gets ``spmd_summary`` of the run."""
     import paddle_tpu_torch.fluid as fluid
     from paddle_tpu_torch import convert
     from paddle_tpu_torch.parallel.plan import gather
@@ -9554,15 +9594,66 @@ def mesh_run_case(name, inputs, place, mesh=None):
                              program=main)
     exe = fluid.Executor(place)
     losses, grads = [], None
+    kw = {"verify": True} if spmd is not None else {}
     with fluid.scope_guard(scope):
         for _ in range(inp["steps"]):
             out = exe.run(main, feed=inp["feed"], fetch_list=inp["fetch"],
-                          mesh=mesh)
+                          mesh=mesh, **kw)
             losses.append(float(np.asarray(out[0]).reshape(-1)[0]))
             grads = grads if grads is not None else out[1:]
     final = {p.name: gather(scope.get(p.name)).float().cpu().numpy()
              for p in main.all_parameters()}
+    if spmd is not None:
+        spmd.update(spmd_summary(exe, main, inp, mesh))
     return losses, grads, final
+
+
+def spmd_summary(exe, main, inp, mesh):
+    """The SPMD analysis of a mesh run (``spmd_predict`` and metrics on):
+    the ``spmd_plan`` and ``spmd.prediction_delta`` events,
+    ``engine.spmd_plan_ms``, the collectives the entry's first run issued
+    by kind and source, the parameter-gradient reductions against the
+    plan's parameter-gradient psums (var and bytes), and the verifier's
+    findings by severity on the program over the mesh."""
+    import collections
+
+    from paddle_tpu_torch import analysis
+    from paddle_tpu_torch import observability as obs
+
+    (entry,) = [c for c in exe.engine._cache.values()
+                if c.spmd_plan is not None]
+    plan, record = entry.spmd_plan, entry.mesh_plan.record
+    predicted = sorted((c.var, c.nbytes) for c in plan.collectives
+                       if c.kind == "psum" and c.phase == "backward")
+    reduced = sorted((c["var"], c["nbytes"]) for c in record
+                     if c["source"] == "grad")
+    events = {name: [dict(r.args or {}) for r in obs.spans()
+                     if r.name == name]
+              for name in ("spmd_plan", "spmd.prediction_delta")}
+    timer = obs.snapshot()["histograms"].get("engine.spmd_plan_ms", {})
+    report = analysis.verify_program(
+        main, feed_names=sorted(inp["feed"]), fetch_names=inp["fetch"],
+        mesh=mesh)
+    return {
+        "spmd_plan": events["spmd_plan"],
+        "spmd_plan_ms": timer.get("max"),
+        "prediction_delta": events["spmd.prediction_delta"],
+        "measured_by_kind_and_source": sorted(
+            [list(k) + [n] for k, n in collections.Counter(
+                (c["kind"], c["source"]) for c in record).items()]),
+        "param_grad_reductions": len(reduced),
+        "param_grad_kinds": sorted({c["kind"] for c in record
+                                    if c["source"] == "grad"}),
+        "param_grad_bytes": sum(n for _, n in reduced),
+        "predicted_param_grad_psums": len(predicted),
+        "predicted_param_grad_bytes": sum(n for _, n in predicted),
+        "param_grads_equal_prediction": reduced == predicted,
+        "verify_findings": {
+            "errors": len(report.errors),
+            "warnings": sum(1 for f in report
+                            if f.severity == analysis.Severity.WARNING),
+            "spmd_info": [f.message for f in report
+                          if f.pass_name == "spmd-collective-report"]}}
 
 
 MESH_PROBE = r"""
@@ -9656,21 +9747,25 @@ def _mesh_rank(rank, world, tmpdir, backend, run):
         init_method="file://" + os.path.join(tmpdir, "store"))
     inputs = mesh_case_inputs()
     res = {}
-    flags.set_flags({"metrics": True})
+    # dp2 also runs the SPMD analysis: the verifier over the mesh, the
+    # plan at the cache miss, the prediction held against the first run
+    flags.set_flags({"metrics": True, "spmd_predict": True})
     for name in run:
         axes = {"dp": 2} if name == "dp2" else {"dp": 1, "sp": 2}
         mesh = parallel.make_mesh(axes, device_type="cuda")
         fa.launches = fa.launches_dq = fa.launches_dkv = 0
         obs.reset()
         t0 = time.perf_counter()
+        spmd = {} if name == "dp2" else None
         losses, grads, final = mesh_run_case(name, inputs, CUDAPlace(dev),
-                                             mesh)
+                                             mesh, spmd=spmd)
         res[name] = {
             "ran": True, "losses": losses,
             "grads": grads if rank == 0 else None,
             "state": final if rank == 0 else None,
             "seconds": time.perf_counter() - t0,
-            "launches": flash_launches(fa), "counters": mesh_counters()}
+            "launches": flash_launches(fa), "counters": mesh_counters(),
+            "spmd": spmd}
     with open(os.path.join(tmpdir, "rank%d.pkl" % rank), "wb") as f:
         pickle.dump(res, f)
     dist.barrier()
@@ -9913,6 +10008,27 @@ def _phase_mesh(fa, smi, probing, tmpdir, backend, n_dev):
           "device_count": n_dev, "transport": backend,
           "probe": probe, "probe_wait_s": probe_wait_s, "cases": cases,
           "ran": run, "spawn_s": spawn_s, "tol": MESH_TOL})
+    if "dp2" in run:
+        spmd = ranks[0]["dp2"]["spmd"]
+        emit(dict({"phase": "mesh", "case": "dp2_spmd", "card": smi,
+                   "model": "bert_base", "n_layers": MESH_DP2_LAYERS,
+                   "batch": 8, "mesh": {"dp": 2}}, **spmd))
+        delta = spmd["prediction_delta"]
+        check(len(spmd["spmd_plan"]) == 1 and len(delta) == 1,
+              "mesh dp2: spmd_plan %d, spmd.prediction_delta %d events, "
+              "want one each" % (len(spmd["spmd_plan"]), len(delta)))
+        check(spmd["param_grads_equal_prediction"]
+              and spmd["param_grad_kinds"] == ["all-reduce"]
+              and spmd["param_grad_reductions"] > 0,
+              "mesh dp2: parameter-gradient all-reduces %d (%d bytes, %s) "
+              "against the predicted psums %d (%d bytes)" % (
+                  spmd["param_grad_reductions"], spmd["param_grad_bytes"],
+                  spmd["param_grad_kinds"],
+                  spmd["predicted_param_grad_psums"],
+                  spmd["predicted_param_grad_bytes"]))
+        check(spmd["verify_findings"]["errors"] == 0,
+              "mesh dp2: the verifier reports ERRORs over the mesh: %s"
+              % spmd["verify_findings"])
     for name in run:
         row = cases[name]
         check(row["ranks_agree"], "mesh %s: ranks disagree" % name)
@@ -9937,6 +10053,218 @@ def _phase_mesh(fa, smi, probing, tmpdir, backend, n_dev):
     emit({"phase": "mesh", "case": "ring_blocks", "T": MESH_RING_T,
           "rows": ring, "seconds": time.perf_counter() - t_phase})
     return one["launches"]
+
+
+def pserver_server_state(prog, state):
+    """The initial state of a pserver program: each persistable of its
+    global block from the single-process ``state``, a table shard or a
+    sliced block's rows cut out of the whole var (the listen_and_serv
+    op's ``dist_tables`` and ``sliced_blocks``)."""
+    lns = prog.desc.global_block().ops[-1]
+    rows = {}
+    for d in lns.attrs.get("dist_tables", []):
+        for n in d["sliced"]:
+            rows[n] = (n, d["start"], d["end"])
+    for d in lns.attrs.get("sliced_blocks", []):
+        for old, new in d["rename"].items():
+            rows[new] = (old, d["rows"][0], d["rows"][1])
+    out = {}
+    for n, vd in prog.desc.global_block().vars.items():
+        if not vd.persistable:
+            continue
+        src, r0, r1 = rows.get(n, (n, None, None))
+        val = state[src]
+        if r0 is not None and tuple(val.shape) != tuple(vd.shape):
+            val = val[r0:r1]
+        out[n] = np.ascontiguousarray(val)
+    return out
+
+
+def phase_pserver(fa, smi):
+    """DeepFM at the ctr width on the parameter-server path (PSERVER_*),
+    every server and trainer a thread of this process with its executor
+    on the card, against the same steps in one process. Returns the flash
+    launches of the cluster's steps (none)."""
+    import threading
+
+    import torch
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import convert, unique_name
+    from paddle_tpu_torch.distributed import ps
+    from paddle_tpu_torch.models import deepfm
+
+    t_phase = time.perf_counter()
+    place = fluid.CUDAPlace(0)
+    batch = CTR["batch_size"]
+    half = batch // PSERVER_TRAINERS
+    feeds = ctr_feeds(batch, PSERVER_STEPS, 97)
+    parts = [[{k: v[i * half:(i + 1) * half] for k, v in f.items()}
+              for i in range(PSERVER_TRAINERS)] for f in feeds]
+
+    # one process: the startup's state, then the steps from it, each
+    # step's loss on each trainer's half taken first by the for_test clone
+    main, startup, handles = deepfm_program()
+    loss = handles["loss"]
+    exe = fluid.Executor(place)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    state = {v.name: scope.get(v.name).detach().cpu().clone().numpy()
+             for v in main.list_vars() if v.persistable}
+    test_prog = main.clone(for_test=True)
+    local = {"loss": [], "half_losses": []}
+    for f, halves in zip(feeds, parts):
+        local["half_losses"].append([float(exe.run(
+            test_prog, feed=h, fetch_list=[loss], scope=scope)[0])
+            for h in halves])
+        local["loss"].append(float(exe.run(main, feed=f, fetch_list=[loss],
+                                           scope=scope)[0]))
+    tables = {n: scope.get(n).cpu().numpy() for n in ("fm_v", "fm_w1")}
+    dense = {p.name: scope.get(p.name).cpu().numpy()
+             for p in main.all_parameters() if p.name not in tables}
+    local_s = time.perf_counter() - t_phase
+    del exe, scope
+    release_memory()
+
+    # the cluster: transpiled for 2 pservers, 2 trainers on free ports
+    with unique_name.guard():
+        dmain, dstartup, dh = deepfm.get_model(is_distributed=True, **CTR)
+    ports = []
+    for _ in range(PSERVER_SERVERS):
+        sock = socket.socket()
+        sock.bind(("127.0.0.1", 0))
+        ports.append(sock)
+    eps = ["127.0.0.1:%d" % p.getsockname()[1] for p in ports]
+    for sock in ports:
+        sock.close()
+    t = fluid.DistributeTranspiler()
+    t.transpile(trainer_id=0, program=dmain, pservers=",".join(eps),
+                trainers=PSERVER_TRAINERS, startup_program=dstartup)
+    servers = []
+    fa.launches = fa.launches_dq = fa.launches_dkv = 0
+    t0 = time.perf_counter()
+    try:
+        for ep in eps:
+            prog = t.get_pserver_program(ep)
+            srv = ps.ParameterServer(prog, None, ep,
+                                     fanin=PSERVER_TRAINERS, place=place)
+            convert.load_numpy_state(srv.scope,
+                                     pserver_server_state(prog, state),
+                                     "cuda", program=prog)
+            srv.start()
+            servers.append(srv)
+        trainer_prog = t.get_trainer_program()
+        trainer_startup = t.get_trainer_startup_program()
+        rows = [{"losses": [], "step_ms": [], "bytes_sent": [],
+                 "bytes_received": []} for _ in range(PSERVER_TRAINERS)]
+        errors = []
+
+        def train(tid):
+            try:
+                tr = ps.DistTrainer(trainer_prog, t, place=place)
+                tr.run_startup(trainer_startup)
+                tr.pull_params()
+                row = rows[tid]
+                for step in range(PSERVER_STEPS):
+                    sent, got = (tr.client.bytes_sent,
+                                 tr.client.bytes_received)
+                    (val,) = tr.run(parts[step][tid], [dh["loss"].name])
+                    row["losses"].append(float(np.asarray(val)))
+                    row["step_ms"].append(tr.step_ms)
+                    row["bytes_sent"].append(tr.client.bytes_sent - sent)
+                    row["bytes_received"].append(
+                        tr.client.bytes_received - got)
+                row["table_vars_held"] = sorted(
+                    n for n in ("fm_v", "fm_w1")
+                    if tr.scope.get(n) is not None)
+                tr.close()
+            except Exception as e:
+                errors.append("trainer %d: %s: %s" % (
+                    tid, type(e).__name__, e))
+
+        threads = [threading.Thread(target=train, args=(i,))
+                   for i in range(PSERVER_TRAINERS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        check(not errors and not any(th.is_alive() for th in threads),
+              "pserver trainers failed: %s" % errors)
+        got_tables = {n: np.concatenate([srv.scope.get(n).cpu().numpy()
+                                         for srv in servers])
+                      for n in tables}
+        owner = {}
+        for srv in servers:
+            for n in srv._owned_persistables():
+                if n in dense:
+                    owner[n] = srv.scope.get(n).cpu().numpy()
+        update_ms = [{"last": srv.update_ms, "updates": srv.updates,
+                      "mean": srv.update_ms_total / max(srv.updates, 1)}
+                     for srv in servers]
+    finally:
+        for srv in servers:
+            srv.stop()
+    cluster_s = time.perf_counter() - t0
+    launches = flash_launches(fa)
+    tol = PSERVER_TOL
+    loss_err = [[abs(a - b) for a, b in zip(rows[i]["losses"],
+                                            [h[i] for h in
+                                             local["half_losses"]])]
+                for i in range(PSERVER_TRAINERS)]
+    mean_loss = [sum(r["losses"][s] for r in rows) / PSERVER_TRAINERS
+                 for s in range(PSERVER_STEPS)]
+    table_err = {n: float(np.abs(got_tables[n] - tables[n]).max())
+                 for n in tables}
+    table_ok = {n: bool(np.allclose(got_tables[n], tables[n],
+                                    rtol=tol["table_rtol"],
+                                    atol=tol["table_atol"]))
+                for n in tables}
+    dense_worst = mesh_worst([owner[n] for n in sorted(owner)],
+                             [dense[n] for n in sorted(owner)],
+                             sorted(owner))
+    mean_ms = {k: statistics.mean(r["step_ms"][s][k] for r in rows
+                                  for s in range(1, PSERVER_STEPS))
+               for k in ("engine", "rpc", "copy")}
+    emit({"phase": "pserver", "card": smi, "model": "deepfm",
+          "config": CTR, "servers": PSERVER_SERVERS,
+          "trainers": PSERVER_TRAINERS, "steps": PSERVER_STEPS,
+          "batch_per_trainer": half, "transport": "tcp localhost",
+          "losses_by_trainer": [r["losses"] for r in rows],
+          "local_half_losses": local["half_losses"],
+          "local_losses": local["loss"], "mean_losses": mean_loss,
+          "loss_abs_err_by_trainer": loss_err,
+          "table_max_abs_err": table_err, "tables_within_tol": table_ok,
+          "dense_params_worst_rel_to_max": dense_worst,
+          "step_ms_by_trainer": [r["step_ms"] for r in rows],
+          "step_ms_mean_after_first": mean_ms,
+          "bytes_sent_per_step": [r["bytes_sent"] for r in rows],
+          "bytes_received_per_step": [r["bytes_received"] for r in rows],
+          "server_update_ms": update_ms,
+          "tables_on_trainers": [r["table_vars_held"] for r in rows],
+          "flash_launches": launches, "local_s": local_s,
+          "cluster_s": cluster_s,
+          "seconds": time.perf_counter() - t_phase, "tol": tol})
+    for i in range(PSERVER_TRAINERS):
+        check(np.allclose(rows[i]["losses"],
+                          [h[i] for h in local["half_losses"]],
+                          rtol=tol["loss_rtol"], atol=tol["loss_atol"]),
+              "pserver trainer %d losses %s, one process %s" % (
+                  i, rows[i]["losses"],
+                  [h[i] for h in local["half_losses"]]))
+        check(not rows[i]["table_vars_held"],
+              "pserver trainer %d holds a table: %s"
+              % (i, rows[i]["table_vars_held"]))
+    check(np.allclose(mean_loss, local["loss"], rtol=tol["loss_rtol"],
+                      atol=tol["loss_atol"]),
+          "pserver mean losses %s, one process %s" % (mean_loss,
+                                                      local["loss"]))
+    check(all(table_ok.values()), "pserver tables beyond tolerance: %s"
+          % table_err)
+    check(not any(launches.values()), "flash launches in pserver: %s"
+          % launches)
+    del servers
+    release_memory()
+    return launches
 
 
 def release_memory():
@@ -10099,8 +10427,10 @@ def main():
     release_memory()
     opt_launches["int8_serve"] = phase_int8_serve(fa, smi)
     release_memory()
-    # the mesh path on torch.distributed
+    # the mesh path on torch.distributed, then the parameter-server path
     opt_launches["mesh"] = phase_mesh(fa, smi)
+    release_memory()
+    opt_launches["pserver"] = phase_pserver(fa, smi)
     release_memory()
     emit({"phase": "times", "partial_profiler_windows_rerun":
           len(PARTIAL_PROFILES), "partial_windows": PARTIAL_PROFILES,

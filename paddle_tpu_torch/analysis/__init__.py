@@ -9,8 +9,9 @@ Opt in to the verifier at run time with ``PADDLE_GPU_VERIFY=1`` (or
 ``Executor.run(verify=True)``): it runs once per cache entry, before the
 block is lowered, on the desc the transforms return, and raises on ERROR
 findings. The transforms run at the same seam at ``opt_level`` 1 (the
-default) and up; the memory planner after them at level 3 and up. The
-SPMD analysis is ROADMAP Queue 1 item 10b.
+default) and up; the memory planner after them at level 3 and up. Over
+a mesh the SPMD analysis (spmd.py) plans the entry's collectives at the
+same seam, and its three checkers join the verifier.
 """
 
 from paddle_tpu_torch.analysis.diagnostics import (  # noqa: F401
@@ -55,6 +56,12 @@ from paddle_tpu_torch.analysis.memory import (  # noqa: F401
     plan_remat,
     replan_segments,
 )
+from paddle_tpu_torch.analysis.spmd import (  # noqa: F401
+    Collective,
+    SpmdReport,
+    analyze_spmd,
+    measured_collectives,
+)
 from paddle_tpu_torch.analysis.layout import (  # noqa: F401
     LayoutAssignPass,
     LayoutPlan,
@@ -69,6 +76,7 @@ __all__ = [
     "LivenessReport", "MemoryPlan", "OpNode", "PASS_REGISTRY", "Pass",
     "RematPlan", "Severity", "TRANSFORM_PIPELINE", "TransformContext",
     "TransformPass", "TransformReport", "VarNode", "VerificationError",
+    "Collective", "SpmdReport", "analyze_spmd", "measured_collectives",
     "analyze_liveness", "apply_layout", "build_graph", "default_passes",
     "optimize_program", "plan_donation", "plan_layout", "plan_memory",
     "plan_remat", "register_pass", "replan_segments",

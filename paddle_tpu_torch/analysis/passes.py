@@ -56,7 +56,9 @@ _BINARY_DTYPE_OPS = frozenset({
 class AnalysisContext:
     """Optional run-site facts the passes may use: the feed/fetch lists a
     concrete ``Executor.run`` will use, and the SPMD mesh + sharding rules
-    a CompiledProgram carries."""
+    a CompiledProgram carries. The mesh is a ``DeviceMesh``, a
+    {axis: size} dict or a mesh_signature tuple
+    (``analysis.spmd._mesh_axes``)."""
 
     def __init__(self, feed_names=None, fetch_names=None, mesh=None,
                  shard_rules=None, data_axes=("dp",)):
@@ -100,9 +102,12 @@ DEFAULT_PASSES = (
     "grad-pairing",
     "dead-op",
     "sharding",
-    # The reference's pipeline goes on with its three SPMD checkers
-    # (analysis/spmd.py), which find nothing without a mesh; they come
-    # with the SPMD analysis (ROADMAP item 10b).
+    # SPMD layer (analysis/spmd.py, registered on package import like
+    # memory.py's checker); all three no-op when ctx.mesh is None, so
+    # single-device verify pays nothing.
+    "spmd-unsharded-param",
+    "spmd-replication-blowup",
+    "spmd-collective-report",
 )
 
 
@@ -472,8 +477,10 @@ class ShardingConsistencyPass(Pass):
         if rules is None:
             return []
         findings = []
-        mesh_axes = (set(ctx.mesh.axis_names)
-                     if ctx.mesh is not None else None)
+        from paddle_tpu_torch.analysis.spmd import _mesh_axes
+
+        sizes = _mesh_axes(ctx.mesh)
+        mesh_axes = set(sizes) if ctx.mesh is not None else None
         if mesh_axes is not None:
             for ax in ctx.data_axes:
                 if ax not in mesh_axes:
@@ -528,7 +535,7 @@ class ShardingConsistencyPass(Pass):
                     size = 1
                     for ax in (entry if isinstance(entry, tuple)
                                else (entry,)):
-                        size *= ctx.mesh.shape.get(ax, 1)
+                        size *= sizes.get(ax, 1)
                     if size > 1 and dim % size != 0:
                         # the reference's message, word for word
                         findings.append(self.finding(

@@ -109,6 +109,12 @@ its shard of the feeds in the static buffers, the block runs on
 ``DTensor``s (the scope holds the state at its planned placements), the
 fetches come back whole. An entry over NCCL is captured as any other; one
 over gloo runs eagerly (``engine.eager`` event: gloo cannot be captured).
+At the miss the static SPMD analysis (``analysis/spmd.py``) plans the
+entry's collectives on the desc that runs (span ``spmd-plan``, timer
+``engine.spmd_plan_ms``, the ``spmd_plan`` event; a crash counts in
+``spmd.plan_crashes``), the verifier gets the mesh, and under
+``spmd_predict`` with metrics on the entry's first run holds the plan
+against the collectives it issued (``spmd.prediction_delta``).
 
 A CUDA engine turns on cuDNN's deterministic algorithms and turns off its
 autotuner (``_deterministic_cudnn``), so that repeated steps, and a
@@ -122,6 +128,7 @@ copy-out.
 """
 
 import collections
+import contextlib
 import gc
 import threading
 
@@ -143,6 +150,41 @@ from paddle_tpu_torch.observability import goodput, health
 from paddle_tpu_torch.resilience import faultinject
 
 _BLOCK_CACHE_SIZE = 64
+
+# captures in progress in this process, and whether the collector ran
+# before the first of them: several engines (the threads of a pserver
+# cluster) may capture at once, and the collector may run again only when
+# the last of them ends
+_gc_pause = {"depth": 0, "was_enabled": False}
+_gc_pause_lock = threading.Lock()
+# CUDA graph captures and graph destructions in this process, one at a
+# time: torch 2.11's CUDA generator keeps the graphs captured on it in a
+# set it does not lock (a graph registers at its capture and unregisters
+# in its destructor), so engines capturing or dropping graphs in several
+# threads at once (a pserver cluster's trainers and servers) corrupt it
+# ("The graph should be registered to the state", an abort). Replays run
+# concurrently; only the two ends of a graph's life wait for each other.
+_graph_lifecycle = threading.RLock()
+
+
+@contextlib.contextmanager
+def _gc_paused():
+    """Python's garbage collector off for the block, across threads: it
+    comes back on when the last overlapping block ends, not when the first
+    does."""
+    with _gc_pause_lock:
+        if _gc_pause["depth"] == 0:
+            _gc_pause["was_enabled"] = gc.isenabled()
+            gc.disable()
+        _gc_pause["depth"] += 1
+    try:
+        yield
+    finally:
+        with _gc_pause_lock:
+            _gc_pause["depth"] -= 1
+            if _gc_pause["depth"] == 0 and _gc_pause["was_enabled"]:
+                gc.enable()
+
 
 class CompiledBlock:
     """One cache entry: a block lowered for one key, with its static feed
@@ -237,6 +279,12 @@ class CompiledBlock:
         self._cache_key = None
         self._rebuild = None
         self._layout_scope = None
+        # over a mesh (reference: executor.py:781-815): the static SPMD
+        # analysis of the desc that runs (analysis/spmd.py), made at the
+        # cache miss, and whether its prediction was held against the
+        # first run's collectives (mesh_plan.record) yet
+        self.spmd_plan = None
+        self.spmd_checked = False
 
     # -- one run -----------------------------------------------------------
     def run(self, scope, feed_values, rng_seed, return_numpy, defer=False):
@@ -392,17 +440,26 @@ class CompiledBlock:
         from paddle_tpu_torch.parallel.plan import from_shard, gather, place
 
         plan = self.mesh_plan
+        bp = self.block_program
         feeds = [from_shard(buf, plan.mesh, pl, shape)
                  for buf, pl, shape in zip(self.feed_bufs, self.feed_places,
                                            self.feed_shapes)]
+        plan.begin_run()
         with implicit_replication(), \
                 spmd_lowering(plan.mesh, plan.data_axes):
             fetches, state_out = self.fn(feeds, state, rng_seed, self.seeds)
-            fetches = [gather(t) for t in fetches]
-            state_out = [
-                place(v, plan.mesh, plan.state_placements(n))[0]
-                for n, v in zip(self.block_program.state_out_names,
-                                state_out)]
+            out = []
+            for n, t in zip(bp.fetch_names, fetches):
+                with plan.logged("fetch", n):
+                    out.append(gather(t))
+            fetches = out
+            out = []
+            for n, v in zip(bp.state_out_names, state_out):
+                with plan.logged("state", n):
+                    out.append(place(v, plan.mesh,
+                                     plan.state_placements(n))[0])
+            state_out = out
+        plan.end_run()
         if plan.unplanned:
             obs.inc("engine.mesh_redistribute", plan.unplanned)
         return fetches, state_out
@@ -499,9 +556,22 @@ class CompiledBlock:
             t.record_stream(cur)
         return out
 
+    def __del__(self):
+        # the graph goes under the lifecycle lock (its destructor touches
+        # the CUDA generator's graph set)
+        if getattr(self, "graph", None) is not None:
+            with _graph_lifecycle:
+                self.graph = None
+
     def _capture(self, state, dsts, feed_values, rng_seed):
         """Capture the block in one graph against the scope's tensors
-        ``state`` and ``dsts``; a capture that fails raises."""
+        ``state`` and ``dsts``; a capture that fails raises. Captures (and
+        the release of the graph this one replaces) take the process-wide
+        ``_graph_lifecycle`` lock."""
+        with _graph_lifecycle:
+            self._capture_locked(state, dsts, feed_values, rng_seed)
+
+    def _capture_locked(self, state, dsts, feed_values, rng_seed):
         self._fill(feed_values, rng_seed)
         self.graph = self.outs = self.bound = None
         graph = torch.cuda.CUDAGraph()
@@ -512,18 +582,13 @@ class CompiledBlock:
         # No garbage collection runs during the capture: one could free a
         # dead engine's graph, which CUDA refuses on a capturing thread,
         # and the capture would fail (torch no longer collects before it)
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
+        with _gc_paused():
             with torch.no_grad():
                 with torch.cuda.graph(graph, pool=self.engine._graph_pool(),
                                       capture_error_mode="thread_local"):
                     with _fa.record_launches(torch.cuda.current_stream(
                             self.device)) as launches:
                         outs = self._body(state, dsts, rng_seed)
-        finally:
-            if collecting:
-                gc.enable()
         self.graph, self.outs, self.launches = graph, outs, dict(launches)
         self.bound = list(state) + list(dsts)
         self.captures += 1
@@ -682,19 +747,29 @@ class Engine:
         defer = dispatch_steps > 1
         # a planned entry's first run on the card measures its peak (the
         # eager warm-up, which holds the allocator's caching), in place of
-        # the reference's compiled memory stats (executor.py:376-406)
-        measure = (compiled.memory_plan is not None
+        # the reference's compiled memory stats (executor.py:376-406); so
+        # does a mesh entry's first run under spmd_predict
+        predict = self._spmd_predicting(compiled)
+        measure = ((compiled.memory_plan is not None or predict)
                    and compiled.peak_bytes is None
                    and self.device.type == "cuda")
+        # (this thread's stream is waited for, never the whole device,
+        # which CUDA refuses while another thread's engine captures)
+        stream = torch.cuda.current_stream(self.device) if measure else None
         if measure:
-            torch.cuda.synchronize(self.device)
+            stream.synchronize()
             torch.cuda.reset_peak_memory_stats(self.device)
         out = compiled.run(scope, feed_values, (int(seed), run_counter),
                            return_numpy, defer)
         if measure:
-            torch.cuda.synchronize(self.device)
-            self._note_peak(compiled, int(
-                torch.cuda.max_memory_allocated(self.device)))
+            stream.synchronize()
+            peak = int(torch.cuda.max_memory_allocated(self.device))
+            if compiled.memory_plan is not None:
+                self._note_peak(compiled, peak)
+            else:
+                compiled.peak_bytes = peak
+        if predict:
+            self._spmd_delta(compiled)
         if compiled.flops:
             goodput.note_flops(compiled.flops)
         if not defer:
@@ -821,7 +896,14 @@ class Engine:
 
             with obs.span("verify"), obs.time_block("engine.verify_ms"):
                 verify_program(run_desc, feed_names=feed_names,
-                               fetch_names=fetch_list, raise_on_error=True)
+                               fetch_names=fetch_list, mesh=mesh,
+                               shard_rules=shard_rules, data_axes=data_axes,
+                               raise_on_error=True)
+        spmd_plan = None
+        if mesh is not None:
+            spmd_plan = self._plan_spmd(run_desc, block_idx, mesh,
+                                        shard_rules, data_axes, feed_names,
+                                        feed_values, fetch_list, zero)
 
         def build(segments):
             # the entry at a segment count, over the same transformed desc
@@ -857,6 +939,7 @@ class Engine:
             obs.inc("memory.autoremat_fallback")
             compiled = build(remat_segments)
         compiled.memory_plan = memory_plan
+        compiled.spmd_plan = spmd_plan
         compiled.auto_remat_eligible = eligible
         compiled.mem_budget = mem_budget
         compiled._cache_key = key
@@ -905,6 +988,75 @@ class Engine:
             if len(self._descs) > _BLOCK_CACHE_SIZE:
                 self._descs.popitem(last=False)
         return run_desc
+
+    def _plan_spmd(self, run_desc, block_idx, mesh, shard_rules, data_axes,
+                   feed_names, feed_values, fetch_list, zero):
+        """The static SPMD plan of ``run_desc`` over ``mesh`` (reference:
+        executor.py:781-815), crash-isolated like the memory planner: a
+        crash is counted in ``spmd.plan_crashes`` and the plan is None."""
+        from paddle_tpu_torch.analysis import spmd as spmd_analysis
+
+        try:
+            with obs.span("spmd-plan"), \
+                    obs.time_block("engine.spmd_plan_ms"):
+                plan = spmd_analysis.analyze_spmd(
+                    run_desc, mesh=mesh, shard_rules=shard_rules,
+                    data_axes=data_axes, feed_names=feed_names,
+                    feed_shapes={n: tuple(v.shape) for n, v in
+                                 zip(feed_names, feed_values)},
+                    fetch_names=fetch_list, block_idx=block_idx,
+                    zero1=zero)
+            if obs.enabled():
+                obs.event("spmd_plan", psums=plan.psum_count,
+                          all_gathers=plan.all_gather_count,
+                          collective_bytes=plan.total_bytes,
+                          per_device_peak_bytes=int(
+                              plan.per_device_peak_bytes))
+            return plan
+        except Exception:
+            obs.inc("spmd.plan_crashes")
+            return None
+
+    def _spmd_predicting(self, compiled):
+        """Whether this run of ``compiled`` is the one whose collectives
+        the prediction is held against: its first, with a plan, under
+        ``spmd_predict`` and metrics."""
+        return (compiled.spmd_plan is not None and not compiled.spmd_checked
+                and not compiled.spmd_plan.empty and obs.enabled()
+                and bool(flags.get_flag("spmd_predict")))
+
+    def _spmd_delta(self, compiled):
+        """Hold the entry's SPMD plan against the collectives its first
+        run issued (``MeshPlan.record``; reference: executor.py:407-449,
+        which parses the executable's HLO): the ``spmd.*`` gauges and the
+        ``spmd.prediction_delta`` event. A crash is counted in
+        ``spmd.predict_crashes``."""
+        compiled.spmd_checked = True
+        plan = compiled.spmd_plan
+        try:
+            from paddle_tpu_torch.analysis import spmd as spmd_analysis
+
+            meas = spmd_analysis.measured_collectives(
+                compiled.mesh_plan.record)
+            obs.set_gauge("spmd.predicted_psums", plan.psum_count)
+            obs.set_gauge("spmd.measured_psums", meas["psum_count"])
+            obs.set_gauge("spmd.predicted_collective_bytes",
+                          plan.total_bytes)
+            obs.set_gauge("spmd.measured_collective_bytes",
+                          meas["total_bytes"])
+            obs.event(
+                "spmd.prediction_delta",
+                psums_predicted=plan.psum_count,
+                psums_measured=meas["psum_count"],
+                all_gathers_predicted=plan.all_gather_count,
+                all_gathers_measured=meas["all_gather_count"],
+                bytes_predicted=plan.total_bytes,
+                bytes_measured=meas["total_bytes"],
+                bytes_delta=meas["total_bytes"] - plan.total_bytes,
+                peak_bytes_predicted=int(plan.per_device_peak_bytes),
+                peak_bytes_measured=int(compiled.peak_bytes or 0))
+        except Exception:
+            obs.inc("spmd.predict_crashes")
 
     def _plan_memory(self, run_desc, feed_names, feed_values, fetch_list,
                      budget):

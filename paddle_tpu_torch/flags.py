@@ -62,6 +62,16 @@ DEFS = {
         "prediction by more than this relative tolerance, re-plan the "
         "remat segment count from the measured peak and rebuild the "
         "entry once (bounded; counted in memory.replan). <=0 disables."),
+    "spmd_predict": (
+        bool, False,
+        "Validate the static SPMD collective schedule "
+        "(analysis/spmd.py) against the collectives the mesh path "
+        "issues on the first run of every mesh cache entry: compare "
+        "predicted psum/all-gather counts and payload bytes with the "
+        "ones parallel/plan.py recorded, and emit "
+        "spmd.prediction_delta telemetry — the collective-schedule "
+        "analog of memory_plan_delta. Requires PADDLE_GPU_METRICS=1; "
+        "no-op without a mesh."),
     "hbm_budget_frac": (
         float, 0.9,
         "Fraction of device memory (observability.memory."
@@ -105,6 +115,10 @@ DEFS = {
         "and on CUDA one captured graph, per (program, feed signature, "
         "fetches, is_test, donation, AMP, cache tag) (reference: the "
         "Executor program cache)."),
+    "rpc_deadline_ms": (
+        float, 180000.0,
+        "Deadline for pserver RPC replies; <=0 disables (reference: "
+        "FLAGS_rpc_deadline)."),
     "dispatch_steps": (
         int, 1,
         "Depth of the engine's async dispatch window "
@@ -285,9 +299,9 @@ DEFS = {
         "Distributed-training transport ParallelExecutor selects: '' or "
         "'dp' = SPMD data parallelism over every rank of the world (the "
         "default), 'mesh' = SPMD over the PADDLE_GPU_MESH mesh with the "
-        "sharding rules' placements, 'pserver'/'nccl2' = the "
-        "transpiler's transports (not ported: ROADMAP Queue 1 items 10b "
-        "and 12)."),
+        "sharding rules' placements; 'pserver'/'nccl2' go through the "
+        "DistributeTranspiler (paddle_tpu_torch.transpiler, "
+        "distributed/ps.py), and ParallelExecutor refuses them."),
 }
 
 _overrides = {}

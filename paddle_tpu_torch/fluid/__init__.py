@@ -56,6 +56,11 @@ from paddle_tpu_torch.compiler import (  # noqa: F401
     ExecutionStrategy,
 )
 from paddle_tpu_torch.parallel_executor import ParallelExecutor  # noqa: F401
+from paddle_tpu_torch import transpiler  # noqa: F401
+from paddle_tpu_torch.transpiler import (  # noqa: F401
+    DistributeTranspiler,
+    DistributeTranspilerConfig,
+)
 from paddle_tpu_torch.platform import (  # noqa: F401
     CPUPlace,
     CUDAPlace,
@@ -84,7 +89,8 @@ __all__ = [
     "Executor", "global_scope", "scope_guard", "Scope",
     "CPUPlace", "CUDAPlace", "ParamAttr", "metrics", "DataFeeder",
     "CompiledProgram", "ParallelExecutor", "BuildStrategy",
-    "ExecutionStrategy",
+    "ExecutionStrategy", "DistributeTranspiler",
+    "DistributeTranspilerConfig",
 ]
 
 

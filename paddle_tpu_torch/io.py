@@ -360,16 +360,45 @@ def load_frozen_model(dirname, scope=None, place=None):
 def load_inference_model(dirname, executor, model_filename=None,
                          params_filename=None, pserver_endpoints=None):
     """(io.py:318) Returns (program, feed_names, fetch_vars); the
-    persistables land in the global scope on the executor's device."""
-    if pserver_endpoints:
-        raise NotImplementedError(
-            "load_inference_model(pserver_endpoints=...): the parameter "
-            "server is ROADMAP Queue 1, resilience and launch")
+    persistables land in the global scope on the executor's device. With
+    ``pserver_endpoints`` they are refreshed from the RUNNING pservers
+    after the disk load (reference: io.py load_inference_model's
+    endpoints path for distributed increment)."""
     with open(os.path.join(dirname, model_filename or "__model__"), "rb") as f:
         program = program_from_desc(ProgramDescData.parse_from_string(f.read()))
     program._is_test = True
     with open(os.path.join(dirname, "__meta__.json")) as f:
         meta = json.load(f)
     load_persistables(executor, dirname, program, filename=params_filename)
+    if pserver_endpoints:
+        _refresh_from_pservers(program, executor, list(pserver_endpoints))
     fetch_vars = [program.global_block().var(n) for n in meta["fetch_names"]]
     return program, meta["feed_names"], fetch_vars
+
+
+def _refresh_from_pservers(program, executor, endpoints):
+    """Each persistable of ``program`` a running pserver hosts, pulled
+    into the global scope on the executor's device (a read-only client:
+    it takes no trainer's completion slot)."""
+    from paddle_tpu_torch.distributed.ps import PSClient, _assign
+
+    scope = _scope()
+    client = PSClient(endpoints)
+    try:
+        for name, vd in program.desc.global_block().vars.items():
+            if not vd.persistable or name in ("feed", "fetch"):
+                continue
+            for ep in endpoints:
+                try:
+                    val = client.get_var(ep, name)
+                except OSError:
+                    # a server raises a typed RpcError for names it does
+                    # not own (e.g. sliced params living under block
+                    # names) — keep the disk-loaded value then
+                    continue
+                if len(val.shape) == 0:
+                    continue
+                _assign(scope, name, val, executor.device)
+                break
+    finally:
+        client.close()

@@ -2,8 +2,10 @@
 the dist-training CTR configs, tests/unittests/dist_ctr.py), imports
 switched. Sparse feature ids feed ``is_sparse=True`` embeddings, an FM
 second-order term and a DNN tower; the tables' grads are SelectedRows
-and Adam updates only the batch's rows. ``is_distributed`` tables
-(pserver work) are not ported: the flag is recorded in the desc only."""
+and Adam updates only the batch's rows. ``is_distributed=True`` marks
+both tables for the parameter-server path: ``fluid.DistributeTranspiler``
+row-shards them over the pservers (``distributed/ps.py``), and the
+trainers prefetch the batch's rows instead of holding the tables."""
 
 import numpy as np
 

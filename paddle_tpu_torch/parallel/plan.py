@@ -16,7 +16,12 @@ to the owner's shard, with ``grad_bucket_mb`` one
 ``reduce_scatter_tensor`` a bucket of gradients.
 
 ``MeshPlan`` is made once a cache entry; ``hooks()`` gives the per-run
-callbacks ``lower_block`` calls around each op.
+callbacks ``lower_block`` calls around each op. The entry's first run
+records every collective it issues (``MeshPlan.record``): the gradient
+reductions above, the ZeRO-1 and fetch gathers, and the redistributions
+torch's sharding propagation adds inside the op lowerings, each with the
+bytes it carries from this rank. The engine holds the static SPMD
+analysis (``analysis/spmd.py``) against that record.
 """
 
 import contextlib
@@ -24,6 +29,7 @@ import contextlib
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from paddle_tpu_torch import observability as obs
 from paddle_tpu_torch.parallel.mesh import axis_sizes
@@ -102,6 +108,53 @@ def gather(value):
     return value
 
 
+# torch's functional collectives (what DTensor issues), by the kind of
+# collective the record names them
+_FUNCOL_KINDS = {
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "broadcast": "broadcast",
+}
+
+
+def _operand_bytes(x):
+    if isinstance(x, torch.Tensor):
+        return 1, x.numel() * x.element_size()
+    if isinstance(x, (list, tuple)):
+        ts = [t for t in x if isinstance(t, torch.Tensor)]
+        return len(ts), sum(t.numel() * t.element_size() for t in ts)
+    return 1, 0
+
+
+class _CollectiveLog(TorchDispatchMode):
+    """Appends to ``log`` each functional collective issued under it, with
+    its operand's bytes on this rank (a DTensor op runs first, so the
+    collectives it desugars into are seen on plain tensors)."""
+
+    def __init__(self, log, source, var=None):
+        super().__init__()
+        self.log, self.source, self.var = log, source, var
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        kind = None
+        if not isinstance(func, torch._ops.HigherOrderOperator):
+            packet = func._overloadpacket
+            if getattr(packet, "_qualified_op_name", "").split("::")[0] in (
+                    "_c10d_functional", "c10d_functional"):
+                kind = _FUNCOL_KINDS.get(packet.__name__)
+        if kind is not None and args:
+            n, nbytes = _operand_bytes(args[0])
+            self.log.append({"kind": kind, "source": self.source,
+                             "var": self.var, "nbytes": int(nbytes),
+                             "n_operands": n})
+        return func(*args, **(kwargs or {}))
+
+
 class MeshPlan:
     """The placements of one cache entry's feeds, state and gradients over
     ``mesh``, and the ZeRO-1 plan (``zero``, training steps only)."""
@@ -155,6 +208,12 @@ class MeshPlan:
         # sharding propagation redistributing an input), counted on the
         # entry's first run: every later run repeats them
         self.unplanned = None
+        # every collective of the entry's first run, in order: {kind,
+        # source ('grad', 'redistribute', 'state', 'fetch'), var, nbytes
+        # (the operand's bytes on this rank), n_operands}; None until
+        # that run ends
+        self.record = None
+        self._log = None
         # state name -> the DTensor last placed for it (the engine reads
         # the scope's value again only when the scope holds another)
         self.placed = {}
@@ -186,6 +245,34 @@ class MeshPlan:
         """The callbacks of one run (``lower_block``'s ``hooks``)."""
         return _RunHooks(self)
 
+    # -- the first run's record --------------------------------------------
+    def begin_run(self):
+        """Start recording, on the entry's first run only."""
+        if self.record is None:
+            self._log = []
+
+    def logged(self, source, var=None):
+        """Around code that may issue collectives: records them while the
+        first run records, else nothing."""
+        if self._log is None:
+            return contextlib.nullcontext()
+        return _CollectiveLog(self._log, source, var)
+
+    def log(self, kind, source, nbytes, n_operands=1, var=None):
+        """Record a collective issued through ``torch.distributed``
+        directly (no functional collective for the log to see)."""
+        if self._log is not None:
+            self._log.append({"kind": kind, "source": source, "var": var,
+                              "nbytes": int(nbytes),
+                              "n_operands": int(n_operands)})
+
+    def end_run(self):
+        """Keep the first run's record; count its redistributions."""
+        if self._log is not None:
+            self.record, self._log = self._log, None
+            self.unplanned = sum(1 for c in self.record
+                                 if c["source"] == "redistribute")
+
 
 class _RunHooks:
     """Per-run state: the bucket of gradients waiting for their
@@ -195,21 +282,11 @@ class _RunHooks:
         self.plan = plan
         self.pending = []  # (name, partial DTensor, target placements)
         self.pending_bytes = 0
-        self.counted = 0 if plan.unplanned is None else None
 
-    @contextlib.contextmanager
     def op_scope(self):
-        """Around one op's lowering: on the entry's first run, count the
-        collectives it issues (``CommDebugMode``)."""
-        if self.counted is None:
-            yield
-            return
-        from torch.distributed.tensor.debug import CommDebugMode
-
-        mode = CommDebugMode()
-        with mode:
-            yield
-        self.counted += mode.get_total_counts()
+        """Around one op's lowering: on the entry's first run, record the
+        collectives torch's sharding propagation issues in it."""
+        return self.plan.logged("redistribute")
 
     def before(self, op, env):
         """Flush the bucket before an op that reads a gradient in it; take
@@ -245,12 +322,11 @@ class _RunHooks:
                 if self.pending_bytes >= plan.bucket_bytes:
                     self.flush(env)
                 continue
-            env[n], _ = place(val, plan.mesh, target)
+            with plan.logged("grad", n):
+                env[n], _ = place(val, plan.mesh, target)
 
     def finish(self, env):
         self.flush(env)
-        if self.counted is not None:
-            self.plan.unplanned = self.counted
 
     def _bucketable(self, val, target):
         d = self.plan.bucket_dim
@@ -280,6 +356,10 @@ class _RunHooks:
                           device=flat.device)
         dist.reduce_scatter_tensor(out, flat, op=dist.ReduceOp.SUM,
                                    group=mesh.get_group(d))
+        plan.log("reduce-scatter", "grad",
+                 flat.numel() * flat.element_size(),
+                 n_operands=len(self.pending),
+                 var=",".join(n for n, _, _ in self.pending))
         obs.inc("engine.grad_buckets")
         start = 0
         for (name, v, target), p in zip(self.pending, pieces):

@@ -33,8 +33,9 @@ class ParallelExecutor:
     * ``"mesh"`` — SPMD over an explicit ``mesh`` (or the
       ``PADDLE_GPU_MESH`` flag's) with ``shard_rules`` laying out
       parameters and optimizer state.
-    * ``"pserver"`` / ``"nccl2"`` — the transpiler's transports, not
-      ported (ROADMAP Queue 1 items 10b and 12): they raise.
+    * anything else (``"pserver"``, ``"nccl2"``) raises ``ValueError``,
+      as in the reference: those transports go through
+      ``DistributeTranspiler`` (``distributed/ps.py`` for pserver).
     """
 
     def __init__(self, use_cuda=True, loss_name=None, main_program=None,
@@ -45,15 +46,10 @@ class ParallelExecutor:
 
         if dist_strategy is None:
             dist_strategy = flags.get_flag("dist_strategy")
-        if dist_strategy in ("pserver", "nccl2"):
-            raise NotImplementedError(
-                "dist_strategy %r: the parameter-server and nccl2 "
-                "transports (DistributeTranspiler, distributed/ps.py) are "
-                "not ported yet (ROADMAP Queue 1 items 10b and 12); use "
-                "'', 'dp' or 'mesh'" % dist_strategy)
         if dist_strategy not in ("", "dp", "mesh"):
             raise ValueError(
-                "unknown dist_strategy %r; want '', 'dp', or 'mesh'"
+                "unknown dist_strategy %r; want '', 'dp', or 'mesh' "
+                "(pserver/nccl2 go through DistributeTranspiler)"
                 % dist_strategy)
         self._program = main_program or default_main_program()
         self._scope = scope or global_scope()

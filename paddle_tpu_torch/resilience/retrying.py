@@ -5,9 +5,9 @@ retries through the completion queue with FLAGS_rpc_deadline bounding
 the total wait). Port of ``paddle_tpu/resilience/retrying.py``, whole:
 every transient-failure loop routes through ``retry_call`` so backoff
 behaviour is one tested policy, not N hand-rolled sleep loops. In the
-port its user is the checkpoint background writer (checkpoint.py); the
-pserver client and the supervised launcher come with ROADMAP items 10b
-and 11.
+port its users are the checkpoint background writer (checkpoint.py)
+and the pserver client's connect (distributed/ps.py); the supervised
+launcher comes with ROADMAP item 11.
 
 Determinism: jitter comes from a ``random.Random(seed)`` stream owned
 by the ``Backoff`` instance, so a seeded schedule replays exactly (the

@@ -78,13 +78,14 @@ def test_empty_windows_are_profiled_again(fake_profiler, empty):
 
 def test_last_partial_window_then_empty_keeps_kernels(fake_profiler):
     # two windows with a count off, then an empty one: the empty one is
-    # profiled again, so the window returned still holds the kernel
+    # profiled again, so the window returned still holds the kernel (20
+    # calls a window, one launch each)
     odd = [_event("flash_fwd_kernel<bf16>", 20, 200.0),
            _event("elementwise_kernel", 38, 38.0)]
     good = [_event("flash_fwd_kernel<bf16>", 20, 200.0)]
     fake_profiler.windows = [odd, odd, [], good]
-    assert chip_smoke.device_ms(lambda: None, "flash_fwd", warmup=0) == \
-        pytest.approx(0.01)
+    assert chip_smoke.device_ms(lambda: None, "flash_fwd", n=20,
+                                warmup=0) == pytest.approx(0.01)
     assert chip_smoke.EVENT_TIMED == []
 
 

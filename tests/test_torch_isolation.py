@@ -408,6 +408,23 @@ import torch
 qkv = torch.ones(1, 2, 4, 8)
 assert parallel.ring_attention(qkv, qkv, qkv, mesh=mesh.make_mesh(
     {"sp": 1}, device_type="cpu"), causal=True).shape == (1, 2, 4, 8)
+# the SPMD analysis and the parameter-server path: the conv net analysed
+# over a dp=2 mesh (no devices) and transpiled for two pservers; the
+# wire's framing round trip
+from paddle_tpu_torch import distributed, transpiler
+from paddle_tpu_torch.analysis import spmd
+from paddle_tpu_torch.distributed import ps
+from paddle_tpu_torch.ops import distributed_ops
+rep = spmd.analyze_spmd(conv, mesh={"dp": 2}, feed_shapes={
+    "img": (2, 1, 8, 8), "label": (2, 1)}, fetch_names=[closs.name])
+assert rep.psum_count > 0 and "spmd over mesh" in rep.render()
+tr = fluid.DistributeTranspiler()
+tr.transpile(0, program=conv, pservers="127.0.0.1:1,127.0.0.1:2",
+             trainers=2, startup_program=conv_startup)
+assert any(op.type == "send"
+           for op in tr.get_trainer_program().desc.global_block().ops)
+assert ps._decode_msg(ps._encode_msg(("get", torch.ones(2)))
+                      )[1].tolist() == [1.0, 1.0]
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "paddle_tpu" or m.startswith("paddle_tpu."))
@@ -568,11 +585,12 @@ def test_server_without_cuda_raises(no_cuda):
 
 
 def test_unported_paths_raise():
-    """What the port still lacks raises, naming its ROADMAP item (the
-    parameter-server transport, item 10b); the INT8 switches, the AOT
-    export and levels 2 and 3, which raised before the opt-level ladder
-    and the INT8 path were ported, do not, nor does ``mesh=`` since the
-    mesh path was ported."""
+    """``ParallelExecutor`` refuses the transpiler's transports with the
+    reference's ``ValueError`` (pserver and nccl2 go through
+    ``DistributeTranspiler``, ported with the parameter server); the INT8
+    switches, the AOT export and levels 2 and 3, which raised before the
+    opt-level ladder and the INT8 path were ported, do not, nor does
+    ``mesh=`` since the mesh path was ported."""
     config = inference.AnalysisConfig("unused")
     config.enable_mkldnn()
     config.enable_tensorrt_engine()
@@ -581,7 +599,9 @@ def test_unported_paths_raise():
         fluid.io.save_inference_model("unused", [], [], None,
                                       export_format="stablehlo")
     exe = fluid.Executor(fluid.CPUPlace())
-    with pytest.raises(NotImplementedError, match="items 10b and 12"):
-        fluid.ParallelExecutor(use_cuda=False, dist_strategy="pserver")
+    for strategy in ("pserver", "nccl2"):
+        with pytest.raises(ValueError,
+                           match="go through DistributeTranspiler"):
+            fluid.ParallelExecutor(use_cuda=False, dist_strategy=strategy)
     for level in (2, 3):
         assert exe.run(fluid.Program(), opt_level=level) == []

@@ -263,10 +263,12 @@ def test_every_ported_lowering_has_a_case():
     test_torch_ops_sequence.py, among the misc family's in
     test_torch_ops_misc.py, among the detection and CTC families' in
     test_torch_ops_detection.py, among the quantization ops' in
-    test_torch_int8.py, or among the level-2 fuse's in
-    test_torch_transforms_level2.py."""
+    test_torch_int8.py, among the level-2 fuse's in
+    test_torch_transforms_level2.py, or among the parameter server's
+    in test_torch_distributed_ps.py."""
     from test_torch_control_flow import SLICE_OPS as CF_OPS
     from test_torch_ctr_models import SLICE_OPS as CTR_OPS
+    from test_torch_distributed_ps import SLICE_OPS as PS_OPS
     from test_torch_int8 import SLICE_OPS as INT8_OPS
     from test_torch_ops_book import SLICE_OPS as BOOK_OPS
     from test_torch_ops_dense import SLICE_OPS as DENSE_OPS
@@ -283,7 +285,7 @@ def test_every_ported_lowering_has_a_case():
     assert {c[1] for c in CASES} | (SLICE_OPS & registered) | TRAIN_OPS \
         | CTR_OPS | NMT_OPS | CF_OPS | RNN_OPS | BOOK_OPS | DENSE_OPS \
         | SEQUENCE_OPS | MISC_OPS | DETECTION_OPS | INT8_OPS | LEVEL2_OPS \
-        == registered - {"uniform_random"}
+        | PS_OPS == registered - {"uniform_random"}
 
 
 def test_uniform_random_draws_in_range_per_stream():

@@ -111,6 +111,10 @@ def world(tmp_path_factory):
             kind=kind, model_kw=kw, state=mlp_state, batches=mlp_batches,
             axes={"dp": WORLD},
             flag_values={"zero": True, "grad_bucket_mb": bucket}))
+    for name, zero in (("spmd", False), ("spmd_zero", True)):
+        cases[name] = ("spmd_case", dict(
+            kind=kind, model_kw=kw, state=mlp_state, batches=mlp_batches,
+            axes={"dp": WORLD}, flag_values={"zero": zero}))
     q, k, v, g = inp["ring"]
     cases["ring"] = ("ring_case", dict(q=q, k=k, v=v, g=g))
     sp_state, sp_feed = inp["sp"]
@@ -328,6 +332,36 @@ def test_zero1_matches_replicated_and_reference(world, case):
         # 0.01 MB buckets in backward order: fc_2's and fc_1's grads
         # (35 KB) fill one, fc_0's (402 KB) the next, each step
         assert buckets == 2 * len(batches)
+
+
+@pytest.mark.parametrize("case,kind", [("spmd", "all-reduce"),
+                                       ("spmd_zero", "reduce-scatter")])
+def test_spmd_prediction_delta_and_exact_param_grad_reductions(world, case,
+                                                               kind):
+    """Under ``spmd_predict`` (metrics and ``verify`` on) the entry's first
+    run emits ``spmd.prediction_delta`` once, with the gauges, and the
+    parameter-gradient reductions the mesh path issued equal the static
+    prediction's parameter-gradient psums exactly, var by var and byte by
+    byte: all-reduces of the replicated grads, or under ZeRO-1 the
+    reduce-scatters (operand = the whole grad on this rank)."""
+    _, out, _ = world
+    for r in range(WORLD):
+        got = out[r][case]
+        (delta,) = got["events"]["spmd.prediction_delta"]
+        assert len(got["events"]["spmd_plan"]) == 1
+        assert got["gauges"]["spmd.measured_psums"] == \
+            delta["psums_measured"]
+        assert got["gauges"]["spmd.predicted_psums"] == \
+            delta["psums_predicted"]
+        assert delta["bytes_delta"] == \
+            delta["bytes_measured"] - delta["bytes_predicted"]
+        assert delta["peak_bytes_predicted"] > 0
+        want = sorted((v, n) for k, v, n, phase in got["predicted"]
+                      if k == "psum" and phase == "backward")
+        grads = [c for c in got["record"] if c["source"] == "grad"]
+        assert {c["kind"] for c in grads} == {kind}
+        assert sorted((c["var"], c["nbytes"]) for c in grads) == want
+        assert len(want) == 6  # the MLP's three weights and biases
 
 
 @pytest.mark.parametrize("causal", [False, True])

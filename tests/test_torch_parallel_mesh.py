@@ -200,8 +200,12 @@ def test_zero1_plan_matches_reference(which, axes, rules):
 
 
 def test_dist_strategy_pserver_raises_naming_10b():
+    """Item 10b ported the transpiler's transports; ParallelExecutor
+    refuses them with the reference's ValueError, naming the
+    transpiler."""
     for strategy in ("pserver", "nccl2"):
-        with pytest.raises(NotImplementedError, match="items 10b and 12"):
+        with pytest.raises(ValueError,
+                           match="go through DistributeTranspiler"):
             fluid.ParallelExecutor(use_cuda=False, dist_strategy=strategy)
     with pytest.raises(ValueError, match="unknown dist_strategy"):
         fluid.ParallelExecutor(use_cuda=False, dist_strategy="ring")

@@ -258,3 +258,42 @@ def sp_program_case(rank, world, state, feed, fetch, mode, causal=True):
     finally:
         parallel.set_default_mesh(None)
     return [np.asarray(v) for v in vals]
+
+
+def spmd_case(rank, world, **kw):
+    """``_train`` under ``spmd_predict`` and ``verify`` with metrics on;
+    adds the ``spmd.prediction_delta`` events, the entry's predicted
+    collectives and the collectives its first run recorded."""
+    from paddle_tpu_torch import flags, observability as obs
+    from paddle_tpu_torch.engine import executor as engine
+
+    flags.set_flags({"metrics": True, "spmd_predict": True,
+                     "verify": True})
+    obs.reset()
+    entries = []
+    build = engine.Engine.get_compiled
+
+    def spy(self, *a, **k):
+        entry = build(self, *a, **k)
+        if entry not in entries:
+            entries.append(entry)
+        return entry
+
+    engine.Engine.get_compiled = spy
+    try:
+        res = _train(**kw)
+    finally:
+        engine.Engine.get_compiled = build
+        for k in ("metrics", "spmd_predict", "verify"):
+            flags.reset_flag(k)
+    res["events"] = {name: [dict(r.args or {}) for r in obs.spans()
+                            if r.name == name]
+                     for name in ("spmd.prediction_delta", "spmd_plan")}
+    res["gauges"] = {k: v for k, v in obs.snapshot()["gauges"].items()
+                     if k.startswith("spmd.")}
+    plan = entries[0].spmd_plan
+    res["predicted"] = [(c.kind, c.var, c.nbytes, c.phase)
+                        for c in plan.collectives]
+    res["record"] = list(entries[0].mesh_plan.record)
+    obs.reset()
+    return res
