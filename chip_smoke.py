@@ -472,6 +472,16 @@ card and prints one JSON line per phase:
    opt-level paths included, and its
    times at the Transformer's shapes (``nmt_t256``).
 
+49. opprof — run right after 11's training-step times: the captured
+   BERT-base step's op table through ``fluid.profiler``
+   (``phase_opprof``, OPPROF_TOL), the memory gauges, the pressure
+   event, the heartbeat's peak and the host cost of the ``opprof`` flag.
+
+The CPU sides of the optimizers, the LSTM's RNN-op comparison and the
+four op phases (their inputs, CPU outputs and vjp grads) are made by a
+thread (``CaseReferences``) from the start of the run, while the card's
+earlier phases run; each phase then runs only its card side.
+
 Served requests and dispatches run as captured CUDA graphs too: the first
 run of each shape (and each server bucket) is eager, the second captures
 it, later ones replay; ``serve_batched``'s ``warmup`` captures every
@@ -488,6 +498,7 @@ import functools
 import gc
 import json
 import os
+import queue
 import re
 import shutil
 import socket
@@ -495,6 +506,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -965,6 +977,15 @@ PSERVER_TOL = {"loss_rtol": 1e-4, "loss_atol": 1e-5, "table_rtol": 1e-4,
                "table_atol": 1e-6}
 
 
+# opprof: a profiled window of the captured BERT-base step holds this many
+# steps (the entry's tagged eager run, then replays joined to it); the
+# limits of the phase's checks; the eager steps whose ops are timed with
+# opprof on and off, each op half its calls each way (host_ms_by_flag)
+OPPROF_STEPS = 4
+OPPROF_TOL = {"attributed_frac": 0.95, "rows_vs_busy": 0.05,
+              "flash_rows": 0.15, "host_ms": 0.03, "live_peak": 0.10}
+OPPROF_HOST_TURNS = 8
+
 # profiler windows that dropped device activity and were run again: per
 # window, the calls and up to four kernels whose count was off (none: the
 # window held no device activity)
@@ -1027,20 +1048,24 @@ def ptxas_summary(log):
     return found
 
 
-def profiled(fn, calls=1):
+def profiled(fn, calls=1, host=False):
     """Run ``fn`` (``calls`` calls of some function, for the record) under
-    torch.profiler and return the profile; a window
-    with no device activity at all (``fn`` always launches kernels) is
-    profiled again, up to EMPTY_WINDOW_RETRIES times, and recorded in
-    PARTIAL_PROFILES. Returns the last window."""
+    torch.profiler and return the profile: the card's activity, and with
+    ``host`` the host's ops and ranges too (only ``window_ms`` reads
+    them; without them a window records, stops and aggregates several
+    times sooner). A window with no device activity at all (``fn``
+    always launches kernels) is profiled again, up to
+    EMPTY_WINDOW_RETRIES times, and recorded in PARTIAL_PROFILES.
+    Returns the last window."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    activities = ([ProfilerActivity.CPU] if host else []) + [
+        ProfilerActivity.CUDA]
     for _ in range(EMPTY_WINDOW_RETRIES + 1):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             fn()
             torch.cuda.synchronize()
         if any(e.device_type == DeviceType.CUDA for e in prof.events()):
@@ -1193,7 +1218,7 @@ def window_ms(calls, n=5, warmup=1, launches=None):
                 for _ in range(n):
                     fn()
 
-    prof = profiled(run, n * len(calls))
+    prof = profiled(run, n * len(calls), host=True)
     events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
     # {label: {kernel name: [launches, us]}}
     launched = {label: {} for label in labels}
@@ -2287,6 +2312,42 @@ def host_ms_by_kind(step, n=HOST_MS_STEPS):
             for k in sorted(totals)}
 
 
+def host_ms_by_flag(step, flag, turns):
+    """Host ms of ``turns`` calls of ``step()`` by ``run_op`` call (the
+    clock of ``host_ms_by_kind``, call by call), with the bool flag
+    ``flag`` set before each call: up for the even calls of even turns
+    and the odd calls of odd turns, down for the rest. So each op is
+    timed ``turns / 2`` times each way, in the same steps as the other
+    way, and whatever moves a whole step's host time moves both ways
+    alike. Returns {True: ms, False: ms}: each op's median, summed."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.engine import lowering
+
+    times = {True: {}, False: {}}
+    run_op = lowering.run_op
+    for turn in range(turns):
+        count = [0]
+
+        def timed(*args, **kwargs):
+            i = count[0]
+            count[0] += 1
+            up = (i + turn) % 2 == 0
+            flags.set_flags({flag: up})
+            t0 = time.perf_counter()
+            run_op(*args, **kwargs)
+            times[up].setdefault(i, []).append(
+                (time.perf_counter() - t0) * 1e3)
+
+        lowering.run_op = timed
+        try:
+            step()
+        finally:
+            lowering.run_op = run_op
+            flags.reset_flag(flag)
+    return {up: sum(statistics.median(t) for t in by_op.values())
+            for up, by_op in times.items()}
+
+
 def timed_runs(run, n=TIMED_RUNS, warmup=1):
     """Median, min and max wall ms of ``run()`` (host clock, after
     ``warmup`` runs; each run ends in its fetch's copy to the host)."""
@@ -2399,13 +2460,267 @@ def phase_times_train(fa, runs, main, loss, feed8):
                    "peaks": PEAKS, "plain": "attention_bwd_plain (dq, dk "
                    "and dv)", "library": "scaled_dot_product_attention "
                    "backward (dq, dk and dv)"}, **row))
+    steps = {}
     for label, (exe, scope, prog, prog_loss) in runs.items():
+        steps[label] = time_train_step(exe, scope, prog, prog_loss, feed8,
+                                       host=label == "eager")
         emit(dict({"phase": "times", "profile": "batch-8 training step",
                    "run": label, "model": "bert_base",
                    "seq_len": BERT["seq_len"], "tf32": False},
-                  **time_train_step(exe, scope, prog, prog_loss, feed8,
-                                    host=label == "eager")))
-    return rows["main_path"], rows["main_path_bf16"]
+                  **steps[label]))
+    return rows["main_path"], rows["main_path_bf16"], steps
+
+
+def phase_opprof(fa, main, state0, loss, eager, feed8, flash_ms, smi):
+    """Op-level profiling of the captured BERT-base training step through
+    ``fluid.profiler`` (``observability/opprof.py``): a fresh executor
+    from ``state0`` warms up and captures, then OPPROF_STEPS steps run in
+    a profiler session (``profiler.profile_steps``, which reruns a window
+    the profiler dropped activity from): the first eagerly under the op
+    ranges, the rest replays joined to it by kernel order. Checks: the
+    table's ``source`` is "cuda", at least OPPROF_TOL's share of device
+    time attributed, every registered op in the table, ``gate_issues``
+    empty; its rows within 5 % of the window's device busy time (the
+    profile's own events, read apart from the table); the flash kernels
+    all in the ``fused_attention``/``fused_attention_grad`` rows, their
+    ms there within 15 % of the ``times`` phase's device ms a launch in
+    the captured step (``flash_ms``) times their launches; losses bitwise
+    those of an executor from the same state with ``opprof`` off and no
+    profiler; the memory gauges (``hbm.live_bytes_peak`` within 10 % of
+    ``torch.cuda.max_memory_allocated``), one ``memory_pressure`` event
+    an excursion, a heartbeat's ``hbm_peak_bytes``; and the ``eager``
+    executor's host ms a step (``host_ms_by_flag`` over
+    OPPROF_HOST_TURNS steps: each op's median, summed) with ``opprof`` on
+    and no profiler within 3 % of off (CASE_REFERENCES held). Each
+    number stands beside ``smi``."""
+    import torch
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import flags, profiler
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.observability import health, memory, opprof
+
+    t0 = time.perf_counter()
+    trace_root = tempfile.mkdtemp(prefix="chip_smoke_opprof_")
+    flags.set_flags({"peak_flops": MFU_PEAKS["H100"]["float32"],
+                     "peak_membw_bytes": HBM_BYTES_PER_S,
+                     "trace_dir": os.path.join(trace_root, "trace")})
+    on, on_scope = state_executor(main, state0)
+    off, off_scope = state_executor(main, state0)
+
+    def run(exe, scope):
+        with fluid.scope_guard(scope):
+            (out,) = exe.run(main, feed=feed8, fetch_list=[loss])
+        return float(out.reshape(-1)[0])
+
+    parts = {}
+    losses = {"on": [run(on, on_scope), run(on, on_scope)]}
+    parts["warm_up_and_capture"] = time.perf_counter() - t0
+    opprof.reset()
+    memory.reset_peaks()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.launches_dq = fa.launches_dkv = 0  # the path starts
+    table, rejected = profiler.profile_steps(
+        lambda: losses["on"].append(run(on, on_scope)), OPPROF_STEPS,
+        profile_path=os.path.join(flags.get_flag("trace_dir"), "profile"))
+    launches = flash_launches(fa)  # ... and ends here
+    session = profiler.last_session()
+    parts["profiled_window"] = time.perf_counter() - t0 - sum(parts.values())
+    max_allocated = int(torch.cuda.max_memory_allocated())
+    live_peak = obs.registry.gauge_value("hbm.live_bytes_peak")
+    flags.set_flags({"opprof": False})
+    losses["off"] = [run(off, off_scope) for _ in losses["on"]]
+    flags.reset_flag("opprof")
+
+    # the window's device busy time, from the profile's own events: the
+    # union of its kernels, copies and fills (not the device-side spans
+    # the profiler draws for the host ranges, which cover idle time)
+    from torch.autograd import DeviceType
+
+    busy_ms = sum(b - a for a, b in _union([
+        (e.start_ns(), e.start_ns() + e.duration_ns())
+        for e in session["profile"].profiler.kineto_results.events()
+        if e.device_type() == DeviceType.CUDA
+        and not e.name().startswith(("pt.", "opprof."))])) / 1e6
+    rows_ms = sum(r["ms"] for r in table["ops"].values())
+    snap = opprof.registry_snapshot()
+    entry = [label for label, kind in snap["instr_kinds"].items()
+             if kind == "captured"]
+    missing = [t for label in entry for t in snap["instr_tags"][label]
+               if t not in table["ops"]]
+    # the flash kernels' rows, against the times phase's device ms a
+    # launch of each kernel in the captured training step (``flash_ms``;
+    # ``time_train_step``'s profile of that step); beside them, each
+    # kernel alone, called in a loop at this step's lengths and attention
+    # dropout, for the record (a kernel in the step runs with the step's
+    # clocks and caches, not the loop's)
+    q, k, v, g = attention_inputs(8, 12, 128, 128, 64, torch.float32, 99) \
+        + (torch.randn(8, 12, 128, 64, device="cuda"),)
+    lens_t = torch.as_tensor(feed8["seq_lens"].reshape(-1), device="cuda")
+    seed_t = torch.tensor(7, dtype=torch.int64, device="cuda")
+    rate = next(float(op.attrs.get("dropout_rate", 0.0))
+                for op in main.desc.global_block().ops
+                if op.type == "fused_attention")
+
+    def attention_step():
+        out, lse = fa.flash_forward_cuda(q, k, v, lens_t, seed=seed_t,
+                                         rate=rate)
+        fa.flash_backward_cuda(q, k, v, out, lse, g, None, lens_t,
+                               seed=seed_t, rate=rate)
+
+    by_name = device_kernels(attention_step, 10)
+    alone_ms = {name: sum(ms for key, ms in by_name.items()
+                          if name + "_kernel" in key)
+                for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    del q, k, v, g
+    events = session["events"]
+    flash = {}
+    for name, op_type in (("flash_fwd", "fused_attention"),
+                          ("flash_bwd_dq", "fused_attention_grad"),
+                          ("flash_bwd_dkv", "fused_attention_grad")):
+        mine = [(ms, tag) for n, ms, tag in events
+                if name + "_kernel" in n]
+        per_step = BERT["n_layers"]
+        flash[name] = {
+            # ms of each step's launches: the tagged eager run, then the
+            # replays (device_op_events lists the eager run first)
+            "ms_by_step": [sum(ms for ms, _ in mine[i:i + per_step])
+                           for i in range(0, len(mine), per_step)],
+            "launches": len(mine),
+            "in_rows": sum(opprof.tag_op_type(t) == op_type
+                           for _, t in mine),
+            "ms": sum(ms for ms, _ in mine),
+            "times_ms_x_launches": flash_ms[name] * len(mine),
+            "alone_ms_x_launches": alone_ms[name] * len(mine)}
+    attn_rows = {op: {"rows": sum(r["op_type"] == op
+                                  for r in table["ops"].values()),
+                      "ms": sum(r["ms"] for r in table["ops"].values()
+                                if r["op_type"] == op),
+                      "launches": sum(r["events"] for r in
+                                      table["ops"].values()
+                                      if r["op_type"] == op)}
+                 for op in ("fused_attention", "fused_attention_grad")}
+
+    parts["off_steps_and_reads"] = (time.perf_counter() - t0
+                                    - sum(parts.values()))
+    # memory: one pressure event an excursion, then the heartbeat
+    flags.set_flags({"metrics": True})
+    limit = memory.device_memory_limit()
+    low = 0.5 * torch.cuda.memory_allocated() / limit
+    events_before = obs.counter_value("memory.pressure_events")
+    for frac in (low, low, 0.99, low):
+        flags.set_flags({"memory_pressure_frac": frac})
+        run(on, on_scope)
+    pressure = obs.counter_value("memory.pressure_events") - events_before
+    flags.reset_flag("memory_pressure_frac")
+    flags.reset_flag("metrics")
+    beat = health.HeartbeatEmitter(interval_ms=1000.0).emit_now()
+
+    # the eager step's host ms, opprof on (no session) and off, in turns
+    exe_e, scope_e = eager
+    gc.collect()
+    gc.disable()  # no collection inside a timed step
+    held = (CASE_REFERENCES.held() if CASE_REFERENCES is not None
+            else contextlib.nullcontext())
+    try:
+        with held, fluid.scope_guard(scope_e):
+            exe_e.run(main, feed=feed8, fetch_list=[loss])  # a warm-up
+            by_flag = host_ms_by_flag(lambda: exe_e.run(
+                main, feed=feed8, fetch_list=[loss]), "opprof",
+                OPPROF_HOST_TURNS)
+    finally:
+        gc.enable()
+    parts["memory_and_host_turns"] = (time.perf_counter() - t0
+                                      - sum(parts.values()))
+    host_ms = {"on": by_flag[True], "off": by_flag[False]}
+    host_ratio = host_ms["on"] / host_ms["off"]
+    for name in ("peak_flops", "peak_membw_bytes", "trace_dir"):
+        flags.reset_flag(name)
+    shutil.rmtree(trace_root, ignore_errors=True)
+
+    by_type = {}
+    for row in table["ops"].values():
+        t = by_type.setdefault(row["op_type"],
+                               {"ms": 0.0, "launches": 0, "rows": 0})
+        t["ms"] += row["ms"]
+        t["launches"] += row["events"]
+        t["rows"] += 1
+    by_type = dict(sorted(by_type.items(), key=lambda kv: -kv[1]["ms"])[:12])
+    top = [{"tag": tag, "op": row["op_type"], "ms": row["ms"],
+            "launches": row["events"], "flops": row["flops"],
+            "bytes": row["bytes"], "intensity": row["intensity"],
+            "verdict": row["verdict"]}
+           for tag, row in opprof.top_rows(table, 15)]
+    emit({"phase": "opprof", "card": smi, "model": "bert_base",
+          "batch": 8, "seq_len": BERT["seq_len"], "captured": True,
+          "steps_a_window": OPPROF_STEPS, "rejected_windows": rejected,
+          "peaks": {"flops": MFU_PEAKS["H100"]["float32"],
+                    "membw_bytes": HBM_BYTES_PER_S},
+          "top": top, "by_op_type": by_type,
+          "ops_in_table": len(table["ops"]),
+          "ops_with_device_time": sum(r["ms"] > 0
+                                      for r in table["ops"].values()),
+          "source": table["source"], "join": table["join"],
+          "attributed_frac": table["attributed_frac"],
+          "unattributed_ms": table["unattributed_ms"],
+          "total_ms": table["total_ms"], "rows_ms": rows_ms,
+          "busy_ms": busy_ms, "gate_issues": opprof.gate_issues(table),
+          "attention_rows": attn_rows, "flash_in_rows": flash,
+          "flash_launches": launches,
+          "flash_ms_a_launch": {"times_captured_step": flash_ms,
+                                "alone": alone_ms},
+          "attention_dropout": rate,
+          "losses": losses,
+          "memory": {"hbm.live_bytes_peak": live_peak,
+                     "max_memory_allocated": max_allocated,
+                     "pressure_events": pressure,
+                     "heartbeat_hbm_peak_bytes": beat.get(
+                         "hbm_peak_bytes"),
+                     "peak_hbm_bytes": memory.peak_hbm_bytes()},
+          "host_ms": {"opprof_on": host_ms["on"],
+                      "opprof_off": host_ms["off"],
+                      "on_over_off": host_ratio,
+                      "steps": OPPROF_HOST_TURNS},
+          "tol": OPPROF_TOL, "seconds": time.perf_counter() - t0,
+          "seconds_by_part": parts})
+    check(table["source"] == "cuda", "opprof source %r, join %s"
+          % (table["source"], table["join"]))
+    check(table["attributed_frac"] >= OPPROF_TOL["attributed_frac"],
+          "opprof attributed %.4f" % table["attributed_frac"])
+    check(entry and not missing, "opprof: no captured entry, or ops "
+          "missing from the table: %s" % missing[:5])
+    check(not opprof.gate_issues(table), "opprof gate: %s"
+          % opprof.gate_issues(table))
+    check(abs(rows_ms - busy_ms) <= OPPROF_TOL["rows_vs_busy"] * busy_ms,
+          "opprof rows %.3f ms against %.3f ms busy" % (rows_ms, busy_ms))
+    for name, f in flash.items():
+        check(f["launches"] and f["in_rows"] == f["launches"],
+              "%s: %d launches, %d in their op's rows"
+              % (name, f["launches"], f["in_rows"]))
+        check(abs(f["ms"] - f["times_ms_x_launches"])
+              <= OPPROF_TOL["flash_rows"] * f["times_ms_x_launches"],
+              "%s: %.4f ms in the rows against %.4f ms from times"
+              % (name, f["ms"], f["times_ms_x_launches"]))
+    windows = OPPROF_STEPS * (1 + len(rejected))
+    check(launches == dict.fromkeys(launches, windows * BERT["n_layers"]),
+          "opprof: flash launches %s in %d profiled steps" % (launches,
+                                                             windows))
+    check(losses["on"] == losses["off"], "opprof changed the losses: %s"
+          % losses)
+    check(live_peak and abs(live_peak - max_allocated)
+          <= OPPROF_TOL["live_peak"] * max_allocated,
+          "hbm.live_bytes_peak %s against max_memory_allocated %d"
+          % (live_peak, max_allocated))
+    check(pressure == 2, "%d memory_pressure events for 2 excursions"
+          % pressure)
+    check(beat.get("hbm_peak_bytes") == memory.peak_hbm_bytes() > 0,
+          "heartbeat hbm_peak_bytes %s" % beat.get("hbm_peak_bytes"))
+    check(host_ratio <= 1.0 + OPPROF_TOL["host_ms"],
+          "eager host ms with opprof on %.2f over off %.2f: %.4f"
+          % (host_ms["on"], host_ms["off"], host_ratio))
+    del on, off, on_scope, off_scope
+    release_memory()
+    return launches
 
 
 # -- unfused attention, fused back at opt_level 1 ---------------------------
@@ -3969,7 +4284,10 @@ def optimizer_operands(op_type, shape, seed):
     """The operands of one optimizer update at ``shape`` (float32 CPU
     tensors from ``seed``), as the op's slots take them: weights of a few
     hundredths, grads of a hundredth, accumulators as some steps of such
-    grads leave them (FTRL's squared sum about ten grads' squares)."""
+    grads leave them (FTRL's squared sum about ten grads' squares). The
+    ops' operands are drawn from one stream in OPTIMIZER_OPS' order; the
+    ops after ``op_type`` draw nothing, which leaves its values as they
+    are when every op draws."""
     import torch
 
     gen = torch.Generator().manual_seed(seed)
@@ -3981,42 +4299,70 @@ def optimizer_operands(op_type, shape, seed):
     one = lambda v: torch.tensor([v], dtype=torch.float32)  # noqa: E731
     lr = one(0.01)
     p, g = f(scale=0.05), f(scale=0.01)
-    return {
-        "lars_momentum": ({"Param": p, "Grad": g, "Velocity": f(scale=0.01),
-                           "LearningRate": lr},
-                          {"mu": 0.9, "lars_coeff": 0.001,
-                           "lars_weight_decay": 0.0005}),
-        "adamax": ({"Param": p, "Grad": g, "Moment": f(scale=0.01),
-                    "InfNorm": f(low=0.01, scale=0.01), "LearningRate": lr,
-                    "Beta1Pow": one(0.81)},
-                   {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}),
-        "adagrad": ({"Param": p, "Grad": g, "Moment": f(low=0.0, scale=0.01),
-                     "LearningRate": lr}, {"epsilon": 1e-6}),
-        "decayed_adagrad": ({"Param": p, "Grad": g,
-                             "Moment": f(low=0.0, scale=0.01),
-                             "LearningRate": lr},
-                            {"decay": 0.95, "epsilon": 1e-6}),
-        "adadelta": ({"Param": p, "Grad": g,
-                      "AvgSquaredGrad": f(low=0.0, scale=0.01),
-                      "AvgSquaredUpdate": f(low=0.0, scale=0.01)},
-                     {"rho": 0.95, "epsilon": 1e-6}),
-        "rmsprop": ({"Param": p, "Grad": g, "Moment": f(scale=0.01),
-                     "MeanSquare": f(low=1e-3, scale=0.01),
-                     "MeanGrad": f(scale=0.001), "LearningRate": lr},
-                    {"decay": 0.95, "epsilon": 1e-6, "momentum": 0.9,
-                     "centered": True}),
-        "ftrl": ({"Param": p, "Grad": g,
-                  "SquaredAccumulator": 10.0 * g * g + f(low=1e-6,
-                                                         scale=1e-5),
-                  "LinearAccumulator": f(scale=0.01), "LearningRate": lr},
-                 {"l1": 0.001, "l2": 0.001, "lr_power": -0.5}),
-        "model_average_accum": ({"Param": p, "Sum": f(), "Cnt": one(5.0),
-                                 "OldSum": f(), "OldCnt": one(10.0),
-                                 "Total": one(30.0)},
-                                {"average_window_rate": 0.15,
-                                 "min_average_window": 6,
-                                 "max_average_window": 20}),
-    }[op_type]
+    ops = {
+        "lars_momentum": lambda: (
+            {"Param": p, "Grad": g, "Velocity": f(scale=0.01),
+             "LearningRate": lr},
+            {"mu": 0.9, "lars_coeff": 0.001, "lars_weight_decay": 0.0005}),
+        "adamax": lambda: (
+            {"Param": p, "Grad": g, "Moment": f(scale=0.01),
+             "InfNorm": f(low=0.01, scale=0.01), "LearningRate": lr,
+             "Beta1Pow": one(0.81)},
+            {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}),
+        "adagrad": lambda: (
+            {"Param": p, "Grad": g, "Moment": f(low=0.0, scale=0.01),
+             "LearningRate": lr}, {"epsilon": 1e-6}),
+        "decayed_adagrad": lambda: (
+            {"Param": p, "Grad": g, "Moment": f(low=0.0, scale=0.01),
+             "LearningRate": lr}, {"decay": 0.95, "epsilon": 1e-6}),
+        "adadelta": lambda: (
+            {"Param": p, "Grad": g,
+             "AvgSquaredGrad": f(low=0.0, scale=0.01),
+             "AvgSquaredUpdate": f(low=0.0, scale=0.01)},
+            {"rho": 0.95, "epsilon": 1e-6}),
+        "rmsprop": lambda: (
+            {"Param": p, "Grad": g, "Moment": f(scale=0.01),
+             "MeanSquare": f(low=1e-3, scale=0.01),
+             "MeanGrad": f(scale=0.001), "LearningRate": lr},
+            {"decay": 0.95, "epsilon": 1e-6, "momentum": 0.9,
+             "centered": True}),
+        "ftrl": lambda: (
+            {"Param": p, "Grad": g,
+             "SquaredAccumulator": 10.0 * g * g + f(low=1e-6, scale=1e-5),
+             "LinearAccumulator": f(scale=0.01), "LearningRate": lr},
+            {"l1": 0.001, "l2": 0.001, "lr_power": -0.5}),
+        "model_average_accum": lambda: (
+            {"Param": p, "Sum": f(), "Cnt": one(5.0), "OldSum": f(),
+             "OldCnt": one(10.0), "Total": one(30.0)},
+            {"average_window_rate": 0.15, "min_average_window": 6,
+             "max_average_window": 20}),
+    }
+    for name, draw in ops.items():
+        operands = draw()
+        if name == op_type:
+            return operands
+    raise KeyError(op_type)
+
+
+def optimizer_cases():
+    """(op type, shape, seed) of each update the optimizers phase holds
+    on the card against the CPU: every op of OPTIMIZER_OPS at BERT-base's
+    word embedding and an FFN weight."""
+    return [(op_type, shape, 80 + i)
+            for i, op_type in enumerate(OPTIMIZER_OPS)
+            for shape in ((BERT["vocab_size"], BERT["d_model"]),
+                          (BERT["d_model"], BERT["d_inner"]))]
+
+
+def prepare_optimizer_case(k, case):
+    """The CPU side of one optimizers case: its operands
+    (``optimizer_operands``) and the update's CPU outputs."""
+    op_type, shape, seed = case
+    ins, attrs = optimizer_operands(op_type, shape, seed)
+    got = lower_op(op_type, {s: [v.to("cpu")] for s, v in ins.items()},
+                   attrs, "cpu")
+    return {"key": (op_type, shape), "ins": ins, "attrs": attrs,
+            "cpu": {s: v[0].cpu() for s, v in got.items()}}
 
 
 def phase_optimizers(smi):
@@ -4031,25 +4377,24 @@ def phase_optimizers(smi):
     from paddle_tpu_torch import unique_name
 
     worst = {}
-    for i, op_type in enumerate(OPTIMIZER_OPS):
-        for shape in ((BERT["vocab_size"], BERT["d_model"]),
-                      (BERT["d_model"], BERT["d_inner"])):
-            ins, attrs = optimizer_operands(op_type, shape, 80 + i)
-            outs = {}
-            for device in ("cpu", "cuda"):
-                got = lower_op(op_type, {s: [v.to(device)]
-                                         for s, v in ins.items()},
-                               attrs, device)
-                outs[device] = {s: v[0].cpu() for s, v in got.items()}
-            errs = {}
-            for slot, want in outs["cpu"].items():
-                err = float((outs["cuda"][slot] - want).abs().max())
-                scale = float(want.abs().max())
-                errs[slot] = err / scale if scale else err
-                check(err <= OPT_TOL * scale, "%s %s on the card: %s off "
-                      "by %g (max |want| %g)" % (op_type, shape, slot, err,
-                                                 scale))
-            worst["%s %dx%d" % ((op_type,) + shape)] = max(errs.values())
+    cases = optimizer_cases()
+    for (op_type, shape, _), prep in zip(cases, prepared(
+            "optimizers", [c[:2] for c in cases], cases,
+            prepare_optimizer_case)):
+        got = lower_op(op_type, {s: [v.to("cuda")]
+                                 for s, v in prep["ins"].items()},
+                       prep["attrs"], "cuda")
+        card = {s: v[0].cpu() for s, v in got.items()}
+        errs = {}
+        for slot, want in prep["cpu"].items():
+            err = float((card[slot] - want).abs().max())
+            scale = float(want.abs().max())
+            errs[slot] = err / scale if scale else err
+            check(err <= OPT_TOL * scale, "%s %s on the card: %s off "
+                  "by %g (max |want| %g)" % (op_type, shape, slot, err,
+                                             scale))
+        worst["%s %dx%d" % ((op_type,) + shape)] = max(errs.values())
+        del got, card, prep
 
     # ModelAverage beside SGD on a small MLP, captured on the card
     main, startup = fluid.Program(), fluid.Program()
@@ -4920,17 +5265,9 @@ def recurrent_op_ms(exe, scope, main, loss, feed):
     return totals
 
 
-def rnn_op_case(op_type, attrs, gates, seed):
-    """``op_type`` at the classifier's width ([B, T, gates * H], ragged
-    lengths) on the card and on the CPU from the same operands: the
-    outputs and every input's grad (``torch.func.vjp``, the engine's
-    generic grad, with the same cotangents); returns the worst difference
-    of each, relative to its largest element, and the card's ms."""
-    import torch
-
-    from paddle_tpu_torch.core.desc import OpDesc
-    from paddle_tpu_torch.core.registry import LowerContext, OpRegistry
-
+def _rnn_operands(op_type, attrs, gates, seed):
+    """The operands of an ``rnn_op_case`` at the classifier's width, from
+    ``seed``: (inputs, lengths, cotangents, output slots)."""
     B, T, H = LSTM["batch_size"], LSTM["seq_len"], LSTM["hidden_dim"]
     rng = np.random.RandomState(seed)
     n_bias = 7 * H if attrs.get("use_peepholes") else gates * H
@@ -4942,44 +5279,70 @@ def rnn_op_case(op_type, attrs, gates, seed):
     lens[0] = T
     outs = ("Hidden", "Cell") if op_type == "dynamic_lstm" else ("Hidden",)
     cots = [rng.randn(B, T, H).astype(np.float32) for _ in outs]
-    op = OpDesc(op_type, {}, {}, attrs)
+    return ins, lens, cots, outs
+
+
+def _rnn_run(op_type, attrs, operands, device, rows=None):
+    """The op and every input's grad (``torch.func.vjp``, the engine's
+    generic grad) on ``device`` for the first ``rows`` sequences (H0 and
+    the per-sequence operands cut alike; Weight and Bias whole): the
+    outputs, then the grads, on the host."""
+    import torch
+
+    from paddle_tpu_torch.core.desc import OpDesc
+    from paddle_tpu_torch.core.registry import LowerContext, OpRegistry
+
+    ins, lens, cots, outs = operands
+    rows = len(lens) if rows is None else rows
     info = OpRegistry.get(op_type)
     slots = sorted(ins)
+    ctx = LowerContext(OpDesc(op_type, {}, {}, attrs), None, device)
+    extra = {"SeqLen": [torch.from_numpy(lens[:rows]).to(device)]}
 
-    def run(device, rows=B):
-        # the first ``rows`` sequences (H0 and the per-sequence operands
-        # cut alike; Weight and Bias whole)
-        ctx = LowerContext(op, None, device)
-        extra = {"SeqLen": [torch.from_numpy(lens[:rows]).to(device)]}
+    def fwd(*prims):
+        fin = dict(extra, **{s: [p] for s, p in zip(slots, prims)})
+        out = info.lower(ctx, fin, attrs)
+        return tuple(out[s][0] for s in outs)
 
-        def fwd(*prims):
-            fin = dict(extra, **{s: [p] for s, p in zip(slots, prims)})
-            out = info.lower(ctx, fin, attrs)
-            return tuple(out[s][0] for s in outs)
+    prims = [torch.from_numpy(ins[s][:rows] if s in ("Input", "H0")
+                              else ins[s]).to(device) for s in slots]
+    got, vjp = torch.func.vjp(fwd, *prims)
+    grads = vjp(tuple(torch.from_numpy(c[:rows]).to(device) for c in cots))
+    return [t.cpu() for t in got + grads]
 
-        prims = [torch.from_numpy(ins[s][:rows] if s in ("Input", "H0")
-                                  else ins[s]).to(device) for s in slots]
-        got, vjp = torch.func.vjp(fwd, *prims)
-        grads = vjp(tuple(torch.from_numpy(c[:rows]).to(device)
-                          for c in cots))
-        return [t.cpu() for t in got + grads]
 
-    # the card against the CPU on RNN_OP_CPU_ROWS of the batch's
-    # sequences (the CPU's recurrence is the phase's long pole); the card
-    # is timed on the whole batch below
-    card = run("cuda", RNN_OP_CPU_ROWS)
-    cpu = run("cpu", RNN_OP_CPU_ROWS)
-    names = list(outs) + [s + "@GRAD" for s in slots]
+def prepare_rnn_case(k, case):
+    """The CPU side of RNN_OP_CASES' case ``k``: its operands and the CPU
+    run on RNN_OP_CPU_ROWS of the batch's sequences (the CPU's recurrence
+    is the comparison's long pole)."""
+    op_type, attrs, gates = case
+    operands = _rnn_operands(op_type, attrs, gates, 80 + k)
+    return {"key": (op_type, tuple(sorted(attrs.items()))),
+            "operands": operands,
+            "cpu": _rnn_run(op_type, attrs, operands, "cpu",
+                            RNN_OP_CPU_ROWS)}
+
+
+def rnn_op_case(op_type, attrs, prep):
+    """``op_type`` at the classifier's width ([B, T, gates * H], ragged
+    lengths) on the card against the CPU from the same operands
+    (``prep``, from ``prepare_rnn_case``): the outputs and every input's
+    grad with the same cotangents, on RNN_OP_CPU_ROWS of the sequences;
+    returns the worst difference of each, relative to its largest
+    element, the card's ms on the whole batch, and the compared steps."""
+    operands = prep["operands"]
+    card = _rnn_run(op_type, attrs, operands, "cuda", RNN_OP_CPU_ROWS)
+    names = list(operands[3]) + [s + "@GRAD" for s in sorted(operands[0])]
     worst = {}
-    for n, a, b in zip(names, card, cpu):
+    for n, a, b in zip(names, card, prep["cpu"]):
         peak = float(b.abs().max())
         worst[n] = float((a - b).abs().max()) / (peak or 1.0)
 
     def on_card():
-        run("cuda")
+        _rnn_run(op_type, attrs, operands, "cuda")
 
     ms = timed_runs(on_card, n=1, warmup=1)["median_ms"]
-    return worst, ms, int(lens[:RNN_OP_CPU_ROWS].sum())
+    return worst, ms, int(operands[1][:RNN_OP_CPU_ROWS].sum())
 
 
 def while_array_program():
@@ -5292,8 +5655,11 @@ def phase_lstm(fa, smi):
 
     # dynamic_lstm and dynamic_gru against the CPU
     cases = []
-    for i, (op_type, attrs, gates) in enumerate(RNN_OP_CASES):
-        worst, ms, valid = rnn_op_case(op_type, attrs, gates, 80 + i)
+    for (op_type, attrs, gates), prep in zip(RNN_OP_CASES, prepared(
+            "lstm_rnn_ops", [(t, tuple(sorted(a.items())))
+                             for t, a, _ in RNN_OP_CASES],
+            RNN_OP_CASES, prepare_rnn_case)):
+        worst, ms, valid = rnn_op_case(op_type, attrs, prep)
         cases.append({"op": op_type, "attrs": attrs,
                       "shape": [LSTM["batch_size"], LSTM["seq_len"],
                                 gates * LSTM["hidden_dim"]],
@@ -5694,6 +6060,170 @@ def dense_errors(cpu, primals, out, grads):
     return errs, off
 
 
+def _on(device, v):
+    """A case's input (a numpy array, a torch tensor, or a tensor array of
+    them) on ``device``; on the CPU a tensor that shares the array's
+    memory."""
+    import torch
+
+    if isinstance(v, dict):  # a tensor array
+        return {k: torch.as_tensor(a, device=device) for k, a in v.items()}
+    return torch.as_tensor(v, device=device)
+
+
+def _own_copy(v):
+    """A CPU tensor (or tensor array) of ``v`` in memory of its own."""
+    import torch
+
+    if isinstance(v, dict):
+        return {k: _own_copy(a) for k, a in v.items()}
+    return torch.as_tensor(v).clone()
+
+
+def prepare_case(k, case):
+    """The CPU side of case ``k`` of an op phase (``phase_op_cases``):
+    its inputs from RandomState(500 + k) (``full``; ``host``, cut to the
+    OP_CPU_ROWS rows it is compared on), the lowering's CPU outputs and,
+    for an op with a grad, the vjp grads on the cotangents from
+    RandomState(900 + k) (shaped as the float outputs), on copies of the
+    inputs (the card's operands stay as made)."""
+    import torch
+
+    name, op_type, make, attrs = case
+    full = make(np.random.RandomState(500 + k))
+    cut = OP_CPU_ROWS.get(name, {})
+    host = {s: [a[:cut[s]] for a in v] if s in cut else v
+            for s, v in full.items()}
+    ins = {s: [_own_copy(a) for a in v] for s, v in host.items()}
+    out = lower_op(op_type, ins, attrs, "cpu")
+    cpu = {"out": {s: [v.cpu() for v in vs] for s, vs in out.items()}}
+    floats = [v for s in sorted(cpu["out"]) for v in cpu["out"][s]
+              if v.is_floating_point()]
+    crng = np.random.RandomState(900 + k)
+    cots = [torch.as_tensor(np.asarray(crng.randn(*v.shape),
+                                       np.float32)).to(v.dtype)
+            for v in floats]
+    primals = grad_primals(op_type, ins)
+    if primals:
+        cpu["grads"] = [g.cpu() for g in op_vjp(op_type, ins, attrs, "cpu",
+                                                 cots)]
+    return {"key": (name, op_type), "full": full, "host": host,
+            "cut": cut, "cpu": cpu, "cots": cots, "primals": primals}
+
+
+class CaseReferences(threading.Thread):
+    """The CPU sides of cases that phases compare the card against, made
+    on a thread of their own while the card's earlier phases run:
+    ``phases`` is [(phase, a function of a directory giving its cases,
+    the function of (index, case) that prepares one: a dict with its
+    ``key``)], made in that order (the misc cases write their files into
+    a directory the thread keeps). Torch's CPU ops and numpy's draws run
+    outside Python's lock, so the thread takes little from the card's
+    phases; the phase itself then runs only the card's side.
+    ``take(phase, keys)`` yields the prepared cases in order (their keys
+    checked against ``keys``), blocking until each is ready, and raises
+    what the thread raised."""
+
+    def __init__(self, phases):
+        super().__init__(name="chip_smoke_case_references", daemon=True)
+        self.phases = phases
+        self.ready = {phase: queue.Queue() for phase, _, _ in phases}
+        self.tmpdir = tempfile.mkdtemp(prefix="chip_smoke_cases_")
+        self.seconds = {}
+        # held(): the thread waits between cases while ``_go`` is clear,
+        # and sets ``_idle`` while it waits (or when it is done)
+        self._go = threading.Event()
+        self._go.set()
+        self._idle = threading.Event()
+        self._stopped = False
+
+    def stop(self, timeout=120.0):
+        """Prepare no more cases, and wait for the thread to end."""
+        self._stopped = True
+        self._go.set()
+        self.join(timeout)
+
+    @contextlib.contextmanager
+    def held(self, timeout=10.0):
+        """Within the block the thread prepares no case (it finishes the
+        one it is on first, waited for up to ``timeout`` s): for host
+        times that nothing else on the CPU should move."""
+        self._go.clear()
+        try:
+            if self.is_alive():
+                self._idle.wait(timeout)
+            yield
+        finally:
+            self._go.set()
+
+    def _wait_go(self):
+        if not self._go.is_set():
+            self._idle.set()
+            self._go.wait()
+            self._idle.clear()
+
+    def run(self):
+        # the scheduler's lowest priority for the thread, where it takes
+        # one: the card's phases keep the CPU they use. (Its torch ops
+        # keep the default threads: a CPU reference's float sums then add
+        # in the order they did when the phases made them; on two threads
+        # conv3d's filter grad came out 2.7e-5 of max off the card's.)
+        try:
+            os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), 19)
+        except (AttributeError, OSError):
+            pass
+        try:
+            for phase, make_cases, prepare in self.phases:
+                t0 = time.perf_counter()
+                q = self.ready[phase]
+                try:
+                    for k, case in enumerate(make_cases(self.tmpdir)):
+                        self._wait_go()
+                        if self._stopped:
+                            return
+                        q.put(("case", prepare(k, case)))
+                except BaseException as e:  # noqa: BLE001 (re-raised)
+                    q.put(("error", e))
+                self.seconds[phase] = time.perf_counter() - t0
+        finally:
+            self._idle.set()
+            shutil.rmtree(self.tmpdir, ignore_errors=True)
+
+    def take(self, phase, keys):
+        q = self.ready[phase]
+        for key in keys:
+            kind, got = q.get()
+            if kind == "error":
+                raise got
+            check(got["key"] == key, "%s: prepared case %s, want %s" % (
+                phase, got["key"], key))
+            yield got
+
+
+def prepared(phase, keys, cases, prepare):
+    """The prepared cases of ``phase`` in order: CASE_REFERENCES' when it
+    prepares the phase, else each made here."""
+    refs = CASE_REFERENCES
+    if refs is not None and phase in refs.ready:
+        return refs.take(phase, keys)
+    return (prepare(k, case) for k, case in enumerate(cases))
+
+
+# the running CaseReferences (main starts it), or None: each phase then
+# prepares its cases itself; the phases it prepares, in the order the
+# script reaches them
+CASE_REFERENCES = None
+CASE_PHASES = (
+    ("optimizers", lambda tmpdir: optimizer_cases(),
+     prepare_optimizer_case),
+    ("lstm_rnn_ops", lambda tmpdir: RNN_OP_CASES, prepare_rnn_case),
+    ("dense_ops", lambda tmpdir: dense_cases(), prepare_case),
+    ("sequence_ops", lambda tmpdir: sequence_cases(), prepare_case),
+    ("misc_ops", lambda tmpdir: misc_cases(tmpdir), prepare_case),
+    ("detection_ops", lambda tmpdir: detection_cases(), prepare_case),
+)
+
+
 def phase_op_cases(fa, smi, phase, cases, twice, witness=None, rows=None,
                    window_n=1):
     """Each case of ``cases`` ((name, op type, a function of a
@@ -5706,49 +6236,40 @@ def phase_op_cases(fa, smi, phase, cases, twice, witness=None, rows=None,
     their errors and ms printed; device ms of the forward and of the
     vjp, every case's in one profiler window (``window_ms``, ``window_n``
     calls each), with their kernel launches a call, the card operands kept until it (the
-    OP_CPU_ROWS cases compare on their first rows, timed whole). Emits
+    OP_CPU_ROWS cases compare on their first rows, timed whole). The
+    CPU side of each case (``prepare_case``) comes from CASE_REFERENCES,
+    which made it beside the earlier phases, or is made here. Emits
     ``phase``'s row (its case rows also appended to ``rows``) and
     returns its flash launches (none)."""
     import torch
 
     import paddle_tpu_torch.fluid as fluid
 
-    def on(device, v):
-        if isinstance(v, dict):  # a tensor array
-            return {k: torch.as_tensor(a, device=device)
-                    for k, a in v.items()}
-        return torch.as_tensor(v, device=device)
-
+    on = _on
     fluid.Executor(fluid.CUDAPlace(0))  # cuDNN's deterministic algorithms
     fa.launches = fa.launches_dq = fa.launches_dkv = 0  # the path starts
     rows = [] if rows is None else rows
     failed, timed, witnessed = [], [], []
-    for k, (name, op_type, make, attrs) in enumerate(cases):
-        full = make(np.random.RandomState(500 + k))
-        cut = OP_CPU_ROWS.get(name, {})
+    ready = prepared(phase, [(c[0], c[1]) for c in cases], cases,
+                     prepare_case)
+    for k, ((name, op_type, _, attrs), prep) in enumerate(
+            zip(cases, ready)):
+        full, cut, host = prep["full"], prep["cut"], prep["host"]
         check(not (cut and (witness or {}).get(op_type)),
               "%s: a witness compares at the compared rows" % name)
-        host = {s: [a[:cut[s]] for a in v] if s in cut else v
-                for s, v in full.items()}
-        runs = {}
-        for device in ("cuda", "cpu"):
-            ins = {s: [on(device, a) for a in v] for s, v in host.items()}
-            out = lower_op(op_type, ins, attrs, device)
-            runs[device] = {"ins": ins, "out": {s: [v.cpu() for v in vs]
-                                                for s, vs in out.items()}}
+        ins = {s: [on("cuda", a) for a in v] for s, v in host.items()}
+        out = lower_op(op_type, ins, attrs, "cuda")
+        runs = {"cpu": prep["cpu"],
+                "cuda": {"ins": ins, "out": {s: [v.cpu() for v in vs]
+                                             for s, vs in out.items()}}}
+        del out
         card_ins = runs["cuda"]["ins"]
-        floats = [v for s in sorted(runs["cpu"]["out"])
-                  for v in runs["cpu"]["out"][s] if v.is_floating_point()]
-        crng = np.random.RandomState(900 + k)
-        cots = [torch.as_tensor(np.asarray(crng.randn(*v.shape),
-                                           np.float32)).to(v.dtype)
-                for v in floats]
+        cots = prep["cots"]
         card_cots = [c.cuda() for c in cots]
-        primals = grad_primals(op_type, runs["cpu"]["ins"])
+        primals = prep["primals"]
         if primals:
-            for device, dev_cots in (("cuda", card_cots), ("cpu", cots)):
-                runs[device]["grads"] = [g.cpu() for g in op_vjp(
-                    op_type, runs[device]["ins"], attrs, device, dev_cots)]
+            runs["cuda"]["grads"] = [g.cpu() for g in op_vjp(
+                op_type, card_ins, attrs, "cuda", card_cots)]
         errs, off = dense_errors(runs["cpu"], primals, runs["cuda"]["out"],
                                  runs["cuda"].get("grads", []))
         failed += [[name] + o for o in off]
@@ -5797,13 +6318,15 @@ def phase_op_cases(fa, smi, phase, cases, twice, witness=None, rows=None,
             witnessed.append((k, op_type, label, fwd, vjp))
             del out, grads
         rows.append(row)
-        del runs, host, full
+        del runs, host, full, prep
         if torch.cuda.memory_allocated() > OP_CASES_RELEASE_BYTES:
             release_memory()  # a collection costs ~0.1 s a case
     # the timings: one profiler window for every case's forward and vjp,
     # then one for the witnesses (each under its own lowering)
     counts = {}
-    for (k, key), ms in window_ms(timed, n=window_n,
+    # (no warm-up call: every call timed here ran on the card above, at
+    # these shapes)
+    for (k, key), ms in window_ms(timed, n=window_n, warmup=0,
                                   launches=counts).items():
         rows[k][key] = ms
         rows[k][key.replace("ms", "launches")] = counts[(k, key)]
@@ -5811,7 +6334,8 @@ def phase_op_cases(fa, smi, phase, cases, twice, witness=None, rows=None,
         with lowered_by(op_type, witness[op_type][label]):
             rows[k]["witness"][label].update(
                 {key[1]: ms for key, ms in window_ms(
-                    [((k, "ms"), fwd), ((k, "vjp_ms"), vjp)]).items()})
+                    [((k, "ms"), fwd), ((k, "vjp_ms"), vjp)],
+                    warmup=0).items()})
     del timed, witnessed
     release_memory()
     launches = flash_launches(fa)  # ... and ends here
@@ -10267,14 +10791,21 @@ def phase_pserver(fa, smi):
     return launches
 
 
+# release_memory's calls and their seconds, for the last times line
+RELEASES = {"calls": 0, "seconds": 0.0}
+
+
 def release_memory():
     """Free what no live object holds, CUDA graphs and their pools too,
     and return the cached blocks to the card."""
     import torch
 
+    t0 = time.perf_counter()
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    RELEASES["calls"] += 1
+    RELEASES["seconds"] += time.perf_counter() - t0
 
 
 def main():
@@ -10307,6 +10838,14 @@ def main():
 
     t0 = time.perf_counter()
     built = build.build_all()
+    # what is alive now (the modules, the kernels' libraries) lives to the
+    # end: the collections of release_memory skip it
+    import paddle_tpu_torch.fluid  # noqa: F401  (the port's modules)
+    gc.freeze()
+    # the op phases' CPU sides, made while the card's phases run
+    global CASE_REFERENCES
+    CASE_REFERENCES = CaseReferences(CASE_PHASES)
+    CASE_REFERENCES.start()
     ptxas = {}
     for name in build.SOURCES:
         ptxas.update(ptxas_summary(build.build_log(name)))
@@ -10333,11 +10872,15 @@ def main():
         fa, main_prog, startup, loss, state0, train_feed8)
     amp_exe, amp_scope, amp_prog, amp_loss, amp_launches = phase_train_amp(
         fa, train_feed8, f32_losses)
-    bwd_row, bwd_bf16_row = phase_times_train(fa, {
+    bwd_row, bwd_bf16_row, step_rows = phase_times_train(fa, {
         "eager": eager + (main_prog, loss),
         "captured": graph + (main_prog, loss),
         "captured_amp": (amp_exe, amp_scope, amp_prog, amp_loss)},
         main_prog, loss, train_feed8)
+    opprof_launches = phase_opprof(fa, main_prog, state0, loss, eager,
+                                   train_feed8, {
+            name: ms / BERT["n_layers"] for name, ms in
+            step_rows["captured"]["flash_kernels_ms"].items()}, smi)
     # BERT's executors, graphs and their memory go before ResNet-50's (an
     # engine and its cache entries refer to each other: a collection frees
     # them)
@@ -10396,28 +10939,24 @@ def main():
     # the dense op families, an FCN decoder head and DeepFM with auc
     dense_launches = {"dense_ops": phase_dense_ops(fa, smi)}
     dense_launches["upsample_head"] = phase_upsample_head(fa, smi)
-    dense_launches["ctr_auc"] = phase_ctr_auc(fa, smi)
-    release_memory()
+    dense_launches["ctr_auc"] = phase_ctr_auc(fa, smi)  # releases memory
 
     # the sequence ops, beam-search decoding, the text-convolution
     # classifier and the CRF tagger
     seq_launches = {"sequence_ops": phase_sequence_ops(fa, smi)}
     seq_launches["nmt_beam"] = phase_nmt_beam(fa, smi)
     seq_launches["sentiment_conv"] = phase_sentiment_conv(fa, smi)
-    seq_launches["srl_crf"] = phase_srl_crf(fa, smi)
-    release_memory()
+    seq_launches["srl_crf"] = phase_srl_crf(fa, smi)  # releases memory
 
     # the misc op family, the skip-gram trainer and C3D
     misc_launches = {"misc_ops": phase_misc_ops(fa, smi)}
     misc_launches["skipgram_nce"] = phase_skipgram_nce(fa, smi)
-    misc_launches["c3d"] = phase_c3d(fa, smi)
-    release_memory()
+    misc_launches["c3d"] = phase_c3d(fa, smi)  # releases memory
 
     # SSD-MobileNet-v1 trained and served, and the detection and CTC op
     # families at their users' shapes
     det_launches = {"ssd": phase_ssd(fa, smi)}
-    det_launches["detection_ops"] = phase_detection_ops(fa, smi)
-    release_memory()
+    det_launches["detection_ops"] = phase_detection_ops(fa, smi)  # releases
 
     # the opt-level ladder (levels 2 and 3 on BERT-base), the NHWC layout
     # pass on ResNet-50, and the INT8 serving path with the AOT artifact
@@ -10430,12 +10969,14 @@ def main():
     # the mesh path on torch.distributed, then the parameter-server path
     opt_launches["mesh"] = phase_mesh(fa, smi)
     release_memory()
-    opt_launches["pserver"] = phase_pserver(fa, smi)
-    release_memory()
+    opt_launches["pserver"] = phase_pserver(fa, smi)  # releases memory
     emit({"phase": "times", "partial_profiler_windows_rerun":
           len(PARTIAL_PROFILES), "partial_windows": PARTIAL_PROFILES,
-          "event_timed": EVENT_TIMED})
-    other_paths = {"checkpoint": ckpt_launches,
+          "event_timed": EVENT_TIMED,
+          "case_references_s": CASE_REFERENCES.seconds,
+          "release_memory": RELEASES})
+    other_paths = {"opprof": opprof_launches,
+                   "checkpoint": ckpt_launches,
                    "resnet50_serve": r_serve_launches,
                     "resnet50_train": r_launches,
                     "resnet50_train_amp": r_amp_launches,
@@ -10520,5 +11061,15 @@ def main():
     return 0
 
 
+def run():
+    """``main``, then the case-preparing thread stopped, however main
+    ended."""
+    try:
+        return main()
+    finally:
+        if CASE_REFERENCES is not None:
+            CASE_REFERENCES.stop()
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(run())

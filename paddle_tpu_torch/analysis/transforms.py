@@ -740,9 +740,14 @@ class ConstantFoldPass(TransformPass):
     port's lowering of the op). Results above ``MAX_ELEMENTS`` or
     non-uniform stay unfolded: the desc only carries scalar attr values,
     and burning big dense literals into the program trades op count for
-    program size. A result keeps the dtype the port's lowering gives it
-    (an int64 fold stays int64, where the reference's 32-bit JAX writes
-    int32); float folds write the same fill as the reference's."""
+    program size. The fill's ``dtype`` attr follows the desc rule
+    (``framework._DESC_DTYPE``: an int64 result is written INT32, a
+    float64 one FP32, as the reference's 32-bit JAX computes them), so
+    the transformed desc is the reference's byte for byte; the value the
+    fill makes at run time keeps the dtype the port's lowering gave the
+    result (``OpDesc.runtime_dtype``, which no serialization carries and
+    ``fill_constant``'s lowering reads), so the folded program fetches
+    what the unfolded one does."""
 
     min_level = 2
     MAX_ELEMENTS = 1 << 16
@@ -750,9 +755,12 @@ class ConstantFoldPass(TransformPass):
     def apply(self, desc, ctx):
         import numpy as np
 
+        import torch
+
         from paddle_tpu_torch.core.registry import LowerContext, OpRegistry
         from paddle_tpu_torch.core.types import convert_np_dtype_to_dtype_
         from paddle_tpu_torch.engine.lowering import clean_attrs
+        from paddle_tpu_torch.framework import _DESC_DTYPE
 
         block = desc.block(0)
         readers = _reader_map(desc)
@@ -782,12 +790,16 @@ class ConstantFoldPass(TransformPass):
             flat = val.reshape(-1)
             if not bool(np.all(flat == flat[0])):
                 continue
+            runtime = torch.from_numpy(flat[:1]).dtype
             fill = OpDesc(
                 "fill_constant", {}, {"Out": [out]},
                 {"shape": [int(d) for d in val.shape],
-                 "dtype": int(convert_np_dtype_to_dtype_(val.dtype)),
+                 "dtype": int(_DESC_DTYPE.get(
+                     runtime, convert_np_dtype_to_dtype_(val.dtype))),
                  "value": flat[0].item(),
                  "op_role": int(op.attrs.get("op_role", 0))})
+            if runtime in _DESC_DTYPE:
+                fill.runtime_dtype = runtime
             block.ops[i] = fill
             consts[out] = fill
             folded += 1
@@ -946,6 +958,7 @@ class CSEPass(TransformPass):
             tuple(sorted(
                 (k, repr(v)) for k, v in op.attrs.items()
                 if k not in _NONSEMANTIC_ATTRS and not k.startswith("__"))),
+            str(getattr(op, "runtime_dtype", "")),
         )
 
 

@@ -1,15 +1,49 @@
 """Program intermediate representation: Var/Op/Block/Program descriptors.
 
-Port of ``paddle_tpu/core/desc.py``, unchanged but for its imports: plain
-Python objects with JSON serialization. ``serialize_to_string`` and
-``parse_from_string`` stay byte-compatible with the JAX package, so a model
-directory either package saves loads in the other.
+Port of ``paddle_tpu/core/desc.py``, unchanged but for its imports and
+``ProgramDescData.clone``, which copies field by field where the
+reference calls ``copy.deepcopy`` (the same copy, without the generic
+walk's memo): plain Python objects with JSON serialization.
+``serialize_to_string`` and ``parse_from_string`` stay byte-compatible
+with the JAX package, so a model directory either package saves loads in
+the other.
 """
 
 import copy
 import json
 
+import numpy as np
+
 from paddle_tpu_torch.core.types import VarType, convert_np_dtype_to_dtype_
+
+
+# values a deep copy may share: immutable (VarType and the other enums
+# are ints)
+_IMMUTABLE = (int, float, complex, str, bytes, bool, type(None),
+              np.generic)
+
+
+def _copy_value(v):
+    """``copy.deepcopy(v)`` for a desc's field or attr value: lists,
+    tuples and dicts copied element by element, immutable values shared,
+    anything else deep-copied."""
+    if isinstance(v, _IMMUTABLE):
+        return v
+    if type(v) is list:
+        return [_copy_value(x) for x in v]
+    if type(v) is dict:
+        return {k: _copy_value(x) for k, x in v.items()}
+    if type(v) is tuple:
+        return tuple(_copy_value(x) for x in v)
+    return copy.deepcopy(v)
+
+
+def _copy_object(obj):
+    """A copy of a VarDescData or an OpDesc with every instance field
+    copied by ``_copy_value``: what ``copy.deepcopy(obj)`` gives."""
+    new = obj.__class__.__new__(obj.__class__)
+    new.__dict__ = {k: _copy_value(v) for k, v in obj.__dict__.items()}
+    return new
 
 
 class VarDescData:
@@ -220,14 +254,18 @@ class ProgramDescData:
         return len(self.blocks)
 
     def clone(self):
+        """A deep copy: every var and op of every block copied (the
+        transform pipeline clones a program once per pass, at each cache
+        miss, so this avoids ``copy.deepcopy``'s generic walk:
+        ``_copy_value``)."""
         new = ProgramDescData.__new__(ProgramDescData)
         new.version = self.version
         new.blocks = []
         for b in self.blocks:
             nb = BlockDescData(new, b.idx, b.parent_idx)
             nb.forward_block_idx = b.forward_block_idx
-            nb.vars = {k: copy.deepcopy(v) for k, v in b.vars.items()}
-            nb.ops = [copy.deepcopy(op) for op in b.ops]
+            nb.vars = {k: _copy_object(v) for k, v in b.vars.items()}
+            nb.ops = [_copy_object(op) for op in b.ops]
             new.blocks.append(nb)
         return new
 

@@ -116,6 +116,25 @@ entry's collectives on the desc that runs (span ``spmd-plan``, timer
 ``spmd_predict`` with metrics on the entry's first run holds the plan
 against the collectives it issued (``spmd.prediction_delta``).
 
+With metrics on (the reference's seams, executor.py:376-481) every run
+records the device's live bytes (``observability/memory.py``
+``record_step_memory``: the allocator's host-side counters, never a
+tensor read, never a synchronize), an entry's first run its memory
+(``record_compile_memory``: on the card the measured growth of the
+allocator's peak over that eager run, waited for on this thread's
+stream; on the CPU the static liveness estimate of the desc it runs),
+and an entry's first observed run its op provenance
+(``observability/opprof.py`` ``register_entry``, with the ``opprof``
+flag: the per-op FLOPs and bytes of the tags its lowering collected when
+it was built; ``opprof.executables``, ``opprof.register_crashes``).
+During a profiler session that tags (``opprof.tagging()``) an entry's
+eager runs go under its ``opprof.eager#<id>`` range and its ops under
+their tags, a captured entry's first run in the session runs eagerly
+(bitwise its replay) instead of replaying, and each replay's graph
+launch goes under ``opprof.replay#<id>``, so the trace joins the replay
+to that run by kernel order. The graph is the same with or without the
+ranges, so ``opprof`` is not part of the cache key.
+
 A CUDA engine turns on cuDNN's deterministic algorithms and turns off its
 autotuner (``_deterministic_cudnn``), so that repeated steps, and a
 captured step against its eager run, agree bit for bit.
@@ -130,6 +149,7 @@ copy-out.
 import collections
 import contextlib
 import gc
+import itertools
 import threading
 
 import numpy as np
@@ -147,9 +167,13 @@ from paddle_tpu_torch.engine.pipeline import (
 )
 from paddle_tpu_torch.kernels import flash_attention as _fa
 from paddle_tpu_torch.observability import goodput, health
+from paddle_tpu_torch.observability import memory as _memory
+from paddle_tpu_torch.observability import opprof as _opprof
 from paddle_tpu_torch.resilience import faultinject
 
 _BLOCK_CACHE_SIZE = 64
+# cache entries' numbers, process-wide: the opprof ranges name them
+_ENTRY_IDS = itertools.count(1)
 
 # captures in progress in this process, and whether the collector ran
 # before the first of them: several engines (the threads of a pserver
@@ -198,6 +222,19 @@ class CompiledBlock:
         self.block_program = block_program
         self.device = engine.device
         self.accumulate_steps = accumulate_steps
+        # op-level provenance (observability/opprof.py): the entry's
+        # number, its tag -> OpDesc map (the lowering fills it here), the
+        # tag of each state output's writer (its in-place write-back runs
+        # under that op's range), whether it registered its costs, and
+        # the profiler session it last ran eagerly under the ranges in
+        self.id = next(_ENTRY_IDS)
+        self.provenance = {}
+        self.opprof_registered = False
+        self.profiled_session = None
+        # (argument, output, aliased) bytes of the first run, with metrics
+        # on: the first-run memory record (observability/memory.py)
+        self.mem_io = None
+        self.run_desc = None
         # over a mesh (parallel/plan.py): the feeds' placements, and the
         # local shapes of their buffers
         self.mesh_plan = mesh_plan
@@ -216,18 +253,25 @@ class CompiledBlock:
                                                  self.feed_places)]
             self.fn = lower_block(block_program, engine.device,
                                   is_test=is_test, executor=engine, amp=amp,
-                                  mesh_plan=mesh_plan)
+                                  mesh_plan=mesh_plan, prov=self.provenance)
         elif accumulate_steps > 1:
             self.fn = lower_block_accumulated(
                 block_program, accumulate_steps, engine.device,
-                is_test=is_test, executor=engine, amp=amp)
+                is_test=is_test, executor=engine, amp=amp,
+                prov=self.provenance)
         elif remat_segments:
             self.fn = lower_block_remat(
                 block_program, remat_segments, engine.device,
-                is_test=is_test, executor=engine, amp=amp)
+                is_test=is_test, executor=engine, amp=amp,
+                prov=self.provenance)
         else:
             self.fn = lower_block(block_program, engine.device,
-                                  is_test=is_test, executor=engine, amp=amp)
+                                  is_test=is_test, executor=engine, amp=amp,
+                                  prov=self.provenance)
+        self.state_tags = {}
+        for tag, op in self.provenance.items():
+            for n in op.output_arg_names():
+                self.state_tags[n] = tag
         self.donate_state = donate_state
         self.state_writeback = state_writeback
         self.capture = capture
@@ -305,9 +349,16 @@ class CompiledBlock:
             if self.graph is not None and len(self.bound) == len(
                     state) + len(dsts) and all(
                         a is b for a, b in zip(self.bound, state + dsts)):
-                # the tensors the graph was captured against: replay
+                # the tensors the graph was captured against: replay; the
+                # first run in a profiler session that tags runs eagerly
+                # under the op ranges instead, the run its replays are
+                # joined to (the same step: captured = eager bitwise)
                 with obs.span("run", step=step), \
                         obs.time_block("engine.run_ms"):
+                    if (_opprof.tagging() and self.profiled_session
+                            != _opprof.session_id()):
+                        return self._run_eager(scope, feed_values, rng_seed,
+                                               return_numpy, defer)
                     return self._replay(feed_values, rng_seed, return_numpy,
                                         defer)
             if not self._bindable(dsts):
@@ -396,6 +447,18 @@ class CompiledBlock:
         """The block, then the fetches made safe from later runs and the
         state written back in place; returns (fetches, state outputs).
         Over a mesh the block runs on DTensors (``_mesh_run``)."""
+        if not _opprof.tagging() or (
+                self.device.type == "cuda"
+                and torch.cuda.is_current_stream_capturing()):
+            return self._body_run(state, dsts, rng_seed)
+        # a profiler session: the body under its entry's range, the run
+        # the entry's replays in this session are joined to
+        self.profiled_session = _opprof.session_id()
+        with torch.profiler.record_function(_opprof.EAGER_RANGE
+                                            + str(self.id)):
+            return self._body_run(state, dsts, rng_seed, tagged=True)
+
+    def _body_run(self, state, dsts, rng_seed, tagged=False):
         if self.mesh_plan is not None:
             fetches, state_out = self._mesh_run(state, rng_seed)
         else:
@@ -416,12 +479,19 @@ class CompiledBlock:
         fetches = [unalias(t) for t in fetches]
         if dsts:
             state_out = [unalias(v, d) for v, d in zip(state_out, dsts)]
+            names = self.block_program.state_out_names
             for i, (v, d) in enumerate(zip(state_out, dsts)):
                 if v is d:
                     continue
                 if (isinstance(d, torch.Tensor) and _same_layout(d, v)
                         and d.shape == v.shape and d.dtype == v.dtype):
-                    _local(d).copy_(_local(v))
+                    # the write-back is its writer op's output
+                    tag = self.state_tags.get(names[i]) if tagged else None
+                    if tag is None:
+                        _local(d).copy_(_local(v))
+                    else:
+                        with torch.profiler.record_function(tag):
+                            _local(d).copy_(_local(v))
                     state_out[i] = d
         return fetches, state_out
 
@@ -476,6 +546,9 @@ class CompiledBlock:
             else:
                 fetches, state_out = self._body(state, dsts, rng_seed)
         self._out_specs = [(tuple(v.shape), v.dtype) for v in state_out]
+        if self.mem_io is None and obs.enabled():
+            self.mem_io = _io_bytes(self.feed_bufs + list(state),
+                                    list(fetches) + list(state_out))
         if faultinject.active():
             fetches, state_out = _step_faults(rng_seed[1], fetches,
                                               state_out, dsts)
@@ -596,7 +669,12 @@ class CompiledBlock:
 
     def _replay(self, feed_values, rng_seed, return_numpy, defer=False):
         self._fill(feed_values, rng_seed)
-        self.graph.replay()
+        if _opprof.tagging():
+            with torch.profiler.record_function(_opprof.REPLAY_RANGE
+                                                + str(self.id)):
+                self.graph.replay()
+        else:
+            self.graph.replay()
         _fa.add_launches(self.launches)
         self.replays += 1
         obs.inc("engine.replays")
@@ -748,9 +826,12 @@ class Engine:
         # a planned entry's first run on the card measures its peak (the
         # eager warm-up, which holds the allocator's caching), in place of
         # the reference's compiled memory stats (executor.py:376-406); so
-        # does a mesh entry's first run under spmd_predict
+        # does a mesh entry's first run under spmd_predict, and every
+        # entry's first run with metrics on (the first-run memory record)
         predict = self._spmd_predicting(compiled)
-        measure = ((compiled.memory_plan is not None or predict)
+        record_mem = compiled._out_specs is None and obs.enabled()
+        measure = ((compiled.memory_plan is not None or predict
+                    or record_mem)
                    and compiled.peak_bytes is None
                    and self.device.type == "cuda")
         # (this thread's stream is waited for, never the whole device,
@@ -758,18 +839,27 @@ class Engine:
         stream = torch.cuda.current_stream(self.device) if measure else None
         if measure:
             stream.synchronize()
+            before = int(torch.cuda.memory_allocated(self.device))
             torch.cuda.reset_peak_memory_stats(self.device)
         out = compiled.run(scope, feed_values, (int(seed), run_counter),
                            return_numpy, defer)
+        grown = None
         if measure:
             stream.synchronize()
             peak = int(torch.cuda.max_memory_allocated(self.device))
+            grown = peak - before
             if compiled.memory_plan is not None:
                 self._note_peak(compiled, peak)
             else:
                 compiled.peak_bytes = peak
         if predict:
             self._spmd_delta(compiled)
+        if obs.enabled():
+            self._observe_memory(compiled, scope, run_counter, block_idx,
+                                 record_mem, grown, feed_names, feed_values)
+            if (not compiled.opprof_registered
+                    and flags.get_flag("opprof")):
+                self._register_provenance(compiled, feed_names, feed_values)
         if compiled.flops:
             goodput.note_flops(compiled.flops)
         if not defer:
@@ -940,6 +1030,7 @@ class Engine:
             compiled = build(remat_segments)
         compiled.memory_plan = memory_plan
         compiled.spmd_plan = spmd_plan
+        compiled.run_desc = run_desc
         compiled.auto_remat_eligible = eligible
         compiled.mem_budget = mem_budget
         compiled._cache_key = key
@@ -957,6 +1048,45 @@ class Engine:
                 self._cache.popitem(last=False)
                 obs.inc("engine.cache_evict")
         return compiled
+
+    def _observe_memory(self, compiled, scope, step, block_idx, first,
+                        grown, feed_names, feed_values):
+        """The memory seam of a run with metrics on (reference:
+        executor.py:376-453): the entry's first-run record when this run
+        was its first (on the card the measured growth of the
+        allocator's peak, on the CPU the static liveness estimate), and
+        the step's live bytes, from host-side counters only."""
+        if first and compiled.mem_io is not None:
+            static = None
+            if grown is None:
+                static = _static_peak(compiled, feed_names, feed_values)
+            _memory.record_compile_memory(
+                *compiled.mem_io, grown_bytes=grown,
+                static_peak_bytes=static, label="block%d" % block_idx)
+        _memory.record_step_memory(
+            scope, step=step, device=self.device,
+            step_tensors=compiled.feed_bufs + [compiled.seed_buf])
+
+    def _register_provenance(self, compiled, feed_names, feed_values):
+        """Op-provenance registration, once per entry at its first run
+        with metrics on (reference: executor.py:455-481): the per-op
+        FLOPs/bytes of the tags its lowering collected, feeding the
+        opprof registry that ``profiler.stop_profiler`` attributes the
+        trace with; a mesh entry's first-run collectives are the comm
+        lane's expected instances."""
+        compiled.opprof_registered = True
+        try:
+            _opprof.register_entry(
+                compiled.provenance, block=compiled.block_program.block,
+                feed_shapes={n: tuple(v.shape)
+                             for n, v in zip(feed_names, feed_values)},
+                label="entry#%d" % compiled.id,
+                kind="captured" if compiled.capture else "eager",
+                collectives=(compiled.mesh_plan.record
+                             if compiled.mesh_plan is not None else None))
+            obs.inc("opprof.executables")
+        except Exception:
+            obs.inc("opprof.register_crashes")
 
     def _run_desc(self, program_desc, block_idx, feed_names, fetch_list,
                   opt_level, scope, layout_key):
@@ -1248,6 +1378,31 @@ class Engine:
                 "Variable %r lives on %s but this executor runs on %s"
                 % (name, val.device, self.device))
         return val
+
+
+def _io_bytes(args, outs):
+    """(argument, output, aliased) bytes of a run: its feeds and state
+    inputs, its fetches and state outputs, and the outputs that live in
+    an argument's storage (state written in place, state passed
+    through)."""
+    seen = set()
+    arg = _memory.tensor_bytes(args, seen)
+    out = _memory.tensor_bytes(outs)
+    return arg, out, out - _memory.tensor_bytes(outs, seen)
+
+
+def _static_peak(compiled, feed_names, feed_values):
+    """The liveness estimate of the desc an entry runs (analysis/
+    memory.py), the CPU's first-run peak; None if it fails."""
+    from paddle_tpu_torch.analysis.memory import analyze_liveness
+
+    try:
+        return int(analyze_liveness(
+            compiled.run_desc, feed_shapes={
+                n: tuple(v.shape) for n, v in zip(feed_names, feed_values)}
+        ).peak_bytes)
+    except Exception:
+        return None
 
 
 def _local(t):

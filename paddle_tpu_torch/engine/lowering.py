@@ -36,6 +36,15 @@ capturable when every op of it and of its sub-blocks is. A tensor array
 (``{"buf", "len"}``) lives only inside one run, like a sparse grad: a
 fetch or state write of one raises.
 
+Op-level provenance (``observability/opprof.py``): each lowering
+collects ``tag -> OpDesc`` into its ``prov`` dict when it is built, with
+the reference's tags (``provenance_tag(type, block.idx, i)``; the
+accumulated lowering numbers its once ops from 100_000, as the
+reference does), and ``run_op`` enters ``record_function(tag)`` around
+the op only while a profiler session tags (``opprof.tagging()``): one
+bool check an op otherwise. Sub-block ops carry no tag of their own;
+their work is their parent op's, as the reference's outermost scope is.
+
 A sparse grad (``core/selected_rows.py``) lives only inside one run of a
 block: each lowering densifies whatever leaves it, a fetch or a state
 write-back (lowering.py:230-237), like the reference's GetFetchVariable
@@ -51,6 +60,7 @@ from paddle_tpu_torch.core.registry import (
     OpRegistry, LowerContext, amp_scope, draw_seed,
 )
 from paddle_tpu_torch.core.selected_rows import SelectedRows, densify
+from paddle_tpu_torch.observability import opprof as _opprof
 from paddle_tpu_torch.ops.common import M32, hash_mix_bits, seed32
 
 # Ops that are pure host-side markers and skipped during execution.
@@ -70,6 +80,9 @@ SUB_BLOCK_RNG_BASE = 10_000
 # flash kernels 2**31 - 1)
 SUB_BLOCK_SEED_HIGH = 2 ** 32
 FOLDED_SEED_MOD = 2 ** 31 - 1
+# provenance index of the accumulated lowering's once ops: 100_000 + their
+# position (the reference's, lowering.py:703)
+ONCE_TAG_BASE = 100_000
 
 
 def clean_attrs(attrs):
@@ -292,8 +305,19 @@ def run_sub_block(ctx, sub_block, env, seeds=None, step=0):
     return env
 
 
+def _tags(block, indexed_ops, prov):
+    """The provenance tags of ``indexed_ops`` ([(index, op)]), recorded
+    into ``prov`` (a dict, or None: tags only)."""
+    idx = getattr(block, "idx", 0)
+    tags = [_opprof.provenance_tag(op.type, idx, i)
+            for i, op in indexed_ops]
+    if prov is not None:
+        prov.update(zip(tags, (op for _, op in indexed_ops)))
+    return tags
+
+
 def lower_block(block_program, device, is_test=False, executor=None,
-                amp=False, mesh_plan=None):
+                amp=False, mesh_plan=None, prov=None):
     """Returns fn(feeds: list, state_in: list, rng_seed, seeds=None) ->
     (fetches: list, state_out: list), running the block's live ops
     eagerly on ``device``, under ``amp_scope(amp)``. ``rng_seed`` is the
@@ -304,8 +328,10 @@ def lower_block(block_program, device, is_test=False, executor=None,
     its run hooks see every op: before it (a ZeRO-1 parameter's shard, a
     bucket flushed before its reader) and after it (each gradient reduced
     to its placement where the backward writes it, the counterpart of
-    the reference's ``grad_shardings`` constraints, lowering.py:153)."""
+    the reference's ``grad_shardings`` constraints, lowering.py:153).
+    ``prov`` (a dict) receives the ops' provenance tags."""
     block = block_program.block
+    tags = _tags(block, list(enumerate(block_program.ops)), prov)
 
     def fn(feed_values, state_values, rng_seed, seeds=None):
         env = dict(zip(block_program.feed_names, feed_values))
@@ -315,12 +341,12 @@ def lower_block(block_program, device, is_test=False, executor=None,
             for op_index, op in enumerate(block_program.ops):
                 if hooks is None:
                     run_op(op, block, env, device, rng_seed, op_index,
-                           is_test, executor, seeds)
+                           is_test, executor, seeds, tags[op_index])
                     continue
                 hooks.before(op, env)
                 with hooks.op_scope():
                     run_op(op, block, env, device, rng_seed, op_index,
-                           is_test, executor, seeds)
+                           is_test, executor, seeds, tags[op_index])
                 hooks.after(op, env)
             if hooks is not None:
                 hooks.finish(env)
@@ -357,8 +383,9 @@ def _mean_micro(vals, k):
 
 
 def run_op(op, block, env, device, rng_seed, op_index, is_test,
-           executor=None, seeds=None):
-    """Execute one op desc into env."""
+           executor=None, seeds=None, tag=None):
+    """Execute one op desc into env; inside ``record_function(tag)``
+    while a profiler session tags (``opprof.tagging()``)."""
     ins = {}
     for slot, names in op.inputs.items():
         vals = []
@@ -384,11 +411,18 @@ def run_op(op, block, env, device, rng_seed, op_index, is_test,
                            executor=executor, seeds=seeds)
         return info.lower(ctx, ins, clean_attrs(op.attrs))
 
-    if _current_mesh_run() is None:
-        outs = lower(ins)
+    if tag is not None and _opprof.tagging():
+        with torch.profiler.record_function(tag):
+            outs = _lower_op(op, ins, lower)
     else:
-        outs = _lower_over_mesh(op, ins, lower)
+        outs = _lower_op(op, ins, lower)
     _bind_outputs(op, outs, env)
+
+
+def _lower_op(op, ins, lower):
+    if _current_mesh_run() is None:
+        return lower(ins)
+    return _lower_over_mesh(op, ins, lower)
 
 
 # Ops whose rows are independent of each other (they normalize over their
@@ -574,7 +608,7 @@ def _lower_grad_op(op, block, ins, device, rng_seed, is_test, seeds=None):
 
 
 def lower_block_accumulated(block_program, k, device, is_test=False,
-                            executor=None, amp=False):
+                            executor=None, amp=False, prov=None):
     """Gradient-accumulation lowering (reference: ``lower_block_accumulated``,
     lowering.py:592, the reference's batch-merge capability,
     framework/ir/multi_batch_merge_pass.cc): the forward/backward ops run
@@ -594,7 +628,10 @@ def lower_block_accumulated(block_program, k, device, is_test=False,
 
     Returns fn(feeds, state_in, rng_seed, seeds) like ``lower_block``;
     ``seeds`` is a list of k + 1 seed dicts: micro-batch t's, then the
-    step's own for the ops that run once."""
+    step's own for the ops that run once. The provenance tags number the
+    loop's ops by their place in the loop and the once ops from
+    ``ONCE_TAG_BASE``, as the reference's scan does; ``prov`` (a dict)
+    receives them."""
     from paddle_tpu_torch.framework import OpRole
 
     block = block_program.block
@@ -606,6 +643,10 @@ def lower_block_accumulated(block_program, k, device, is_test=False,
     for i, op in enumerate(block_program.ops):
         role = int(op.attrs.get("op_role", 0))
         (once_ops if role & once_roles else loop_ops).append((i, op))
+    loop_tags = _tags(block, [(j, op) for j, (_, op) in enumerate(loop_ops)],
+                      prov)
+    once_tags = _tags(block, [(ONCE_TAG_BASE + j, op)
+                              for j, (_, op) in enumerate(once_ops)], prov)
 
     def _is_persistable(name):
         vd = block.find_var_recursive(name)
@@ -654,9 +695,10 @@ def lower_block_accumulated(block_program, k, device, is_test=False,
             env.update(zip(carry_names, carry))
             env.update(zip(feed_names, (f[t] for f in micro_feeds)))
             with amp_scope(amp):
-                for i, op in loop_ops:
+                for (i, op), tag in zip(loop_ops, loop_tags):
                     run_op(op, block, env, device, rng_seed, i, is_test,
-                           executor, None if seeds is None else seeds[t])
+                           executor, None if seeds is None else seeds[t],
+                           tag)
             carry = [env[n] for n in carry_names]
             for acc, n in zip(cross, cross_names):
                 acc.append(env[n])
@@ -670,9 +712,9 @@ def lower_block_accumulated(block_program, k, device, is_test=False,
         for n, vals in zip(cross_names, cross):
             env[n] = _mean_micro(vals, k)
         with amp_scope(amp):
-            for i, op in once_ops:
+            for (i, op), tag in zip(once_ops, once_tags):
                 run_op(op, block, env, device, rng_seed, i, is_test,
-                       executor, None if seeds is None else seeds[k])
+                       executor, None if seeds is None else seeds[k], tag)
 
         micro_b = micro_feeds[0].shape[1] if micro_feeds else None
         fetch_map = dict(zip(fetch_loop, fetched))
@@ -710,7 +752,7 @@ def remat_live_vars(block):
 
 
 def lower_block_remat(block_program, n_segments, device, is_test=False,
-                      executor=None, amp=False):
+                      executor=None, amp=False, prov=None):
     """Rematerialized training step (reference: ``lower_block_remat``,
     lowering.py:366): the forward ops run as ``s`` contiguous segments,
     each under ``torch.utils.checkpoint(use_reentrant=False)``, and the
@@ -735,7 +777,11 @@ def lower_block_remat(block_program, n_segments, device, is_test=False,
     program with no Backward-role op, one with no ``@GRAD`` seed op,
     backward ops writing persistable vars, an optimizer or fetch reading
     a backward var that is not a gradient, and a gradient of an
-    intermediate (not feed, not state) var."""
+    intermediate (not feed, not state) var.
+
+    ``prov`` (a dict) receives the provenance tags of the forward and
+    tail ops (the reference's, by their index in the block); the
+    backward, which autograd derives, launches under no tag."""
     from torch.utils.checkpoint import checkpoint
 
     from paddle_tpu_torch.framework import OpRole
@@ -817,6 +863,9 @@ def lower_block_remat(block_program, n_segments, device, is_test=False,
         (tail_read | fetch_set | state_out_set | {n for n, _ in losses})
         & fwd_written)
 
+    tag_of = dict(zip((i for i, _ in fwd_ops + tail_ops),
+                      _tags(block, fwd_ops + tail_ops, prov)))
+
     # contiguous segments; a segment's inputs are what it reads from
     # outside, its outputs what later segments or the aux set read
     nseg = max(1, min(int(n_segments), len(fwd_ops)))
@@ -870,7 +919,7 @@ def lower_block_remat(block_program, n_segments, device, is_test=False,
                 with amp_scope(amp):
                     for j, op in seg:
                         run_op(op, block, env, device, rng_seed, j,
-                               is_test, executor, seeds)
+                               is_test, executor, seeds, tag_of[j])
                         for n in op.output_arg_names():
                             v = env.get(n)
                             if (n in sg_names and isinstance(v, torch.Tensor)
@@ -909,7 +958,7 @@ def lower_block_remat(block_program, n_segments, device, is_test=False,
         with amp_scope(amp):
             for j, op in tail_ops:
                 run_op(op, block, out, device, rng_seed, j, is_test,
-                       executor, seeds)
+                       executor, seeds, tag_of[j])
         return _block_outputs(block_program, out)
 
     return fn

@@ -88,6 +88,12 @@ DEFS = {
         "state. The reference applies it on a TPU backend only; on the "
         "card (and the CPU) it changes nothing, in either package. Kept "
         "so that a configuration setting it runs unchanged."),
+    "memory_pressure_frac": (
+        float, 0.9,
+        "Fraction of device memory at which a step's live bytes raise a "
+        "memory_pressure telemetry event (observability/memory.py). "
+        "Device capacity is the card's total memory, else "
+        "device_memory_bytes."),
     "device_memory_bytes": (
         int, 0,
         "Device memory capacity override in bytes (observability."
@@ -157,6 +163,34 @@ DEFS = {
         "for its card and dtype; <=0 skips the two ratio gauges "
         "(mfu.model_flops_per_step and mfu.achieved_flops_per_s still "
         "publish)."),
+    "trace_dir": (
+        str, "",
+        "Profiler trace output directory (profiler.py): torch.profiler's "
+        "chrome-trace JSON and the opprof provenance sidecar land here. "
+        "Empty = $PADDLE_GPU_TRACE_DIR, else a paddle_gpu_trace folder "
+        "under the system's temporary directory."),
+    "peak_membw_bytes": (
+        float, 0.0,
+        "Peak device memory bandwidth in bytes/s for the op-level "
+        "roofline (observability/opprof.py): an op is compute-bound "
+        "when its arithmetic intensity (FLOPs/byte) sits at or above "
+        "the ridge point PEAK_FLOPS / PEAK_MEMBW_BYTES, memory-bound "
+        "below it. <=0 (or PEAK_FLOPS unset) downgrades every verdict "
+        "to 'unknown' — device time and intensity still report."),
+    "opprof": (
+        bool, True,
+        "Op-level profiling provenance (observability/opprof.py): while "
+        "a profiler session is active, every op's lowering runs inside "
+        "torch.profiler.record_function('pt.<type>.<blk>_<idx>') so its "
+        "kernels are attributed to the framework op, a captured entry's "
+        "first run in the session runs eagerly under those ranges (its "
+        "replays are joined to them by kernel order), and each cache "
+        "entry registers its per-op FLOPs/bytes on its first observed "
+        "run. The ranges are host-side only (the computation is "
+        "bit-identical, tests/test_torch_opprof.py asserts it) and "
+        "entered only during a session; off skips the ranges and the "
+        "registration. The captured graph is the same either way, so "
+        "the engine does not key its cache on the value."),
     "metrics": (
         bool, False,
         "Runtime telemetry (paddle_tpu_torch.observability): counters, "

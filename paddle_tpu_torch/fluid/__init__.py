@@ -19,6 +19,8 @@ from paddle_tpu_torch import clip  # noqa: F401
 from paddle_tpu_torch import backward  # noqa: F401
 from paddle_tpu_torch import contrib  # noqa: F401
 from paddle_tpu_torch import metrics  # noqa: F401
+from paddle_tpu_torch import observability  # noqa: F401
+from paddle_tpu_torch import profiler  # noqa: F401
 from paddle_tpu_torch import nets  # noqa: F401
 from paddle_tpu_torch import flags  # noqa: F401
 from paddle_tpu_torch.flags import set_flags  # noqa: F401
@@ -90,7 +92,7 @@ __all__ = [
     "CPUPlace", "CUDAPlace", "ParamAttr", "metrics", "DataFeeder",
     "CompiledProgram", "ParallelExecutor", "BuildStrategy",
     "ExecutionStrategy", "DistributeTranspiler",
-    "DistributeTranspilerConfig",
+    "DistributeTranspilerConfig", "profiler",
 ]
 
 

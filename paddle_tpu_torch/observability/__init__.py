@@ -8,12 +8,12 @@ seams. Port of the facade of ``paddle_tpu/observability/__init__.py``
   chrome-trace JSON, streaming to a JSONL sink (export.py) with an
   always-on flight recorder;
 * request tracing (reqtrace.py), health and the serving SLO monitor
-  (health.py), and the goodput ledger (goodput.py).
+  (health.py), and the goodput ledger (goodput.py);
+* device-memory accounting (memory.py) on the CUDA caching allocator,
+  and op-level device profiling (opprof.py) on ``torch.profiler``.
 
-Of the reference's ``memory`` module only ``device_memory_limit`` is
-ported (``observability/memory.py``, for the memory planner's budget);
-the rest of it and ``opprof`` (op-level device profiling) are ROADMAP
-Queue 1 item 11, on ``torch.cuda.memory_stats`` and ``torch.profiler``.
+``paddle_tpu_torch.profiler`` is the user-facing façade that starts and
+stops these host spans together with the device trace.
 
 Everything is gated by ``PADDLE_GPU_METRICS`` (flags.py): with the flag
 down every helper here is one module-bool check — no locks, no
@@ -33,6 +33,7 @@ from paddle_tpu_torch.observability import (  # noqa: F401
     goodput,
     health,
     memory,
+    opprof,
     reqtrace,
 )
 from paddle_tpu_torch.observability.export import (  # noqa: F401
@@ -57,9 +58,9 @@ __all__ = [
     "FlightRecorder", "JsonlSink", "MetricsRegistry", "SpanTracer",
     "attach_sink", "counter_value", "detach_sink", "dump_chrome_trace",
     "enabled", "event", "flush_sink", "goodput", "health", "inc",
-    "observe", "registry", "reqtrace", "reset", "set_enabled",
-    "set_gauge", "sink", "snapshot", "snapshot_text", "span", "spans",
-    "time_block", "tracer",
+    "memory", "observe", "opprof", "registry", "reqtrace", "reset",
+    "set_enabled", "set_gauge", "sink", "snapshot", "snapshot_text",
+    "span", "spans", "time_block", "tracer",
 ]
 
 registry = MetricsRegistry()
@@ -70,7 +71,8 @@ _ENABLED = bool(flags.get_flag("metrics"))
 
 def set_enabled(value=None):
     """Override the gate (``True``/``False``) or re-read the flag
-    (``None``)."""
+    (``None``). The profiler façade forces the gate up for the duration
+    of an explicit profiling session regardless of the flag."""
     global _ENABLED
     _ENABLED = (bool(flags.get_flag("metrics")) if value is None
                 else bool(value))
@@ -227,16 +229,19 @@ def snapshot():
 
 def dump_chrome_trace(path, xplane_dir=None):
     """Write the host spans as chrome-trace JSON (load in
-    chrome://tracing or perfetto). ``xplane_dir`` raises: merging device
-    traces is ROADMAP Queue 1 item 11."""
+    chrome://tracing or perfetto). With ``xplane_dir`` (a directory of
+    ``torch.profiler`` traces) the device lanes are merged into the same
+    file as additional processes."""
     return tracer.dump_chrome_trace(path, xplane_dir=xplane_dir)
 
 
 def reset():
     """Drop all recorded metrics, spans, goodput charges and request
-    traces (test isolation). An attached sink stays attached (stream
-    files are append-only history, not registry state)."""
+    traces (test isolation). Memory watermarks reset too; an attached
+    sink stays attached (stream files are append-only history, not
+    registry state)."""
     registry.reset()
     tracer.reset()
+    memory.reset_peaks()
     goodput.reset()
     reqtrace.reset()

@@ -11,10 +11,9 @@ port's own copy), in two of its three pieces:
   Gated by ``PADDLE_GPU_HEARTBEAT_MS``. Heartbeats bypass the
   ``PADDLE_GPU_METRICS`` gate on purpose: liveness is not optional
   telemetry (the ``health.heartbeats`` *counter* still rides the gate).
-  The reference's beat also carries ``hbm_peak_bytes`` from
-  ``observability/memory.py`` (``health.py:217-224``); that field is
-  left out until the port's memory module lands (ROADMAP Queue 1 item
-  11, on ``torch.cuda.memory_stats``).
+  A beat also carries ``hbm_peak_bytes``, the device-memory watermark
+  of ``observability/memory.py`` (``peak_hbm_bytes``), once it is
+  nonzero.
 
 * **SloMonitor** — serving-side multi-window burn-rate alerting (the
   SRE fast/slow-window recipe) over per-request latencies against a
@@ -160,6 +159,9 @@ class HeartbeatEmitter:
         rss = host_rss_bytes()
         if rss:
             payload["rss_bytes"] = int(rss)
+        peak = obs.memory.peak_hbm_bytes()
+        if peak:
+            payload["hbm_peak_bytes"] = int(peak)
         depth = obs.registry.gauge_value("serving.queue_depth")
         if depth is not None:
             payload["queue_depth"] = depth

@@ -2,11 +2,12 @@
 chrome-trace JSON.
 
 Port of ``paddle_tpu/observability/tracing.py`` (kept as the port's own
-copy), without the merge of device planes into the host trace: the
-reference reads them from its profiler's xplane files
-(``tracing.py:236-298``); the port's counterpart reads
-``torch.profiler`` kernel events and is ROADMAP Queue 1 item 11, so
-``dump_chrome_trace`` with an ``xplane_dir`` raises naming it.
+copy). Where the reference merges the device planes of its profiler's
+xplane files into the host trace (``xplane_to_chrome_trace``,
+``tracing.py:233``), the port merges the device events (kernels,
+memcpys, memsets) of the chrome-trace files ``torch.profiler`` wrote
+under the directory (``device_trace_to_chrome_trace``): the argument
+keeps the reference's name, ``xplane_dir``.
 
 The host half of the reference's RecordEvent timeline (reference:
 platform/profiler.h:82 RecordEvent): ``span("dispatch")`` records start
@@ -187,15 +188,19 @@ class SpanTracer:
         return events
 
     def chrome_trace(self, xplane_dir=None):
-        """Full chrome-trace dict of the host spans. ``xplane_dir`` (the
-        reference's merge of device planes) is not ported and raises."""
+        """Full chrome-trace dict. With ``xplane_dir`` (a directory of
+        ``torch.profiler`` traces, or one trace) the device lanes
+        (``device_trace_to_chrome_trace`` below) are merged in as further
+        processes — one file, host spans above the device lanes, shared
+        wall clock."""
+        events = self.chrome_trace_events()
         if xplane_dir is not None:
-            raise NotImplementedError(
-                "chrome_trace(xplane_dir=...): merging device traces into "
-                "the host trace reads torch.profiler kernel events in the "
-                "port, ROADMAP Queue 1 item 11 (observability/opprof)")
-        return {"traceEvents": self.chrome_trace_events(),
-                "displayTimeUnit": "ms"}
+            device = device_trace_to_chrome_trace(xplane_dir)["traceEvents"]
+            for ev in device:
+                ev = dict(ev)
+                ev["pid"] = ev.get("pid", 1) + 1  # host trace owns pid 1
+                events.append(ev)
+        return {"traceEvents": events, "displayTimeUnit": "ms"}
 
     def dump_chrome_trace(self, path, xplane_dir=None):
         trace = self.chrome_trace(xplane_dir=xplane_dir)
@@ -221,6 +226,54 @@ class SpanTracer:
         for row in agg.values():
             row["ave_ms"] = row["total_ms"] / row["calls"]
         return agg
+
+
+def device_trace_to_chrome_trace(trace_dir, line_filter=None):
+    """-> chrome-trace dict {"traceEvents": [...], "displayTimeUnit":
+    "ms"} of the device events of every distinct ``torch.profiler``
+    trace under ``trace_dir`` (byte-identical files are read once, by
+    the shared trace iterator). Every device of a trace becomes a chrome
+    "process", every stream a "thread"; events are complete ("X")
+    slices whose microsecond timestamps carry the trace's
+    ``baseTimeNanoseconds``, the epoch clock the host spans use.
+    ``line_filter`` (a substring of the event's category, e.g.
+    "kernel") keeps matching events only."""
+    from paddle_tpu_torch.observability.opprof import iter_planes
+
+    device_cats = ("kernel", "gpu_memcpy", "gpu_memset")
+    events = []
+    pids = {}
+    for n, trace in enumerate(iter_planes(trace_dir)):
+        base_us = float(trace.get("baseTimeNanoseconds", 0)) / 1e3
+        tids = {}
+        for e in trace["traceEvents"]:
+            cat = e.get("cat")
+            if e.get("ph") != "X" or cat not in device_cats:
+                continue
+            if line_filter and line_filter not in cat:
+                continue
+            key = (n, e.get("pid"))
+            if key not in pids:
+                pids[key] = len(pids) + 1
+                events.append({"name": "process_name", "ph": "M",
+                               "pid": pids[key],
+                               "args": {"name": "device %s" % (key[1],)}})
+            pid = pids[key]
+            lane = (pid, e.get("tid"))
+            if lane not in tids:
+                tids[lane] = len(tids)
+                events.append({"name": "thread_name", "ph": "M",
+                               "pid": pid, "tid": tids[lane],
+                               "args": {"name": "stream %s" % (lane[1],)}})
+            events.append({
+                "name": e.get("name", "?"),
+                "ph": "X",
+                "pid": pid,
+                "tid": tids[lane],
+                "ts": base_us + float(e["ts"]),
+                "dur": float(e["dur"]),
+            })
+    return {"traceEvents": events, "displayTimeUnit": "ms"}
 
 
 class _Span:

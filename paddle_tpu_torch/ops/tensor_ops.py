@@ -46,8 +46,12 @@ def _torch_dtype(attr_dtype):
 
 @register_no_grad_op("fill_constant")
 def fill_constant(ctx, ins, attrs):
+    """A constant of the attrs' shape and value; of their ``dtype``, or
+    of the op's ``runtime_dtype`` where the constant-fold pass wrote the
+    desc's 32-bit dtype for a 64-bit value (analysis/transforms.py)."""
     shape = attrs.get("shape", [])
-    dtype = _torch_dtype(attrs.get("dtype", int(VarType.FP32)))
+    dtype = getattr(ctx.op, "runtime_dtype", None) or _torch_dtype(
+        attrs.get("dtype", int(VarType.FP32)))
     return {"Out": [torch.full(list(shape), attrs.get("value", 0.0),
                                dtype=dtype, device=ctx.device)]}
 

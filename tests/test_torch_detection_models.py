@@ -59,6 +59,7 @@ from paddle_tpu_torch import unique_name as t_unique_name
 from paddle_tpu_torch.models import mobilenet as t_mobilenet
 
 from torch_py_func_ids import _align_py_func_registries
+from torch_threads import one_torch_thread  # noqa: F401
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", os.path.join(os.path.dirname(__file__), os.pardir,

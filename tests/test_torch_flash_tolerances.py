@@ -29,6 +29,7 @@ import pytest
 import torch
 
 import paddle_tpu_torch.kernels.flash_attention as tfa
+from torch_threads import one_torch_thread  # noqa: F401
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", os.path.join(os.path.dirname(__file__), os.pardir,

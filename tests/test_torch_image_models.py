@@ -44,6 +44,7 @@ from paddle_tpu_torch import convert
 from paddle_tpu_torch import models as t_models
 from paddle_tpu_torch import unique_name as t_unique_name
 from paddle_tpu_torch.engine import lowering as tlowering
+from torch_threads import one_torch_thread  # noqa: F401
 
 MODELS = {
     "vgg": (dict(class_num=10, lr=0.002), (3, 32, 32)),

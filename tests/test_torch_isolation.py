@@ -425,6 +425,26 @@ assert any(op.type == "send"
            for op in tr.get_trainer_program().desc.global_block().ops)
 assert ps._decode_msg(ps._encode_msg(("get", torch.ones(2)))
                       )[1].tolist() == [1.0, 1.0]
+# op-level profiling: the conv net's steps under fluid.profiler on the
+# CPU, its op table, the memory gauges and the device-lane merge
+import os
+from paddle_tpu_torch import profiler
+from paddle_tpu_torch.observability import memory, opprof
+with tempfile.TemporaryDirectory() as d:
+    flags.set_flags({"trace_dir": os.path.join(d, "trace"),
+                     "metrics": True})
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(conv_startup)
+        exe.run(conv, feed=cfeed, fetch_list=[closs])
+        with fluid.profiler.profiler(profile_path=os.path.join(d, "p")):
+            exe.run(conv, feed=cfeed, fetch_list=[closs])
+    table = profiler.last_session()["table"]
+    assert table["source"] == "cpu" and table["attributed_ms"] > 0
+    assert not opprof.gate_issues(table) and memory.peak_hbm_bytes() > 0
+    paddle_tpu_torch.observability.dump_chrome_trace(
+        os.path.join(d, "m.json"), xplane_dir=os.path.join(d, "trace"))
+    flags.reset_flag("trace_dir")
+    flags.reset_flag("metrics")
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "paddle_tpu" or m.startswith("paddle_tpu."))

@@ -42,6 +42,7 @@ from paddle_tpu_torch.analysis import memory
 from paddle_tpu_torch.analysis.memory import (
     RematPlan, analyze_liveness, plan_memory, replan_segments,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 LOSS_RTOL, LOSS_ATOL = 1e-4, 1e-5
 

@@ -46,6 +46,7 @@ from paddle_tpu_torch import convert
 
 import torch_mesh_reference as ref
 import torch_mesh_worker as worker
+from torch_threads import one_torch_thread  # noqa: F401
 
 WORLD = 2
 LOSS_RTOL = 1e-5

@@ -23,6 +23,7 @@ from paddle_tpu import parallel as j_parallel
 
 import torch_mesh_reference as ref
 import torch_mesh_worker as worker
+from torch_threads import one_torch_thread  # noqa: F401
 
 WORLD = 4
 AXES = {"dp": 2, "tp": 2}

@@ -60,12 +60,13 @@ def _pkg(pkg):
     return tfluid, Program, t_dtype, optimize_program
 
 
-def _fill(block, dtype_of, name, shape=(4,), value=0.0, persistable=False):
-    block.create_var(name=name, shape=list(shape), dtype="float32",
+def _fill(block, dtype_of, name, shape=(4,), value=0.0, persistable=False,
+          dtype="float32"):
+    block.create_var(name=name, shape=list(shape), dtype=dtype,
                      persistable=persistable)
     block.append_op(
         type="fill_constant", outputs={"Out": [name]},
-        attrs={"shape": list(shape), "dtype": int(dtype_of("float32")),
+        attrs={"shape": list(shape), "dtype": int(dtype_of(dtype)),
                "value": value})
 
 
@@ -110,6 +111,21 @@ def _fold_chain(pkg, persistable=False):
     return prog, ["r"]
 
 
+def _fold_int64(pkg):
+    """Two int64 fill_constants into an elementwise_add: the fold writes
+    the reference's INT32 fill (the desc rule), the value stays int64 in
+    the port."""
+    _, prog_cls, dtype_of, _ = _pkg(pkg)
+    prog = prog_cls()
+    b = prog.global_block()
+    _fill(b, dtype_of, "a", value=2, dtype="int64")
+    _fill(b, dtype_of, "c", value=3, dtype="int64")
+    b.create_var(name="s", shape=[4], dtype="int64")
+    b.append_op(type="elementwise_add", inputs={"X": ["a"], "Y": ["c"]},
+                outputs={"Out": ["s"]})
+    return prog, ["s"]
+
+
 def _cse(pkg, second_scale=2.0):
     _, prog_cls, dtype_of, _ = _pkg(pkg)
     prog = prog_cls()
@@ -133,6 +149,7 @@ _CASES = {
     "fold": (lambda pkg: _fold_chain(pkg), "fold-constants", 2),
     "fold_near_miss": (lambda pkg: _fold_chain(pkg, True),
                        "fold-constants", 0),
+    "fold_int64": (_fold_int64, "fold-constants", 1),
     "cse": (lambda pkg: _cse(pkg), "cse", 1),
     "cse_near_miss": (lambda pkg: _cse(pkg, 3.0), "cse", 0),
 }
@@ -160,6 +177,11 @@ def test_level2_pass_matches_reference(case):
     prog, fetches = build("torch")
     desc, _ = optimize_program(prog, level=2, fetch_names=fetches)
     assert not verify_program(desc, fetch_names=fetches).errors
+    # the port's folded program fetches the dtypes its unfolded one does
+    with tfluid.scope_guard(tfluid.Scope()):
+        plain = tfluid.Executor(tfluid.CPUPlace()).run(
+            prog, fetch_list=fetches, opt_level=0)
+    assert [v.dtype for v in outs["torch"][2]] == [v.dtype for v in plain]
 
 
 def _bert(pkg, is_train=True):
